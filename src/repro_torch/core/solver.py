@@ -1,0 +1,77 @@
+"""Annealed replica-ensemble solver (paper Alg. 1 + §V). Port of
+``repro.core.solver``.
+
+``solve(problem, seed, config, backend="fused")`` runs R independent
+replicas of the dual-mode MCMC engine through the fused sweep kernel
+(:func:`repro_torch.kernels.ops.fused_anneal`). The other backends of the
+JAX registry are later slices and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import ising
+from .schedules import Schedule
+
+#: Backends of the JAX registry and the ROADMAP item that ports each.
+_LATER_BACKENDS = {
+    "reference": "queue 1 item 6 (reference engine and statistical tier)",
+    "colored": "queue 1 item 8 (colored flips)",
+    "tempering": "queue 1 item 9 (tempering)",
+    "sharded": "queue 1 item 12 (multi-GPU)",
+    "sharded_2d": "queue 1 item 12 (multi-GPU)",
+    "distributed": "queue 1 item 12 (multi-GPU)",
+    "auto": "queue 1 item 7 (registry and resilience)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Solver configuration; the same fields and defaults as the JAX one."""
+
+    num_steps: int
+    schedule: Schedule
+    mode: str = "rwa"               # "rsa" | "rwa"
+    uniformized: bool = False
+    use_pwl: bool = True            # PWL LUT logistic; False = exact sigmoid
+    pwl_segments: int = 64
+    pwl_zmax: float = 8.0
+    num_replicas: int = 8
+    trace_every: int = 0            # 0 disables the energy trace
+    coupling_format: str = "auto"
+    flip_mode: str = "single"       # "colored" is a later slice
+
+
+class SolveResult(NamedTuple):
+    best_energy: torch.Tensor     # (R,) incl. problem offset
+    best_spins: torch.Tensor      # (R, N) int8
+    final_energy: torch.Tensor    # (R,) incl. problem offset
+    num_flips: torch.Tensor       # (R,) int32
+    trace_energy: torch.Tensor    # (num_chunks, R) best-so-far, or (0, R)
+    rows_fetched: Optional[torch.Tensor] = None  # (R,) int32
+
+
+def solve(problem: ising.IsingProblem, seed, config: SolverConfig,
+          backend: str = "fused", *, device=None) -> SolveResult:
+    """Anneal ``problem`` from ``seed``. Only ``backend="fused"`` is served;
+    ``device`` as in :func:`repro_torch.device.resolve_device`."""
+    if backend != "fused":
+        where = _LATER_BACKENDS.get(backend)
+        if where is None:
+            raise ValueError(f"unknown backend {backend!r}")
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported yet (ROADMAP {where})")
+    from ..kernels.ops import fused_anneal
+
+    return fused_anneal(problem, seed, config, device=device)
+
+
+def solve_many(problem: ising.IsingProblem, seeds, config: SolverConfig,
+               backend: str = "fused", *, device=None) -> SolveResult:
+    """Independent runs, one per seed, stacked on a new leading axis."""
+    runs = [solve(problem, int(s), config, backend, device=device)
+            for s in seeds]
+    return SolveResult(*(torch.stack(field) for field in zip(*runs)))

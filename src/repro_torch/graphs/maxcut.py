@@ -1,0 +1,49 @@
+"""Max-Cut ↔ Ising mapping (paper §II-A/B). Port of ``repro.graphs.maxcut``.
+
+J = −w and h = 0, so ``cut(s) = (Σ_{i<j} w_ij − H(s)) / 2``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..core.ising import IsingProblem
+
+
+@dataclasses.dataclass(frozen=True)
+class MaxCutInstance:
+    """Dense symmetric weight matrix with zero diagonal."""
+
+    weights: np.ndarray  # (N, N) float32
+    name: str = "maxcut"
+    best_known: float | None = None
+
+    @property
+    def num_vertices(self) -> int:
+        return self.weights.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return int(np.count_nonzero(np.triu(self.weights, 1)))
+
+    @property
+    def total_weight(self) -> float:
+        return float(np.triu(self.weights, 1).sum())
+
+    @property
+    def density(self) -> float:
+        n = self.num_vertices
+        return 2.0 * self.num_edges / (n * (n - 1))
+
+
+def maxcut_to_ising(instance: MaxCutInstance, device=None) -> IsingProblem:
+    """J = −w, h = 0, offset 0 (``best_energy`` maps to a cut through
+    :func:`cut_from_energy`)."""
+    w = np.asarray(instance.weights, np.float32)
+    return IsingProblem.create(J=-w, h=None, offset=0.0, device=device)
+
+
+def cut_from_energy(instance: MaxCutInstance, ising_energy) -> np.ndarray:
+    """cut = (Σw − H)/2 for H from the J=−w encoding."""
+    return (instance.total_weight - np.asarray(ising_energy)) / 2.0

@@ -1,0 +1,48 @@
+"""Carry the JAX package's problems, configs and fused state into the port.
+
+Everything crosses as numpy arrays and plain Python values, so this module
+imports neither ``jax`` nor ``repro``: a test converts with ``np.asarray``
+on one side and these functions on the other.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.ising import IsingProblem
+from .core.schedules import Schedule
+from .core.solver import SolverConfig
+
+#: dtypes of the fused state ``(u, s, e, best_e, best_s, num_flips)``.
+STATE_DTYPES = (torch.float32,) * 5 + (torch.int32,)
+
+
+def problem_from_numpy(couplings, fields, offset: float = 0.0,
+                       device=None) -> IsingProblem:
+    """An ``IsingProblem`` with the reference's J, h and offset."""
+    return IsingProblem.create(np.asarray(couplings), np.asarray(fields),
+                               offset=float(offset), device=device)
+
+
+def config_from_dict(d: dict) -> SolverConfig:
+    """A ``SolverConfig`` from ``dataclasses.asdict`` of the JAX one (its
+    ``schedule`` a dict of the JAX ``Schedule``'s fields)."""
+    d = dict(d)
+    sched = d.pop("schedule")
+    if not isinstance(sched, Schedule):
+        sched = Schedule(**sched)
+    return SolverConfig(schedule=sched, **d)
+
+
+def state_from_numpy(state, device=None):
+    """The fused 6-tuple as tensors with the port's dtypes."""
+    if len(state) != 6:
+        raise ValueError(f"expected the 6-tuple (u, s, e, best_e, best_s, "
+                         f"num_flips), got {len(state)} arrays")
+    return tuple(torch.from_numpy(np.array(x)).to(device=device, dtype=dt)
+                 for x, dt in zip(state, STATE_DTYPES))
+
+
+def state_to_numpy(state):
+    """The fused 6-tuple as numpy arrays (float32 and int32)."""
+    return tuple(x.detach().cpu().numpy() for x in state)

@@ -1,0 +1,95 @@
+"""Build the CUDA kernels from the sources in ``csrc/`` and load them.
+
+Each ``.cu`` file exports a plain C interface and is compiled on its own by
+``nvcc`` into a shared library under ``build/kernels/`` at the repository
+root (listed in ``.gitignore``), then loaded with ``ctypes``. The build runs
+at first use; a library's file name carries a hash of its source and flags,
+so an edited source is rebuilt and an unchanged one is reused. Several
+sources build in parallel, one ``nvcc`` each.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = {"sweep": "sweep.cu", "local_field": "local_field.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    name: str
+    path: Path
+    seconds: float   # 0.0 when an earlier build was reused
+    log: str         # nvcc's output (ptxas register and shared-memory use)
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels are "
+                       "built from source at first use")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names=None) -> dict[str, Built]:
+    """Compile the named sources (default: all) that are not built yet, all
+    at once, and return where each library is. Raises on a failed build,
+    with the compiler's output."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done: dict[str, Built] = {}
+    running = {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            done[name] = Built(name, target, 0.0, "")
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, target, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, target, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {SOURCES[name]} "
+                            f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, target)
+        done[name] = Built(name, target, seconds, log)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return done
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    return ctypes.CDLL(str(build([name])[name].path))

@@ -1,0 +1,326 @@
+// Dense dual-mode MCMC sweep for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/sweep.py: mcmc_sweep (body _kernel,
+// coupling="dense"). It runs T asynchronous single-spin steps for each of R
+// replicas: RSA (random-scan site, Metropolis-Glauber accept) or RWA (the
+// two-level roulette over every site's flip probability, with the RSA
+// fallback on a degenerate total, or the uniformized null transition), then
+// e += accept*dE, u <- u - 2*accept*s_old*J[j,:], the spin flip and the
+// copy of s into best_s when e improves.
+//
+// What bounds it on this card: the T steps of one replica form a serial
+// chain, and each step reads one J row (N*4 bytes) that it needs before the
+// next step can select. At R=8 that is 8 blocks of a 132-SM card, so the
+// pace is set by the latency of one step (a row read from L2, where the
+// 16 MB K2000 J stays resident, plus the block-wide barriers), not by the
+// bytes: R*N*4 bytes a step is 64 KB at K2000, a few ns at 3.35 TB/s.
+//
+// What the design does about it: one thread block per replica keeps the
+// replica's u, s and best_s in shared memory for the whole chunk (the
+// analogue of the Pallas kernel's VMEM-resident state), so a step touches
+// device memory only for its uniforms, its temperature and the accepted
+// row. A rejected step reads no row at all: its coefficient is 0, so u is
+// unchanged. The RWA block sums are computed by all warps; the two prefix
+// scans and <=-counts of the roulette run in one warp.
+//
+// Arithmetic: build with -fmad=false, so no multiply-add is contracted
+// except the explicit __fmaf_rn of the PWL table, which the JAX reference
+// also rounds once (XLA's CPU compiler contracts it). Division is the
+// IEEE-rounded __fdiv_rn. The roulette adds block and lane sums in another
+// order than the reference's cumsum, so RWA picks agree except near ties.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxLane = 128;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Pwl {
+  const float* icpt;   // (S,) in shared memory
+  const float* slope;  // (S,) in shared memory
+  float z_lo, z_hi, inv_step;
+  int segs;
+};
+
+template <bool PWL>
+__device__ __forceinline__ float flip_probability(float de, float t,
+                                                  const Pwl& pwl) {
+  if (!(t > 0.f)) return de < 0.f ? 1.f : (de == 0.f ? 0.5f : 0.f);
+  float z = __fdiv_rn(-de, t);
+  if (PWL) {
+    float zc = fminf(fmaxf(z, pwl.z_lo), pwl.z_hi);
+    int seg = (int)__fmul_rn(__fsub_rn(zc, pwl.z_lo), pwl.inv_step);
+    seg = min(max(seg, 0), pwl.segs - 1);
+    return __fmaf_rn(pwl.slope[seg], zc, pwl.icpt[seg]);
+  }
+  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z)));
+}
+
+__device__ __forceinline__ int site_from_uniform(float u, int n) {
+  return min((int)__fmul_rn(u, (float)n), n - 1);
+}
+
+__device__ __forceinline__ float delta_e(const float* s, const float* u,
+                                         int i) {
+  return __fmul_rn(__fmul_rn(2.f, s[i]), u[i]);
+}
+
+// Warp-level prefix machinery over x[0, m): lane k owns the contiguous chunk
+// [k*c, min(m, (k+1)*c)), c = ceil(m/32), summed in order; chunk sums are
+// combined by a shuffle scan. Returns this lane's exclusive prefix and
+// broadcasts the total.
+__device__ __forceinline__ float warp_exclusive_prefix(const float* x, int m,
+                                                       float* total) {
+  const int lane = threadIdx.x & 31;
+  const int c = (m + 31) / 32;
+  const int lo = min(m, lane * c), hi = min(m, lo + c);
+  float local = 0.f;
+  for (int k = lo; k < hi; ++k) local = __fadd_rn(local, x[k]);
+  float incl = local;
+  for (int off = 1; off < 32; off <<= 1) {
+    float v = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl = __fadd_rn(incl, v);
+  }
+  *total = __shfl_sync(kFull, incl, 31);
+  float excl = __shfl_up_sync(kFull, incl, 1);
+  return lane == 0 ? 0.f : excl;
+}
+
+// Number of cumulative sums <= thr (the reference's <=-count pick), and
+// the cumulative sum just before index `at` (0 for at == 0).
+__device__ __forceinline__ int warp_count_le(const float* x, int m,
+                                             float excl, float thr) {
+  const int lane = threadIdx.x & 31;
+  const int c = (m + 31) / 32;
+  const int lo = min(m, lane * c), hi = min(m, lo + c);
+  float run = excl;
+  int cnt = 0;
+  for (int k = lo; k < hi; ++k) {
+    run = __fadd_rn(run, x[k]);
+    cnt += run <= thr;
+  }
+  for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(kFull, cnt, off);
+  return cnt;
+}
+
+__device__ __forceinline__ float warp_prefix_before(const float* x, int m,
+                                                    float excl, int at) {
+  const int lane = threadIdx.x & 31;
+  const int c = (m + 31) / 32;
+  const int lo = min(m, lane * c), hi = min(m, lo + c);
+  float run = excl;
+  for (int k = lo; k < hi && k < at; ++k) run = __fadd_rn(run, x[k]);
+  // The lane whose chunk holds index at-1 has the prefix; at == 0 gives 0.
+  int owner = at == 0 ? 0 : (at - 1) / c;
+  float v = __shfl_sync(kFull, run, owner);
+  return at == 0 ? 0.f : v;
+}
+
+template <bool RWA, bool UNIFORMIZED, bool PWL>
+__global__ void __launch_bounds__(kThreads) sweep_kernel(
+    const float* __restrict__ J, const float* __restrict__ u0,
+    const float* __restrict__ s0, const float* __restrict__ e0,
+    const float* __restrict__ unif, const float* __restrict__ temps,
+    const float* __restrict__ pwl_in, int segs, float* __restrict__ u_out, float* __restrict__ s_out,
+    float* __restrict__ e_out, float* __restrict__ be_out,
+    float* __restrict__ bs_out, int* __restrict__ nf_out,
+    int* __restrict__ rf_out, int R, int N, int T, int lane) {
+  extern __shared__ float smem[];
+  float* u = smem;
+  float* s = u + N;
+  float* bs = s + N;
+  float* pwl_mem = bs + N;                       // icpt[S], slope[S]
+  float* blk = pwl_mem + (PWL ? 2 * segs : 0);   // G block sums
+  const int G = N / lane;
+  float* lanebuf = blk + (RWA ? G : 0);          // kMaxLane weights
+
+  __shared__ int sh_j, sh_accept, sh_better, sh_g;
+  __shared__ float sh_coef, sh_new_sj, sh_residual, sh_total;
+
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)r * N;
+  for (int i = tid; i < N; i += kThreads) {
+    u[i] = u0[row0 + i];
+    float si = s0[row0 + i];
+    s[i] = si;
+    bs[i] = si;
+  }
+  Pwl pwl{pwl_mem, pwl_mem + segs, 0.f, 0.f, 0.f, segs};
+  if (PWL) {
+    for (int k = tid; k < 2 * segs; k += kThreads) pwl_mem[k] = pwl_in[k];
+    pwl.z_lo = pwl_in[2 * segs];
+    pwl.z_hi = pwl_in[2 * segs + 1];
+    pwl.inv_step = pwl_in[2 * segs + 2];
+  }
+  float e = e0[r], be = e;  // meaningful in thread 0
+  int nf = 0;
+  __syncthreads();
+
+  const int warp = tid >> 5, wl = tid & 31;
+  for (int t = 0; t < T; ++t) {
+    const float temp = temps[(size_t)t * R + r];
+    const float* un = unif + ((size_t)t * R + r) * 4;
+    if (RWA) {
+      // Block sums of the flip probabilities, one warp per block of sites.
+      for (int g = warp; g < G; g += kWarps) {
+        float acc = 0.f;
+        for (int k = wl; k < lane; k += 32) {
+          int i = g * lane + k;
+          acc = __fadd_rn(acc, flip_probability<PWL>(delta_e(s, u, i), temp,
+                                                     pwl));
+        }
+        for (int off = 16; off > 0; off >>= 1)
+          acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, off));
+        if (wl == 0) blk[g] = acc;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        float total;
+        float excl = warp_exclusive_prefix(blk, G, &total);
+        bool degenerate = (total <= 0.f) || !isfinite(total);
+        float radius = __fmul_rn(un[2], degenerate ? 1.f : total);
+        int g = min(warp_count_le(blk, G, excl, radius), G - 1);
+        float base = warp_prefix_before(blk, G, excl, g);
+        float residual = __fsub_rn(radius, base);
+        for (int k = wl; k < lane; k += 32)
+          lanebuf[k] = flip_probability<PWL>(delta_e(s, u, g * lane + k),
+                                             temp, pwl);
+        __syncwarp();
+        float lane_total;
+        float lexcl = warp_exclusive_prefix(lanebuf, lane, &lane_total);
+        int l = min(warp_count_le(lanebuf, lane, lexcl, residual), lane - 1);
+        if (wl == 0) {
+          int j = g * lane + l;
+          bool accept;
+          if (UNIFORMIZED) {
+            accept = !degenerate && __fmul_rn(un[3], (float)N) < total;
+          } else if (degenerate) {
+            j = site_from_uniform(un[0], N);
+            accept = un[1] < flip_probability<PWL>(delta_e(s, u, j), temp,
+                                                   pwl);
+          } else {
+            accept = true;
+          }
+          sh_j = j;
+          sh_accept = accept;
+        }
+      }
+      __syncthreads();
+    }
+    if (tid == 0) {
+      int j;
+      bool accept;
+      if (RWA) {
+        j = sh_j;
+        accept = sh_accept;
+      } else {
+        j = site_from_uniform(un[0], N);
+        accept = un[1] < flip_probability<PWL>(delta_e(s, u, j), temp, pwl);
+      }
+      float s_old = s[j];
+      float de = delta_e(s, u, j);
+      float acc = accept ? 1.f : 0.f;
+      e = __fadd_rn(e, __fmul_rn(acc, de));
+      nf += accept;
+      bool better = e < be;
+      if (better) be = e;
+      sh_j = j;
+      sh_accept = accept;
+      sh_better = better;
+      sh_coef = __fmul_rn(__fmul_rn(2.f, acc), s_old);
+      sh_new_sj = __fmul_rn(s_old, __fsub_rn(1.f, __fmul_rn(2.f, acc)));
+    }
+    __syncthreads();
+    // A rejected step leaves e, and so best, unchanged: nothing to apply.
+    if (sh_accept) {
+      const float* row = J + (size_t)sh_j * N;
+      const float coef = sh_coef;
+      const int j = sh_j;
+      const bool better = sh_better;
+      for (int i = tid; i < N; i += kThreads) {
+        u[i] = __fsub_rn(u[i], __fmul_rn(coef, __ldg(row + i)));
+        if (i == j) s[i] = sh_new_sj;
+        if (better) bs[i] = s[i];
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < N; i += kThreads) {
+    u_out[row0 + i] = u[i];
+    s_out[row0 + i] = s[i];
+    bs_out[row0 + i] = bs[i];
+  }
+  if (tid == 0) {
+    e_out[r] = e;
+    be_out[r] = be;
+    nf_out[r] = nf;
+    rf_out[r] = T;  // one row per replica per step, as the TPU kernel counts
+  }
+}
+
+template <bool RWA, bool UNIFORMIZED, bool PWL>
+int launch(const float* J, const float* u0, const float* s0, const float* e0,
+           const float* unif, const float* temps, const float* pwl_in,
+           int segs, float* u_out, float* s_out, float* e_out, float* be_out,
+           float* bs_out, int* nf_out, int* rf_out, int R, int N, int T,
+           int lane, size_t smem, cudaStream_t stream) {
+  auto kernel = sweep_kernel<RWA, UNIFORMIZED, PWL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<R, kThreads, smem, stream>>>(
+      J, u0, s0, e0, unif, temps, pwl_in, segs, u_out, s_out, e_out, be_out, bs_out, nf_out, rf_out, R, N, T, lane);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory of one block, in bytes (the wrapper's size check).
+size_t snowball_sweep_smem_bytes(int N, int lane, int segs, int rwa) {
+  size_t floats = 3 * (size_t)N + 2 * (size_t)segs;
+  if (rwa) floats += (size_t)(N / lane) + kMaxLane;
+  return floats * sizeof(float);
+}
+
+// T steps for R replicas. pwl_in packs the PWL table as icpt[segs],
+// slope[segs], z_lo, z_hi, inv_step; pwl_in == nullptr selects the exact
+// sigmoid.
+// Returns cudaGetLastError() of the launch (0 on success).
+int snowball_sweep_dense(const float* J, const float* u0, const float* s0,
+                         const float* e0, const float* unif,
+                         const float* temps, const float* pwl_in, int segs,
+                         float* u_out, float* s_out,
+                         float* e_out, float* be_out, float* bs_out,
+                         int* nf_out, int* rf_out, int R, int N, int T,
+                         int rwa, int uniformized, int lane, void* stream) {
+  if (R <= 0 || N <= 0 || T < 0 || lane <= 0 || lane > kMaxLane ||
+      N % lane != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool pwl = pwl_in != nullptr;
+  if (pwl && segs <= 0) return (int)cudaErrorInvalidValue;
+  size_t smem = snowball_sweep_smem_bytes(N, lane, pwl ? segs : 0, rwa);
+  cudaStream_t st = (cudaStream_t)stream;
+#define SNOWBALL_LAUNCH(A, B, C)                                              \
+  return launch<A, B, C>(J, u0, s0, e0, unif, temps, pwl_in, segs, u_out,     \
+                         s_out, e_out, be_out, bs_out, nf_out, rf_out, R, N,  \
+                         T, lane, smem, st)
+  if (!rwa) {
+    if (pwl) SNOWBALL_LAUNCH(false, false, true);
+    SNOWBALL_LAUNCH(false, false, false);
+  }
+  if (uniformized) {
+    if (pwl) SNOWBALL_LAUNCH(true, true, true);
+    SNOWBALL_LAUNCH(true, true, false);
+  }
+  if (pwl) SNOWBALL_LAUNCH(true, false, true);
+  SNOWBALL_LAUNCH(true, false, false);
+#undef SNOWBALL_LAUNCH
+}
+
+}  // extern "C"

@@ -1,0 +1,88 @@
+"""Plain PyTorch versions of the kernels on the main path.
+
+Port of ``repro.kernels.ref``'s dense ``local_field_init`` and
+``mcmc_sweep``. The wrappers in ``local_field.py`` and ``sweep.py`` run these
+for CPU tensors; the tests hold them against the JAX package, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import common
+
+
+def local_field_init(spins: torch.Tensor, couplings: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """u[r, i] = Σ_j J_ij s[r, j] + h_i (paper Eq. 11 batched over replicas),
+    the contraction of ``repro.core.ising.local_fields``."""
+    s = spins.to(torch.float32)
+    return (torch.einsum("ij,...j->...i", couplings.to(torch.float32), s)
+            + bias.to(torch.float32))
+
+
+def mcmc_sweep(couplings: torch.Tensor, fields0: torch.Tensor,
+               spins0: torch.Tensor, energy0: torch.Tensor,
+               uniforms: torch.Tensor, temps: torch.Tensor,
+               pwl_table: Optional[torch.Tensor] = None, *, mode: str = "rsa",
+               uniformized: bool = False, lane: Optional[int] = None):
+    """T-step dual-mode sweep over R replicas (paper Alg. 1 inner loop).
+
+    couplings (N, N) dense; fields0/spins0 (R, N); energy0 (R,); uniforms
+    (T, R, 4) f32 (site, accept, roulette, uniformize); temps (T, R);
+    ``pwl_table`` optional (S+1, 3) (None = exact sigmoid). Returns
+    ``(fields, spins, energy, best_energy, best_spins, num_flips,
+    rows_fetched)``; rows_fetched counts one row per replica per step.
+    """
+    if mode not in ("rsa", "rwa"):
+        raise ValueError(f"mode must be 'rsa' or 'rwa', got {mode!r}")
+    n = couplings.shape[0]
+    r = fields0.shape[0]
+    num_steps = uniforms.shape[0]
+    J = couplings.to(torch.float32)
+    lane = common.default_lane(n) if lane is None else lane
+    rows_idx = torch.arange(r, device=fields0.device)
+
+    u = fields0.to(torch.float32).clone()
+    s = spins0.clone()
+    e = energy0.to(torch.float32).clone()
+    be = e.clone()
+    bs = spins0.clone()
+    nf = torch.zeros(r, dtype=torch.int32, device=fields0.device)
+    for t in range(num_steps):
+        u01 = uniforms[t]
+        temp = temps[t]
+        sf = s.to(torch.float32)
+        if mode == "rsa":
+            j = common.site_from_uniform(u01[:, 0], n)
+            de = 2.0 * sf[rows_idx, j] * u[rows_idx, j]
+            accept = u01[:, 1] < common.flip_probability(de, temp, pwl_table)
+        else:
+            de_all = 2.0 * sf * u
+            p_all = common.flip_probability(de_all, temp[:, None], pwl_table)
+            j_rw, total, degenerate = common.roulette_pick(p_all, u01[:, 2],
+                                                           lane)
+            if uniformized:
+                accept = ~degenerate & (u01[:, 3] * float(n) < total)
+                j = j_rw
+            else:
+                j_fb = common.site_from_uniform(u01[:, 0], n)
+                p_fb = p_all[rows_idx, j_fb]
+                accept = torch.where(degenerate, u01[:, 1] < p_fb,
+                                     torch.ones_like(degenerate))
+                j = torch.where(degenerate, j_fb, j_rw)
+            de = de_all[rows_idx, j]
+        s_old = sf[rows_idx, j]
+        acc_f = accept.to(torch.float32)
+        u = u - (2.0 * acc_f * s_old)[:, None] * J[j]
+        s = s.clone()
+        s[rows_idx, j] = torch.where(accept, -s[rows_idx, j], s[rows_idx, j])
+        e = e + acc_f * de
+        nf = nf + accept.to(torch.int32)
+        better = e < be
+        be = torch.where(better, e, be)
+        bs = torch.where(better[:, None], s, bs)
+    rf = torch.full((r,), num_steps, dtype=torch.int32, device=fields0.device)
+    return u, s, e, be, bs, nf, rf

@@ -1,0 +1,123 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``; each test skips (inside the ``cuda_device`` fixture) when
+no card is present. The file imports neither JAX nor the JAX package, so it
+runs where only PyTorch is installed. Run them on a GPU machine with
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+"""
+import pytest
+import torch
+
+from repro_torch.configs.snowball import default_solver
+from repro_torch.core import ising, pwl, rng
+from repro_torch.core.solver import solve
+from repro_torch.graphs import complete_bipolar, maxcut_to_ising
+from repro_torch.kernels import common, local_field, parity, ref, sweep
+
+pytestmark = pytest.mark.cuda
+
+NAMES = ("fields", "spins", "energy", "best_energy", "best_spins",
+         "num_flips", "rows_fetched")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _state(n, r, t, dev, seed=0):
+    problem = maxcut_to_ising(complete_bipolar(n, seed=seed), device=dev)
+    key = rng.fold_in(rng.key(0, device=dev), seed)
+    s0 = ising.random_spins(rng.stream(key, rng.Salt.INIT,
+                                       torch.arange(r, device=dev)),
+                            (n,)).to(torch.float32)
+    u0 = ref.local_field_init(s0, problem.couplings, problem.fields)
+    e0 = ising.energy(problem, s0)
+    unif = rng.uniform01(rng.stream(key, rng.Salt.SWEEP, 0), (t, r, 4))
+    sched = default_solver(n, 4 * t).schedule
+    temps = sched(torch.arange(t, dtype=torch.int32))
+    temps = temps.to(dev)[:, None].expand(t, r).contiguous()
+    return problem, (problem.couplings, u0, s0, e0, unif, temps)
+
+
+@pytest.mark.parametrize("n,r", [(250, 8), (2000, 8), (1000, 13)])
+def test_local_field_kernel_bitwise(cuda_device, n, r):
+    problem, (J, _, s0, *_rest) = _state(n, r, 1, cuda_device)
+    before = local_field.counter.count
+    got = local_field.local_field_init(s0, J, problem.fields)
+    assert local_field.counter.count == before + 1
+    assert torch.equal(got, ref.local_field_init(s0, J, problem.fields))
+
+
+@pytest.mark.parametrize("n", [250, 2000])
+def test_sweep_kernel_rsa_pwl_bitwise(cuda_device, n):
+    _, args = _state(n, 8, 256, cuda_device)
+    tbl = pwl.pwl_table(device=cuda_device)
+    got = sweep.mcmc_sweep(*args, tbl, mode="rsa")
+    want = ref.mcmc_sweep(*args, tbl, mode="rsa")
+    for name, a, b in zip(NAMES, got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("uniformized", [False, True])
+@pytest.mark.parametrize("use_pwl", [True, False])
+def test_sweep_kernel_rwa_one_step_agrees_except_near_ties(
+        cuda_device, uniformized, use_pwl):
+    n, r = 2000, 512
+    problem, (J, u0, s0, e0, unif, _) = _state(n, r, 1, cuda_device, seed=3)
+    temps = torch.linspace(0.1, 45.0, r, device=cuda_device)[None, :]
+    tbl = pwl.pwl_table(device=cuda_device) if use_pwl else None
+    args = (J, u0, s0, e0, unif, temps.contiguous(), tbl)
+    got = sweep.mcmc_sweep(*args, mode="rwa", uniformized=uniformized)
+    want = ref.mcmc_sweep(*args, mode="rwa", uniformized=uniformized)
+    p_all = common.flip_probability(2.0 * s0 * u0, temps[0][:, None], tbl)
+    keep = ~parity.roulette_near_tie(p_all, unif[0, :, 2], unif[0, :, 3],
+                                     uniformized)
+    assert int(keep.sum()) >= 0.9 * r
+    for name, a, b in zip(NAMES, got, want):
+        assert torch.equal(a[keep], b[keep]), name
+
+
+@pytest.mark.parametrize("mode", ["rsa", "rwa"])
+def test_sweep_kernel_invariants(cuda_device, mode):
+    problem, args = _state(2000, 8, 256, cuda_device, seed=5)
+    u, s, e, be, bs, nf, rf = sweep.mcmc_sweep(
+        *args, pwl.pwl_table(device=cuda_device), mode=mode)
+    assert torch.equal(u, ref.local_field_init(s, problem.couplings,
+                                               problem.fields))
+    assert torch.equal(e, ising.energy(problem, s))
+    assert torch.equal(be, ising.energy(problem, bs))
+    assert int(rf.sum()) == 8 * 256
+
+
+def test_solve_on_card_equals_cpu(cuda_device):
+    problem = maxcut_to_ising(complete_bipolar(250, seed=3))
+    cfg = default_solver(250, 1000, mode="rsa")
+    sweep.counter.reset()
+    on_card = solve(problem, 1, cfg, device=cuda_device)
+    assert sweep.counter.count == 4
+    on_cpu = solve(problem, 1, cfg, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_sweep_kernel_rejects_bad_input(cuda_device):
+    _, (J, u0, s0, e0, unif, temps) = _state(250, 8, 4, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        sweep.mcmc_sweep(J, u0, s0.to(torch.int8), e0, unif, temps)
+    with pytest.raises(ValueError, match="shape"):
+        sweep.mcmc_sweep(J, u0, s0, e0, unif[:, :4].contiguous(), temps)
+    with pytest.raises(ValueError, match="on"):
+        sweep.mcmc_sweep(J.cpu(), u0, s0, e0, unif, temps)
+    big = sweep.dense_max_n(rwa=False) + 200
+    with pytest.raises(ValueError, match="shared memory"):
+        z = torch.zeros((1, big), device=cuda_device)
+        sweep.mcmc_sweep(torch.zeros((big, big), device=cuda_device), z, z,
+                         torch.zeros(1, device=cuda_device),
+                         torch.zeros((1, 1, 4), device=cuda_device),
+                         torch.ones((1, 1), device=cuda_device), mode="rsa",
+                         lane=1)

@@ -1,0 +1,268 @@
+"""The plain versions of the port's two kernels against the JAX package.
+
+``local_field_init``: bitwise equal to ``ising.local_fields`` for integer J.
+``mcmc_sweep`` (dense), given JAX's own uniforms and temperatures:
+
+* RSA + PWL: all outputs bitwise equal to ``repro.kernels.ref.mcmc_sweep``
+  and to the Pallas kernel in interpret mode.
+* RWA, uniformized RWA and the exact sigmoid: one step from 512 random
+  states must agree exactly on every state except near ties (the roulette
+  radius within 1e-5·W of a cumulative boundary, recomputed in float64);
+  RSA with the exact sigmoid agrees except where the accept uniform lies
+  within 4 ulp of p.
+* Every path keeps the invariants exactly after a T-step run:
+  u == J s + h, e == energy(s), best_e == energy(best_s), Σ rows == R·T.
+
+These run the wrappers on CPU tensors, which take the plain versions; the
+CUDA kernels are held against them on the card
+(``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
+"""
+import jax  # noqa: F401  (both packages side by side, as in every port test)
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ising as jising
+from repro.core import pwl as jpwl
+from repro.kernels import ref as jref
+from repro.kernels.sweep import mcmc_sweep as jkernel
+from repro_torch import interop
+from repro_torch.core import ising as tising
+from repro_torch.core import pwl as tpwl
+from repro_torch.kernels import common, local_field, parity, sweep
+
+NAMES = ("fields", "spins", "energy", "best_energy", "best_spins",
+         "num_flips", "rows_fetched")
+
+
+def _coupling(seed, n, scale=1.0):
+    g = np.random.default_rng(seed)
+    J = np.triu(np.rint(g.normal(size=(n, n)) * scale), 1)
+    return (J + J.T).astype(np.float32)
+
+
+def _state(J, h, r, seed):
+    g = np.random.default_rng(seed)
+    s0 = np.where(g.random((r, J.shape[0])) < 0.5, 1.0, -1.0).astype(
+        np.float32)
+    u0 = (s0 @ J.T + h).astype(np.float32)
+    e0 = (-0.5 * np.einsum("ri,ri->r", s0, s0 @ J.T) - s0 @ h).astype(
+        np.float32)
+    return u0, s0, e0
+
+
+def _inputs(n, r, t, seed, temps=None, h_scale=0.0):
+    J = _coupling(seed, n)
+    h = np.rint(np.random.default_rng(seed + 1).normal(size=n) * h_scale
+                ).astype(np.float32)
+    u0, s0, e0 = _state(J, h, r, seed + 2)
+    g = np.random.default_rng(seed + 3)
+    unif = g.random((t, r, 4)).astype(np.float32)
+    if temps is None:
+        temps = np.broadcast_to(np.geomspace(12.0, 0.05, t).astype(
+            np.float32)[:, None], (t, r)).copy()
+    return J, h, (J, u0, s0, e0, unif, temps)
+
+
+def _torch(args):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in args)
+
+
+def _invariants(J, h, out, t):
+    u, s, e, be, bs, nf, rf = out
+    prob = tising.IsingProblem.create(J, h)
+    assert torch.equal(u, tising.local_fields(prob, s))
+    assert torch.equal(e, tising.energy(prob, s))
+    assert torch.equal(be, tising.energy(prob, bs))
+    assert int(rf.sum()) == rf.numel() * t
+    assert bool(((s == 1) | (s == -1)).all())
+
+
+@pytest.mark.parametrize("n", [64, 250])
+def test_local_field_plain_bitwise(n):
+    J = _coupling(n, n, scale=3.0)
+    h = np.rint(np.random.default_rng(1).normal(size=n)).astype(np.float32)
+    s = np.where(np.random.default_rng(2).random((8, n)) < 0.5, 1, -1
+                 ).astype(np.float32)
+    got = local_field.local_field_init(*_torch((s, J, h)))
+    want = jising.local_fields(jising.IsingProblem.create(J, h),
+                               jnp.asarray(s))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jref.local_field_init(*map(jnp.asarray, (s, J, h)))),
+        got.numpy())
+
+
+def test_local_field_plain_close_for_real_j():
+    g = np.random.default_rng(0)
+    J = g.normal(size=(128, 128)).astype(np.float32)
+    s = np.where(g.random((8, 128)) < 0.5, 1, -1).astype(np.float32)
+    h = g.normal(size=128).astype(np.float32)
+    got = local_field.local_field_init(*_torch((s, J, h)))
+    np.testing.assert_allclose(got.numpy(), s @ J.T + h, rtol=1e-5,
+                               atol=1e-4)
+
+
+RSA_VARIANTS = {
+    "warm": dict(),
+    "zero_t": dict(temps="zero"),
+    "ladder": dict(temps="ladder"),
+    "fields": dict(h_scale=2.0),
+}
+
+
+@pytest.mark.parametrize("n", [64, 250])
+@pytest.mark.parametrize("variant", sorted(RSA_VARIANTS))
+def test_rsa_pwl_plain_bitwise_with_reference_and_pallas(n, variant):
+    opts = RSA_VARIANTS[variant]
+    r, t = 8, 128
+    temps = None
+    if opts.get("temps") == "zero":
+        temps = np.zeros((t, r), np.float32)
+    elif opts.get("temps") == "ladder":
+        temps = np.broadcast_to(np.geomspace(8.0, 0.1, r).astype(
+            np.float32)[None, :], (t, r)).copy()
+    J, h, args = _inputs(n, r, t, seed=n, temps=temps,
+                         h_scale=opts.get("h_scale", 0.0))
+    got = sweep.mcmc_sweep(*_torch(args), tpwl.pwl_table(), mode="rsa")
+    jargs = tuple(map(jnp.asarray, args))
+    want_ref = jref.mcmc_sweep(*jargs, jpwl.pwl_table(), mode="rsa")
+    want_kernel = jkernel(*jargs, jpwl.pwl_table(), mode="rsa", block_r=4,
+                          interpret=True)
+    for name, a, b, c in zip(NAMES, want_ref + (None,), want_kernel, got):
+        if a is not None:
+            np.testing.assert_array_equal(np.asarray(a), c.numpy(),
+                                          err_msg=f"{name} vs ref")
+        np.testing.assert_array_equal(np.asarray(b), c.numpy(),
+                                      err_msg=f"{name} vs Pallas kernel")
+    _invariants(J, h, got, t)
+
+
+def test_gather_values_give_identical_results():
+    _, _, args = _inputs(64, 8, 32, seed=1)
+    outs = [sweep.mcmc_sweep(*_torch(args), tpwl.pwl_table(), mode="rwa",
+                             gather=g) for g in sweep.GATHERS]
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="gather"):
+        sweep.mcmc_sweep(*_torch(args), mode="rsa", gather="mxu")
+    with pytest.raises(ValueError, match="mode"):
+        sweep.mcmc_sweep(*_torch(args), mode="gibbs")
+    with pytest.raises(ValueError, match="lane"):
+        sweep.mcmc_sweep(*_torch(args), mode="rwa", lane=7)
+
+
+STEP_VARIANTS = {
+    "rwa_pwl": dict(mode="rwa", pwl=True, uniformized=False),
+    "rwa_uniformized_pwl": dict(mode="rwa", pwl=True, uniformized=True),
+    "rwa_exact": dict(mode="rwa", pwl=False, uniformized=False),
+    "rwa_uniformized_exact": dict(mode="rwa", pwl=False, uniformized=True),
+    "rsa_exact": dict(mode="rsa", pwl=False, uniformized=False),
+}
+
+
+@pytest.mark.parametrize("n", [64, 250])
+@pytest.mark.parametrize("variant", sorted(STEP_VARIANTS))
+def test_one_step_from_512_states_agrees_except_near_ties(n, variant):
+    v = STEP_VARIANTS[variant]
+    r = 512
+    g = np.random.default_rng(n + 17)
+    temps = g.uniform(0.2, 3.0 * np.sqrt(n), size=(1, r)).astype(np.float32)
+    J, h, args = _inputs(n, r, 1, seed=n + 5, temps=temps)
+    jt = jpwl.pwl_table() if v["pwl"] else None
+    tt = tpwl.pwl_table() if v["pwl"] else None
+    kw = dict(mode=v["mode"], uniformized=v["uniformized"])
+    got = sweep.mcmc_sweep(*_torch(args), tt, **kw)
+    jargs = tuple(map(jnp.asarray, args))
+    want_ref = jref.mcmc_sweep(*jargs, jt, **kw)
+    want_kernel = jkernel(*jargs, jt, block_r=r, interpret=True, **kw)
+    _, u0, s0, _, unif, _ = _torch(args)
+    if v["mode"] == "rwa":
+        p_all = common.flip_probability(2.0 * s0 * u0,
+                                        torch.from_numpy(temps[0])[:, None],
+                                        tt)
+        tie = parity.roulette_near_tie(p_all, unif[0, :, 2], unif[0, :, 3],
+                                       v["uniformized"]).numpy()
+    else:
+        j = common.site_from_uniform(unif[0, :, 0], n)
+        rows = torch.arange(r)
+        de = 2.0 * s0[rows, j] * u0[rows, j]
+        p = common.flip_probability(de, torch.from_numpy(temps[0]), tt)
+        gap = (unif[0, :, 1] - p).abs() / torch.abs(p).clamp_min(
+            np.finfo(np.float32).tiny)
+        tie = (gap <= 4 * 2.0 ** -23).numpy()
+    keep = ~tie
+    assert keep.sum() >= 0.9 * r
+    for want in (want_ref, want_kernel):
+        for name, a, b in zip(NAMES, want, got):
+            np.testing.assert_array_equal(np.asarray(a)[keep],
+                                          b.numpy()[keep],
+                                          err_msg=f"{variant}:{name}")
+    _invariants(J, h, got, 1)
+
+
+@pytest.mark.parametrize("variant", sorted(STEP_VARIANTS))
+def test_invariants_hold_after_a_long_run(variant):
+    v = STEP_VARIANTS[variant]
+    J, h, args = _inputs(250, 8, 256, seed=9, h_scale=1.0)
+    got = sweep.mcmc_sweep(*_torch(args),
+                           tpwl.pwl_table() if v["pwl"] else None,
+                           mode=v["mode"], uniformized=v["uniformized"])
+    _invariants(J, h, got, 256)
+    if v["mode"] == "rwa" and not v["uniformized"]:
+        assert torch.equal(got[5], torch.full((8,), 256, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("mode,uniformized", [("rwa", False), ("rwa", True),
+                                              ("rsa", False)])
+def test_degenerate_total_matches_reference_bitwise(mode, uniformized):
+    """All-ferromagnetic J at the all-up state and T=0: every ΔE > 0, so
+    W = 0 — the RSA fallback or the uniformized null transition."""
+    r, n, t = 8, 64, 48
+    J = np.ones((n, n), np.float32) - np.eye(n, dtype=np.float32)
+    u0, s0, e0 = _state(J, np.zeros(n, np.float32), r, 0)
+    s0[:] = 1.0
+    u0 = (s0 @ J.T).astype(np.float32)
+    e0 = (-0.5 * np.einsum("ri,ri->r", s0, u0)).astype(np.float32)
+    unif = np.random.default_rng(0).random((t, r, 4)).astype(np.float32)
+    args = (J, u0, s0, e0, unif, np.zeros((t, r), np.float32))
+    got = sweep.mcmc_sweep(*_torch(args), tpwl.pwl_table(), mode=mode,
+                           uniformized=uniformized)
+    want = jref.mcmc_sweep(*map(jnp.asarray, args), jpwl.pwl_table(),
+                           mode=mode, uniformized=uniformized)
+    for name, a, b in zip(NAMES, want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+
+
+def test_interop_state_round_trip_feeds_a_chunk():
+    """A mid-run JAX state crosses through interop and continues bitwise."""
+    _, _, args = _inputs(64, 8, 64, seed=3)
+    J, u0, s0, e0, unif, temps = args
+    jargs = tuple(map(jnp.asarray, args))
+    mid = jref.mcmc_sweep(jargs[0], *jargs[1:4], jargs[4][:32], jargs[5][:32],
+                          jpwl.pwl_table(), mode="rsa")
+    state = interop.state_from_numpy(tuple(np.asarray(x) for x in mid))
+    assert [x.dtype for x in state] == list(interop.STATE_DTYPES)
+    back = interop.state_to_numpy(state)
+    for a, b in zip(mid, back):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    u, s, e = state[:3]
+    got = sweep.mcmc_sweep(torch.from_numpy(J), u, s, e,
+                           torch.from_numpy(unif[32:].copy()),
+                           torch.from_numpy(temps[32:].copy()),
+                           tpwl.pwl_table(), mode="rsa")
+    want = jref.mcmc_sweep(jargs[0], *mid[:3], jargs[4][32:], jargs[5][32:],
+                           jpwl.pwl_table(), mode="rsa")
+    for name, a, b in zip(NAMES, want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+
+
+def test_shared_memory_ceiling():
+    assert sweep.shared_bytes(2000, 125, 64, True) < sweep.MAX_SHARED_BYTES
+    for rwa in (False, True):
+        n = sweep.dense_max_n(rwa)
+        assert sweep.shared_bytes(n, common.default_lane(n), 64, rwa) <= \
+            sweep.MAX_SHARED_BYTES
+        assert 14_000 < n < 19_400
