@@ -3,16 +3,28 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
-against its plain PyTorch version at the shapes of the main path (K2000:
-N=2000, R=8, 256-step chunks), then drives the main path — ``solve(K2000,
-seed, default_solver(2000, 20000, mode), backend="fused")`` in RSA and RWA
-mode — and checks its results. Prints the card, the build, every check, a
+against its plain PyTorch version at the shapes of the main paths, drives
+each main path with the launch counts zeroed just before it, and checks the
+results:
+
+* the dense tier on K2000 (N=2000, R=8, 256-step chunks): ``solve(K2000,
+  seed, default_solver(2000, 20000, mode), backend="fused")``, RSA and RWA;
+* the ``bitplane`` tier on K4096 (``complete_bipolar(4096, seed=4096)``,
+  20,000 steps) and the dense-J-free ``bitplane_hbm`` tier on the sparse
+  N=16384 instance (``sparse_bipolar_edges(16384, 8·16384, seed=16384)`` →
+  ``IsingProblem.create_sparse``, 65,536 steps), RSA and RWA, with the
+  popcount init; plus the cross-tier check (dense, ``bitplane`` and
+  ``bitplane_hbm`` trajectories bitwise equal at both sizes) and per-tier
+  timings.
+
+Prints the card, the build, every check and each phase's seconds, a
 ``{"kernels": [...]}`` line with times and bounds, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 nonzero. Without a CUDA device it exits nonzero before printing a result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -27,13 +39,19 @@ import torch  # noqa: E402
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available")
 
+import numpy as np  # noqa: E402
+
 from repro_torch.configs.snowball import K2000, default_solver  # noqa: E402
 from repro_torch.core import ising, rng  # noqa: E402
+from repro_torch.core.bitplane import pack_spins  # noqa: E402
+from repro_torch.core.coupling import (CouplingStore,  # noqa: E402
+                                       measure_host_build)
 from repro_torch.core.schedules import linear  # noqa: E402
 from repro_torch.core.solver import SolverConfig, solve  # noqa: E402
 from repro_torch.graphs import (complete_bipolar, cut_from_energy,  # noqa: E402
-                                maxcut_to_ising)
-from repro_torch.kernels import _build, common, local_field, ops, ref, sweep  # noqa: E402
+                                maxcut_to_ising, sparse_bipolar_edges)
+from repro_torch.kernels import (_build, bitplane_field, common,  # noqa: E402
+                                 local_field, ops, ref, sweep)
 from repro_torch.kernels.parity import roulette_near_tie  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 rate outside the
@@ -47,6 +65,16 @@ PWL_FLOPS = 7
 SEED = 0
 R, N, T = 8, K2000.num_vertices, 256
 STEPS = 20000
+
+#: The plane tiers' two instances (the JAX package's BITPLANE_N and its
+#: sparse-ingest anchor, benchmarks/bench_solver_perf.py).
+K_PLANE_N = 4096
+SPARSE_N = 16384
+SPARSE_EDGES = 8 * SPARSE_N
+SPARSE_STEPS = 4 * SPARSE_N        # four sweeps' worth of steps
+#: Steps of the cross-tier solves, and of the short full-width kernel checks.
+TIER_STEPS = 4096
+CHECK_T = 64
 
 
 def check(cond, msg: str) -> None:
@@ -127,7 +155,7 @@ def invariants(problem, out, t: int, label: str):
     check(bool(((s == 1) | (s == -1)).all()), f"{label}: spins are ±1")
 
 
-def profile_main_path(problem, config) -> None:
+def profile_main_path(problem, config, store=None) -> None:
     """Device time by kernel and the device's busy share of the host wall
     time, over one solve. Prints "not measured" if the trace has no device
     time."""
@@ -137,7 +165,7 @@ def profile_main_path(problem, config) -> None:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        solve(problem, SEED, config, backend="fused")
+        solve(problem, SEED, config, backend="fused", store=store)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -157,26 +185,10 @@ def profile_main_path(problem, config) -> None:
         print(f"[profile]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
 
 
-def main() -> None:
-    t_start = time.perf_counter()
-    smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    print(f"[device] {kind} count={count} nvidia-smi: {smi}")
-    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    print("[build] nvcc, one process per source, in parallel")
-    t0 = time.perf_counter()
-    built = _build.build()
-    print(f"[build] {time.perf_counter() - t0:.2f} s wall")
-    for b in built.values():
-        print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}")
-        for line in b.log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
-
+def dense_slice() -> list:
+    """The dense tier on K2000: kernel checks, the card against the CPU,
+    the two main-path solves, a profile and the timings. Returns the
+    ``kernels`` JSON rows of the dense sweep and the local-field init."""
     inst = complete_bipolar(N, seed=SEED)
     problem = maxcut_to_ising(inst, device="cuda")
     cfg = {m: default_solver(N, STEPS, mode=m) for m in ("rsa", "rwa")}
@@ -357,8 +369,499 @@ def main() -> None:
         "max_abs_err": lf["err"], "ms": lf["ms"], "plain_ms": lf["plain_ms"],
         "bound_ms": lf["bound"][0], "bound_by": lf["bound"][1],
         "library_ms": lf["library_ms"]})
+    return line["kernels"]
+
+
+def edge_energy(edges, h, spins):
+    """H(s) straight from the edge list, in float64: −Σ_e w s_i s_j − h·s
+    (an independent reference for the plane path, which has no dense J)."""
+    dev = spins.device
+    rows = torch.from_numpy(edges.rows.astype(np.int64)).to(dev)
+    cols = torch.from_numpy(edges.cols.astype(np.int64)).to(dev)
+    w = torch.from_numpy(edges.weights).to(dev, torch.float64)
+    s = spins.to(torch.float64)
+    return -(w * s[:, rows] * s[:, cols]).sum(1) - s @ h.to(torch.float64)
+
+
+def plane_fields(planes, spins):
+    """u^(J) of ``spins`` by the plain popcount version."""
+    return ref.bitplane_field_init(planes.pos, planes.neg,
+                                   pack_spins(spins, planes.num_words))
+
+
+def plane_inputs(planes, h, r: int, t: int, temps_row, seed: int,
+                 shared_sites: bool = False):
+    """Random ±1 spins, their exact u and e from the planes, JAX-stream
+    uniforms (on even steps the first half of the replicas share the site
+    uniform when ``shared_sites``, so the coalesced count has work)."""
+    key = rng.fold_in(rng.key(0, device="cuda"), seed)
+    s0 = ising.random_spins(rng.stream(key, rng.Salt.INIT,
+                                       torch.arange(r, device="cuda")),
+                            (planes.num_spins,)).to(torch.float32)
+    u_j = plane_fields(planes, s0)
+    e0 = ising.energy_from_fields(u_j, s0, h)
+    unif = rng.uniform01(rng.stream(key, rng.Salt.SWEEP, 0), (t, r, 4))
+    if shared_sites:
+        unif[::2, : r // 2, 0] = unif[::2, :1, 0]
+    temps = temps_row[:t].to("cuda")[:, None].expand(t, r).contiguous()
+    return u_j + h, s0, e0, unif, temps
+
+
+def plane_invariants(planes, h, out, label: str):
+    u, s, e, be, bs, nf, rf = out
+    u_j = plane_fields(planes, s)
+    check(torch.equal(u, u_j + h), f"{label}: u == J s + h exactly")
+    check(torch.equal(e, ising.energy_from_fields(u_j, s, h)),
+          f"{label}: e == energy(s) exactly")
+    check(torch.equal(be, ising.energy_from_fields(plane_fields(planes, bs),
+                                                   bs, h)),
+          f"{label}: best_e == energy(best_s) exactly")
+    check(bool(((s == 1) | (s == -1)).all()), f"{label}: spins are ±1")
+
+
+def rsa_rows_fetched(n: int, seed: int, config, block_r: int = 8):
+    """The coalesced rows_fetched of an RSA solve, from its site uniforms
+    alone (RSA sites do not depend on the state): per step and group of
+    ``block_r`` replicas, one row for each replica whose site no lower
+    replica of the group chose."""
+    base = rng.fold_in(rng.key(0, device="cuda"), seed)
+    r = config.num_replicas
+    br = common.fit_block(r, block_r)
+    chunk_len, num_chunks, rem = ops.anneal_chunk_plan(config, 256)
+    plan = [(c, chunk_len) for c in range(num_chunks)]
+    plan += [(num_chunks, rem)] if rem else []
+    lower = torch.tril(torch.ones(br, br, dtype=torch.bool, device="cuda"),
+                       -1)
+    total = torch.zeros(r, dtype=torch.int64, device="cuda")
+    for c, clen in plan:
+        unif = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, c), (clen, r, 4))
+        j = common.site_from_uniform(unif[..., 0], n).reshape(clen, -1, br)
+        dup = ((j[..., :, None] == j[..., None, :]) & lower).any(-1)
+        total += (~dup).sum(0).reshape(r)
+    return total
+
+
+def plane_sweep_bytes_flops(mode: str, r: int, n: int, t: int, flips: int,
+                            segs: int, num_planes: int):
+    """What one plane sweep must move and compute for these inputs: as
+    :func:`sweep_bytes_flops`, with a packed row (2·B·⌈N/32⌉ words) per
+    accepted flip, decoded at 6 integer operations per plane and spin."""
+    words = -(-n // 32)
+    nbytes = 4 * (2 * r * n + r + t * r * 4 + t * r + 3 * (segs + 1)
+                  + 3 * r * n + 4 * r) + 4 * flips * 2 * num_planes * words
+    evals = t * r * (n if mode == "rwa" else 1)
+    flops = (evals * (PWL_FLOPS + (1 if mode == "rwa" else 0))
+             + flips * n * (2 + 6 * num_planes))
+    return nbytes, flops
+
+
+def field_bytes_ops(planes, r: int):
+    """Plane bytes read once, spin words in, u out; an AND, a popcount and an
+    add per word, replica and sign, and a popcount and an add per word and
+    sign for m (integer operations, counted at the f32 issue rate)."""
+    b, n, w = planes.pos.shape
+    nbytes = 4 * (2 * b * n * w + r * w + r * n)
+    return nbytes, 3 * r * 2 * b * n * w + 2 * 2 * b * n * w
+
+
+def reset_counts() -> None:
+    for c in (sweep.counter, local_field.counter, bitplane_field.counter):
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {"sweep": sweep.counter.count, "init": bitplane_field.counter.count,
+            "dense_init": local_field.counter.count}
+
+
+def plane_kernel_checks(k_store, sp_store, k_h, sp_h, cfg, tbl):
+    """The popcount init and the plane sweep against their plain versions at
+    the main paths' widths (K4096 and sparse N=16384). Returns the
+    ``max_abs_err`` of each check and the popcount init's inputs; the
+    checks' large tensors are freed on return."""
+    names = ("u", "s", "e", "best_e", "best_s", "num_flips", "rows_fetched")
+    err = {}
+
+    print(f"[kernels] bitplane_field_init against its plain version "
+          f"(R={R}, B=1; K{K_PLANE_N} and N={SPARSE_N})")
+    field_in = {}
+    for key, store, h in (("k", k_store, k_h), ("sp", sp_store, sp_h)):
+        pl = store.planes
+        s0 = plane_inputs(pl, h, R, 1, torch.ones(1), SEED)[1]
+        words = pack_spins(s0, pl.num_words)
+        got = bitplane_field.bitplane_field_init(pl.pos, pl.neg, words)
+        want = ref.bitplane_field_init(pl.pos, pl.neg, words)
+        check(torch.equal(got, want),
+              f"bitplane_field_init N={pl.num_spins} bit-equal to plain")
+        err[f"field_{key}"] = max_abs_err([got], [want])
+        check(err[f"field_{key}"] == 0.0, "max_abs_err == 0.0")
+        field_in[key] = (pl, s0, words)
+
+    print(f"[kernels] plane mcmc_sweep RSA + PWL against its plain version "
+          f"(R={R}, T={CHECK_T}; shared site uniforms on even steps)")
+    checks = (("k", "bitplane", True, k_store, k_h),
+              ("sp", "bitplane", True, sp_store, sp_h),
+              ("sp", "bitplane_hbm", True, sp_store, sp_h),
+              ("sp", "bitplane_hbm", False, sp_store, sp_h))
+    for key, fmt, coalesce, store, h in checks:
+        pl = store.planes
+        n = pl.num_spins
+        temps0 = cfg[(n, "rsa")].schedule(
+            torch.arange(CHECK_T, dtype=torch.int32))
+        args = plane_inputs(pl, h, R, CHECK_T, temps0, SEED,
+                            shared_sites=True)
+        kw = dict(mode="rsa", coupling=fmt, coalesce=coalesce)
+        got = sweep.mcmc_sweep(pl, *args, tbl, **kw)
+        want = ref.mcmc_sweep(pl, *args, tbl, **kw)
+        label = f"N={n} {fmt}{'' if coalesce else ' uncoalesced'} rsa+pwl"
+        for name, a, b in zip(names, got, want):
+            check(torch.equal(a, b), f"{label} {name} bit-equal to plain")
+        plane_invariants(pl, h, got, f"{label} kernel")
+        total = int(got[6].sum())
+        if fmt == "bitplane_hbm" and coalesce:
+            check(total < R * CHECK_T, f"{label}: coalesced rows_fetched "
+                  f"{total} < R*T = {R * CHECK_T}, equal to plain")
+        else:
+            check(total == R * CHECK_T, f"{label}: rows_fetched == R*T")
+        err[("rsa", fmt, key)] = max_abs_err(got, want)
+
+    print("[kernels] plane mcmc_sweep RWA + PWL: invariants over T, then "
+          "per-step picks from 512 states")
+    for key, fmt, store, h in (("k", "bitplane", k_store, k_h),
+                               ("sp", "bitplane_hbm", sp_store, sp_h)):
+        pl = store.planes
+        n = pl.num_spins
+        c = cfg[(n, "rwa")]
+        temps0 = c.schedule(torch.arange(CHECK_T, dtype=torch.int32))
+        args = plane_inputs(pl, h, R, CHECK_T, temps0, SEED)
+        got = sweep.mcmc_sweep(pl, *args, tbl, mode="rwa", coupling=fmt)
+        plane_invariants(pl, h, got, f"N={n} {fmt} rwa+pwl kernel")
+        check(torch.equal(got[5], torch.full_like(got[5], CHECK_T)),
+              f"N={n} {fmt} rwa: rejection-free, one flip a step")
+        ru = 512
+        all_temps = c.schedule(torch.linspace(0, c.num_steps - 1,
+                                              ru).to(torch.int32))
+        pu0, ps0, pe0, punif, _ = plane_inputs(pl, h, ru, 1, temps0, SEED + 1)
+        ptemps = all_temps.to("cuda")[None, :].contiguous()
+        a = sweep.mcmc_sweep(pl, pu0, ps0, pe0, punif, ptemps, tbl,
+                             mode="rwa", coupling=fmt)
+        b = ref.mcmc_sweep(pl, pu0, ps0, pe0, punif, ptemps, tbl,
+                           mode="rwa", coupling=fmt)
+        p_all = common.flip_probability(2.0 * ps0 * pu0, ptemps[0][:, None],
+                                        tbl)
+        keep = ~roulette_near_tie(p_all, punif[0, :, 2], punif[0, :, 3],
+                                  False)
+        for name, x, y in zip(names, a, b):
+            check(torch.equal(x[keep], y[keep]),
+                  f"N={n} {fmt} rwa {name} equal on {int(keep.sum())} of "
+                  f"{ru} states ({ru - int(keep.sum())} near ties)")
+        err[("rwa", fmt, key)] = max_abs_err([x[keep] for x in a[:5]],
+                                             [y[keep] for y in b[:5]])
+    return err, field_in
+
+
+def plane_slice() -> list:
+    """The plane tiers: kernel checks at full width, the cross-tier check,
+    the card against the CPU, the K4096 and sparse N=16384 main-path
+    solves, a profile and the timings. Returns their ``kernels`` rows."""
+    phase_t = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal phase_t
+        now = time.perf_counter()
+        print(f"[phase] {name} {now - phase_t:.1f} s")
+        phase_t = now
+
+    print(f"[setup] K{K_PLANE_N} and the sparse N={SPARSE_N} instance")
+    k_inst = complete_bipolar(K_PLANE_N, seed=K_PLANE_N)
+    k_prob = maxcut_to_ising(k_inst, device="cuda")
+    k_store, k_build = measure_host_build(
+        lambda: CouplingStore.build(k_prob.couplings, "bitplane"))
+    k_store = k_store.to("cuda")
+    edges = sparse_bipolar_edges(SPARSE_N, SPARSE_EDGES, seed=SPARSE_N)
+    sp_prob = ising.IsingProblem.create_sparse(edges, device="cuda")
+    sp_store, sp_build = measure_host_build(
+        lambda: CouplingStore.build(edges, "bitplane_hbm"))
+    sp_store = sp_store.to("cuda")
+    sp_h = sp_prob.fields
+    k_h = k_prob.fields
+    for name, store, stats in ((f"K{K_PLANE_N} bitplane", k_store, k_build),
+                               (f"N={SPARSE_N} bitplane_hbm", sp_store,
+                                sp_build)):
+        n = store.num_spins
+        print(f"[setup] {name}: B={store.planes.num_planes} "
+              f"W={store.planes.num_words}, plane bytes {store.nbytes} "
+              f"against dense f32 J {4 * n * n} "
+              f"({4 * n * n / store.nbytes:.1f}x), host encode "
+              f"{stats['seconds']:.4f} s, host build peak "
+              f"{stats['peak_bytes']} bytes")
+    check(sp_build["peak_bytes"] < 4 * SPARSE_N ** 2,
+          f"sparse N={SPARSE_N} host build peak below the "
+          f"{4 * SPARSE_N ** 2} bytes of a dense f32 J")
+    check(edges.nnz <= SPARSE_EDGES, f"sparse instance nnz {edges.nnz}")
+    phase_done("setup")
+
+    cfg = {(n, m): default_solver(n, steps, mode=m)
+           for n, steps in ((K_PLANE_N, STEPS), (SPARSE_N, SPARSE_STEPS))
+           for m in ("rsa", "rwa")}
+    tbl = ops.solver_pwl_table(cfg[(K_PLANE_N, "rsa")], device="cuda")
+    segs = tbl.shape[0] - 1
+    err, field_in = plane_kernel_checks(k_store, sp_store, k_h, sp_h, cfg,
+                                        tbl)
+    phase_done("kernels")
+
+    mains = {}
+    for n, fmt, prob, store, steps in (
+            (K_PLANE_N, "bitplane", k_prob, k_store, STEPS),
+            (SPARSE_N, "bitplane_hbm", sp_prob, sp_store, SPARSE_STEPS)):
+        print(f"[main] solve(N={n}, seed={SEED}, default_solver({n}, {steps}, "
+              f"mode) with coupling_format='{fmt}', backend='fused'), R={R}")
+        warm = dataclasses.replace(default_solver(n, 512, mode="rwa"),
+                                   coupling_format=fmt)
+        solve(prob, SEED, warm, backend="fused", store=store)
+        for mode in ("rsa", "rwa"):
+            c = dataclasses.replace(cfg[(n, mode)], coupling_format=fmt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = solve(prob, SEED, c, backend="fused", store=store)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            h = prob.fields
+            if n == K_PLANE_N:
+                cuts = cut_from_energy(k_inst, res.best_energy.cpu().numpy())
+                exact = ising.energy(prob, res.best_spins).to(torch.float64)
+            else:
+                # The cut of the graph whose weights are −J.
+                cuts = (-float(edges.weights.sum())
+                        - res.best_energy.cpu().numpy()) / 2.0
+                exact = edge_energy(edges, h, res.best_spins)
+            flips = int(res.num_flips.sum())
+            print(f"[main] N={n} {fmt} {mode}: best cut {cuts.max():.0f} "
+                  f"(per replica {sorted(cuts.tolist(), reverse=True)}), "
+                  f"best energy {float(res.best_energy.min()):.0f}, "
+                  f"{wall / steps * 1e6:.3f} us/step, "
+                  f"{flips / wall:.4e} flips/s, wall {wall:.4f} s, peak "
+                  f"device memory {peak / 2**20:.1f} MiB, of which "
+                  f"{held / 2**20:.1f} MiB was held before the solve, "
+                  f"launches "
+                  f"sweep={launches['sweep']} "
+                  f"bitplane_field_init={launches['init']} "
+                  f"local_field_init={launches['dense_init']}, "
+                  f"rows_fetched {int(res.rows_fetched.sum())}")
+            check(launches["sweep"] == math.ceil(steps / 256),
+                  f"N={n} {mode}: sweep launched ceil({steps}/256) = "
+                  f"{math.ceil(steps / 256)} times")
+            check(launches["init"] == 1 and launches["dense_init"] == 0,
+                  f"N={n} {mode}: bitplane_field_init launched once, "
+                  "local_field_init never")
+            check(tuple(res.best_spins.shape) == (R, n)
+                  and bool(torch.isfinite(res.best_energy).all()),
+                  f"N={n} {mode}: results have shape (R, N) and are finite")
+            check(torch.equal(res.best_energy.to(torch.float64), exact),
+                  f"N={n} {mode}: best_energy == energy(best_spins) exactly")
+            if mode == "rwa":
+                check(flips == R * steps,
+                      f"N={n} rwa: rejection-free, one flip a step")
+            check(int(res.rows_fetched.sum()) <= R * steps,
+                  f"N={n} {mode}: sum(rows_fetched) <= R*steps")
+            mains[(fmt, mode)] = launches
+    phase_done("main")
+
+    print(f"[profile] torch.profiler over one sparse N={SPARSE_N} RSA "
+          "main-path solve")
+    profile_main_path(sp_prob, dataclasses.replace(
+        cfg[(SPARSE_N, "rsa")], coupling_format="bitplane_hbm"),
+        store=sp_store)
+    phase_done("profile")
+
+    print(f"[tiers] dense, bitplane and bitplane_hbm: one RSA + PWL solve of "
+          f"{TIER_STEPS} steps each, K{K_PLANE_N} and N={SPARSE_N}")
+    dense_sp = torch.from_numpy(edges.to_dense()).to("cuda")
+    sp_dense_prob = ising.IsingProblem(dense_sp, sp_h)
+    tier_probs = {K_PLANE_N: {"dense": k_prob, "planes": k_prob},
+                  SPARSE_N: {"dense": sp_dense_prob, "planes": sp_prob}}
+    tier_stores = {}
+    for n, probs in tier_probs.items():
+        src = k_prob.couplings if n == K_PLANE_N else edges
+        tier_stores[n] = {
+            "dense": CouplingStore.build(probs["dense"].couplings, "dense"),
+            "bitplane": CouplingStore.build(src, "bitplane").to("cuda"),
+            "bitplane_hbm": (sp_store if n == SPARSE_N else CouplingStore.build(
+                src, "bitplane_hbm").to("cuda"))}
+        c = default_solver(n, TIER_STEPS, mode="rsa")
+        runs = {}
+        for fmt, store in tier_stores[n].items():
+            prob = probs["dense" if fmt == "dense" else "planes"]
+            runs[fmt] = solve(prob, SEED, dataclasses.replace(
+                c, coupling_format=fmt), store=store)
+        for fmt in ("bitplane", "bitplane_hbm"):
+            for name in ("best_energy", "best_spins", "final_energy",
+                         "num_flips", "trace_energy"):
+                check(torch.equal(getattr(runs["dense"], name),
+                                  getattr(runs[fmt], name)),
+                      f"N={n} {fmt} {name} bitwise equal to dense")
+        sums = {fmt: int(r_.rows_fetched.sum()) for fmt, r_ in runs.items()}
+        want_rows = rsa_rows_fetched(n, SEED, c)
+        print(f"[tiers] N={n} rows_fetched sums: {sums} (R*T = "
+              f"{R * TIER_STEPS}; from the site uniforms: "
+              f"{int(want_rows.sum())})")
+        check(sums["dense"] == sums["bitplane"] == R * TIER_STEPS,
+              f"N={n} dense and bitplane rows_fetched == R*T")
+        check(torch.equal(runs["bitplane_hbm"].rows_fetched.long(), want_rows)
+              and sums["bitplane_hbm"] <= R * TIER_STEPS,
+              f"N={n} bitplane_hbm rows_fetched == the coalesced count of "
+              "its sites, <= R*T")
+    phase_done("tiers")
+
+    print("[reference] small input: the card's plane solves against the "
+          "CPU's (sparse N=256, RSA + PWL, linear schedule)")
+    small_edges = sparse_bipolar_edges(256, 2048, seed=3)
+    small = ising.IsingProblem.create_sparse(small_edges)
+    for fmt in ("bitplane", "bitplane_hbm"):
+        c = SolverConfig(num_steps=1024, schedule=linear(16.0, 0.05, 1024),
+                         mode="rsa", trace_every=256, coupling_format=fmt)
+        on_card = solve(small, 7, c, backend="fused", device="cuda")
+        on_cpu = solve(small, 7, c, backend="fused", device="cpu")
+        for name, a, b in zip(on_card._fields, on_card, on_cpu):
+            check(torch.equal(a.cpu(), b), f"N=256 {fmt} solve {name}: "
+                  "card == CPU")
+    phase_done("reference")
+
+    print("[timing] CUDA events at the main paths' shapes (T=256)")
+    timing = {}
+    for key, fmt, store, h in (("k", "bitplane", k_store, k_h),
+                               ("sp", "bitplane_hbm", sp_store, sp_h)):
+        pl = store.planes
+        n = pl.num_spins
+        temps0 = cfg[(n, "rsa")].schedule(torch.arange(T, dtype=torch.int32))
+        args = plane_inputs(pl, h, R, T, temps0, SEED)
+        for mode in ("rsa", "rwa"):
+            run = (lambda mode=mode, pl=pl, fmt=fmt, args=args:
+                   sweep.mcmc_sweep(pl, *args, tbl, mode=mode, coupling=fmt))
+            out = run()
+            e = {"ms": cuda_ms(run, 10),
+                 "plain_ms": cuda_ms(lambda mode=mode, pl=pl, fmt=fmt,
+                                     args=args: ref.mcmc_sweep(
+                                         pl, *args, tbl, mode=mode,
+                                         coupling=fmt), 1),
+                 "bound": bound(*plane_sweep_bytes_flops(
+                     mode, R, n, T, int(out[5].sum()), segs, pl.num_planes))}
+            timing[(fmt, mode)] = e
+            print(f"[timing] mcmc_sweep {fmt} {mode} N={n}: {e['ms']:.4f} ms "
+                  f"({e['ms'] / T * 1e3:.3f} us/step), plain "
+                  f"{e['plain_ms']:.2f} ms, bound {e['bound'][0]:.5f} ms "
+                  f"({e['bound'][1]})")
+        if fmt == "bitplane_hbm":
+            for mode in ("rsa", "rwa"):
+                ms = cuda_ms(lambda mode=mode: sweep.mcmc_sweep(
+                    pl, *args, tbl, mode=mode, coupling=fmt, coalesce=False),
+                    10)
+                print(f"[timing] mcmc_sweep {fmt} {mode} N={n} uncoalesced: "
+                      f"{ms:.4f} ms ({ms / T * 1e3:.3f} us/step)")
+    dense_sp_j = sp_dense_prob.couplings
+    for key, dense_j in (("k", k_prob.couplings), ("sp", dense_sp_j)):
+        pl, s0, words = field_in[key]
+        h = torch.zeros(pl.num_spins, device="cuda")
+        e = {"ms": cuda_ms(lambda: bitplane_field.bitplane_field_init(
+                pl.pos, pl.neg, words), 20),
+             "plain_ms": cuda_ms(lambda: ref.bitplane_field_init(
+                 pl.pos, pl.neg, words), 2),
+             "library_ms": cuda_ms(lambda: torch.addmm(h, s0, dense_j.T), 20),
+             "bound": bound(*field_bytes_ops(pl, R))}
+        timing[("field", key)] = e
+        print(f"[timing] bitplane_field_init N={pl.num_spins}: {e['ms']:.5f} "
+              f"ms, plain {e['plain_ms']:.3f} ms, torch.addmm on the dense "
+              f"f32 J {e['library_ms']:.5f} ms, bound {e['bound'][0]:.5f} ms "
+              f"({e['bound'][1]})")
+
+    print("[timing] per tier: sweep ms per 256-step launch (CUDA events) and "
+          f"us/step of a {TIER_STEPS}-step solve (host clock)")
+    for n in (K_PLANE_N, SPARSE_N):
+        probs = tier_probs[n]
+        h = probs["planes"].fields
+        for fmt, store in tier_stores[n].items():
+            for mode in ("rsa", "rwa"):
+                c = dataclasses.replace(default_solver(n, TIER_STEPS,
+                                                       mode=mode),
+                                        coupling_format=fmt)
+                prob = probs["dense" if fmt == "dense" else "planes"]
+                op = store.kernel_operand
+                temps0 = c.schedule(torch.arange(T, dtype=torch.int32))
+                pl = store.planes if store.planes is not None else \
+                    tier_stores[n]["bitplane"].planes
+                args = plane_inputs(pl, h, R, T, temps0, SEED)
+                ms = cuda_ms(lambda op=op, fmt=fmt, mode=mode, args=args:
+                             sweep.mcmc_sweep(op, *args, tbl, mode=mode,
+                                              coupling=fmt), 10)
+                solve(prob, SEED, c, store=store)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solve(prob, SEED, c, store=store)
+                torch.cuda.synchronize()
+                us = (time.perf_counter() - t0) / TIER_STEPS * 1e6
+                print(f"[tier] N={n} {fmt:12s} {mode}: sweep {ms:.4f} ms per "
+                      f"launch ({ms / T * 1e3:.3f} us/step), solve "
+                      f"{us:.3f} us/step")
+    phase_done("timing")
+
+    src = "src/repro_torch/kernels/csrc/"
+    rows = []
+    for fmt, key in (("bitplane", "k"), ("bitplane_hbm", "sp")):
+        for mode in ("rsa", "rwa"):
+            e = timing[(fmt, mode)]
+            rows.append({
+                "name": f"mcmc_sweep[{fmt},{mode}]", "route": "cuda",
+                "source": src + "sweep.cu",
+                "replaces": "src/repro/kernels/sweep.py:555",
+                "launches": mains[(fmt, mode)]["sweep"],
+                "max_abs_err": err[(mode, fmt, key)], "ms": e["ms"],
+                "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+                "bound_by": e["bound"][1], "library_ms": None})
+    e = timing[("field", "sp")]
+    rows.append({
+        "name": "bitplane_field_init", "route": "cuda",
+        "source": src + "bitplane_field.cu",
+        "replaces": "src/repro/kernels/bitplane_field.py:42",
+        "launches": sum(m["init"] for m in mains.values()),
+        "max_abs_err": max(err["field_k"], err["field_sp"]), "ms": e["ms"],
+        "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+        "bound_by": e["bound"][1], "library_ms": e["library_ms"]})
+    return rows
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    props = torch.cuda.get_device_properties(0)
+    print(f"[device] {kind} count={count} nvidia-smi: {smi}")
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
+          f"L2 {props.L2_cache_size} bytes, {props.multi_processor_count} SMs")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    print("[build] nvcc, one process per source, in parallel")
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"[build] {time.perf_counter() - t0:.2f} s wall")
+    for b in built.values():
+        print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}")
+        for line in b.log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
+
+    t0 = time.perf_counter()
+    rows = dense_slice()
+    print(f"[phase] dense slice (K2000) {time.perf_counter() - t0:.1f} s")
+    rows += plane_slice()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(line))
+    print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

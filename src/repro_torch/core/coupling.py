@@ -1,36 +1,317 @@
-"""Coupling-store format names (port of ``repro.core.coupling``'s registry).
+"""Coupling-store subsystem: every J tier behind one descriptor. Port of
+``repro.core.coupling``.
 
-This slice serves the ``"dense"`` tier only: J as an (N, N) f32 tensor in
-device memory, one row read per replica per step by the sweep kernel. The
-TPU's VMEM thresholds do not carry over. The port's dense ceiling follows
-from the sweep kernel's shared-memory budget (u, s and best_s of one replica
-in one thread block's shared memory): see
-``repro_torch.kernels.sweep.dense_max_n``.
+Tiers of the fused sweep, and what each is on one H100:
+
+* ``dense``        — J as an (N, N) f32 tensor in device memory.
+* ``bitplane``     — packed signed bit-planes (2·B bits per coupler instead
+                     of 32) in device memory, W = ceil(N/32) words per row.
+* ``bitplane_hbm`` — the same planes with W padded to
+                     :data:`STREAM_ALIGN_WORDS`; the sweep counts each step's
+                     unique rows per replica group (``coalesce``).
+* ``bitplane_sharded`` / ``bitplane_sharded_2d`` — the planes row-sharded
+  over several GPUs: not ported yet (ROADMAP queue 1 item 12).
+
+On the TPU the tiers are VMEM budgets (``DENSE_COUPLING_MAX_N = 2000``,
+``BITPLANE_VMEM_MAX_N = 8000``). On the H100 the store lives in global
+memory on every tier, and the sweep reads one row per replica per step that
+it needs before the next step can start, so what matters is whether that
+row read hits the 50 MiB L2 (:data:`L2_BYTES`) or goes to HBM. "auto" picks
+the widest store that still fits L2:
+
+* dense while the f32 J fits: 4·N² ≤ L2 → N ≤ √(L2/4) = 3620
+  (:data:`DENSE_COUPLING_MAX_N`);
+* ``bitplane`` while the B=1 planes fit: 2·N·(N/32)·4 = N²/4 ≤ L2 →
+  N ≤ √(4·L2) = 14481 (:data:`BITPLANE_L2_MAX_N`);
+* ``bitplane_hbm`` past that.
+
+Every tier is also capped by the sweep state in one block's shared memory
+(u, s and best_s, 12·N bytes of the 232,448 a block may use): N ≤ 19370
+(:data:`SWEEP_STATE_MAX_N`; the sweep wrapper checks the exact budget of
+each mode). Past it every tier raises, naming ROADMAP queue 2 item 8. These
+thresholds are a hypothesis: ``chip_smoke.py``'s per-tier timings test it.
+
+``CouplingStore.build`` is the single host-side resolve → encode entry point;
+an :class:`~repro_torch.core.ising.EdgeList` packs straight into planes in
+O(nnz) and never resolves to dense.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import math
+import time
+import tracemalloc
+from typing import Optional, Sequence
 
-#: Every tier the JAX package knows, in its registry order.
-FORMATS = ("dense", "bitplane", "bitplane_hbm", "bitplane_sharded",
-           "bitplane_sharded_2d")
-COUPLING_FORMATS = ("auto",) + FORMATS
-#: Tiers this port serves so far.
-SERVED_FORMATS = ("dense",)
+import numpy as np
+import torch
+
+from .bitplane import WORD_BITS, BitPlanes, encode_couplings, encode_edges
+from .ising import EdgeList
+
+#: L2 cache of the H100 (50 MiB, ``cudaDeviceProp.l2CacheSize``).
+L2_BYTES = 50 * 2 ** 20
+
+#: "auto" keeps J dense while its f32 matrix fits L2.
+DENSE_COUPLING_MAX_N = math.isqrt(L2_BYTES // 4)
+
+#: "auto" keeps the planes on the ``bitplane`` tier while the B=1 store
+#: (N²/4 bytes) fits L2, and streams them (``bitplane_hbm``) past it.
+BITPLANE_L2_MAX_N = math.isqrt(4 * L2_BYTES)
+
+#: Dynamic shared memory one block may use on Hopper.
+SHARED_MEMORY_BYTES = 232_448
+
+#: The sweep keeps u, s and best_s (3·N f32) of one replica in one block's
+#: shared memory, on every tier.
+SWEEP_STATE_MAX_N = SHARED_MEMORY_BYTES // 12
+
+#: Word-axis alignment of the streamed tier's planes (the JAX package's 128-
+#: word lane tile; zero bits, which decoders truncate).
+STREAM_ALIGN_WORDS = 128
+
+#: Bits per coupler of dense f32; a plane store costs 2·B.
+DENSE_COUPLING_BITS = 32
+
+_SHARED_MEMORY_CEILING = (
+    "the sweep keeps u, s and best_s of one replica in one block's shared "
+    "memory; lifting that ceiling is ROADMAP queue 2 item 8")
 
 
-def resolve_format(fmt: Optional[str]) -> str:
-    """Resolve the ``coupling_format`` knob. "auto" is "dense" in this slice
-    (the JAX package picks a plane tier only past its VMEM wall; the plane
-    tiers are not ported yet). An explicit plane tier raises."""
-    if fmt in (None, "auto"):
-        return "dense"
-    if fmt not in FORMATS:
+@dataclasses.dataclass(frozen=True)
+class CouplingFormatSpec:
+    """Registry row for one resolved coupling format."""
+
+    name: str
+    packed: bool        #: consumes a packed ``BitPlanes`` (vs a dense J)
+    align_words: int    #: word-axis padding the encoder applies
+    kernel_mode: bool   #: served by the single-device sweep kernel
+    coalescable: bool   #: rows_fetched counts unique rows per replica group
+    summary: str
+
+
+#: The format registry, in the JAX package's order.
+FORMATS: dict[str, CouplingFormatSpec] = {spec.name: spec for spec in (
+    CouplingFormatSpec("dense", False, 1, True, False,
+                       "(N, N) f32 J in device memory"),
+    CouplingFormatSpec("bitplane", True, 1, True, False,
+                       "packed signed bit-planes in device memory"),
+    CouplingFormatSpec("bitplane_hbm", True, STREAM_ALIGN_WORDS, True, True,
+                       "planes with 128-word rows, unique rows counted"),
+    CouplingFormatSpec("bitplane_sharded", True, STREAM_ALIGN_WORDS, False,
+                       True, "planes row-sharded across GPUs"),
+    CouplingFormatSpec("bitplane_sharded_2d", True, STREAM_ALIGN_WORDS,
+                       False, True,
+                       "planes row-sharded within each replica group"),
+)}
+
+COUPLING_FORMATS = ("auto",) + tuple(FORMATS)
+PLANE_FORMATS = tuple(s.name for s in FORMATS.values() if s.packed)
+KERNEL_COUPLING_MODES = tuple(
+    s.name for s in FORMATS.values() if s.kernel_mode)
+KERNEL_PLANE_MODES = tuple(
+    s.name for s in FORMATS.values() if s.packed and s.kernel_mode)
+COALESCABLE_FORMATS = tuple(s.name for s in FORMATS.values() if s.coalescable)
+
+
+def _check_served(fmt: str, n: int) -> str:
+    if not FORMATS[fmt].kernel_mode:
+        raise NotImplementedError(
+            f"coupling_format={fmt!r} is not ported yet (ROADMAP queue 1 "
+            "item 12: multi-GPU, the row-sharded plane tiers)")
+    if n > SWEEP_STATE_MAX_N:
+        raise ValueError(
+            f"N={n} is past the port's ceiling of {SWEEP_STATE_MAX_N} spins "
+            f"on every tier: {_SHARED_MEMORY_CEILING}")
+    return fmt
+
+
+def _integral(J) -> bool:
+    if isinstance(J, torch.Tensor):
+        return bool(torch.equal(J, torch.round(J)))
+    J = np.asarray(J)
+    return bool(np.array_equal(J, np.rint(J)))
+
+
+def _max_abs(J) -> int:
+    if isinstance(J, torch.Tensor):
+        return int(J.abs().max()) if J.numel() else 0
+    return int(np.abs(np.asarray(J)).max(initial=0))
+
+
+def resolve_format(fmt: Optional[str], couplings, n: int) -> str:
+    """Resolve the ``coupling_format`` knob to a served format name.
+
+    "auto" (or None) on a dense J picks a plane tier exactly when J is
+    integral, N is past :data:`DENSE_COUPLING_MAX_N` and the planes are
+    smaller (2·B < 32 bits), and streams past :data:`BITPLANE_L2_MAX_N`. An
+    :class:`EdgeList` never resolves to dense: "auto" picks a plane tier and
+    an explicit "dense" raises. The sharded tiers raise (not ported yet), as
+    does any N past the sweep's shared-memory ceiling.
+    """
+    if fmt not in (None, "auto") and fmt not in FORMATS:
         raise ValueError(
             f"coupling format must be one of {COUPLING_FORMATS}, got {fmt!r}")
-    if fmt not in SERVED_FORMATS:
-        raise NotImplementedError(
-            f"coupling_format={fmt!r} is not ported yet (ROADMAP queue 2 "
-            "items 3-5: the bit-plane tiers and bitplane_field_init; the "
-            "sharded tiers are queue 1 item 12)")
-    return fmt
+    plane_tier = "bitplane" if n <= BITPLANE_L2_MAX_N else "bitplane_hbm"
+    if isinstance(couplings, EdgeList):
+        if fmt in (None, "auto"):
+            return _check_served(plane_tier, n)
+        if not FORMATS[fmt].packed:
+            raise ValueError(
+                "edge-list couplings are dense-J-free: coupling_format="
+                f"{fmt!r} would materialize the (N, N) f32 matrix — use a "
+                f"plane format ({PLANE_FORMATS}) or edges.to_dense() "
+                "explicitly for small N")
+        return _check_served(fmt, n)
+    if fmt not in (None, "auto"):
+        return _check_served(fmt, n)
+    if n <= DENSE_COUPLING_MAX_N or not _integral(couplings):
+        return _check_served("dense", n)
+    num_planes = max(1, _max_abs(couplings).bit_length())
+    if 2 * num_planes >= DENSE_COUPLING_BITS:
+        return _check_served("dense", n)
+    return _check_served(plane_tier, n)
+
+
+def encode_planes(couplings, num_planes: Optional[int] = None,
+                  fmt: str = "bitplane") -> BitPlanes:
+    """Pack a concrete integral J (dense matrix or edge list) for a plane
+    tier, on the host. ``num_planes`` defaults to the fewest planes that
+    represent |J|max; W is padded to the tier's alignment."""
+    if isinstance(couplings, EdgeList):
+        return encode_edges(couplings, num_planes,
+                            align_words=FORMATS[fmt].align_words)
+    if isinstance(couplings, torch.Tensor):
+        couplings = couplings.detach().cpu().numpy()
+    J = np.asarray(couplings)
+    if num_planes is None:
+        amax = int(np.abs(np.rint(J)).max(initial=0))
+        num_planes = max(1, amax.bit_length())
+    return encode_couplings(J, num_planes,
+                            align_words=FORMATS[fmt].align_words)
+
+
+def validate_planes_cover(planes: BitPlanes, n: int) -> None:
+    """Shape contract of every plane consumer."""
+    if planes.num_spins != n:
+        raise ValueError(f"BitPlanes N={planes.num_spins} != state N={n}")
+    if planes.num_words * WORD_BITS < n:
+        raise ValueError(f"BitPlanes W={planes.num_words} words cannot "
+                         f"cover N={n} couplers")
+
+
+def validate_kernel_operand(coupling: str, couplings, n: int,
+                            gather: str = "dynamic") -> None:
+    """What ``kernels.sweep.mcmc_sweep`` may be fed for each store mode."""
+    if coupling not in KERNEL_COUPLING_MODES:
+        raise ValueError(
+            f"coupling must be one of {KERNEL_COUPLING_MODES}, got {coupling!r}")
+    if coupling in KERNEL_PLANE_MODES:
+        if not isinstance(couplings, BitPlanes):
+            raise TypeError(f"coupling={coupling!r} needs a BitPlanes "
+                            f"couplings argument, got {type(couplings).__name__}")
+        validate_planes_cover(couplings, n)
+        if gather == "onehot":
+            raise ValueError("gather='onehot' requires a dense J (the one-hot "
+                             "contraction cannot consume packed planes)")
+    elif tuple(couplings.shape) != (n, n):
+        raise ValueError(f"dense couplings have shape {tuple(couplings.shape)}"
+                         f", expected {(n, n)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CouplingStore:
+    """One J tier as a value: the resolved format and its payload."""
+
+    fmt: str
+    num_spins: int
+    dense: Optional[torch.Tensor] = None
+    planes: Optional[BitPlanes] = None
+
+    @classmethod
+    def build(cls, couplings, fmt: Optional[str] = "auto", *,
+              num_planes: Optional[int] = None) -> "CouplingStore":
+        """Resolve ``fmt`` for ``couplings`` (a dense J or an
+        :class:`EdgeList`) and encode on the host. Planes are built on the
+        CPU; :meth:`to` moves the store."""
+        if isinstance(couplings, EdgeList):
+            n = couplings.num_spins
+        else:
+            n = int(couplings.shape[-1])
+        resolved = resolve_format(fmt, couplings, n)
+        if FORMATS[resolved].packed:
+            return cls(fmt=resolved, num_spins=n,
+                       planes=encode_planes(couplings, num_planes, resolved))
+        return cls(fmt=resolved, num_spins=n, dense=couplings)
+
+    @classmethod
+    def from_planes(cls, planes: BitPlanes,
+                    fmt: str = "bitplane") -> "CouplingStore":
+        """Wrap pre-packed planes (skips the re-encode)."""
+        if not FORMATS[fmt].packed:
+            raise ValueError(f"from_planes needs a plane format, got {fmt!r}")
+        return cls(fmt=fmt, num_spins=planes.num_spins, planes=planes)
+
+    @property
+    def spec(self) -> CouplingFormatSpec:
+        return FORMATS[self.fmt]
+
+    @property
+    def kernel_operand(self):
+        """What the sweep consumes: the packed planes or the dense J."""
+        return self.planes if self.spec.packed else self.dense
+
+    @property
+    def nbytes(self) -> int:
+        if self.spec.packed:
+            return self.planes.nbytes
+        return int(self.dense.numel()) * int(self.dense.element_size())
+
+    def to(self, device) -> "CouplingStore":
+        if self.spec.packed:
+            return dataclasses.replace(self, planes=self.planes.to(device))
+        return dataclasses.replace(self, dense=self.dense.to(device))
+
+    def require_num_spins(self, n: int, driver: str) -> "CouplingStore":
+        """A prebuilt store must match the problem it is reused against."""
+        if self.num_spins != n:
+            raise ValueError(f"prebuilt CouplingStore is for N="
+                             f"{self.num_spins} but {driver} got a problem "
+                             f"with N={n}")
+        return self
+
+    def require(self, supported: Sequence[str], driver: str) -> "CouplingStore":
+        """Raise if this store's tier is served by another path."""
+        if self.fmt not in tuple(supported):
+            raise ValueError(
+                f"coupling_format={self.fmt!r} is not supported by {driver} "
+                f"(supported: {tuple(supported)})")
+        return self
+
+
+def measure_host_build(thunk):
+    """Run a host-side build step under wall-clock and tracemalloc peak
+    accounting. Returns ``(result, {"seconds", "peak_bytes"})``;
+    ``peak_bytes`` is the peak additional traced host allocation (Python and
+    numpy; tensors made from numpy without a copy are counted there)."""
+    was_tracing = tracemalloc.is_tracing()
+    if not was_tracing:
+        tracemalloc.start()
+    try:
+        base, _ = tracemalloc.get_traced_memory()
+        tracemalloc.reset_peak()
+        t0 = time.perf_counter()
+        result = thunk()
+        seconds = time.perf_counter() - t0
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        if not was_tracing:
+            tracemalloc.stop()
+    return result, {"seconds": seconds, "peak_bytes": int(max(peak - base, 0))}
+
+
+def timed_build(couplings, fmt: Optional[str] = "auto", *,
+                num_planes: Optional[int] = None):
+    """:meth:`CouplingStore.build` under :func:`measure_host_build`."""
+    return measure_host_build(
+        lambda: CouplingStore.build(couplings, fmt, num_planes=num_planes))

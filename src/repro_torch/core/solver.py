@@ -55,9 +55,11 @@ class SolveResult(NamedTuple):
 
 
 def solve(problem: ising.IsingProblem, seed, config: SolverConfig,
-          backend: str = "fused", *, device=None) -> SolveResult:
-    """Anneal ``problem`` from ``seed``. Only ``backend="fused"`` is served;
-    ``device`` as in :func:`repro_torch.device.resolve_device`."""
+          backend: str = "fused", *, store=None, device=None) -> SolveResult:
+    """Anneal ``problem`` from ``seed``. Only ``backend="fused"`` is served.
+    ``store`` takes a prebuilt ``core.coupling.CouplingStore`` so repeated
+    solves of one instance skip the resolve → encode; ``device`` as in
+    :func:`repro_torch.device.resolve_device`."""
     if backend != "fused":
         where = _LATER_BACKENDS.get(backend)
         if where is None:
@@ -66,12 +68,14 @@ def solve(problem: ising.IsingProblem, seed, config: SolverConfig,
             f"backend={backend!r} is not ported yet (ROADMAP {where})")
     from ..kernels.ops import fused_anneal
 
-    return fused_anneal(problem, seed, config, device=device)
+    return fused_anneal(problem, seed, config, store=store, device=device)
 
 
 def solve_many(problem: ising.IsingProblem, seeds, config: SolverConfig,
-               backend: str = "fused", *, device=None) -> SolveResult:
-    """Independent runs, one per seed, stacked on a new leading axis."""
-    runs = [solve(problem, int(s), config, backend, device=device)
-            for s in seeds]
+               backend: str = "fused", *, store=None,
+               device=None) -> SolveResult:
+    """Independent runs, one per seed, stacked on a new leading axis; a
+    prebuilt ``store`` is encoded once and reused by every run."""
+    runs = [solve(problem, int(s), config, backend, store=store,
+                  device=device) for s in seeds]
     return SolveResult(*(torch.stack(field) for field in zip(*runs)))

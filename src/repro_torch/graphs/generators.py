@@ -2,7 +2,8 @@
 
 Numpy code kept identical to the reference, so the same seed gives
 bit-identical weights: K<N> is the complete graph with uniform ±1 couplings
-(the paper's K2000, §V-A2) and er<N> the G(n, m) Erdős–Rényi family.
+(the paper's K2000, §V-A2), er<N> the G(n, m) Erdős–Rényi family, and
+:func:`sparse_bipolar_edges` the same family as an edge list, dense-J-free.
 """
 from __future__ import annotations
 
@@ -44,3 +45,18 @@ def complete_bipolar(n: int, seed: int = 0, name: str = "K") -> MaxCutInstance:
     mask = np.ones((n, n), np.float32) - np.eye(n, dtype=np.float32)
     w = _signed_weights(rng, mask)
     return MaxCutInstance(weights=w, name=f"{name}{n}")
+
+
+def sparse_bipolar_edges(n: int, num_edges: int, seed: int = 0):
+    """G(n, m) with ±1 weights as a canonical ``core.ising.EdgeList``, with
+    no (n, n) array: endpoints are sampled with replacement, deduplicated,
+    then signed, so the realized edge count is ≤ ``num_edges``."""
+    from ..core.ising import EdgeList
+
+    rng = _rng(seed)
+    i = rng.integers(0, n, size=num_edges, dtype=np.int64)
+    j = rng.integers(0, n - 1, size=num_edges, dtype=np.int64)
+    j = np.where(j >= i, j + 1, j)  # uniform over off-diagonal pairs
+    key = np.unique(np.minimum(i, j) * np.int64(n) + np.maximum(i, j))
+    w = rng.choice(np.array([-1, 1], np.int64), size=key.size)
+    return EdgeList.create(key // n, key % n, w, n)

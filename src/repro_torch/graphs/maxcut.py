@@ -8,7 +8,7 @@ import dataclasses
 
 import numpy as np
 
-from ..core.ising import IsingProblem
+from ..core.ising import EdgeList, IsingProblem
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +42,15 @@ def maxcut_to_ising(instance: MaxCutInstance, device=None) -> IsingProblem:
     :func:`cut_from_energy`)."""
     w = np.asarray(instance.weights, np.float32)
     return IsingProblem.create(J=-w, h=None, offset=0.0, device=device)
+
+
+def maxcut_edges_to_ising(weight_edges: EdgeList) -> IsingProblem:
+    """Dense-J-free counterpart of :func:`maxcut_to_ising`: an ``EdgeList``
+    of weights w → the edge-list J = −w problem (h = 0, offset 0)."""
+    if not isinstance(weight_edges, EdgeList):
+        raise TypeError(f"maxcut_edges_to_ising needs an EdgeList of weights, "
+                        f"got {type(weight_edges).__name__}")
+    return IsingProblem.create_sparse(weight_edges.negated())
 
 
 def cut_from_energy(instance: MaxCutInstance, ising_energy) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Carry the JAX package's problems, configs and fused state into the port.
+"""Carry the JAX package's problems, planes, configs and fused state into the
+port.
 
 Everything crosses as numpy arrays and plain Python values, so this module
 imports neither ``jax`` nor ``repro``: a test converts with ``np.asarray``
@@ -9,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.ising import IsingProblem
+from .core.bitplane import BitPlanes
+from .core.ising import EdgeList, IsingProblem
 from .core.schedules import Schedule
 from .core.solver import SolverConfig
 
@@ -22,6 +24,30 @@ def problem_from_numpy(couplings, fields, offset: float = 0.0,
     """An ``IsingProblem`` with the reference's J, h and offset."""
     return IsingProblem.create(np.asarray(couplings), np.asarray(fields),
                                offset=float(offset), device=device)
+
+
+def edges_from_numpy(rows, cols, weights, num_spins: int) -> EdgeList:
+    """An ``EdgeList`` from the reference's canonical COO arrays (``rows``,
+    ``cols``, ``weights`` of a JAX ``EdgeList``)."""
+    return EdgeList.create(np.asarray(rows), np.asarray(cols),
+                           np.asarray(weights), int(num_spins))
+
+
+def sparse_problem_from_numpy(rows, cols, weights, num_spins: int,
+                              fields=None, offset: float = 0.0,
+                              device=None) -> IsingProblem:
+    """An edge-list ``IsingProblem`` with the reference's edges, h and
+    offset; no (N, N) array is made."""
+    return IsingProblem.create_sparse(
+        edges_from_numpy(rows, cols, weights, num_spins),
+        None if fields is None else np.asarray(fields), offset=float(offset),
+        device=device)
+
+
+def planes_from_numpy(pos, neg, num_spins: int, device=None) -> BitPlanes:
+    """``BitPlanes`` with the reference's (B, N, W) uint32 plane words."""
+    return BitPlanes.from_numpy(np.asarray(pos), np.asarray(neg), num_spins,
+                                device=device)
 
 
 def config_from_dict(d: dict) -> SolverConfig:

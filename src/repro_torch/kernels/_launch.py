@@ -19,14 +19,15 @@ class LaunchCounter:
         return f"LaunchCounter({self.name!r}, count={self.count})"
 
 
-def check_operands(device: torch.device, operands) -> None:
-    """Raise unless every ``(name, tensor, shape)`` is a contiguous float32
-    tensor of that shape on ``device`` — all a kernel takes."""
+def check_operands(device: torch.device, operands,
+                   dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every ``(name, tensor, shape)`` is a contiguous tensor of
+    ``dtype`` and that shape on ``device`` — all a kernel takes."""
     for name, x, shape in operands:
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, expected {device}")
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32, got "
+        if x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype}, got "
                              f"{x.dtype} (contiguous={x.is_contiguous()})")
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import rng
+from ..core.bitplane import WORD_BITS, as_uint32
 
 #: Widest lane block of the two-level roulette (the JAX package's value).
 MAX_LANE = 128
@@ -145,3 +146,69 @@ def roulette_pick(p_all: torch.Tensor, u_roulette: torch.Tensor, lane: int):
 def site_from_uniform(u01: torch.Tensor, n: int) -> torch.Tensor:
     """Random-scan site pick — the canonical ``core.rng`` rescaling."""
     return rng.index_from_uniform(u01, n).to(torch.int64)
+
+
+def decode_bitplane_rows(pos: torch.Tensor, neg: torch.Tensor,
+                         n: int) -> torch.Tensor:
+    """Packed signed bit-plane words → f32 coupling rows (Eq. 13).
+
+    ``pos``/``neg``: (B, ..., W) int32-held words of one J row per plane.
+    Returns (..., n) float32, J_row = Σ_b 2^b (bits(pos_b) − bits(neg_b)),
+    LSB-first, summed plane by plane in b order; the values are small
+    integers, so the row is exact.
+    """
+    shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=pos.device)
+
+    def expand(words):  # (..., W) -> (..., W·32) {0,1}, LSB-first
+        bits = (as_uint32(words)[..., :, None] >> shifts) & 1
+        return bits.reshape(words.shape[:-1] + (-1,))
+
+    row = torch.zeros(pos.shape[1:-1] + (pos.shape[-1] * WORD_BITS,),
+                      dtype=torch.float32, device=pos.device)
+    for b in range(pos.shape[0]):
+        diff = expand(pos[b]) - expand(neg[b])
+        row = row + float(1 << b) * diff.to(torch.float32)
+    return row[..., :n]
+
+
+def coalesce_rows(j: torch.Tensor):
+    """Duplicate structure of one step's (R,) selected sites: the unique-row
+    fetch plan of the streamed tier. Returns ``(nu, usite, uo, fetched)``:
+
+    * ``nu``      — () int32, the number of unique sites;
+    * ``usite``   — (R,) int32, the m-th unique site in first-occurrence
+                    order for m < nu, site 0's value past nu;
+    * ``uo``      — (R,) int32, each replica's index into the unique list
+                    (``usite[uo[r]] == j[r]``);
+    * ``fetched`` — (R,) int32, 1 on the lowest-index replica of each
+                    duplicate group, 0 on the others (``sum == nu``).
+    """
+    r = j.shape[0]
+    ids = torch.arange(r, dtype=torch.int32, device=j.device)
+    rr = ids[:, None].expand(r, r)
+    cc = ids[None, :].expand(r, r)
+    eq = j[:, None] == j[None, :]
+    first_idx = torch.where(eq, cc, torch.full_like(cc, r)).min(dim=1).values
+    is_first = first_idx == ids
+    fetched = is_first.to(torch.int32)
+    uo_first = ((cc <= rr) & is_first[None, :]).sum(dim=1).to(torch.int32) - 1
+    uo = torch.where(cc == first_idx[:, None], uo_first[None, :],
+                     torch.zeros_like(cc)).sum(dim=1).to(torch.int32)
+    nu = fetched.sum().to(torch.int32)
+    jj = j.to(torch.int32)
+    usite = torch.where((rr == uo_first[None, :]) & is_first[None, :],
+                        jj[None, :], torch.zeros_like(cc)).sum(dim=1)
+    usite = torch.where(ids < nu, usite, usite[0]).to(torch.int32)
+    return nu, usite, uo, fetched
+
+
+def rows_fetched_step(j: torch.Tensor, block_r: int,
+                      coalesce: bool) -> torch.Tensor:
+    """(R,) int32 rows one step fetches per replica: 1 each, or, coalesced,
+    the ``fetched`` of :func:`coalesce_rows` over each group of
+    ``fit_block(R, block_r)`` consecutive replicas."""
+    r = j.shape[0]
+    if not coalesce:
+        return torch.ones(r, dtype=torch.int32, device=j.device)
+    br = fit_block(r, block_r)
+    return torch.cat([coalesce_rows(g)[3] for g in j.split(br)])

@@ -1,19 +1,20 @@
-// Dense dual-mode MCMC sweep for Hopper (sm_90a).
+// Dual-mode MCMC sweep for Hopper (sm_90a), on a dense J or packed planes.
 //
-// Replaces the TPU kernel repro/kernels/sweep.py: mcmc_sweep (body _kernel,
-// coupling="dense"). It runs T asynchronous single-spin steps for each of R
-// replicas: RSA (random-scan site, Metropolis-Glauber accept) or RWA (the
-// two-level roulette over every site's flip probability, with the RSA
-// fallback on a degenerate total, or the uniformized null transition), then
-// e += accept*dE, u <- u - 2*accept*s_old*J[j,:], the spin flip and the
-// copy of s into best_s when e improves.
+// Replaces the TPU kernel repro/kernels/sweep.py: mcmc_sweep (body _kernel)
+// with coupling="dense", "bitplane" and "bitplane_hbm". It runs T
+// asynchronous single-spin steps for each of R replicas: RSA (random-scan
+// site, Metropolis-Glauber accept) or RWA (the two-level roulette over every
+// site's flip probability, with the RSA fallback on a degenerate total, or
+// the uniformized null transition), then e += accept*dE,
+// u <- u - 2*accept*s_old*J[j,:], the spin flip and the copy of s into
+// best_s when e improves.
 //
 // What bounds it on this card: the T steps of one replica form a serial
-// chain, and each step reads one J row (N*4 bytes) that it needs before the
-// next step can select. At R=8 that is 8 blocks of a 132-SM card, so the
-// pace is set by the latency of one step (a row read from L2, where the
-// 16 MB K2000 J stays resident, plus the block-wide barriers), not by the
-// bytes: R*N*4 bytes a step is 64 KB at K2000, a few ns at 3.35 TB/s.
+// chain, and each step reads one J row that it needs before the next step
+// can select. At R=8 that is 8 blocks of a 132-SM card, so the pace is set
+// by the latency of one step (a row read from L2 or HBM plus the
+// block-wide barriers), not by the bytes: R*N*4 bytes a step is 64 KB at
+// K2000, a few ns at 3.35 TB/s; a B=1 plane row is 16x smaller still.
 //
 // What the design does about it: one thread block per replica keeps the
 // replica's u, s and best_s in shared memory for the whole chunk (the
@@ -23,12 +24,39 @@
 // unchanged. The RWA block sums are computed by all warps; the two prefix
 // scans and <=-counts of the roulette run in one warp.
 //
+// Plane tiers: row j is decoded where it is used. A warp covers the 1024
+// spins of 32 packed words: it reads those words with one coalesced load
+// per plane and sign, a shuffle broadcasts each word to the warp, and lane
+// L takes bit L for spin 32*word + L, so the u update stays conflict-free
+// in shared memory. The decoded coupling
+// sum_b 2^b (bit_pos - bit_neg) is a small integer and coef is 0 or +-2, so
+// u - coef*row is the same exact operation as on the dense tier and the
+// trajectories of the three tiers are bitwise equal. The TPU kernel's
+// double buffer (replica r+1's row DMA overlapping replica r's decode
+// inside one grid step) has no counterpart here: the replicas are separate
+// blocks that run concurrently.
+//
+// rows_fetched on the coalesced tier (bitplane_hbm with coalesce): the JAX
+// kernel fetches each step's unique rows once per block of br replicas and
+// charges each to the lowest replica selecting it. Here the br replicas of
+// a group form one thread-block cluster. Each block logs its sites in
+// shared memory; every kLogSteps steps (and after the last) the cluster
+// meets at a barrier, each block reads the lower-ranked blocks' logs
+// through distributed shared memory and counts the steps whose site none
+// of them chose, and a second barrier lets the logs be reused. A barrier
+// per step would make the replicas walk in lockstep, so each step would
+// last as long as the group's slowest (an accepted RSA flip against a
+// rejected one); a barrier per window costs that only once per window.
+//
 // Arithmetic: build with -fmad=false, so no multiply-add is contracted
 // except the explicit __fmaf_rn of the PWL table, which the JAX reference
 // also rounds once (XLA's CPU compiler contracts it). Division is the
 // IEEE-rounded __fdiv_rn. The roulette adds block and lane sums in another
 // order than the reference's cumsum, so RWA picks agree except near ties.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -36,6 +64,45 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLane = 128;
 constexpr unsigned kFull = 0xffffffffu;
+// Steps between the coalesced tier's cluster barriers (its site log).
+constexpr int kLogSteps = 64;
+
+// Where the couplings live: a dense (N, N) f32 J, or (B, N, W) uint32
+// pos/neg planes.
+enum StoreKind { kDense = 0, kPlanes = 1, kPlanesCoalesced = 2 };
+
+struct Store {
+  const float* J;
+  const unsigned* pos;
+  const unsigned* neg;
+  int B, W;
+};
+
+// Row j's couplings to the 32 spins of words w0 .. w0+31, decoded in
+// registers by one warp: lane L loads word w0+L of each plane and sign (one
+// coalesced load per warp), and a shuffle hands word w0+k to every lane, so
+// lane L gets J[j, 32*(w0+k) + L] in row[k] — sum_b 2^b (bit(pos_b) -
+// bit(neg_b)), added in plane order like common.decode_bitplane_rows.
+__device__ __forceinline__ void plane_couplings(const Store& st, int j, int N,
+                                                int w0, float row[32]) {
+  const int lane = threadIdx.x & 31;
+  const int w = w0 + lane;
+  const bool valid = w * 32 < N;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) row[k] = 0.f;
+  for (int b = 0; b < st.B; ++b) {
+    const size_t at = ((size_t)b * N + j) * st.W + w;
+    const unsigned p = valid ? __ldg(st.pos + at) : 0u;
+    const unsigned q = valid ? __ldg(st.neg + at) : 0u;
+    const float scale = (float)(1 << b);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const int d = (int)((__shfl_sync(kFull, p, k) >> lane) & 1u) -
+                    (int)((__shfl_sync(kFull, q, k) >> lane) & 1u);
+      row[k] = __fadd_rn(row[k], __fmul_rn(scale, (float)d));
+    }
+  }
+}
 
 struct Pwl {
   const float* icpt;   // (S,) in shared memory
@@ -118,9 +185,31 @@ __device__ __forceinline__ float warp_prefix_before(const float* x, int m,
   return at == 0 ? 0.f : v;
 }
 
-template <bool RWA, bool UNIFORMIZED, bool PWL>
+// Adds to *count the logged steps whose site no lower-ranked block of the
+// cluster chose at the same step (the rows this block fetches). All blocks
+// of the cluster call it at the same steps; the first barrier publishes
+// every log, the second keeps each log until its peers have read it (and
+// keeps a block from leaving while its shared memory is read).
+__device__ void count_unique_rows(const int* log, int steps, int* count) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rank = (int)cluster.block_rank();
+  int mine = 0;
+  for (int k = threadIdx.x; k < steps; k += kThreads) {
+    bool dup = false;
+    for (int q = 0; q < rank && !dup; ++q)
+      dup = cluster.map_shared_rank(log, q)[k] == log[k];
+    mine += !dup;
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    mine += __shfl_xor_sync(kFull, mine, off);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(count, mine);
+  cluster.sync();
+}
+
+template <bool RWA, bool UNIFORMIZED, bool PWL, int STORE>
 __global__ void __launch_bounds__(kThreads) sweep_kernel(
-    const float* __restrict__ J, const float* __restrict__ u0,
+    const Store st, const float* __restrict__ u0,
     const float* __restrict__ s0, const float* __restrict__ e0,
     const float* __restrict__ unif, const float* __restrict__ temps,
     const float* __restrict__ pwl_in, int segs, float* __restrict__ u_out, float* __restrict__ s_out,
@@ -136,8 +225,11 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
   const int G = N / lane;
   float* lanebuf = blk + (RWA ? G : 0);          // kMaxLane weights
 
-  __shared__ int sh_j, sh_accept, sh_better, sh_g;
-  __shared__ float sh_coef, sh_new_sj, sh_residual, sh_total;
+  __shared__ int sh_j, sh_accept, sh_better;
+  __shared__ float sh_coef, sh_new_sj;
+  __shared__ int sh_log[kLogSteps];  // this window's sites, for the peers
+  __shared__ int sh_rf;              // rows this block fetched
+  constexpr bool kCoalesce = STORE == kPlanesCoalesced;
 
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
@@ -157,6 +249,7 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
   }
   float e = e0[r], be = e;  // meaningful in thread 0
   int nf = 0;
+  if (tid == 0) sh_rf = 0;
   __syncthreads();
 
   const int warp = tid >> 5, wl = tid & 31;
@@ -232,21 +325,44 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
       sh_better = better;
       sh_coef = __fmul_rn(__fmul_rn(2.f, acc), s_old);
       sh_new_sj = __fmul_rn(s_old, __fsub_rn(1.f, __fmul_rn(2.f, acc)));
+      if constexpr (kCoalesce) sh_log[t % kLogSteps] = j;
     }
     __syncthreads();
     // A rejected step leaves e, and so best, unchanged: nothing to apply.
     if (sh_accept) {
-      const float* row = J + (size_t)sh_j * N;
       const float coef = sh_coef;
       const int j = sh_j;
       const bool better = sh_better;
-      for (int i = tid; i < N; i += kThreads) {
-        u[i] = __fsub_rn(u[i], __fmul_rn(coef, __ldg(row + i)));
-        if (i == j) s[i] = sh_new_sj;
-        if (better) bs[i] = s[i];
+      if constexpr (STORE == kDense) {
+        for (int i = tid; i < N; i += kThreads) {
+          const float row = __ldg(st.J + (size_t)j * N + i);
+          u[i] = __fsub_rn(u[i], __fmul_rn(coef, row));
+          if (i == j) s[i] = sh_new_sj;
+          if (better) bs[i] = s[i];
+        }
+      } else {
+        // Warp w takes words w*32 .. w*32+31 (1024 spins), then the next
+        // 8192 spins; lane L updates spin 32*word + L.
+        for (int w0 = warp * 32; w0 * 32 < N; w0 += kWarps * 32) {
+          float row[32];
+          plane_couplings(st, j, N, w0, row);
+#pragma unroll
+          for (int k = 0; k < 32; ++k) {
+            const int i = (w0 + k) * 32 + wl;
+            if (i < N) {
+              u[i] = __fsub_rn(u[i], __fmul_rn(coef, row[k]));
+              if (i == j) s[i] = sh_new_sj;
+              if (better) bs[i] = s[i];
+            }
+          }
+        }
       }
     }
     __syncthreads();
+    if constexpr (kCoalesce) {
+      if ((t + 1) % kLogSteps == 0 || t + 1 == T)
+        count_unique_rows(sh_log, t % kLogSteps + 1, &sh_rf);
+    }
   }
 
   for (int i = tid; i < N; i += kThreads) {
@@ -258,23 +374,74 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
     e_out[r] = e;
     be_out[r] = be;
     nf_out[r] = nf;
-    rf_out[r] = T;  // one row per replica per step, as the TPU kernel counts
+    // One row per replica per step, or the cluster's unique rows.
+    rf_out[r] = kCoalesce ? sh_rf : T;
   }
 }
 
-template <bool RWA, bool UNIFORMIZED, bool PWL>
-int launch(const float* J, const float* u0, const float* s0, const float* e0,
+template <bool RWA, bool UNIFORMIZED, bool PWL, int STORE>
+int launch(const Store& st, const float* u0, const float* s0, const float* e0,
            const float* unif, const float* temps, const float* pwl_in,
            int segs, float* u_out, float* s_out, float* e_out, float* be_out,
            float* bs_out, int* nf_out, int* rf_out, int R, int N, int T,
-           int lane, size_t smem, cudaStream_t stream) {
-  auto kernel = sweep_kernel<RWA, UNIFORMIZED, PWL>;
+           int lane, int cluster, size_t smem, cudaStream_t stream) {
+  auto kernel = sweep_kernel<RWA, UNIFORMIZED, PWL, STORE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<R, kThreads, smem, stream>>>(
-      J, u0, s0, e0, unif, temps, pwl_in, segs, u_out, s_out, e_out, be_out, bs_out, nf_out, rf_out, R, N, T, lane);
+  if constexpr (STORE == kPlanesCoalesced) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(R);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, st, u0, s0, e0, unif, temps,
+                             pwl_in, segs, u_out, s_out, e_out, be_out,
+                             bs_out, nf_out, rf_out, R, N, T, lane);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kernel<<<R, kThreads, smem, stream>>>(
+        st, u0, s0, e0, unif, temps, pwl_in, segs, u_out, s_out, e_out,
+        be_out, bs_out, nf_out, rf_out, R, N, T, lane);
+  }
   return (int)cudaGetLastError();
+}
+
+template <int STORE>
+int dispatch(const Store& st, const float* u0, const float* s0,
+             const float* e0, const float* unif, const float* temps,
+             const float* pwl_in, int segs, float* u_out, float* s_out,
+             float* e_out, float* be_out, float* bs_out, int* nf_out,
+             int* rf_out, int R, int N, int T, int rwa, int uniformized,
+             int lane, int cluster, size_t smem, cudaStream_t st_) {
+  const bool pwl = pwl_in != nullptr;
+#define SNOWBALL_LAUNCH(A, B, C)                                              \
+  return launch<A, B, C, STORE>(st, u0, s0, e0, unif, temps, pwl_in, segs,    \
+                                u_out, s_out, e_out, be_out, bs_out, nf_out,  \
+                                rf_out, R, N, T, lane, cluster, smem, st_)
+  if (!rwa) {
+    if (pwl) SNOWBALL_LAUNCH(false, false, true);
+    SNOWBALL_LAUNCH(false, false, false);
+  }
+  if (uniformized) {
+    if (pwl) SNOWBALL_LAUNCH(true, true, true);
+    SNOWBALL_LAUNCH(true, true, false);
+  }
+  if (pwl) SNOWBALL_LAUNCH(true, false, true);
+  SNOWBALL_LAUNCH(true, false, false);
+#undef SNOWBALL_LAUNCH
+}
+
+bool bad_args(int R, int N, int T, int lane, const float* pwl_in, int segs) {
+  return R <= 0 || N <= 0 || T < 0 || lane <= 0 || lane > kMaxLane ||
+         N % lane != 0 || (pwl_in != nullptr && segs <= 0);
 }
 
 }  // namespace
@@ -288,10 +455,9 @@ size_t snowball_sweep_smem_bytes(int N, int lane, int segs, int rwa) {
   return floats * sizeof(float);
 }
 
-// T steps for R replicas. pwl_in packs the PWL table as icpt[segs],
-// slope[segs], z_lo, z_hi, inv_step; pwl_in == nullptr selects the exact
-// sigmoid.
-// Returns cudaGetLastError() of the launch (0 on success).
+// T steps for R replicas on a dense J. pwl_in packs the PWL table as
+// icpt[segs], slope[segs], z_lo, z_hi, inv_step; pwl_in == nullptr selects
+// the exact sigmoid. Returns the launch's CUDA error (0 on success).
 int snowball_sweep_dense(const float* J, const float* u0, const float* s0,
                          const float* e0, const float* unif,
                          const float* temps, const float* pwl_in, int segs,
@@ -299,28 +465,45 @@ int snowball_sweep_dense(const float* J, const float* u0, const float* s0,
                          float* e_out, float* be_out, float* bs_out,
                          int* nf_out, int* rf_out, int R, int N, int T,
                          int rwa, int uniformized, int lane, void* stream) {
-  if (R <= 0 || N <= 0 || T < 0 || lane <= 0 || lane > kMaxLane ||
-      N % lane != 0)
+  if (bad_args(R, N, T, lane, pwl_in, segs)) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      snowball_sweep_smem_bytes(N, lane, pwl_in ? segs : 0, rwa);
+  const Store st{J, nullptr, nullptr, 0, 0};
+  return dispatch<kDense>(st, u0, s0, e0, unif, temps, pwl_in, segs, u_out,
+                          s_out, e_out, be_out, bs_out, nf_out, rf_out, R, N,
+                          T, rwa, uniformized, lane, 0, smem,
+                          (cudaStream_t)stream);
+}
+
+// The same on (B, N, W) uint32 pos/neg planes. cluster > 0 groups that many
+// consecutive replicas (a divisor of R, at most 8) into one thread-block
+// cluster and counts rows_fetched as the group's unique rows per step;
+// cluster == 0 counts one row per replica per step.
+int snowball_sweep_planes(const unsigned* pos, const unsigned* neg, int B,
+                          int W, const float* u0, const float* s0,
+                          const float* e0, const float* unif,
+                          const float* temps, const float* pwl_in, int segs,
+                          float* u_out, float* s_out, float* e_out,
+                          float* be_out, float* bs_out, int* nf_out,
+                          int* rf_out, int R, int N, int T, int rwa,
+                          int uniformized, int lane, int cluster,
+                          void* stream) {
+  if (bad_args(R, N, T, lane, pwl_in, segs) || B <= 0 || B > 30 ||
+      W * 32 < N || cluster < 0 || cluster > 8 ||
+      (cluster > 0 && R % cluster != 0))
     return (int)cudaErrorInvalidValue;
-  const bool pwl = pwl_in != nullptr;
-  if (pwl && segs <= 0) return (int)cudaErrorInvalidValue;
-  size_t smem = snowball_sweep_smem_bytes(N, lane, pwl ? segs : 0, rwa);
-  cudaStream_t st = (cudaStream_t)stream;
-#define SNOWBALL_LAUNCH(A, B, C)                                              \
-  return launch<A, B, C>(J, u0, s0, e0, unif, temps, pwl_in, segs, u_out,     \
-                         s_out, e_out, be_out, bs_out, nf_out, rf_out, R, N,  \
-                         T, lane, smem, st)
-  if (!rwa) {
-    if (pwl) SNOWBALL_LAUNCH(false, false, true);
-    SNOWBALL_LAUNCH(false, false, false);
-  }
-  if (uniformized) {
-    if (pwl) SNOWBALL_LAUNCH(true, true, true);
-    SNOWBALL_LAUNCH(true, true, false);
-  }
-  if (pwl) SNOWBALL_LAUNCH(true, false, true);
-  SNOWBALL_LAUNCH(true, false, false);
-#undef SNOWBALL_LAUNCH
+  const size_t smem =
+      snowball_sweep_smem_bytes(N, lane, pwl_in ? segs : 0, rwa);
+  const Store st{nullptr, pos, neg, B, W};
+  if (cluster > 0)
+    return dispatch<kPlanesCoalesced>(
+        st, u0, s0, e0, unif, temps, pwl_in, segs, u_out, s_out, e_out,
+        be_out, bs_out, nf_out, rf_out, R, N, T, rwa, uniformized, lane,
+        cluster, smem, (cudaStream_t)stream);
+  return dispatch<kPlanes>(st, u0, s0, e0, unif, temps, pwl_in, segs, u_out,
+                           s_out, e_out, be_out, bs_out, nf_out, rf_out, R, N,
+                           T, rwa, uniformized, lane, 0, smem,
+                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

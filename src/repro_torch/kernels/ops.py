@@ -1,20 +1,28 @@
 """Fused annealing driver on the CUDA kernels (port of ``repro.kernels.ops``).
 
-``fused_anneal`` is the production solve: replica init (threefry-exact spins,
-u₀ from the local-field kernel, e₀ from ``ising.energy``), then a Python loop
-over chunks — the JAX ``scan`` — with one sweep launch per chunk, uniforms
-from the chunk's ``Salt.SWEEP`` stream and temperatures from the schedule.
+``fused_anneal`` is the production solve: resolve and encode the coupling
+store (``core.coupling.CouplingStore``), replica init (threefry-exact
+spins; u₀ from the local-field kernel on a dense J, or from the popcount
+kernel on the planes with e₀ from ``ising.energy_from_fields``, so no dense
+J is needed), then a Python loop over chunks — the JAX ``scan`` — with one
+sweep launch per chunk, uniforms from the chunk's ``Salt.SWEEP`` stream and
+temperatures from the schedule.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 import torch
 
-from ..core import coupling, ising, rng
+from ..core import ising, rng
+from ..core.bitplane import BitPlanes, pack_spins
+from ..core.coupling import (KERNEL_COUPLING_MODES, PLANE_FORMATS,
+                             CouplingStore)
 from ..core.pwl import pwl_table as _pwl_table
 from ..core.solver import SolverConfig, SolveResult
 from ..device import resolve_device
+from . import bitplane_field as _bitplane_field
 from . import local_field as _local_field
 from . import sweep as _sweep
 
@@ -24,23 +32,51 @@ from . import sweep as _sweep
 ONEHOT_GATHER_MAX_N = 128
 
 
-def init_fields(problem: ising.IsingProblem,
-                spins0: torch.Tensor) -> torch.Tensor:
-    """One-time u₀ = J s + h (the local-field kernel on the card)."""
+def bitplane_field_init(planes: BitPlanes,
+                        spins: torch.Tensor) -> torch.Tensor:
+    """Batched u^(J) from packed planes via the popcount kernel; the spin
+    words are packed to the planes' (possibly padded) word count."""
+    words = pack_spins(spins, planes.num_words)
+    return _bitplane_field.bitplane_field_init(planes.pos, planes.neg, words)
+
+
+def plane_local_fields(planes: BitPlanes,
+                       spins0: torch.Tensor) -> torch.Tensor:
+    """u^(J) = J s from the planes (Eq. 14-16): the popcount kernel on the
+    card, its plain version on the CPU. For integer J it is the exact
+    integer, bit-identical to the dense product."""
+    return bitplane_field_init(planes, spins0)
+
+
+def init_fields(problem: ising.IsingProblem, spins0: torch.Tensor, *,
+                planes: Optional[BitPlanes] = None) -> torch.Tensor:
+    """One-time u₀ = J s + h: the popcount kernel on ``planes``, else the
+    local-field kernel on the dense J."""
+    if planes is not None:
+        return plane_local_fields(planes, spins0) + problem.fields[None, :]
     return _local_field.local_field_init(spins0, problem.couplings,
                                          problem.fields)
 
 
-def fused_init_state(problem: ising.IsingProblem, base: torch.Tensor, r: int):
+def fused_init_state(problem: ising.IsingProblem, base: torch.Tensor, r: int,
+                     *, planes: Optional[BitPlanes] = None):
     """Replica init: the ``(u, s, e, best_e, best_s, num_flips)`` state with
-    the JAX package's ``Salt.REPLICA`` → ``Salt.INIT`` key derivation."""
+    the JAX package's ``Salt.REPLICA`` → ``Salt.INIT`` key derivation. With
+    ``planes`` it is dense-J-free: e₀ comes from ``ising.energy_from_fields``
+    on the plane u^(J), the same contractions ``ising.energy`` runs on J s,
+    so plane-fed and dense-fed replicas start from bitwise-equal energies."""
     n = problem.num_spins
     keys = rng.stream(rng.stream(base, rng.Salt.REPLICA,
                                  torch.arange(r, device=base.device)),
                       rng.Salt.INIT)
     spins0 = ising.random_spins(keys, (n,)).to(torch.float32)
-    u0 = init_fields(problem, spins0)
-    e0 = ising.energy(problem, spins0)
+    if planes is not None:
+        u_j = plane_local_fields(planes, spins0)
+        u0 = u_j + problem.fields[None, :]
+        e0 = ising.energy_from_fields(u_j, spins0, problem.fields)
+    else:
+        u0 = init_fields(problem, spins0)
+        e0 = ising.energy(problem, spins0)
     return (u0, spins0, e0, e0.clone(), spins0.clone(),
             torch.zeros(r, dtype=torch.int32, device=spins0.device))
 
@@ -53,21 +89,28 @@ def solver_pwl_table(config: SolverConfig,
     return _pwl_table(config.pwl_segments, config.pwl_zmax, device=device)
 
 
-def fused_sweep_chunk(couplings: torch.Tensor, state, chunk_key: torch.Tensor,
-                      num_steps: int, temps: torch.Tensor, *, mode: str,
+def fused_sweep_chunk(couplings: Union[torch.Tensor, BitPlanes], state,
+                      chunk_key: torch.Tensor, num_steps: int,
+                      temps: torch.Tensor, *, mode: str,
                       uniformized: bool = False,
                       pwl_table: Optional[torch.Tensor] = None,
-                      gather: str = "dynamic",
+                      gather: str = "dynamic", block_r: int = 8,
+                      coupling: Optional[str] = None, coalesce: bool = True,
                       with_rows_fetched: bool = False):
-    """One sweep chunk plus the best-so-far merge. ``state`` is the 6-tuple
-    ``(u, s, e, best_e, best_s, num_flips)``; returns it updated, and the
-    chunk's rows-fetched count as a second element when asked."""
+    """One sweep chunk plus the best-so-far merge. ``couplings`` is the dense
+    J or a ``BitPlanes``; ``coupling`` names the tier (None: "bitplane" for
+    planes, else "dense"). ``state`` is the 6-tuple ``(u, s, e, best_e,
+    best_s, num_flips)``; returns it updated, and the chunk's rows-fetched
+    count as a second element when asked."""
     u, s, e, be, bs, nf = state
     r = e.shape[0]
+    if coupling is None:
+        coupling = "bitplane" if isinstance(couplings, BitPlanes) else "dense"
     uniforms = rng.uniform01(chunk_key, (num_steps, r, 4))
     u, s, e, ce, cs, cf, rf = _sweep.mcmc_sweep(
         couplings, u, s, e, uniforms, temps, pwl_table, mode=mode,
-        uniformized=uniformized, gather=gather)
+        uniformized=uniformized, gather=gather, coupling=coupling,
+        block_r=block_r, coalesce=coalesce)
     better = ce < be
     state = (u, s, e, torch.where(better, ce, be),
              torch.where(better[:, None], cs, bs), nf + cf)
@@ -89,12 +132,16 @@ def anneal_chunk_plan(config: SolverConfig, chunk_steps: int):
     return chunk_len, num_chunks, rem_steps
 
 
-def anneal_gather(gather: str, n: int) -> str:
-    """Resolve ``gather`` as the JAX package does on the dense tier
-    ("auto" → "onehot" for N ≤ 128). All values run the same kernel."""
+def anneal_gather(store: CouplingStore, gather: str, n: int) -> str:
+    """Resolve ``gather`` as the JAX package does: plane tiers take the row
+    fetch ("onehot" flows through so the sweep raises its dense-only
+    error); the dense tier maps "auto" to "onehot" for N ≤ 128. All dense
+    values run the same kernel."""
     if gather not in _sweep.GATHERS:
         raise ValueError(f"gather must be one of {_sweep.GATHERS}, got "
                          f"{gather!r}")
+    if store.planes is not None:
+        return gather if gather == "onehot" else "dynamic"
     if gather == "auto":
         return "onehot" if n <= ONEHOT_GATHER_MAX_N else "dynamic"
     return gather
@@ -110,43 +157,85 @@ def chunk_temps(config: SolverConfig, c: int, clen: int, chunk_len: int,
     return temps.to(device)
 
 
-def anneal_chunk_step(problem: ising.IsingProblem, state, base: torch.Tensor,
+def anneal_chunk_step(store: CouplingStore, state, base: torch.Tensor,
                       c: int, *, clen: int, chunk_len: int,
-                      config: SolverConfig, gather: str,
+                      config: SolverConfig, gather: str, block_r: int = 8,
                       pwl_table: Optional[torch.Tensor] = None,
                       with_rows_fetched: bool = False):
     """One annealing chunk: the temps of its steps, its ``Salt.SWEEP``
-    stream, and the sweep and merge of :func:`fused_sweep_chunk`."""
-    temps = chunk_temps(config, c, clen, chunk_len, problem.device)
+    stream, and the sweep and merge of :func:`fused_sweep_chunk` on the
+    store's tier."""
+    temps = chunk_temps(config, c, clen, chunk_len, state[0].device)
     return fused_sweep_chunk(
-        problem.couplings, state, rng.stream(base, rng.Salt.SWEEP, c), clen,
-        temps, mode=config.mode, uniformized=config.uniformized,
-        pwl_table=pwl_table, gather=gather,
-        with_rows_fetched=with_rows_fetched)
+        store.kernel_operand, state, rng.stream(base, rng.Salt.SWEEP, c),
+        clen, temps, mode=config.mode, uniformized=config.uniformized,
+        pwl_table=pwl_table, gather=gather, block_r=block_r,
+        coupling=store.fmt, with_rows_fetched=with_rows_fetched)
+
+
+def _store_for(problem: ising.IsingProblem, config: SolverConfig, coupling,
+               num_planes: Optional[int],
+               store: Optional[CouplingStore]) -> CouplingStore:
+    """The store ``fused_anneal`` runs on, with its contract checks."""
+    if store is not None:
+        if coupling is not None:
+            raise ValueError("pass a prebuilt store= or a coupling= override, "
+                             "not both")
+        store.require_num_spins(problem.num_spins, "fused_anneal")
+        if store.dense is not None and store.dense is not problem.couplings:
+            raise ValueError(
+                "prebuilt dense CouplingStore does not hold this problem's "
+                "couplings tensor — the init would run on one J and the sweep "
+                "on another; rebuild the store from problem.couplings")
+    elif isinstance(coupling, BitPlanes):
+        fmt = (config.coupling_format
+               if config.coupling_format in PLANE_FORMATS else "bitplane")
+        store = CouplingStore.from_planes(coupling, fmt)
+    else:
+        store = CouplingStore.build(
+            problem.coupling_source,
+            coupling if coupling is not None else config.coupling_format,
+            num_planes=num_planes)
+    return store.require(KERNEL_COUPLING_MODES, "fused_anneal")
 
 
 def fused_anneal(problem: ising.IsingProblem, seed, config: SolverConfig, *,
-                 chunk_steps: int = 256, gather: str = "dynamic",
+                 chunk_steps: int = 256, block_r: int = 8,
+                 gather: str = "dynamic",
+                 coupling: Union[str, BitPlanes, None] = None,
+                 num_planes: Optional[int] = None,
+                 store: Optional[CouplingStore] = None,
                  device=None) -> SolveResult:
     """Production annealing driver on the fused sweep kernel.
 
     The same modes, PWL or exact flip probability, uniformized RWA,
     ``num_flips``, ``rows_fetched`` and trace cadence as the JAX
-    ``fused_anneal``, seed for seed. ``device`` as in
-    :func:`repro_torch.device.resolve_device`; the problem is moved there.
+    ``fused_anneal``, seed for seed. ``coupling`` overrides
+    ``config.coupling_format`` (a format name, or prebuilt ``BitPlanes``
+    whose tier follows a plane ``config.coupling_format``, else
+    "bitplane"); ``num_planes`` forces B. ``store`` takes a prebuilt
+    ``CouplingStore`` instead (not with ``coupling``); a dense store must
+    hold this problem's couplings tensor itself. An edge-list problem is
+    encoded in O(nnz) and no (N, N) array is made. ``block_r`` is the
+    replica group of the streamed tier's unique-row count. ``device`` as in
+    :func:`repro_torch.device.resolve_device`; the problem and store are
+    moved there.
     """
     if config.flip_mode != "single":
         raise NotImplementedError(
             f"flip_mode={config.flip_mode!r} is not ported yet (ROADMAP "
             "queue 1 item 8: colored flips)")
-    coupling.resolve_format(config.coupling_format)
     dev = resolve_device(device)
+    store = _store_for(problem, config, coupling, num_planes, store)
     problem = problem.to(dev)
+    # A dense store holds the problem's own J: keep one copy on the card.
+    store = (dataclasses.replace(store, dense=problem.couplings)
+             if store.dense is not None else store.to(dev))
     n = problem.num_spins
     r = config.num_replicas
-    gather = anneal_gather(gather, n)
+    gather = anneal_gather(store, gather, n)
     base = rng.fold_in(rng.key(0, device=dev), int(seed))
-    state = fused_init_state(problem, base, r)
+    state = fused_init_state(problem, base, r, planes=store.planes)
     pwl = solver_pwl_table(config, device=dev)
     chunk_len, num_chunks, rem_steps = anneal_chunk_plan(config, chunk_steps)
     rows = torch.zeros(r, dtype=torch.int32, device=dev)
@@ -155,10 +244,10 @@ def fused_anneal(problem: ising.IsingProblem, seed, config: SolverConfig, *,
     if rem_steps:
         plan.append((num_chunks, rem_steps))
     for c, clen in plan:
-        state, rf = anneal_chunk_step(problem, state, base, c, clen=clen,
+        state, rf = anneal_chunk_step(store, state, base, c, clen=clen,
                                       chunk_len=chunk_len, config=config,
-                                      gather=gather, pwl_table=pwl,
-                                      with_rows_fetched=True)
+                                      gather=gather, block_r=block_r,
+                                      pwl_table=pwl, with_rows_fetched=True)
         rows = rows + rf
         if config.trace_every:  # traced plans have no remainder chunk
             trace.append(state[3])

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels on the main path.
 
-Port of ``repro.kernels.ref``'s dense ``local_field_init`` and
-``mcmc_sweep``. The wrappers in ``local_field.py`` and ``sweep.py`` run these
-for CPU tensors; the tests hold them against the JAX package, and
+Port of ``repro.kernels.ref``'s ``local_field_init``,
+``bitplane_field_init`` and ``mcmc_sweep`` (dense J or packed planes). The
+wrappers in ``local_field.py``, ``bitplane_field.py`` and ``sweep.py`` run
+these for CPU tensors; the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
@@ -11,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from ..core import coupling as coupling_store
+from ..core.bitplane import BitPlanes, hamming_fields
 from . import common
 
 
@@ -23,25 +26,53 @@ def local_field_init(spins: torch.Tensor, couplings: torch.Tensor,
             + bias.to(torch.float32))
 
 
-def mcmc_sweep(couplings: torch.Tensor, fields0: torch.Tensor,
+def bitplane_field_init(pos: torch.Tensor, neg: torch.Tensor,
+                        spin_words: torch.Tensor) -> torch.Tensor:
+    """Hamming-weight accumulation (paper Eq. 14-16) over packed planes:
+    pos/neg (B, N, W) and spin_words (R, W) int32-held words → (R, N) f32
+    (``core.bitplane.hamming_fields``)."""
+    return hamming_fields(pos, neg, spin_words)
+
+
+def mcmc_sweep(couplings, fields0: torch.Tensor,
                spins0: torch.Tensor, energy0: torch.Tensor,
                uniforms: torch.Tensor, temps: torch.Tensor,
                pwl_table: Optional[torch.Tensor] = None, *, mode: str = "rsa",
-               uniformized: bool = False, lane: Optional[int] = None):
+               uniformized: bool = False, lane: Optional[int] = None,
+               coupling: Optional[str] = None, block_r: int = 8,
+               coalesce: bool = True):
     """T-step dual-mode sweep over R replicas (paper Alg. 1 inner loop).
 
-    couplings (N, N) dense; fields0/spins0 (R, N); energy0 (R,); uniforms
-    (T, R, 4) f32 (site, accept, roulette, uniformize); temps (T, R);
-    ``pwl_table`` optional (S+1, 3) (None = exact sigmoid). Returns
-    ``(fields, spins, energy, best_energy, best_spins, num_flips,
-    rows_fetched)``; rows_fetched counts one row per replica per step.
+    couplings: (N, N) dense, or a ``BitPlanes`` whose rows are gathered and
+    decoded by ``common.decode_bitplane_rows``. fields0/spins0 (R, N);
+    energy0 (R,); uniforms (T, R, 4) f32 (site, accept, roulette,
+    uniformize); temps (T, R); ``pwl_table`` optional (S+1, 3) (None = exact
+    sigmoid). ``coupling`` names the tier (default: "bitplane" for planes,
+    else "dense"). Returns ``(fields, spins, energy, best_energy, best_spins,
+    num_flips, rows_fetched)``: rows_fetched counts one row per replica per
+    step, or, on a coalescable tier with ``coalesce``, each step's unique
+    sites per group of ``fit_block(R, block_r)`` replicas, charged to the
+    lowest replica selecting each (accepted or not).
     """
     if mode not in ("rsa", "rwa"):
         raise ValueError(f"mode must be 'rsa' or 'rwa', got {mode!r}")
-    n = couplings.shape[0]
+    if isinstance(couplings, BitPlanes):
+        n = couplings.num_spins
+        pos, neg = couplings.pos, couplings.neg
+        coupling = "bitplane" if coupling is None else coupling
+
+        def fetch_rows(j):
+            return common.decode_bitplane_rows(pos[:, j], neg[:, j], n)
+    else:
+        n = couplings.shape[0]
+        J = couplings.to(torch.float32)
+        coupling = "dense" if coupling is None else coupling
+
+        def fetch_rows(j):
+            return J[j]
+    coalesce = coalesce and coupling_store.FORMATS[coupling].coalescable
     r = fields0.shape[0]
     num_steps = uniforms.shape[0]
-    J = couplings.to(torch.float32)
     lane = common.default_lane(n) if lane is None else lane
     rows_idx = torch.arange(r, device=fields0.device)
 
@@ -51,6 +82,7 @@ def mcmc_sweep(couplings: torch.Tensor, fields0: torch.Tensor,
     be = e.clone()
     bs = spins0.clone()
     nf = torch.zeros(r, dtype=torch.int32, device=fields0.device)
+    rf = torch.zeros(r, dtype=torch.int32, device=fields0.device)
     for t in range(num_steps):
         u01 = uniforms[t]
         temp = temps[t]
@@ -76,7 +108,8 @@ def mcmc_sweep(couplings: torch.Tensor, fields0: torch.Tensor,
             de = de_all[rows_idx, j]
         s_old = sf[rows_idx, j]
         acc_f = accept.to(torch.float32)
-        u = u - (2.0 * acc_f * s_old)[:, None] * J[j]
+        u = u - (2.0 * acc_f * s_old)[:, None] * fetch_rows(j)
+        rf = rf + common.rows_fetched_step(j, block_r, coalesce)
         s = s.clone()
         s[rows_idx, j] = torch.where(accept, -s[rows_idx, j], s[rows_idx, j])
         e = e + acc_f * de
@@ -84,5 +117,4 @@ def mcmc_sweep(couplings: torch.Tensor, fields0: torch.Tensor,
         better = e < be
         be = torch.where(better, e, be)
         bs = torch.where(better[:, None], s, bs)
-    rf = torch.full((r,), num_steps, dtype=torch.int32, device=fields0.device)
     return u, s, e, be, bs, nf, rf

@@ -1,10 +1,11 @@
-"""Fused dense dual-mode MCMC sweep: the CUDA kernel and its plain version
-(port of ``repro.kernels.sweep.mcmc_sweep`` on the dense tier).
+"""Fused dual-mode MCMC sweep on a dense J or packed planes: the CUDA kernel
+and its plain version (port of ``repro.kernels.sweep.mcmc_sweep`` with
+``coupling="dense"|"bitplane"|"bitplane_hbm"``).
 
 A CPU tensor goes to the plain version (``ref.mcmc_sweep``); a CUDA tensor
 launches ``csrc/sweep.cu`` or raises. The kernel keeps one replica's u, s
-and best_s in one thread block's shared memory, which sets the port's dense
-ceiling: see :func:`dense_max_n`.
+and best_s in one thread block's shared memory, which sets the port's N
+ceiling on every tier: see :func:`dense_max_n`.
 """
 from __future__ import annotations
 
@@ -14,14 +15,23 @@ from typing import Optional
 
 import torch
 
+from ..core import coupling as coupling_store
+from ..core.bitplane import BitPlanes
 from . import _build, common, ref
 from ._launch import LaunchCounter, check_operands
 
 counter = LaunchCounter("mcmc_sweep")
 
-#: Dynamic shared memory one block may use on Hopper (227 KB, after
-#: ``cudaFuncSetAttribute``).
-MAX_SHARED_BYTES = 232_448
+#: Static shared memory the kernel keeps for itself (the step's scalars and
+#: the coalesced tier's 64-step site log), with room to spare.
+STATIC_SHARED_BYTES = 1024
+
+#: Dynamic shared memory one block may use on Hopper: the 227 KB a block
+#: may hold (after ``cudaFuncSetAttribute``) less the static part.
+MAX_SHARED_BYTES = coupling_store.SHARED_MEMORY_BYTES - STATIC_SHARED_BYTES
+
+#: Largest thread-block cluster the coalesced tier forms (the portable size).
+MAX_CLUSTER = 8
 
 GATHERS = ("dynamic", "onehot", "auto")
 
@@ -36,8 +46,8 @@ def shared_bytes(n: int, lane: int, segs: int, rwa: bool) -> int:
 
 def dense_max_n(rwa: bool = True, segs: int = 64) -> int:
     """Largest N whose sweep state fits one block's shared memory, with the
-    default lane. About 19.3k spins (RSA) — the port's dense ceiling in place
-    of the TPU's VMEM wall at N=2000."""
+    default lane. About 19.3k spins (RSA) — the port's ceiling on every
+    tier, in place of the TPU's VMEM wall at N=2000."""
     n = (MAX_SHARED_BYTES // 4 - 2 * segs) // 3
     while shared_bytes(n, common.default_lane(n), segs, rwa) > MAX_SHARED_BYTES:
         n -= 1
@@ -45,29 +55,39 @@ def dense_max_n(rwa: bool = True, segs: int = 64) -> int:
 
 
 @functools.cache
-def _fn():
+def _fns():
     lib = _build.load("sweep")
-    fn = lib.snowball_sweep_dense
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 7 + [i] + [p] * 7 + [i] * 6 + [p]
-    fn.restype = ctypes.c_int
-    return fn
+    dense = lib.snowball_sweep_dense
+    dense.argtypes = [p] * 7 + [i] + [p] * 7 + [i] * 6 + [p]
+    dense.restype = ctypes.c_int
+    planes = lib.snowball_sweep_planes
+    planes.argtypes = [p, p, i, i] + [p] * 6 + [i] + [p] * 7 + [i] * 7 + [p]
+    planes.restype = ctypes.c_int
+    return dense, planes
 
 
-def mcmc_sweep(couplings: torch.Tensor, fields0: torch.Tensor,
+def mcmc_sweep(couplings, fields0: torch.Tensor,
                spins0: torch.Tensor, energy0: torch.Tensor,
                uniforms: torch.Tensor, temps: torch.Tensor,
                pwl_table: Optional[torch.Tensor] = None, *, mode: str = "rsa",
                uniformized: bool = False, gather: str = "dynamic",
-               lane: Optional[int] = None):
-    """T fused MCMC steps for R replicas on a dense J.
+               coupling: str = "dense", block_r: int = 8,
+               lane: Optional[int] = None, coalesce: bool = True):
+    """T fused MCMC steps for R replicas.
 
-    couplings (N, N); fields0/spins0 (R, N); energy0 (R,); uniforms (T, R, 4)
-    in [0,1) (site, accept, roulette, uniformize); temps (T, R);
-    ``pwl_table`` optional (S+1, 3) (None = exact sigmoid). ``gather`` takes
-    the JAX package's values; on the dense tier they give identical results,
-    and all of them run the same row-fetch kernel. Returns ``(fields, spins,
-    energy, best_energy, best_spins, num_flips, rows_fetched)``.
+    couplings: (N, N) f32 with ``coupling="dense"``, or a ``BitPlanes`` of
+    an integer J with ``coupling="bitplane"|"bitplane_hbm"``. fields0/spins0
+    (R, N); energy0 (R,); uniforms (T, R, 4) in [0,1) (site, accept,
+    roulette, uniformize); temps (T, R); ``pwl_table`` optional (S+1, 3)
+    (None = exact sigmoid). ``gather`` takes the JAX package's values: on the
+    dense tier they give identical results and run the same row-fetch
+    kernel; the plane tiers reject "onehot". ``coalesce`` (the streamed tier
+    only) counts ``rows_fetched`` as each step's unique rows per group of
+    ``fit_block(R, block_r)`` replicas, charged to the lowest replica
+    selecting each; the trajectory does not depend on it. Returns
+    ``(fields, spins, energy, best_energy, best_spins, num_flips,
+    rows_fetched)``.
     """
     if mode not in ("rsa", "rwa"):
         raise ValueError(f"mode must be 'rsa' or 'rwa', got {mode!r}")
@@ -75,22 +95,39 @@ def mcmc_sweep(couplings: torch.Tensor, fields0: torch.Tensor,
         raise ValueError(f"gather must be one of {GATHERS}, got {gather!r}")
     r, n = fields0.shape
     t = uniforms.shape[0]
+    coupling_store.validate_kernel_operand(coupling, couplings, n, gather)
     lane = common.default_lane(n) if lane is None else lane
     if n % lane or lane > common.MAX_LANE:
         raise ValueError(f"N={n} not divisible by lane={lane} (or lane > "
                          f"{common.MAX_LANE})")
+    coalesce = coalesce and coupling_store.FORMATS[coupling].coalescable
     if fields0.device.type == "cpu":
         return ref.mcmc_sweep(couplings, fields0, spins0, energy0, uniforms,
                               temps, pwl_table, mode=mode,
-                              uniformized=uniformized, lane=lane)
+                              uniformized=uniformized, lane=lane,
+                              coupling=coupling, block_r=block_r,
+                              coalesce=coalesce)
     rwa = mode == "rwa"
     dev = fields0.device
-    checks = (("couplings", couplings, (n, n)), ("fields0", fields0, (r, n)),
+    checks = (("fields0", fields0, (r, n)),
               ("spins0", spins0, (r, n)), ("energy0", energy0, (r,)),
               ("uniforms", uniforms, (t, r, 4)), ("temps", temps, (t, r)))
     if pwl_table is not None:
         checks += (("pwl_table", pwl_table, (pwl_table.shape[0], 3)),)
     check_operands(dev, checks)
+    if isinstance(couplings, BitPlanes):
+        shape = (couplings.num_planes, n, couplings.num_words)
+        check_operands(dev, (("planes.pos", couplings.pos, shape),
+                             ("planes.neg", couplings.neg, shape)),
+                       dtype=torch.int32)
+    else:
+        check_operands(dev, (("couplings", couplings, (n, n)),))
+    cluster = common.fit_block(r, block_r) if coalesce else 0
+    if cluster > MAX_CLUSTER:
+        raise ValueError(
+            f"coalesced rows_fetched groups block_r={block_r} replicas in one "
+            f"thread-block cluster; the card's portable limit is "
+            f"{MAX_CLUSTER} (pass block_r <= {MAX_CLUSTER})")
     if pwl_table is not None:
         # icpt[S], slopes[S], z_lo, z_hi, inv_step, computed on the card
         # with the plain version's arithmetic (no host round trip).
@@ -106,9 +143,9 @@ def mcmc_sweep(couplings: torch.Tensor, fields0: torch.Tensor,
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"N={n} needs {need} bytes of shared memory per replica block; "
-            f"the dense sweep's ceiling is {MAX_SHARED_BYTES} "
-            f"(N ≤ {dense_max_n(rwa, segs)} here). Larger N waits for the "
-            "bit-plane tiers (ROADMAP queue 2 items 4-5)")
+            f"the sweep's ceiling is {MAX_SHARED_BYTES} "
+            f"(N ≤ {dense_max_n(rwa, segs)} here). Lifting that ceiling is "
+            "ROADMAP queue 2 item 8")
     u = torch.empty((r, n), dtype=torch.float32, device=dev)
     s = torch.empty((r, n), dtype=torch.float32, device=dev)
     bs = torch.empty((r, n), dtype=torch.float32, device=dev)
@@ -118,12 +155,18 @@ def mcmc_sweep(couplings: torch.Tensor, fields0: torch.Tensor,
     rf = torch.empty((r,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _fn()(couplings.data_ptr(), fields0.data_ptr(),
-                   spins0.data_ptr(), energy0.data_ptr(), uniforms.data_ptr(),
-                   temps.data_ptr(), *pwl_args, u.data_ptr(), s.data_ptr(),
-                   e.data_ptr(), be.data_ptr(), bs.data_ptr(), nf.data_ptr(),
-                   rf.data_ptr(), r, n, t, int(rwa),
-                   int(uniformized and rwa), lane, stream)
+        state = (fields0.data_ptr(), spins0.data_ptr(), energy0.data_ptr(),
+                 uniforms.data_ptr(), temps.data_ptr(), *pwl_args,
+                 u.data_ptr(), s.data_ptr(), e.data_ptr(), be.data_ptr(),
+                 bs.data_ptr(), nf.data_ptr(), rf.data_ptr(), r, n, t,
+                 int(rwa), int(uniformized and rwa), lane)
+        dense_fn, planes_fn = _fns()
+        if isinstance(couplings, BitPlanes):
+            rc = planes_fn(couplings.pos.data_ptr(), couplings.neg.data_ptr(),
+                           couplings.num_planes, couplings.num_words, *state,
+                           cluster, stream)
+        else:
+            rc = dense_fn(couplings.data_ptr(), *state, stream)
     if rc != 0:
         raise RuntimeError(f"mcmc_sweep launch failed: CUDA error {rc}")
     counter.count += 1

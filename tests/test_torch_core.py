@@ -212,13 +212,15 @@ def test_problem_validation_and_unported_paths_raise():
     with pytest.raises(ValueError, match="finite"):
         tising.IsingProblem.create(np.array([[0, np.nan], [np.nan, 0]],
                                             np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="EdgeList"):
         tising.IsingProblem.create_sparse(None)
-    assert tcoupling.resolve_format("auto") == "dense"
-    assert tcoupling.resolve_format("dense") == "dense"
-    for fmt in ("bitplane", "bitplane_hbm", "bitplane_sharded",
-                "bitplane_sharded_2d"):
+    J = np.zeros((4, 4), np.float32)
+    assert tcoupling.resolve_format("auto", J, 4) == "dense"
+    assert tcoupling.resolve_format("dense", J, 4) == "dense"
+    for fmt in ("bitplane", "bitplane_hbm"):
+        assert tcoupling.resolve_format(fmt, J, 4) == fmt
+    for fmt in ("bitplane_sharded", "bitplane_sharded_2d"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcoupling.resolve_format(fmt)
+            tcoupling.resolve_format(fmt, J, 4)
     with pytest.raises(ValueError):
-        tcoupling.resolve_format("sparse")
+        tcoupling.resolve_format("sparse", J, 4)

@@ -9,11 +9,16 @@ runs where only PyTorch is installed. Run them on a GPU machine with
 import pytest
 import torch
 
+import dataclasses
+
 from repro_torch.configs.snowball import default_solver
-from repro_torch.core import ising, pwl, rng
+from repro_torch.core import bitplane, ising, pwl, rng
+from repro_torch.core.coupling import CouplingStore
 from repro_torch.core.solver import solve
-from repro_torch.graphs import complete_bipolar, maxcut_to_ising
-from repro_torch.kernels import common, local_field, parity, ref, sweep
+from repro_torch.graphs import (complete_bipolar, maxcut_to_ising,
+                                sparse_bipolar_edges)
+from repro_torch.kernels import (bitplane_field, common, local_field, ops,
+                                 parity, ref, sweep)
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +126,87 @@ def test_sweep_kernel_rejects_bad_input(cuda_device):
                          torch.zeros((1, 1, 4), device=cuda_device),
                          torch.ones((1, 1), device=cuda_device), mode="rsa",
                          lane=1)
+
+
+def _planes(n, fmt, dev, seed=0):
+    """The sparse G(n, 8n) ±1 instance's store and its dense J."""
+    edges = sparse_bipolar_edges(n, 8 * n, seed=seed)
+    store = CouplingStore.build(edges, fmt).to(dev)
+    J = torch.from_numpy(edges.to_dense()).to(dev)
+    return store.planes, J
+
+
+@pytest.mark.parametrize("n,r,fmt", [(250, 8, "bitplane"),
+                                     (4096, 8, "bitplane_hbm"),
+                                     (1000, 13, "bitplane")])
+def test_bitplane_field_kernel_bitwise(cuda_device, n, r, fmt):
+    planes, J = _planes(n, fmt, cuda_device)
+    s0 = torch.where(torch.rand((r, n), device=cuda_device) < 0.5, 1.0, -1.0)
+    words = bitplane.pack_spins(s0, planes.num_words)
+    before = bitplane_field.counter.count
+    got = bitplane_field.bitplane_field_init(planes.pos, planes.neg, words)
+    assert bitplane_field.counter.count == before + 1
+    assert torch.equal(got, ref.bitplane_field_init(planes.pos, planes.neg,
+                                                    words))
+    assert torch.equal(got, s0 @ J.T)
+
+
+@pytest.mark.parametrize("fmt,coalesce", [("bitplane", True),
+                                          ("bitplane_hbm", True),
+                                          ("bitplane_hbm", False)])
+@pytest.mark.parametrize("mode", ["rsa", "rwa"])
+def test_plane_sweep_kernel_bitwise_or_near_ties(cuda_device, fmt, coalesce,
+                                                 mode):
+    n, r, t = 2048, 8, 128
+    planes, J = _planes(n, fmt, cuda_device, seed=1)
+    key = rng.fold_in(rng.key(0, device=cuda_device), 3)
+    s0 = ising.random_spins(rng.stream(key, rng.Salt.INIT,
+                                       torch.arange(r, device=cuda_device)),
+                            (n,)).to(torch.float32)
+    u0 = ref.local_field_init(s0, J, torch.zeros(n, device=cuda_device))
+    e0 = -0.5 * (s0 * u0).sum(1)
+    unif = rng.uniform01(rng.stream(key, rng.Salt.SWEEP, 0), (t, r, 4))
+    unif[::2, :4, 0] = unif[::2, :1, 0]   # shared sites on even steps
+    temps = torch.linspace(6.0, 0.1, t, device=cuda_device)[:, None].expand(
+        t, r).contiguous()
+    tbl = pwl.pwl_table(device=cuda_device)
+    kw = dict(mode=mode, coupling=fmt, coalesce=coalesce)
+    got = sweep.mcmc_sweep(planes, u0, s0, e0, unif, temps, tbl, **kw)
+    want = ref.mcmc_sweep(planes, u0, s0, e0, unif, temps, tbl, **kw)
+    dense = sweep.mcmc_sweep(J, u0, s0, e0, unif, temps, tbl, mode=mode)
+    if mode == "rsa":
+        for name, a, b in zip(NAMES, got, want):
+            assert torch.equal(a, b), name
+    for name, a, b in zip(NAMES[:6], got, dense):
+        assert torch.equal(a, b), name
+    assert torch.equal(got[0], got[1] @ J.T)
+    if coalesce and fmt == "bitplane_hbm":
+        # RSA sites come from the site uniforms, so the shared ones coalesce.
+        assert int(got[6].sum()) < r * t if mode == "rsa" else \
+            int(got[6].sum()) <= r * t
+    else:
+        assert int(got[6].sum()) == r * t
+
+
+def test_plane_solve_on_card_equals_cpu_and_dense(cuda_device):
+    edges = sparse_bipolar_edges(300, 2400, seed=5)
+    problem = ising.IsingProblem.create_sparse(edges)
+    dense = ising.IsingProblem.create(edges.to_dense())
+    cfg = default_solver(300, 1024, mode="rsa")
+    for fmt in ("bitplane", "bitplane_hbm"):
+        c = dataclasses.replace(cfg, coupling_format=fmt)
+        sweep.counter.reset()
+        bitplane_field.counter.reset()
+        on_card = solve(problem, 1, c, device=cuda_device)
+        assert sweep.counter.count == 4 and bitplane_field.counter.count == 1
+        on_cpu = solve(problem, 1, c, device="cpu")
+        via_dense = solve(dense, 1, dataclasses.replace(
+            cfg, coupling_format="dense"), device=cuda_device)
+        for name, a, b, d in zip(on_card._fields, on_card, on_cpu, via_dense):
+            assert torch.equal(a.cpu(), b), (fmt, name)
+            if name != "rows_fetched":
+                assert torch.equal(a, d), (fmt, name)
+    with pytest.raises(ValueError, match="cluster"):
+        ops.fused_anneal(problem, 1, dataclasses.replace(
+            cfg, coupling_format="bitplane_hbm", num_replicas=16),
+            block_r=16, device=cuda_device)

@@ -85,7 +85,8 @@ def test_unported_backends_and_options_raise():
         solve(problem, 0, dataclasses.replace(cfg, flip_mode="colored"),
               device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(problem, 0, dataclasses.replace(cfg, coupling_format="bitplane"),
+        solve(problem, 0,
+              dataclasses.replace(cfg, coupling_format="bitplane_sharded"),
               device="cpu")
 
 
