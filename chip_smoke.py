@@ -15,7 +15,14 @@ results:
   ``IsingProblem.create_sparse``, 65,536 steps), RSA and RWA, with the
   popcount init; plus the cross-tier check (dense, ``bitplane`` and
   ``bitplane_hbm`` trajectories bitwise equal at both sizes) and per-tier
-  timings.
+  timings;
+* the colored path on the same sparse N=16384 instance (greedy coloring,
+  χ = 11): ``solve(P, 0, replace(default_solver(16384, 64·χ, mode="rsa"),
+  flip_mode="colored", coupling_format="bitplane_hbm"), backend="colored")``,
+  704 steps, with the colored sweep held against its plain version on all
+  three tiers and on a χ=2 torus, the exact sigmoid's near ties counted,
+  the three tiers' colored trajectories bitwise equal and the card's small
+  colored solves equal to the CPU's.
 
 Prints the card, the build, every check and each phase's seconds, a
 ``{"kernels": [...]}`` line with times and bounds, and as the last line
@@ -49,7 +56,8 @@ from repro_torch.core.coupling import (CouplingStore,  # noqa: E402
 from repro_torch.core.schedules import linear  # noqa: E402
 from repro_torch.core.solver import SolverConfig, solve  # noqa: E402
 from repro_torch.graphs import (complete_bipolar, cut_from_energy,  # noqa: E402
-                                maxcut_to_ising, sparse_bipolar_edges)
+                                greedy_coloring, maxcut_to_ising,
+                                sparse_bipolar_edges, torus_grid_edges)
 from repro_torch.kernels import (_build, bitplane_field, common,  # noqa: E402
                                  local_field, ops, ref, sweep)
 from repro_torch.kernels.parity import roulette_near_tie  # noqa: E402
@@ -75,6 +83,12 @@ SPARSE_STEPS = 4 * SPARSE_N        # four sweeps' worth of steps
 #: Steps of the cross-tier solves, and of the short full-width kernel checks.
 TIER_STEPS = 4096
 CHECK_T = 64
+#: Steps of the colored cross-tier solves.
+COLORED_TIER_STEPS = 256
+
+#: flips/s of the single-flip bitplane_hbm main path at N=16384, by mode,
+#: printed beside the colored main path's (one run, one card).
+SINGLE_FLIP_RATE: dict = {}
 
 
 def check(cond, msg: str) -> None:
@@ -155,7 +169,8 @@ def invariants(problem, out, t: int, label: str):
     check(bool(((s == 1) | (s == -1)).all()), f"{label}: spins are ±1")
 
 
-def profile_main_path(problem, config, store=None) -> None:
+def profile_main_path(problem, config, store=None,
+                      backend: str = "fused") -> None:
     """Device time by kernel and the device's busy share of the host wall
     time, over one solve. Prints "not measured" if the trace has no device
     time."""
@@ -165,7 +180,7 @@ def profile_main_path(problem, config, store=None) -> None:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        solve(problem, SEED, config, backend="fused", store=store)
+        solve(problem, SEED, config, backend=backend, store=store)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -427,13 +442,10 @@ def rsa_rows_fetched(n: int, seed: int, config, block_r: int = 8):
     base = rng.fold_in(rng.key(0, device="cuda"), seed)
     r = config.num_replicas
     br = common.fit_block(r, block_r)
-    chunk_len, num_chunks, rem = ops.anneal_chunk_plan(config, 256)
-    plan = [(c, chunk_len) for c in range(num_chunks)]
-    plan += [(num_chunks, rem)] if rem else []
     lower = torch.tril(torch.ones(br, br, dtype=torch.bool, device="cuda"),
                        -1)
     total = torch.zeros(r, dtype=torch.int64, device="cuda")
-    for c, clen in plan:
+    for c, clen in ops.chunk_list(config, 256)[1]:
         unif = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, c), (clen, r, 4))
         j = common.site_from_uniform(unif[..., 0], n).reshape(clen, -1, br)
         dup = ((j[..., :, None] == j[..., None, :]) & lower).any(-1)
@@ -670,6 +682,8 @@ def plane_slice() -> list:
             check(int(res.rows_fetched.sum()) <= R * steps,
                   f"N={n} {mode}: sum(rows_fetched) <= R*steps")
             mains[(fmt, mode)] = launches
+            if fmt == "bitplane_hbm":
+                SINGLE_FLIP_RATE[mode] = flips / wall
     phase_done("main")
 
     print(f"[profile] torch.profiler over one sparse N={SPARSE_N} RSA "
@@ -834,6 +848,324 @@ def plane_slice() -> list:
     return rows
 
 
+def colored_reset_counts() -> None:
+    for c in (sweep.counter, sweep.colored_counter, local_field.counter,
+              bitplane_field.counter):
+        c.reset()
+
+
+def colored_inputs(plan, r: int, t: int, temps, seed: int):
+    """A replica init of the plan's color-sorted problem (the solve's own
+    init), JAX-stream uniforms over the class window, ``temps`` ((t,) or
+    (t, r)) and the class schedule of steps 0..t-1."""
+    base = rng.fold_in(rng.key(0, device="cuda"), seed)
+    u0, s0, e0, *_ = ops.fused_init_state(plan.problem, base, r,
+                                          planes=plan.store.planes)
+    unif = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, 0),
+                         (t, r, plan.window))
+    temps = temps.to("cuda", torch.float32)
+    if temps.dim() == 1:
+        temps = temps[:, None].expand(t, r)
+    sched = ops.colored_class_schedule(plan.wstarts, plan.offsets, plan.sizes,
+                                       torch.arange(t, device="cuda"))
+    return u0, s0, e0, unif, temps.contiguous(), sched
+
+
+def colored_bytes_ops(plan, r: int, t: int, segs: int, out):
+    """What one colored sweep must move and compute for these inputs: u0,
+    s0, e0, uniforms (T·R·S), temps, the schedule and the table in; u, s,
+    best_s, e, best_e, num_flips and rows_fetched out; one coupling row for
+    every slot that some replica of a group accepted (Σ rows_fetched). The
+    operations: a flip probability per window slot, and per accepted
+    (replica, slot) an N-wide multiply and subtract plus, on the plane
+    tiers, the decode at 6 integer operations per plane and spin."""
+    n, win = plan.problem.num_spins, plan.window
+    flips, rows = int(out[5].sum()), int(out[6].sum())
+    if plan.store.planes is not None:
+        b = plan.store.planes.num_planes
+        row_bytes = 4 * 2 * b * plan.store.planes.num_words
+    else:
+        b, row_bytes = 0, 4 * n
+    nbytes = 4 * (2 * r * n + r + t * r * win + t * r + 3 * t
+                  + 3 * (segs + 1) + 3 * r * n + 4 * r) + rows * row_bytes
+    ops_ = t * r * win * PWL_FLOPS + flips * n * (2 + 6 * b)
+    return nbytes, ops_
+
+
+def colored_slice() -> list:
+    """The colored path on the sparse N=16384 anchor: the coloring and the
+    plans, the kernel against its plain version on every tier (and on a
+    χ=2 torus), the 704-step main path on bitplane_hbm, a profile, the
+    cross-tier check, the card against the CPU and the timings. Returns the
+    ``kernels`` row of the colored sweep."""
+    phase_t = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal phase_t
+        now = time.perf_counter()
+        print(f"[phase] colored {name} {now - phase_t:.1f} s")
+        phase_t = now
+
+    names = ("u", "s", "e", "best_e", "best_s", "num_flips", "rows_fetched")
+    print(f"[setup] colored: greedy coloring and plans of the sparse "
+          f"N={SPARSE_N} instance")
+    edges = sparse_bipolar_edges(SPARSE_N, SPARSE_EDGES, seed=SPARSE_N)
+    prob = ising.IsingProblem.create_sparse(edges, device="cuda")
+    t0 = time.perf_counter()
+    coloring = greedy_coloring(edges)
+    color_s = time.perf_counter() - t0
+    plans, plan_s = {}, {}
+    dense_prob = ising.IsingProblem(torch.from_numpy(edges.to_dense()).to(
+        "cuda"), prob.fields)
+    for fmt in ("bitplane_hbm", "bitplane", "dense"):
+        t0 = time.perf_counter()
+        plans[fmt] = ops.ColoredPlan(
+            coloring, dense_prob if fmt == "dense" else prob, fmt).to("cuda")
+        torch.cuda.synchronize()
+        plan_s[fmt] = time.perf_counter() - t0
+    chi = coloring.num_classes
+    plan = plans["bitplane_hbm"]
+    print(f"[setup] chi={chi} class sizes {coloring.class_sizes.tolist()}, "
+          f"max class {coloring.max_class_size}, window S={plan.window}; "
+          f"host coloring {color_s:.4f} s, host plan (permute + encode) "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in plan_s.items()))
+    check(chi == 11 and coloring.max_class_size == 2932
+          and plan.window == 3072, "anchor coloring: chi 11, max class 2932, "
+          "window 3072")
+    coloring.validate_against(edges)   # raises on a monochromatic edge
+    print("  ok: no edge joins two spins of one color")
+    phase_done("setup")
+
+    main_steps = 64 * chi
+    cfg = dataclasses.replace(default_solver(SPARSE_N, main_steps,
+                                             mode="rsa"),
+                              flip_mode="colored",
+                              coupling_format="bitplane_hbm")
+    tbl = ops.solver_pwl_table(cfg, device="cuda")
+    segs = tbl.shape[0] - 1
+    spread = cfg.schedule(torch.linspace(0, main_steps - 1, CHECK_T).to(
+        torch.int32))
+    err = {}
+    print(f"[kernels] colored_sweep against its plain version, N={SPARSE_N}, "
+          f"R={R}, T={CHECK_T}, PWL, temperatures across the anneal")
+    args = colored_inputs(plan, R, CHECK_T, spread, SEED)
+    h = plan.problem.fields
+    for fmt in ("bitplane_hbm", "bitplane", "dense"):
+        op = plans[fmt].store.kernel_operand
+        got = sweep.colored_sweep(op, *args, tbl, coupling=fmt)
+        want = ref.colored_sweep(op, *args, tbl)
+        for name, a, b in zip(names, got, want):
+            check(torch.equal(a, b), f"N={SPARSE_N} {fmt} colored {name} "
+                  "bit-equal to plain")
+        err[fmt] = max_abs_err(got, want)
+        print(f"[kernels] {fmt}: max_abs_err {err[fmt]}, flips "
+              f"{int(got[5].sum())}, rows_fetched {int(got[6].sum())}")
+        if fmt != "dense":
+            plane_invariants(plans[fmt].store.planes, h, got,
+                             f"N={SPARSE_N} {fmt} colored kernel")
+        check(bool((got[6] <= got[5]).all())
+              and int(got[6].sum()) < int(got[5].sum()),
+              f"{fmt}: rows_fetched <= num_flips per replica, below in sum")
+        del got, want
+
+    print("[kernels] colored_sweep, exact sigmoid: one step from 64 states "
+          "at temperatures across the anneal (block_r=1)")
+    ru = 64
+    temps1 = cfg.schedule(torch.linspace(0, main_steps - 1, ru).to(
+        torch.int32))[None, :]
+    pu0, ps0, pe0, punif, ptemps, psched = colored_inputs(plan, ru, 1, temps1,
+                                                          SEED + 1)
+    op = plan.store.kernel_operand
+    a = sweep.colored_sweep(op, pu0, ps0, pe0, punif, ptemps, psched,
+                            coupling="bitplane_hbm", block_r=1)
+    b = ref.colored_sweep(op, pu0, ps0, pe0, punif, ptemps, psched,
+                          block_r=1)
+    w, off, size = psched[0].tolist()
+    win = plan.window
+    idx = torch.arange(win, device="cuda") + w
+    valid = ((idx >= off) & (idx < off + size))[None, :]
+    de = 2.0 * ps0[:, w:w + win] * pu0[:, w:w + win]
+    p = common.flip_probability(de, ptemps[0][:, None], None)
+    ulp = torch.nextafter(p, torch.full_like(p, 2.0)) - p
+    tie = ((torch.abs(punif[0] - p) <= 4 * ulp) & valid).any(dim=1)
+    same = torch.ones(ru, dtype=torch.bool, device="cuda")
+    for x, y in zip(a, b):
+        same &= (x == y).reshape(ru, -1).all(dim=1)
+    check(bool((same | tie).all()),
+          f"exact sigmoid: equal on {int(same.sum())} of {ru} states, "
+          f"{int(tie.sum())} near ties (accept uniform within 4 ulp of p), "
+          "every split a near tie")
+    err["exact"] = max_abs_err([x[same] for x in a], [y[same] for y in b])
+    got = sweep.colored_sweep(op, *args, coupling="bitplane_hbm")
+    plane_invariants(plan.store.planes, h, got,
+                     f"N={SPARSE_N} bitplane_hbm colored exact-sigmoid "
+                     f"kernel, T={CHECK_T}")
+    del a, b, got
+
+    print(f"[kernels] colored_sweep on torus_grid_edges(64, 64), chi=2, "
+          f"R={R}, T={CHECK_T}")
+    t_edges = torus_grid_edges(64, 64, seed=1)
+    t_prob = ising.IsingProblem.create_sparse(t_edges, device="cuda")
+    t_dense = ising.IsingProblem(torch.from_numpy(t_edges.to_dense()).to(
+        "cuda"), t_prob.fields)
+    t_col = greedy_coloring(t_edges)
+    check(t_col.num_classes == 2, "torus 64x64: two color classes")
+    t_args = None
+    for fmt in ("bitplane_hbm", "bitplane", "dense"):
+        t_plan = ops.ColoredPlan(t_col, t_dense if fmt == "dense" else t_prob,
+                                 fmt).to("cuda")
+        if t_args is None:
+            t_args = colored_inputs(t_plan, R, CHECK_T, torch.linspace(
+                3.0, 0.1, CHECK_T), SEED)
+        op = t_plan.store.kernel_operand
+        got = sweep.colored_sweep(op, *t_args, tbl, coupling=fmt)
+        want = ref.colored_sweep(op, *t_args, tbl)
+        for name, x, y in zip(names, got, want):
+            check(torch.equal(x, y), f"torus {fmt} colored {name} bit-equal "
+                  "to plain")
+        err[("torus", fmt)] = max_abs_err(got, want)
+        print(f"[kernels] torus {fmt}: max_abs_err {err[('torus', fmt)]}, "
+              f"flips {int(got[5].sum())}, rows_fetched {int(got[6].sum())}")
+    phase_done("kernels")
+
+    print(f"[main] solve(sparse N={SPARSE_N}, seed={SEED}, "
+          f"replace(default_solver({SPARSE_N}, 64*chi={main_steps}, "
+          f"mode='rsa'), flip_mode='colored', coupling_format='bitplane_hbm'),"
+          f" backend='colored'), R={R}")
+    solve(prob, SEED, dataclasses.replace(cfg, num_steps=256),
+          backend="colored")
+    torch.cuda.synchronize()
+    colored_reset_counts()
+    t0 = time.perf_counter()
+    res = solve(prob, SEED, cfg, backend="colored")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"colored_sweep": sweep.colored_counter.count,
+                "bitplane_field_init": bitplane_field.counter.count,
+                "mcmc_sweep": sweep.counter.count,
+                "local_field_init": local_field.counter.count}
+    flips = int(res.num_flips.sum())
+    rows = int(res.rows_fetched.sum())
+    cuts = (-float(edges.weights.sum()) - res.best_energy.cpu().numpy()) / 2.0
+    print(f"[main] colored: best cut {cuts.max():.0f} (per replica "
+          f"{sorted(cuts.tolist(), reverse=True)}), best energy "
+          f"{float(res.best_energy.min()):.0f}, flips {flips} "
+          f"({flips / main_steps:.1f} per step), {flips / wall:.4e} flips/s, "
+          f"{wall / main_steps * 1e6:.3f} us/step (host clock, the solve's "
+          f"own plan build of {plan_s['bitplane_hbm']:.4f} s included), wall "
+          f"{wall:.4f} s, host coloring {color_s:.4f} s, rows_fetched {rows}, "
+          f"launches {launches}")
+    for mode, rate in SINGLE_FLIP_RATE.items():
+        print(f"[main] same run, single-flip bitplane_hbm {mode} main "
+              f"path at N={SPARSE_N}: {rate:.4e} flips/s (colored "
+              f"{flips / wall / rate:.1f}x)")
+    check(launches["colored_sweep"] == math.ceil(main_steps / 256),
+          f"colored_sweep launched ceil({main_steps}/256) = "
+          f"{math.ceil(main_steps / 256)} times")
+    check(launches["bitplane_field_init"] == 1
+          and launches["mcmc_sweep"] == 0
+          and launches["local_field_init"] == 0,
+          "bitplane_field_init launched once; mcmc_sweep and "
+          "local_field_init never")
+    check(tuple(res.best_spins.shape) == (R, SPARSE_N)
+          and bool(torch.isfinite(res.best_energy).all()),
+          "colored results have shape (R, N) and are finite")
+    exact = edge_energy(edges, prob.fields, res.best_spins)
+    check(torch.equal(res.best_energy.to(torch.float64), exact),
+          "colored best_energy == energy(best_spins) exactly, from the "
+          "original edges after the un-permutation")
+    check(0 < rows < flips, "colored rows_fetched positive, below num_flips")
+    main_launches = launches["colored_sweep"]
+    phase_done("main")
+
+    print("[profile] torch.profiler over one colored main-path solve")
+    profile_main_path(prob, cfg, backend="colored")
+    phase_done("profile")
+
+    print(f"[tiers] dense, bitplane and bitplane_hbm colored solves of "
+          f"{COLORED_TIER_STEPS} steps at N={SPARSE_N}")
+    tier_cfg = dataclasses.replace(cfg, num_steps=COLORED_TIER_STEPS)
+    runs = {}
+    for fmt, p_ in plans.items():
+        runs[fmt] = ops.colored_anneal(
+            dense_prob if fmt == "dense" else prob, SEED,
+            dataclasses.replace(tier_cfg, coupling_format=fmt), plan=p_)
+    for fmt in ("bitplane", "dense"):
+        for name in res._fields:
+            check(torch.equal(getattr(runs["bitplane_hbm"], name),
+                              getattr(runs[fmt], name)),
+                  f"colored {fmt} {name} bitwise equal to bitplane_hbm")
+    phase_done("tiers")
+
+    print("[reference] small input: the card's colored solves against the "
+          "CPU's (sparse N=256, linear schedule)")
+    small_edges = sparse_bipolar_edges(256, 2048, seed=3)
+    small = {"planes": ising.IsingProblem.create_sparse(small_edges),
+             "dense": ising.IsingProblem.create(small_edges.to_dense())}
+    for fmt in ("bitplane", "bitplane_hbm", "dense"):
+        c = SolverConfig(num_steps=1024, schedule=linear(4.0, 0.05, 1024),
+                         mode="rsa", trace_every=256, coupling_format=fmt,
+                         flip_mode="colored")
+        pr = small["dense" if fmt == "dense" else "planes"]
+        on_card = solve(pr, 7, c, backend="colored", device="cuda")
+        on_cpu = solve(pr, 7, c, backend="colored", device="cpu")
+        for name, a_, b_ in zip(on_card._fields, on_card, on_cpu):
+            check(torch.equal(a_.cpu(), b_), f"N=256 colored {fmt} solve "
+                  f"{name}: card == CPU")
+    phase_done("reference")
+
+    print("[timing] colored_sweep ms per 256-step launch (CUDA events), "
+          "temperatures across the anneal")
+    steps_t = cfg.schedule(torch.linspace(0, main_steps - 1, T).to(
+        torch.int32))
+    args = colored_inputs(plan, R, T, steps_t, SEED)
+    timing = {}
+    for fmt, p_ in plans.items():
+        op = p_.store.kernel_operand
+        run = (lambda op=op, fmt=fmt: sweep.colored_sweep(op, *args, tbl,
+                                                          coupling=fmt))
+        out = run()
+        e_ = {"ms": cuda_ms(run, 5),
+              "bound": bound(*colored_bytes_ops(p_, R, T, segs, out)),
+              "flips": int(out[5].sum()), "rows": int(out[6].sum())}
+        if fmt == "bitplane_hbm":
+            e_["plain_ms"] = cuda_ms(lambda: ref.colored_sweep(
+                op, *args, tbl), 1)
+        timing[fmt] = e_
+        print(f"[timing] colored_sweep {fmt} N={SPARSE_N}: {e_['ms']:.4f} ms "
+              f"({e_['ms'] / T * 1e3:.3f} us/step), flips {e_['flips']}, "
+              f"rows {e_['rows']}, bound {e_['bound'][0]:.5f} ms "
+              f"({e_['bound'][1]})"
+              + (f", plain {e_['plain_ms']:.2f} ms" if "plain_ms" in e_
+                 else ""))
+    t_edges = torus_grid_edges(128, 128, seed=1)
+    t_plan = ops.colored_plan(ising.IsingProblem.create_sparse(t_edges),
+                              "bitplane_hbm").to("cuda")
+    t_args = colored_inputs(t_plan, R, T, torch.linspace(3.0, 0.1, T), SEED)
+    out = sweep.colored_sweep(t_plan.store.kernel_operand, *t_args, tbl,
+                              coupling="bitplane_hbm")
+    ms = cuda_ms(lambda: sweep.colored_sweep(t_plan.store.kernel_operand,
+                                             *t_args, tbl,
+                                             coupling="bitplane_hbm"), 5)
+    tb = bound(*colored_bytes_ops(t_plan, R, T, segs, out))
+    print(f"[timing] colored_sweep bitplane_hbm torus 128x128 (chi=2, "
+          f"S={t_plan.window}): {ms:.4f} ms ({ms / T * 1e3:.3f} us/step), "
+          f"flips {int(out[5].sum())}, bound {tb[0]:.5f} ms ({tb[1]})")
+    phase_done("timing")
+
+    e_ = timing["bitplane_hbm"]
+    return [{
+        "name": "colored_sweep[bitplane_hbm]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/colored_sweep.cu",
+        "replaces": "src/repro/kernels/sweep.py:475",
+        "launches": main_launches,
+        "max_abs_err": max(err["bitplane_hbm"], err["bitplane"],
+                           err["dense"]),
+        "ms": e_["ms"], "plain_ms": e_["plain_ms"],
+        "bound_ms": e_["bound"][0], "bound_by": e_["bound"][1],
+        "library_ms": None}]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -860,6 +1192,7 @@ def main() -> None:
     rows = dense_slice()
     print(f"[phase] dense slice (K2000) {time.perf_counter() - t0:.1f} s")
     rows += plane_slice()
+    rows += colored_slice()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -3,7 +3,9 @@
 
 ``solve(problem, seed, config, backend="fused")`` runs R independent
 replicas of the dual-mode MCMC engine through the fused sweep kernel
-(:func:`repro_torch.kernels.ops.fused_anneal`). The other backends of the
+(:func:`repro_torch.kernels.ops.fused_anneal`); ``backend="colored"`` runs
+a ``flip_mode="colored"`` config through the graph-colored sweep
+(:func:`repro_torch.kernels.ops.colored_anneal`). The other backends of the
 JAX registry are later slices and raise.
 """
 from __future__ import annotations
@@ -19,7 +21,6 @@ from .schedules import Schedule
 #: Backends of the JAX registry and the ROADMAP item that ports each.
 _LATER_BACKENDS = {
     "reference": "queue 1 item 6 (reference engine and statistical tier)",
-    "colored": "queue 1 item 8 (colored flips)",
     "tempering": "queue 1 item 9 (tempering)",
     "sharded": "queue 1 item 12 (multi-GPU)",
     "sharded_2d": "queue 1 item 12 (multi-GPU)",
@@ -42,7 +43,7 @@ class SolverConfig:
     num_replicas: int = 8
     trace_every: int = 0            # 0 disables the energy trace
     coupling_format: str = "auto"
-    flip_mode: str = "single"       # "colored" is a later slice
+    flip_mode: str = "single"       # "single" | "colored"
 
 
 class SolveResult(NamedTuple):
@@ -56,10 +57,17 @@ class SolveResult(NamedTuple):
 
 def solve(problem: ising.IsingProblem, seed, config: SolverConfig,
           backend: str = "fused", *, store=None, device=None) -> SolveResult:
-    """Anneal ``problem`` from ``seed``. Only ``backend="fused"`` is served.
-    ``store`` takes a prebuilt ``core.coupling.CouplingStore`` so repeated
-    solves of one instance skip the resolve → encode; ``device`` as in
-    :func:`repro_torch.device.resolve_device`."""
+    """Anneal ``problem`` from ``seed`` with ``backend="fused"`` (single-flip
+    configs) or ``"colored"`` (``flip_mode="colored"`` configs). ``store``
+    takes a prebuilt ``core.coupling.CouplingStore`` so repeated fused
+    solves of one instance skip the resolve → encode (the colored backend
+    builds its own, in color-sorted order, and refuses one); ``device`` as
+    in :func:`repro_torch.device.resolve_device`."""
+    if backend == "colored":
+        _check_colored(config, store)
+        from ..kernels.ops import colored_anneal
+
+        return colored_anneal(problem, seed, config, device=device)
     if backend != "fused":
         where = _LATER_BACKENDS.get(backend)
         if where is None:
@@ -69,6 +77,19 @@ def solve(problem: ising.IsingProblem, seed, config: SolverConfig,
     from ..kernels.ops import fused_anneal
 
     return fused_anneal(problem, seed, config, store=store, device=device)
+
+
+def _check_colored(config: SolverConfig, store) -> None:
+    """The guards of the JAX ``ColoredBackend``."""
+    if config.flip_mode != "colored":
+        raise ValueError(
+            f"backend 'colored' serves flip_mode='colored' configs, got "
+            f"{config.flip_mode!r}")
+    if store is not None:
+        raise ValueError(
+            "backend='colored' rebuilds its store in color-sorted spin "
+            "order; a prebuilt CouplingStore (original order) cannot be "
+            "reused — memoize the ops.colored_plan instead")
 
 
 def solve_many(problem: ising.IsingProblem, seeds, config: SolverConfig,

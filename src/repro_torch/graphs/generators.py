@@ -2,8 +2,9 @@
 
 Numpy code kept identical to the reference, so the same seed gives
 bit-identical weights: K<N> is the complete graph with uniform ±1 couplings
-(the paper's K2000, §V-A2), er<N> the G(n, m) Erdős–Rényi family, and
-:func:`sparse_bipolar_edges` the same family as an edge list, dense-J-free.
+(the paper's K2000, §V-A2), er<N> the G(n, m) Erdős–Rényi family,
+:func:`sparse_bipolar_edges` the same family as an edge list, dense-J-free,
+and :func:`torus_grid_edges` the 2-D periodic torus as an edge list.
 """
 from __future__ import annotations
 
@@ -60,3 +61,31 @@ def sparse_bipolar_edges(n: int, num_edges: int, seed: int = 0):
     key = np.unique(np.minimum(i, j) * np.int64(n) + np.maximum(i, j))
     w = rng.choice(np.array([-1, 1], np.int64), size=key.size)
     return EdgeList.create(key // n, key % n, w, n)
+
+
+def torus_grid_edges(rows: int, cols: int, seed: int = 0,
+                     signed: bool = True):
+    """2D periodic torus (G11/G62 family) as a canonical
+    ``core.ising.EdgeList`` — the deterministic known-χ instance for the
+    colored execution mode: with both dimensions even the torus is
+    bipartite, so ``graphs.coloring.greedy_coloring`` returns exactly two
+    color classes of N/2 spins each (the checkerboard), and a colored sweep
+    flips O(N/2) spins per step. O(N) edges, no (N, N) mask. Edge weights
+    are ±1 drawn from the same PCG64 stream family as the dense generators
+    (``signed=False`` gives the uniform ferromagnet, weight +1)."""
+    from ..core.ising import EdgeList
+
+    if rows < 3 or cols < 3:
+        raise ValueError(f"torus needs rows, cols >= 3, got {rows}x{cols} "
+                         "(smaller dims collapse wrap-around edges)")
+    rng = _rng(seed)
+    n = rows * cols
+    idx = np.arange(n, dtype=np.int64)
+    r, c = idx // cols, idx % cols
+    down = ((r + 1) % rows) * cols + c
+    right = r * cols + (c + 1) % cols
+    i = np.concatenate([idx, idx])
+    j = np.concatenate([down, right])
+    w = (rng.choice(np.array([-1, 1], np.int64), size=i.size) if signed
+         else np.ones(i.size, np.int64))
+    return EdgeList.create(i, j, w, n)

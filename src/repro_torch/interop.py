@@ -1,5 +1,5 @@
-"""Carry the JAX package's problems, planes, configs and fused state into the
-port.
+"""Carry the JAX package's problems, planes, configs, fused state and
+colored plans into the port.
 
 Everything crosses as numpy arrays and plain Python values, so this module
 imports neither ``jax`` nor ``repro``: a test converts with ``np.asarray``
@@ -11,9 +11,12 @@ import numpy as np
 import torch
 
 from .core.bitplane import BitPlanes
+from .core.coupling import CouplingStore
 from .core.ising import EdgeList, IsingProblem
 from .core.schedules import Schedule
 from .core.solver import SolverConfig
+from .graphs.coloring import Coloring
+from .kernels.ops import ColoredPlan
 
 #: dtypes of the fused state ``(u, s, e, best_e, best_s, num_flips)``.
 STATE_DTYPES = (torch.float32,) * 5 + (torch.int32,)
@@ -72,3 +75,28 @@ def state_from_numpy(state, device=None):
 def state_to_numpy(state):
     """The fused 6-tuple as numpy arrays (float32 and int32)."""
     return tuple(x.detach().cpu().numpy() for x in state)
+
+
+def coloring_from_numpy(colors, perm, offsets, num_spins: int) -> Coloring:
+    """A ``Coloring`` with the reference's ``colors``, ``perm`` and
+    ``offsets`` arrays."""
+    return Coloring(colors=np.asarray(colors, np.int32),
+                    perm=np.asarray(perm, np.int32),
+                    offsets=np.asarray(offsets, np.int64),
+                    num_spins=int(num_spins))
+
+
+def colored_plan_from_numpy(colors, perm, offsets, problem: IsingProblem,
+                            fmt: str, planes=None) -> ColoredPlan:
+    """A ``ColoredPlan`` of ``problem`` (original order) with the reference
+    plan's coloring. With ``planes`` — the ``(pos, neg)`` uint32 words of
+    the reference plan's color-sorted store — the plan's store holds those
+    words instead of its own encoding, so both sides run one operand."""
+    plan = ColoredPlan(coloring_from_numpy(colors, perm, offsets,
+                                           problem.num_spins), problem, fmt)
+    if planes is not None:
+        pos, neg = planes
+        plan.store = CouplingStore.from_planes(
+            planes_from_numpy(pos, neg, problem.num_spins), plan.store.fmt)
+    return plan
+

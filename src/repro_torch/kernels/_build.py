@@ -3,9 +3,10 @@
 Each ``.cu`` file exports a plain C interface and is compiled on its own by
 ``nvcc`` into a shared library under ``build/kernels/`` at the repository
 root (listed in ``.gitignore``), then loaded with ``ctypes``. The build runs
-at first use; a library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and an unchanged one is reused. Several
-sources build in parallel, one ``nvcc`` each.
+at first use; a library's file name carries a hash of its source, of the
+shared headers (``csrc/*.cuh``) and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused. Several sources build in
+parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"sweep": "sweep.cu", "local_field": "local_field.cu",
+SOURCES = {"sweep": "sweep.cu", "colored_sweep": "colored_sweep.cu",
+           "local_field": "local_field.cu",
            "bitplane_field": "bitplane_field.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -51,8 +53,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,0 +1,92 @@
+// Device functions shared by the sweep kernels (sweep.cu, colored_sweep.cu):
+// the coupling store, the plane-row decode, the flip probability and dE.
+// Both kernels repeat the float operations of kernels/common.py in the same
+// order, so they agree bitwise with the plain versions where that is
+// claimed; build with -fmad=false (see sweep.cu).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// The couplings: a dense (N, N) f32 J (pos == neg == nullptr), or (B, N, W)
+// uint32 pos/neg planes (J == nullptr).
+struct Store {
+  const float* J;
+  const unsigned* pos;
+  const unsigned* neg;
+  int B, W;
+};
+
+// Adds plane b's part of a row to row[k], k = 0..31: p and q are the words
+// this lane loaded (word w0+lane of the plane's pos and neg row), and a
+// shuffle hands word w0+k to every lane, so lane L adds
+// 2^b (bit(pos) - bit(neg)) of spin 32*(w0+k) + L.
+__device__ __forceinline__ void decode_plane_words(unsigned p, unsigned q,
+                                                   float scale,
+                                                   float row[32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const int d = (int)((__shfl_sync(kFull, p, k) >> lane) & 1u) -
+                  (int)((__shfl_sync(kFull, q, k) >> lane) & 1u);
+    row[k] = __fadd_rn(row[k], __fmul_rn(scale, (float)d));
+  }
+}
+
+// Plane b's words of row j for this lane (word w0+lane; 0 past N).
+__device__ __forceinline__ void load_plane_words(const Store& st, int b, int j,
+                                                 int N, int w0, unsigned* p,
+                                                 unsigned* q) {
+  const int w = w0 + (threadIdx.x & 31);
+  const bool valid = w * 32 < N;
+  const size_t at = ((size_t)b * N + j) * st.W + w;
+  *p = valid ? __ldg(st.pos + at) : 0u;
+  *q = valid ? __ldg(st.neg + at) : 0u;
+}
+
+// Row j's couplings to the 32 spins of words w0 .. w0+31, decoded in
+// registers by one warp: lane L loads word w0+L of each plane and sign (one
+// coalesced load per warp), and a shuffle hands word w0+k to every lane, so
+// lane L gets J[j, 32*(w0+k) + L] in row[k] — sum_b 2^b (bit(pos_b) -
+// bit(neg_b)), added in plane order like common.decode_bitplane_rows.
+__device__ __forceinline__ void plane_couplings(const Store& st, int j, int N,
+                                                int w0, float row[32]) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) row[k] = 0.f;
+  for (int b = 0; b < st.B; ++b) {
+    unsigned p, q;
+    load_plane_words(st, b, j, N, w0, &p, &q);
+    decode_plane_words(p, q, (float)(1 << b), row);
+  }
+}
+
+struct Pwl {
+  const float* icpt;   // (S,) in shared memory
+  const float* slope;  // (S,) in shared memory
+  float z_lo, z_hi, inv_step;
+  int segs;
+};
+
+template <bool PWL>
+__device__ __forceinline__ float flip_probability(float de, float t,
+                                                  const Pwl& pwl) {
+  if (!(t > 0.f)) return de < 0.f ? 1.f : (de == 0.f ? 0.5f : 0.f);
+  float z = __fdiv_rn(-de, t);
+  if (PWL) {
+    float zc = fminf(fmaxf(z, pwl.z_lo), pwl.z_hi);
+    int seg = (int)__fmul_rn(__fsub_rn(zc, pwl.z_lo), pwl.inv_step);
+    seg = min(max(seg, 0), pwl.segs - 1);
+    return __fmaf_rn(pwl.slope[seg], zc, pwl.icpt[seg]);
+  }
+  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z)));
+}
+
+__device__ __forceinline__ float delta_e(const float* s, const float* u,
+                                         int i) {
+  return __fmul_rn(__fmul_rn(2.f, s[i]), u[i]);
+}
+
+}  // namespace

@@ -56,6 +56,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "snowball_device.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -63,75 +65,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLane = 128;
-constexpr unsigned kFull = 0xffffffffu;
 // Steps between the coalesced tier's cluster barriers (its site log).
 constexpr int kLogSteps = 64;
 
-// Where the couplings live: a dense (N, N) f32 J, or (B, N, W) uint32
-// pos/neg planes.
+// Where the couplings live (the Store of snowball_device.cuh): a dense
+// (N, N) f32 J, (B, N, W) uint32 pos/neg planes, or the planes with the
+// coalesced rows_fetched count.
 enum StoreKind { kDense = 0, kPlanes = 1, kPlanesCoalesced = 2 };
-
-struct Store {
-  const float* J;
-  const unsigned* pos;
-  const unsigned* neg;
-  int B, W;
-};
-
-// Row j's couplings to the 32 spins of words w0 .. w0+31, decoded in
-// registers by one warp: lane L loads word w0+L of each plane and sign (one
-// coalesced load per warp), and a shuffle hands word w0+k to every lane, so
-// lane L gets J[j, 32*(w0+k) + L] in row[k] — sum_b 2^b (bit(pos_b) -
-// bit(neg_b)), added in plane order like common.decode_bitplane_rows.
-__device__ __forceinline__ void plane_couplings(const Store& st, int j, int N,
-                                                int w0, float row[32]) {
-  const int lane = threadIdx.x & 31;
-  const int w = w0 + lane;
-  const bool valid = w * 32 < N;
-#pragma unroll
-  for (int k = 0; k < 32; ++k) row[k] = 0.f;
-  for (int b = 0; b < st.B; ++b) {
-    const size_t at = ((size_t)b * N + j) * st.W + w;
-    const unsigned p = valid ? __ldg(st.pos + at) : 0u;
-    const unsigned q = valid ? __ldg(st.neg + at) : 0u;
-    const float scale = (float)(1 << b);
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      const int d = (int)((__shfl_sync(kFull, p, k) >> lane) & 1u) -
-                    (int)((__shfl_sync(kFull, q, k) >> lane) & 1u);
-      row[k] = __fadd_rn(row[k], __fmul_rn(scale, (float)d));
-    }
-  }
-}
-
-struct Pwl {
-  const float* icpt;   // (S,) in shared memory
-  const float* slope;  // (S,) in shared memory
-  float z_lo, z_hi, inv_step;
-  int segs;
-};
-
-template <bool PWL>
-__device__ __forceinline__ float flip_probability(float de, float t,
-                                                  const Pwl& pwl) {
-  if (!(t > 0.f)) return de < 0.f ? 1.f : (de == 0.f ? 0.5f : 0.f);
-  float z = __fdiv_rn(-de, t);
-  if (PWL) {
-    float zc = fminf(fmaxf(z, pwl.z_lo), pwl.z_hi);
-    int seg = (int)__fmul_rn(__fsub_rn(zc, pwl.z_lo), pwl.inv_step);
-    seg = min(max(seg, 0), pwl.segs - 1);
-    return __fmaf_rn(pwl.slope[seg], zc, pwl.icpt[seg]);
-  }
-  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z)));
-}
 
 __device__ __forceinline__ int site_from_uniform(float u, int n) {
   return min((int)__fmul_rn(u, (float)n), n - 1);
-}
-
-__device__ __forceinline__ float delta_e(const float* s, const float* u,
-                                         int i) {
-  return __fmul_rn(__fmul_rn(2.f, s[i]), u[i]);
 }
 
 // Warp-level prefix machinery over x[0, m): lane k owns the contiguous chunk

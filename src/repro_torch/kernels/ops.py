@@ -7,12 +7,18 @@ kernel on the planes with e₀ from ``ising.energy_from_fields``, so no dense
 J is needed), then a Python loop over chunks — the JAX ``scan`` — with one
 sweep launch per chunk, uniforms from the chunk's ``Salt.SWEEP`` stream and
 temperatures from the schedule.
+
+``colored_anneal`` is the graph-colored solve (``flip_mode="colored"``):
+the same init and chunk loop on the color-sorted problem of a
+:class:`ColoredPlan`, one ``colored_sweep`` launch per chunk, results mapped
+back to the original vertex order.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from ..core import ising, rng
@@ -22,9 +28,11 @@ from ..core.coupling import (KERNEL_COUPLING_MODES, PLANE_FORMATS,
 from ..core.pwl import pwl_table as _pwl_table
 from ..core.solver import SolverConfig, SolveResult
 from ..device import resolve_device
+from ..graphs.coloring import Coloring, greedy_coloring
 from . import bitplane_field as _bitplane_field
 from . import local_field as _local_field
 from . import sweep as _sweep
+from .common import default_lane, fit_block
 
 #: N at or below which the JAX package's ``gather="auto"`` picks its one-hot
 #: MXU gather. On the dense tier every value gives identical results and the
@@ -222,9 +230,10 @@ def fused_anneal(problem: ising.IsingProblem, seed, config: SolverConfig, *,
     moved there.
     """
     if config.flip_mode != "single":
-        raise NotImplementedError(
-            f"flip_mode={config.flip_mode!r} is not ported yet (ROADMAP "
-            "queue 1 item 8: colored flips)")
+        raise ValueError(
+            f"fused_anneal runs single-flip sweeps (flip_mode="
+            f"{config.flip_mode!r}); colored block updates are served by "
+            "colored_anneal / the 'colored' backend")
     dev = resolve_device(device)
     store = _store_for(problem, config, coupling, num_planes, store)
     problem = problem.to(dev)
@@ -237,13 +246,10 @@ def fused_anneal(problem: ising.IsingProblem, seed, config: SolverConfig, *,
     base = rng.fold_in(rng.key(0, device=dev), int(seed))
     state = fused_init_state(problem, base, r, planes=store.planes)
     pwl = solver_pwl_table(config, device=dev)
-    chunk_len, num_chunks, rem_steps = anneal_chunk_plan(config, chunk_steps)
+    chunk_len, chunks = chunk_list(config, chunk_steps)
     rows = torch.zeros(r, dtype=torch.int32, device=dev)
     trace = []
-    plan = [(c, chunk_len) for c in range(num_chunks)]
-    if rem_steps:
-        plan.append((num_chunks, rem_steps))
-    for c, clen in plan:
+    for c, clen in chunks:
         state, rf = anneal_chunk_step(store, state, base, c, clen=clen,
                                       chunk_len=chunk_len, config=config,
                                       gather=gather, block_r=block_r,
@@ -251,12 +257,236 @@ def fused_anneal(problem: ising.IsingProblem, seed, config: SolverConfig, *,
         rows = rows + rf
         if config.trace_every:  # traced plans have no remainder chunk
             trace.append(state[3])
+    return _result(state, rows, trace, problem.offset, config)
+
+
+def chunk_list(config: SolverConfig, chunk_steps: int):
+    """``(chunk_len, [(c, clen), ...])``: the chunks of
+    :func:`anneal_chunk_plan`, the remainder chunk last."""
+    chunk_len, num_chunks, rem_steps = anneal_chunk_plan(config, chunk_steps)
+    chunks = [(c, chunk_len) for c in range(num_chunks)]
+    if rem_steps:
+        chunks.append((num_chunks, rem_steps))
+    return chunk_len, chunks
+
+
+def _result(state, rows: torch.Tensor, trace: list, offset: float,
+            config: SolverConfig) -> SolveResult:
+    """The ``SolveResult`` of a chunk loop's final state and best-energy
+    trace (one entry per chunk when tracing)."""
     _, _, e, be, bs, nf = state
     if config.trace_every:
-        trace_energy = (torch.stack(trace) + problem.offset).to(torch.float32)
+        trace_energy = (torch.stack(trace) + offset).to(torch.float32)
     else:
-        trace_energy = torch.zeros((0, r), dtype=torch.float32, device=dev)
-    return SolveResult(best_energy=be + problem.offset,
-                       best_spins=bs.to(torch.int8),
-                       final_energy=e + problem.offset, num_flips=nf,
+        trace_energy = torch.zeros((0, config.num_replicas),
+                                   dtype=torch.float32, device=e.device)
+    return SolveResult(best_energy=be + offset, best_spins=bs.to(torch.int8),
+                       final_energy=e + offset, num_flips=nf,
                        trace_energy=trace_energy, rows_fetched=rows)
+
+
+class ColoredPlan:
+    """Host-side execution plan for the colored sweep: the coloring, the
+    color-permuted problem and its coupling store, and the static window
+    math the kernel schedule is built from. Built once per (problem,
+    format) by :func:`colored_plan`; the permuted spin order is
+    ``coloring.perm`` and results map back through ``coloring.inverse_perm``.
+
+    Window math: with ``lane = common.default_lane(n)`` the static class
+    window is ``S = min(n, roundup(max_class_size + lane - 1, lane))`` and
+    class c starts its window at ``w_c = min((offsets[c] // lane)·lane,
+    n - S)``. Coverage: ``w_c ≤ offsets[c]`` (floor) and ``w_c + S ≥
+    offsets[c] - (lane-1) + (size_c + lane - 1) = offsets[c] + size_c``, so
+    every class fits its lane-aligned window.
+
+    An edge-list problem is permuted as an edge list (O(nnz), no dense J);
+    a dense problem's J is permuted on its device. ``wstarts``, ``offsets``
+    and ``sizes`` are (χ,) int32 tensors.
+    """
+
+    def __init__(self, coloring: Coloring, problem: ising.IsingProblem,
+                 fmt: Optional[str] = "auto",
+                 num_planes: Optional[int] = None):
+        n = problem.num_spins
+        if coloring.num_spins != n:
+            raise ValueError(f"coloring is for N={coloring.num_spins}, the "
+                             f"problem has N={n}")
+        self.coloring = coloring
+        perm = coloring.perm
+        inv = coloring.inverse_perm
+        if problem.edges is not None:
+            edges = problem.edges
+            pedges = ising.EdgeList.create(inv[edges.rows], inv[edges.cols],
+                                           edges.weights, n)
+            h = problem.fields.detach().cpu().numpy()[perm]
+            self.problem = ising.IsingProblem.create_sparse(
+                pedges, h=h, offset=problem.offset, device=problem.device)
+        else:
+            p = torch.from_numpy(perm.astype(np.int64)).to(problem.device)
+            self.problem = ising.IsingProblem(
+                problem.couplings[p][:, p], problem.fields[p],
+                problem.offset)
+        self.store = CouplingStore.build(self.problem.coupling_source, fmt,
+                                         num_planes=num_planes)
+        self.store.require(KERNEL_COUPLING_MODES, "colored_anneal")
+        lane = default_lane(n)
+        max_class = coloring.max_class_size
+        self.window = min(n, -(-(max_class + lane - 1) // lane) * lane)
+        offs = coloring.offsets[:-1]
+        w = np.minimum((offs // lane) * lane, n - self.window)
+        self.wstarts = torch.from_numpy(w.astype(np.int32))
+        self.offsets = torch.from_numpy(offs.astype(np.int32))
+        self.sizes = torch.from_numpy(coloring.class_sizes.astype(np.int32))
+
+    def to(self, device) -> "ColoredPlan":
+        """The plan with its problem, store and schedule arrays on
+        ``device`` (a dense store keeps one J: the problem's)."""
+        plan = ColoredPlan.__new__(ColoredPlan)
+        plan.coloring = self.coloring
+        plan.window = self.window
+        plan.problem = self.problem.to(device)
+        plan.store = (dataclasses.replace(self.store,
+                                          dense=plan.problem.couplings)
+                      if self.store.dense is not None
+                      else self.store.to(device))
+        plan.wstarts = self.wstarts.to(device)
+        plan.offsets = self.offsets.to(device)
+        plan.sizes = self.sizes.to(device)
+        return plan
+
+
+def colored_plan(problem: ising.IsingProblem, fmt: Optional[str] = "auto",
+                 num_planes: Optional[int] = None) -> ColoredPlan:
+    """Coloring + permutation + store for a colored solve of ``problem``.
+
+    The greedy coloring runs on the conflict graph of
+    ``problem.coupling_source`` (memoized per edge-list digest), the problem
+    and its coupling store are rebuilt in color-sorted spin order (classes
+    contiguous — the kernel schedules one contiguous window per step), and
+    the lane-aligned window schedule is precomputed. Dense-J-free for
+    edge-list problems end to end.
+    """
+    return ColoredPlan(greedy_coloring(problem.coupling_source), problem, fmt,
+                       num_planes=num_planes)
+
+
+def colored_class_schedule(wstarts: torch.Tensor, offsets: torch.Tensor,
+                           sizes: torch.Tensor,
+                           steps: torch.Tensor) -> torch.Tensor:
+    """(T, 3) int32 kernel schedule for absolute step indices ``steps``:
+    round-robin over the χ color classes keyed on the *global* step, so a
+    chunked trajectory visits the identical class sequence as one
+    monolithic run."""
+    cls = (steps.to(torch.int64) % wstarts.shape[0]).to(wstarts.device)
+    return torch.stack([wstarts[cls], offsets[cls], sizes[cls]],
+                       dim=1).to(torch.int32).contiguous()
+
+
+def colored_sweep_chunk(couplings, state, chunk_key: torch.Tensor,
+                        num_steps: int, temps: torch.Tensor,
+                        sched: torch.Tensor, *, window: int,
+                        pwl_table: Optional[torch.Tensor] = None,
+                        block_r: int = 8, coupling: str = "dense",
+                        with_rows_fetched: bool = False):
+    """One colored sweep chunk plus the best-so-far merge — the colored
+    counterpart of :func:`fused_sweep_chunk`, with the same 6-tuple state
+    and per-chunk ``Salt.SWEEP`` stream. The chunk draws ``(num_steps, R,
+    window)`` accept uniforms, one per window slot; ``sched`` is the
+    (num_steps, 3) class schedule."""
+    u, s, e, be, bs, nf = state
+    r = e.shape[0]
+    uniforms = rng.uniform01(chunk_key, (num_steps, r, window))
+    u, s, e, ce, cs, cf, rf = _sweep.colored_sweep(
+        couplings, u, s, e, uniforms, temps, sched, pwl_table,
+        coupling=coupling, block_r=block_r)
+    better = ce < be
+    state = (u, s, e, torch.where(better, ce, be),
+             torch.where(better[:, None], cs, bs), nf + cf)
+    return (state, rf) if with_rows_fetched else state
+
+
+def colored_chunk_step(plan: ColoredPlan, state, base: torch.Tensor, c: int,
+                       *, clen: int, chunk_len: int, config: SolverConfig,
+                       block_r: int = 8, with_rows_fetched: bool = False):
+    """One annealing chunk of the colored trajectory: the temps of global
+    steps [c·chunk_len, +clen), their class schedule, the chunk's
+    ``Salt.SWEEP`` stream and the flip probability of ``config``, on the
+    plan's store (which must be on the state's device)."""
+    dev = state[0].device
+    temps = chunk_temps(config, c, clen, chunk_len, dev)
+    steps = c * chunk_len + torch.arange(clen, dtype=torch.int64)
+    sched = colored_class_schedule(plan.wstarts, plan.offsets, plan.sizes,
+                                   steps.to(plan.wstarts.device)).to(dev)
+    return colored_sweep_chunk(
+        plan.store.kernel_operand, state, rng.stream(base, rng.Salt.SWEEP, c),
+        clen, temps, sched, window=plan.window,
+        pwl_table=solver_pwl_table(config, device=dev),
+        block_r=fit_block(config.num_replicas, block_r),
+        coupling=plan.store.fmt, with_rows_fetched=with_rows_fetched)
+
+
+def unpermute_spins(plan: ColoredPlan, spins: torch.Tensor) -> torch.Tensor:
+    """Map (..., N) permuted-order spins back to original vertex order
+    (``s_orig[..., i] = s_perm[..., inverse_perm[i]]``)."""
+    inv = torch.from_numpy(plan.coloring.inverse_perm.astype(np.int64))
+    return spins[..., inv.to(spins.device)]
+
+
+def colored_anneal(problem: ising.IsingProblem, seed, config: SolverConfig,
+                   *, chunk_steps: int = 256, block_r: int = 8,
+                   coupling: Optional[str] = None,
+                   num_planes: Optional[int] = None,
+                   plan: Optional[ColoredPlan] = None,
+                   device=None) -> SolveResult:
+    """Graph-colored annealing (``SolverConfig(flip_mode="colored")``).
+
+    Flips one conflict-graph color class per step — every class member takes
+    an independent heat-bath flip off the live local fields, exact block
+    Gibbs because same-color spins share no coupling — so sparse instances
+    do O(N/χ) flips per kernel step instead of 1. The selection-mode knobs
+    (``config.mode``/``uniformized``) do not enter colored semantics; PWL vs
+    exact flip probability, the schedule, trace cadence, ``num_flips`` and
+    ``rows_fetched`` behave as in :func:`fused_anneal`, seed for seed with
+    the JAX ``colored_anneal``.
+
+    ``plan`` takes a prebuilt :func:`colored_plan` so repeated solves of one
+    instance skip the coloring + permutation + store encode; ``coupling``
+    overrides ``config.coupling_format`` when no plan is passed. ``block_r``
+    is the replica group of ``rows_fetched`` (at most 8 on the card).
+    Results are reported in the original vertex order. ``device`` as in
+    :func:`repro_torch.device.resolve_device`.
+    """
+    if config.flip_mode != "colored":
+        raise ValueError(
+            f"colored_anneal serves flip_mode='colored' configs, got "
+            f"{config.flip_mode!r} — use fused_anneal / solve()")
+    dev = resolve_device(device)
+    if plan is None:
+        plan = colored_plan(
+            problem, coupling if coupling is not None
+            else config.coupling_format, num_planes=num_planes)
+    elif coupling is not None:
+        raise ValueError("pass a prebuilt plan= or a coupling= override, "
+                         "not both")
+    elif plan.coloring.num_spins != problem.num_spins:
+        raise ValueError(f"prebuilt ColoredPlan is for N="
+                         f"{plan.coloring.num_spins} but the problem has "
+                         f"N={problem.num_spins}")
+    plan = plan.to(dev)
+    r = config.num_replicas
+    base = rng.fold_in(rng.key(0, device=dev), int(seed))
+    state = fused_init_state(plan.problem, base, r, planes=plan.store.planes)
+    chunk_len, chunks = chunk_list(config, chunk_steps)
+    rows = torch.zeros(r, dtype=torch.int32, device=dev)
+    trace = []
+    for c, clen in chunks:
+        state, rf = colored_chunk_step(plan, state, base, c, clen=clen,
+                                       chunk_len=chunk_len, config=config,
+                                       block_r=block_r,
+                                       with_rows_fetched=True)
+        rows = rows + rf
+        if config.trace_every:
+            trace.append(state[3])
+    result = _result(state, rows, trace, plan.problem.offset, config)
+    return result._replace(best_spins=unpermute_spins(plan,
+                                                      result.best_spins))

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the kernels on the main path.
 
 Port of ``repro.kernels.ref``'s ``local_field_init``,
-``bitplane_field_init`` and ``mcmc_sweep`` (dense J or packed planes). The
-wrappers in ``local_field.py``, ``bitplane_field.py`` and ``sweep.py`` run
-these for CPU tensors; the tests hold them against the JAX package, and
+``bitplane_field_init``, ``mcmc_sweep`` and ``colored_sweep`` (dense J or
+packed planes). The wrappers in ``local_field.py``, ``bitplane_field.py``
+and ``sweep.py`` run these for CPU tensors; the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
@@ -118,3 +118,82 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
         be = torch.where(better, e, be)
         bs = torch.where(better[:, None], s, bs)
     return u, s, e, be, bs, nf, rf
+
+
+def colored_sweep(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
+                  energy0: torch.Tensor, uniforms: torch.Tensor,
+                  temps: torch.Tensor, sched: torch.Tensor,
+                  pwl_table: Optional[torch.Tensor] = None, *,
+                  block_r: int = 8):
+    """T graph-colored block-Gibbs steps over R replicas (spins in
+    color-sorted order), the plain version of ``kernels.sweep.colored_sweep``.
+
+    ``sched`` (T, 3) int32 rows of (window_start, class_offset, class_size);
+    ``uniforms`` (T, R, S) accept streams over the static class window S.
+    Each step every member of the scheduled class takes an independent
+    heat-bath flip off the live local fields, then the accepted slots' row
+    updates are applied slot by slot in ascending order. As in the
+    reference, a slot's update is gated on "any replica of the
+    ``fit_block(R, block_r)`` group accepted it" (a replica of the group that
+    did not accept applies ``u − 0·row``), and ``rows_fetched`` counts one
+    row per such slot, charged to the group's lowest-index accepting
+    replica. Returns ``(fields, spins, energy, best_energy, best_spins,
+    num_flips, rows_fetched)``.
+    """
+    if isinstance(couplings, BitPlanes):
+        n = couplings.num_spins
+        pos, neg = couplings.pos, couplings.neg
+
+        def fetch_rows(j):
+            return common.decode_bitplane_rows(pos[:, j], neg[:, j], n)
+    else:
+        n = couplings.shape[0]
+        J = couplings.to(torch.float32)
+
+        def fetch_rows(j):
+            return J[j]
+    dev = fields0.device
+    r = fields0.shape[0]
+    br = common.fit_block(r, block_r)
+    g = r // br
+    win = uniforms.shape[2]
+    ids = torch.arange(br, device=dev)
+    slots = torch.arange(win, device=dev)
+
+    u = fields0.to(torch.float32).clone()
+    s = spins0.to(torch.float32).clone()
+    e = energy0.to(torch.float32).clone()
+    be = e.clone()
+    bs = s.clone()
+    nf = torch.zeros(r, dtype=torch.int32, device=dev)
+    rf = torch.zeros(r, dtype=torch.int32, device=dev)
+    for t, (w, off, size) in enumerate(sched.tolist()):
+        w = min(max(w, 0), n - win)     # dynamic_slice clamps the window
+        s_win = s[:, w:w + win]
+        de = 2.0 * s_win * u[:, w:w + win]
+        p = common.flip_probability(de, temps[t][:, None], pwl_table)
+        idx = slots + w
+        valid = (idx >= off) & (idx < off + size)
+        accept = (uniforms[t] < p) & valid[None, :]
+        acc_f = accept.to(torch.float32)
+        e = e + torch.sum(acc_f * de, dim=1)
+        nf = nf + accept.to(torch.int32).sum(dim=1, dtype=torch.int32)
+        coef = 2.0 * acc_f * s_win                  # 2·acc·s_old per slot
+        s = s.clone()
+        s[:, w:w + win] = s_win * (1.0 - 2.0 * acc_f)
+        acc_b = accept.reshape(g, br, win)
+        anyacc = acc_b.any(dim=1)                   # (G, S)
+        first = torch.where(acc_b, ids[None, :, None],
+                            torch.full_like(ids, br)[None, :, None]).amin(1)
+        hit = anyacc[:, None, :] & (ids[None, :, None] == first[:, None, :])
+        rf = rf + hit.reshape(r, win).sum(dim=1, dtype=torch.int32)
+        gate = anyacc.repeat_interleave(br, dim=0)  # (R, S)
+        ks = torch.nonzero(anyacc.any(dim=0)).flatten()
+        rows = fetch_rows(ks + w) if ks.numel() else None
+        for a, k in enumerate(ks.tolist()):
+            u = torch.where(gate[:, k:k + 1], u - coef[:, k:k + 1] * rows[a],
+                            u)
+        better = e < be
+        be = torch.where(better, e, be)
+        bs = torch.where(better[:, None], s, bs)
+    return (u, s.to(spins0.dtype), e, be, bs.to(spins0.dtype), nf, rf)

@@ -3,11 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.solve --instance k2000 --mode rwa
     PYTHONPATH=src python -m repro_torch.launch.solve --instance sparse16384 \
         --coupling-format bitplane_hbm --steps 65536
+    PYTHONPATH=src python -m repro_torch.launch.solve --instance sparse16384 \
+        --flip-mode colored --coupling-format bitplane_hbm --steps 704
 
-Runs the fused engine and prints the best cut and the time per step.
-``sparse<N>`` is the dense-J-free G(N, 8N) ±1 edge list, solved on a plane
-tier. The JAX CLI's other flags (engines, Gset files, resilience, TTS) wait
-for their slices of the port.
+Runs the fused engine (``--flip-mode single``) or the graph-colored one
+(``--flip-mode colored``: one color class per step) and prints the best cut
+and the time per step; the colored run also prints the coloring, flips per
+step and rows fetched. ``sparse<N>`` is the dense-J-free G(N, 8N) ±1 edge
+list, solved on a plane tier. The JAX CLI's other flags (engines, Gset
+files, resilience, TTS) wait for their slices of the port.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from ..device import resolve_device
 from ..graphs import (MaxCutInstance, complete_bipolar, erdos_renyi,
                       maxcut_edges_to_ising, maxcut_to_ising,
                       sparse_bipolar_edges)
-from ..kernels.ops import fused_anneal
+from ..kernels.ops import colored_anneal, colored_plan, fused_anneal
 
 
 def build_instance(name: str, seed: int):
@@ -55,6 +59,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--coupling-format", choices=COUPLING_FORMATS,
                     default="auto", help="the J store (auto: by N and J)")
+    ap.add_argument("--flip-mode", choices=("single", "colored"),
+                    default="single",
+                    help="single-spin sweeps, or one color class per step")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -74,11 +81,20 @@ def main(argv=None):
     cfg = dataclasses.replace(
         default_solver(problem.num_spins, args.steps, mode=args.mode,
                        num_replicas=args.replicas),
-        coupling_format=args.coupling_format)
+        coupling_format=args.coupling_format, flip_mode=args.flip_mode)
+    colored = args.flip_mode == "colored"
+    if colored:
+        t0 = time.perf_counter()
+        plan = colored_plan(problem, args.coupling_format)
+        plan_seconds = time.perf_counter() - t0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    result = fused_anneal(problem, args.seed, cfg, device=dev)
+    if colored:
+        result = colored_anneal(problem, args.seed, cfg, plan=plan,
+                                device=dev)
+    else:
+        result = fused_anneal(problem, args.seed, cfg, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -92,6 +108,19 @@ def main(argv=None):
           f"first call's kernel build or load)")
     print(f"best cut = {cuts.max():.0f}  (per-replica: "
           f"{np.sort(cuts)[::-1][:8]})")
+    if colored:
+        col = plan.coloring
+        flips = float(result.num_flips.sum())
+        rows = float(result.rows_fetched.sum())
+        print(f"flip_mode=colored coupling_format={plan.store.fmt} "
+              f"color_classes={col.num_classes} "
+              f"max_class={col.max_class_size} "
+              f"mean_class={col.num_spins / col.num_classes:.1f} "
+              f"window={plan.window} plan_seconds={plan_seconds:.3f} (host)")
+        print(f"flips/step={flips / args.steps:.1f} (ensemble, "
+              f"{args.replicas} replicas) flips/s={flips / wall:.4e} "
+              f"rows_fetched={rows:.0f} "
+              f"({rows / args.steps:.2f} rows/step)")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: the
+single-flip and colored sweeps on every tier, and the two field inits.
 
 Marked ``cuda``; each test skips (inside the ``cuda_device`` fixture) when
 no card is present. The file imports neither JAX nor the JAX package, so it
@@ -6,17 +7,18 @@ runs where only PyTorch is installed. Run them on a GPU machine with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 """
+import dataclasses
+import math
+
 import pytest
 import torch
-
-import dataclasses
 
 from repro_torch.configs.snowball import default_solver
 from repro_torch.core import bitplane, ising, pwl, rng
 from repro_torch.core.coupling import CouplingStore
 from repro_torch.core.solver import solve
 from repro_torch.graphs import (complete_bipolar, maxcut_to_ising,
-                                sparse_bipolar_edges)
+                                sparse_bipolar_edges, torus_grid_edges)
 from repro_torch.kernels import (bitplane_field, common, local_field, ops,
                                  parity, ref, sweep)
 
@@ -210,3 +212,84 @@ def test_plane_solve_on_card_equals_cpu_and_dense(cuda_device):
         ops.fused_anneal(problem, 1, dataclasses.replace(
             cfg, coupling_format="bitplane_hbm", num_replicas=16),
             block_r=16, device=cuda_device)
+
+
+def _colored_operands(edges, fmt, r, t, dev, seed=0, hi=2.5):
+    """A colored plan on the card and a consistent state, uniforms over its
+    window, temperatures and the class schedule."""
+    n = edges.num_spins
+    if fmt == "dense":
+        problem = ising.IsingProblem.create(edges.to_dense())
+    else:
+        problem = ising.IsingProblem.create_sparse(edges)
+    plan = ops.colored_plan(problem, fmt).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    s0 = torch.where(torch.rand((r, n), generator=g) < 0.5, 1.0, -1.0).to(dev)
+    J = torch.from_numpy(plan.problem.edges.to_dense() if fmt != "dense"
+                         else plan.problem.couplings.cpu().numpy()).to(dev)
+    u0 = ref.local_field_init(s0, J, torch.zeros(n, device=dev))
+    e0 = -0.5 * (s0 * u0).sum(1)
+    unif = torch.rand((t, r, plan.window), generator=g).to(dev)
+    temps = torch.logspace(math.log10(hi), math.log10(0.05), t)[:, None]
+    temps = temps.expand(t, r).contiguous().to(dev)
+    sched = ops.colored_class_schedule(plan.wstarts, plan.offsets, plan.sizes,
+                                       torch.arange(t, device=dev))
+    return plan, J, (u0, s0, e0, unif, temps, sched)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "bitplane", "bitplane_hbm"])
+@pytest.mark.parametrize("graph", ["torus", "sparse"])
+@pytest.mark.parametrize("use_pwl", [True, False])
+def test_colored_kernel_bitwise(cuda_device, fmt, graph, use_pwl):
+    edges = (torus_grid_edges(32, 32, seed=1) if graph == "torus"
+             else sparse_bipolar_edges(2048, 8 * 2048, seed=2))
+    plan, J, args = _colored_operands(edges, fmt, 8, 64, cuda_device)
+    tbl = pwl.pwl_table(device=cuda_device) if use_pwl else None
+    before = sweep.colored_counter.count
+    got = sweep.colored_sweep(plan.store.kernel_operand, *args, tbl,
+                              coupling=fmt)
+    assert sweep.colored_counter.count == before + 1
+    want = ref.colored_sweep(plan.store.kernel_operand, *args, tbl)
+    if use_pwl:
+        for name, a, b in zip(NAMES, got, want):
+            assert torch.equal(a, b), name
+    u, s, e, be, bs, nf, rf = got
+    assert torch.equal(u, s @ J.T)                 # h = 0
+    assert torch.equal(e, -0.5 * (s * u).sum(1))
+    assert int(nf.sum()) > 0 and bool((rf <= nf).all())
+
+
+@pytest.mark.parametrize("block_r", [1, 4, 8])
+def test_colored_rows_fetched_per_cluster(cuda_device, block_r):
+    """The cluster count of rows_fetched equals the plain per-group count;
+    with block_r=1 every replica counts its own accepts."""
+    edges = sparse_bipolar_edges(4096, 8 * 4096, seed=3)
+    plan, _, args = _colored_operands(edges, "bitplane_hbm", 8, 96,
+                                      cuda_device, seed=1, hi=6.0)
+    tbl = pwl.pwl_table(device=cuda_device)
+    got = sweep.colored_sweep(plan.store.kernel_operand, *args, tbl,
+                              coupling="bitplane_hbm", block_r=block_r)
+    want = ref.colored_sweep(plan.store.kernel_operand, *args, tbl,
+                             block_r=block_r)
+    for name, a, b in zip(NAMES, got, want):
+        assert torch.equal(a, b), name
+    if block_r == 1:
+        assert torch.equal(got[6], got[5])
+    else:
+        assert int(got[6].sum()) < int(got[5].sum())
+
+
+def test_colored_solve_on_card_equals_cpu(cuda_device):
+    problem = ising.IsingProblem.create_sparse(
+        sparse_bipolar_edges(300, 2400, seed=5))
+    cfg = dataclasses.replace(default_solver(300, 600, mode="rsa"),
+                              flip_mode="colored", coupling_format="bitplane")
+    sweep.colored_counter.reset()
+    on_card = solve(problem, 1, cfg, backend="colored", device=cuda_device)
+    assert sweep.colored_counter.count == 3
+    on_cpu = solve(problem, 1, cfg, backend="colored", device="cpu")
+    for name, a, b in zip(on_card._fields, on_card, on_cpu):
+        assert torch.equal(a.cpu(), b), name
+    with pytest.raises(ValueError, match="cluster"):
+        ops.colored_anneal(problem, 1, dataclasses.replace(
+            cfg, num_replicas=16), block_r=16, device=cuda_device)

@@ -3,7 +3,8 @@
 Every module of ``repro_torch`` imports without JAX or the JAX package;
 entry points with no device raise when there is no card (they never fall
 back to the CPU); unported backends and tiers raise naming their ROADMAP
-item; the CLI runs end to end on the CPU when asked.
+item, and the fused path refuses a colored config; the CLI runs end to end
+on the CPU when asked, single-flip and colored.
 """
 import pkgutil
 import subprocess
@@ -74,16 +75,20 @@ def test_entry_points_raise_without_a_card():
 def test_unported_backends_and_options_raise():
     problem = maxcut_to_ising(complete_bipolar(16, seed=0))
     cfg = default_solver(16, 8, mode="rsa")
-    for backend in ("reference", "colored", "tempering", "sharded",
-                    "sharded_2d", "distributed", "auto"):
+    for backend in ("reference", "tempering", "sharded", "sharded_2d",
+                    "distributed", "auto"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             solve(problem, 0, cfg, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         solve(problem, 0, cfg, backend="magic", device="cpu")
     import dataclasses
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(problem, 0, dataclasses.replace(cfg, flip_mode="colored"),
-              device="cpu")
+    # Colored flips are served by their own backend; the fused path refuses
+    # a colored config, as the JAX package's does.
+    colored = dataclasses.replace(cfg, flip_mode="colored")
+    with pytest.raises(ValueError, match="colored"):
+        ops.fused_anneal(problem, 0, colored, device="cpu")
+    with pytest.raises(ValueError, match="colored"):
+        solve(problem, 0, colored, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve(problem, 0,
               dataclasses.replace(cfg, coupling_format="bitplane_sharded"),
@@ -103,6 +108,18 @@ def test_cli_runs_on_the_cpu_when_asked():
          "torus8", "--device", "cpu"], capture_output=True, text=True,
         timeout=120, env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert bad.returncode != 0 and "unknown instance" in bad.stderr
+
+
+def test_colored_cli_runs_on_the_cpu_when_asked():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.solve", "--instance",
+         "sparse300", "--flip-mode", "colored", "--coupling-format",
+         "bitplane", "--steps", "300", "--device", "cpu"],
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "color_classes=" in out.stdout and "flips/step=" in out.stdout
+    assert "best cut =" in out.stdout and "rows_fetched=" in out.stdout
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
