@@ -22,7 +22,14 @@ results:
   704 steps, with the colored sweep held against its plain version on all
   three tiers and on a χ=2 torus, the exact sigmoid's near ties counted,
   the three tiers' colored trajectories bitwise equal and the card's small
-  colored solves equal to the CPU's.
+  colored solves equal to the CPU's;
+* the LM serving path: qwen2-7b at full width and depth in bf16 with
+  weights made on the card from a seed, ``forward(cfg, params,
+  tokens=(4, 4096))`` through the flash-attention kernel (28 launches),
+  held against the chunked path (bf16 layer by layer, and f32), then
+  ``decode_step`` one token at a time from ``init_decode_cache``, with the
+  kernel against its plain version and beside
+  ``scaled_dot_product_attention``.
 
 Prints the card, the build, every check and each phase's seconds, a
 ``{"kernels": [...]}`` line with times and bounds, and as the last line
@@ -42,6 +49,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available")
@@ -61,11 +69,18 @@ from repro_torch.graphs import (complete_bipolar, cut_from_energy,  # noqa: E402
 from repro_torch.kernels import (_build, bitplane_field, common,  # noqa: E402
                                  local_field, ops, ref, sweep)
 from repro_torch.kernels.parity import roulette_near_tie  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import (decode_step, forward,  # noqa: E402
+                                init_decode_cache, init_params, model_specs)
+from repro_torch.models import model as lm_model  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 rate outside the
 #: tensor cores. The bounds below use them.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+#: Dense bf16 tensor-core peak (NVIDIA data sheet): the attention bound.
+BF16_FLOP_PER_S = 989e12
 #: Floating-point operations of one PWL flip probability: divide, max, min,
 #: subtract, multiply, fused multiply-add (2).
 PWL_FLOPS = 7
@@ -85,6 +100,34 @@ TIER_STEPS = 4096
 CHECK_T = 64
 #: Steps of the colored cross-tier solves.
 COLORED_TIER_STEPS = 256
+
+#: The LM serving path: qwen2-7b at full width and depth in the dry run's
+#: serving precision, on the prefill_32k cell cut to one card (batch 32 -> 4,
+#: sequence 32,768 -> 4,096: the cell's own logits would be 319 GB), then
+#: one-token decode over the first prompt tokens and a few greedy ones.
+LM_ARCH = "qwen2-7b"
+LM_BATCH, LM_SEQ = 4, 4096
+LM_LONG_SEQ = 32768            # prefill_32k's sequence, timed at batch 1
+DECODE_PROMPT, DECODE_NEW = 64, 16
+#: max |a - b| / max |b| allowed between two bf16 paths of one model, on
+#: the two-layer smoke configs (tests/test_arch_smoke.py:96).
+BF16_PATH_BOUND = 0.03
+#: The same two paths in f32 compute (tests/test_torch_lm_model.py).
+F32_PATH_BOUND = 1e-4
+
+
+def depth_bound(num_layers: int) -> float:
+    """The bf16 path bound at full depth. Every layer adds its own
+    independent bf16 rounding differences to the residual stream, so the
+    gap grows like a random walk: the two-layer bound times sqrt(layers / 2)
+    (0.112 at 28 layers). ``lm_slice`` shows the growth layer by layer and
+    that the same two paths agree within ``F32_PATH_BOUND`` in f32."""
+    return BF16_PATH_BOUND * math.sqrt(num_layers / 2)
+
+#: Kernel against its plain version: f32 sums the same products in another
+#: order (JAX's own flash-against-chunked bound, 2e-5); bf16 outputs may
+#: round apart by one bf16 ulp, 2^-7 at |out| < 2 (JAX's bf16 bound, 2e-2).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 #: flips/s of the single-flip bitplane_hbm main path at N=16384, by mode,
 #: printed beside the colored main path's (one run, one card).
@@ -119,9 +162,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -172,15 +215,25 @@ def invariants(problem, out, t: int, label: str):
 def profile_main_path(problem, config, store=None,
                       backend: str = "fused") -> None:
     """Device time by kernel and the device's busy share of the host wall
-    time, over one solve. Prints "not measured" if the trace has no device
-    time."""
+    time, over one solve."""
+    profile_device(lambda: solve(problem, SEED, config, backend=backend,
+                                 store=store))
+
+
+def profile_device(run) -> None:
+    """Device time by kernel and the device's busy share of the host wall
+    time, over one call of ``run``. Only device-side events (kernels,
+    copies, fills) count: a host operator's own device time is that of the
+    kernels it launched, which are listed themselves. Prints "not measured"
+    if the trace has no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        solve(problem, SEED, config, backend=backend, store=store)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -189,7 +242,8 @@ def profile_main_path(problem, config, store=None,
                        getattr(ev, "self_cuda_time_total", 0.0))
 
     rows = sorted(((device_us(ev), ev.count, ev.key)
-                   for ev in prof.key_averages()), reverse=True)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(us for us, _, _ in rows) / 1e6
     if busy <= 0:
         print("[profile] device time not measured (no device events)")
@@ -1166,6 +1220,300 @@ def colored_slice() -> list:
         "library_ms": None}]
 
 
+def attention_flops(b: int, hq: int, s: int, d: int,
+                    causal: bool = True) -> int:
+    """QKᵀ and P·V of one attention forward, over the kept (row, col)
+    pairs: 4·B·Hq·D·S(S+1)/2 when causal."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * hq * d * pairs
+
+
+def rel_err(a, b) -> float:
+    """max |a − b| / max |b|, in f32 one leading index at a time."""
+    num = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    return num / max(float(y.float().abs().max()) for y in b)
+
+
+def with_flash(replacement, run):
+    """Call ``run`` with ``replacement(orig, q, k, v, causal, scale)`` in
+    place of ``flash_attention`` (the model imports it at each call)."""
+    orig = fa.flash_attention
+    fa.flash_attention = (lambda q, k, v, causal, scale, *args:
+                          replacement(orig, q, k, v, causal, scale, *args))
+    try:
+        return run()
+    finally:
+        fa.flash_attention = orig
+
+
+def capture_first_attention(run):
+    """Call ``run`` and return the q, k and v of its first flash launch."""
+    seen = []
+
+    def spy(orig, q, k, v, *args):
+        if not seen:
+            seen.append((q, k, v))
+        return orig(q, k, v, *args)
+
+    with_flash(spy, run)
+    return seen[0]
+
+
+def layer_errors(cfg, params, tokens) -> list:
+    """The flash and chunked paths' hidden states after each layer, each
+    path on its own outputs: max |x_flash − x_chunked| / max |x_chunked|."""
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    pos = torch.arange(tokens.shape[1], device="cuda")[None].expand(
+        tokens.shape)
+    xf = xc = lm_model._embed_input(cfg, params, tokens, None)
+    errs = []
+    with torch.no_grad():
+        for g in range(cfg.num_groups):
+            gp = lm_model._index(params["groups"], g)["b0"]
+            xf = lm_model._apply_block(cfg, "attn:mlp", gp, xf, pos, None, None)
+            xc = lm_model._apply_block(chunked, "attn:mlp", gp, xc, pos, None,
+                                       None)
+            errs.append(rel_err(xf, xc))
+    return errs
+
+
+def lm_slice() -> list:
+    """The LM serving path: qwen2-7b at full width and depth, a 4 x 4,096
+    prefill through the flash kernel (28 launches), the chunked path on the
+    same inputs, one-token decode, the kernel against its plain version at
+    the main path's shapes and others, and the timings. Returns the
+    ``kernels`` row of flash_attention."""
+    phase_t = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal phase_t
+        now = time.perf_counter()
+        print(f"[phase] lm {name} {now - phase_t:.1f} s")
+        phase_t = now
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), param_dtype="bfloat16",
+                              remat="none", attn_impl="flash")
+    specs = model_specs(cfg)
+    print(f"[setup] {LM_ARCH}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{cfg.param_count()} parameters, {2 * cfg.param_count()} bytes "
+          "in bf16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(specs, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[setup] init_params on the card {time.perf_counter() - t0:.2f} s, "
+          f"device memory {torch.cuda.memory_allocated()} bytes")
+    tok_np = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ))
+    tokens = torch.from_numpy(tok_np).to("cuda")
+    forward(cfg, params, tokens=tokens[:1, :512])   # warm-up
+    phase_done("setup")
+
+    print(f"[main] forward({LM_ARCH}, tokens ({LM_BATCH}, {LM_SEQ})), "
+          "attn_impl='flash', bf16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fa.counter.reset()
+    t0 = time.perf_counter()
+    logits = forward(cfg, params, tokens=tokens).logits
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.counter.count
+    others = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[main] prefill {wall * 1e3:.3f} ms, "
+          f"{LM_BATCH * LM_SEQ / wall:.1f} tokens/s, peak device memory "
+          f"{peak} bytes, launches flash_attention={launches} "
+          f"(others {others})")
+    check(launches == cfg.num_layers,
+          f"flash_attention launched {cfg.num_layers} times, once a layer")
+    check(tuple(logits.shape) == (LM_BATCH, LM_SEQ, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16,
+          f"logits are bf16 of shape ({LM_BATCH}, {LM_SEQ}, {cfg.vocab_size})")
+    check(all(bool(torch.isfinite(x).all()) for x in logits),
+          "logits are finite")
+    phase_done("main")
+
+    print("[profile] torch.profiler over one prefill (the same call)")
+    q0, k0, v0 = capture_first_attention(lambda: profile_device(
+        lambda: forward(cfg, params, tokens=tokens)))
+    phase_done("profile")
+
+    print("[reference] the same forward with attn_impl='chunked' (plain "
+          "torch, no kernel)")
+    fa.counter.reset()
+    chunked_logits = forward(dataclasses.replace(cfg, attn_impl="chunked"),
+                             params, tokens=tokens).logits
+    check(fa.counter.count == 0, "the chunked path launches no kernel")
+    err = rel_err(logits, chunked_logits)
+    print(f"[reference] flash against chunked logits: max abs err / max "
+          f"|logit| = {err:.6f} (max |logit| "
+          f"{max(float(x.float().abs().max()) for x in chunked_logits):.4f})")
+    del chunked_logits
+    errs = layer_errors(cfg, params, tokens[:1])
+    print("[reference] per layer, hidden state of request 0, max abs err / "
+          "max |x|: " + " ".join(f"{e:.5f}" for e in errs))
+    check(errs[1] <= BF16_PATH_BOUND, f"hidden-state gap after 2 layers (the "
+          f"smoke configs' depth) {errs[1]:.5f} within {BF16_PATH_BOUND}")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    e32 = rel_err(forward(f32, params, tokens=tokens[:1]).logits,
+                  forward(dataclasses.replace(f32, attn_impl="chunked"),
+                          params, tokens=tokens[:1]).logits)
+    check(e32 <= F32_PATH_BOUND, f"in f32 compute, flash and chunked logits "
+          f"of request 0 agree at full depth: {e32:.3e} <= {F32_PATH_BOUND}")
+    plain_logits = with_flash(
+        lambda _, q, k, v, causal, scale, *__: ref.flash_attention(
+            q, k, v, causal, scale),
+        lambda: forward(cfg, params, tokens=tokens[:1]).logits)
+    ekp = rel_err(logits[:1], plain_logits)
+    del plain_logits
+    bound_l = depth_bound(cfg.num_layers)
+    print(f"[reference] request 0, bf16: the kernel's model against the same "
+          f"model with the kernel's plain version {ekp:.6f}; full-depth bound "
+          f"{bound_l:.4f} = {BF16_PATH_BOUND} x sqrt({cfg.num_layers}/2)")
+    check(ekp <= bound_l, "kernel and plain-version models within the "
+          "full-depth bf16 bound")
+    check(err <= bound_l, f"flash logits within {bound_l:.4f} of max |logit| "
+          "of the chunked path's (full-depth bf16 path bound)")
+    phase_done("reference")
+
+    print(f"[decode] init_decode_cache(cfg, {LM_BATCH}, max_len={LM_SEQ}); "
+          f"{DECODE_PROMPT} prompt tokens one at a time, then {DECODE_NEW} "
+          "greedy tokens")
+    cache = init_decode_cache(cfg, LM_BATCH, max_len=LM_SEQ)
+    cache_bytes = sum(t.numel() * t.element_size() for blk in cache.values()
+                      for t in blk["attn"].values())
+    fa.counter.reset()
+    outs, times = [], []
+    nxt = None
+    for t in range(DECODE_PROMPT + DECODE_NEW):
+        step_tokens = tokens[:, t:t + 1] if t < DECODE_PROMPT else nxt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = decode_step(cfg, params, cache, t, tokens=step_tokens)
+        nxt = lg[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if t < DECODE_PROMPT:
+            outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1)
+    derr = rel_err(dec, logits[:, :DECODE_PROMPT])
+    prompt_ms = sum(times[1:DECODE_PROMPT]) / (DECODE_PROMPT - 1) * 1e3
+    greedy_ms = sum(times[DECODE_PROMPT:]) / DECODE_NEW * 1e3
+    kv_read = (DECODE_PROMPT + DECODE_NEW / 2) / LM_SEQ * cache_bytes
+    decode_bound = (2 * cfg.param_count() + kv_read) / HBM_BYTES_PER_S * 1e3
+    print(f"[decode] {prompt_ms:.3f} ms per prompt step, {greedy_ms:.3f} ms "
+          f"per greedy step (host clock, batch {LM_BATCH}: "
+          f"{LM_BATCH / greedy_ms * 1e3:.1f} tokens/s), byte bound "
+          f"{decode_bound:.3f} ms (bf16 weights + the KV cache read, at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s); cache {cache_bytes} bytes; "
+          f"greedy tokens of request 0: {nxt[0].tolist()} (last)")
+    check(fa.counter.count == 0, "decode launches no flash_attention")
+    check(derr <= bound_l, f"decode logits at positions 0-"
+          f"{DECODE_PROMPT - 1} within {bound_l:.4f} of max |logit| of the "
+          f"prefill's (got {derr:.6f}; full-depth bf16 path bound)")
+    check(bool(torch.isfinite(lg).all()), "greedy decode logits are finite")
+    print("[profile] torch.profiler over one more greedy decode step")
+    profile_device(lambda: decode_step(cfg, params, cache,
+                                       DECODE_PROMPT + DECODE_NEW,
+                                       tokens=nxt))
+    del cache, dec, outs, lg, logits
+    torch.cuda.empty_cache()
+    phase_done("decode")
+
+    scale = cfg.resolved_head_dim ** -0.5
+    print("[kernels] flash_attention against its plain version")
+    errs = {}
+
+    def against_plain(label, q, k, v, causal=True):
+        sc = q.shape[-1] ** -0.5
+        got = fa.flash_attention(q, k, v, causal, sc, q.shape[2], k.shape[2])
+        want = ref.flash_attention(q, k, v, causal, sc)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[q.dtype]
+        e = max_abs_err([got], [want])
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"{label}: max_abs_err {e:.3e} within {tol} ({q.dtype})")
+        return e
+
+    errs["main_bf16"] = against_plain(
+        f"layer-0 q, k, v of the prefill {tuple(q0.shape)}/{tuple(k0.shape)}",
+        q0, k0, v0)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    qs, ks = tuple(q0.shape), tuple(k0.shape)
+    errs["main_f32"] = against_plain(
+        "random f32 at the main path's shapes", rand(qs, torch.float32),
+        rand(ks, torch.float32), rand(ks, torch.float32))
+    for d in (80, 128, 160):
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (rand((2, 8, 512, d), dtype),
+                           rand((2, 2, 512, d), dtype),
+                           rand((2, 2, 512, d), dtype))
+                errs[(d, causal, dtype)] = against_plain(
+                    f"(2, 8/2, 512, {d}) causal={causal}", q, k, v, causal)
+    for causal in (True, False):
+        q, k, v = (rand((1, 7, 333, 128), torch.bfloat16),
+                   rand((1, 1, 200, 128), torch.bfloat16),
+                   rand((1, 1, 200, 128), torch.bfloat16))
+        errs[("ragged", causal)] = against_plain(
+            f"ragged (1, 7/1, 333 x 200, 128) causal={causal}", q, k, v,
+            causal)
+    long_q, long_k, long_v = (rand((1, 28, LM_LONG_SEQ, 128), torch.bfloat16),
+                              rand((1, 4, LM_LONG_SEQ, 128), torch.bfloat16),
+                              rand((1, 4, LM_LONG_SEQ, 128), torch.bfloat16))
+    errs["long"] = against_plain(f"random bf16 (1, 28/4, {LM_LONG_SEQ}, 128)",
+                                 long_q, long_k, long_v)
+    phase_done("kernels")
+
+    print("[timing] CUDA events: the kernel, its plain version and "
+          "scaled_dot_product_attention (causal, GQA) on the same inputs")
+    timing = {}
+    for label, (q, k, v), reps in (("main", (q0, k0, v0), (5, 2, 10)),
+                                   ("long", (long_q, long_k, long_v),
+                                    (2, 1, 3))):
+        b, hq, s, d = q.shape
+        flops = attention_flops(b, hq, s, d)
+        e = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v, True, scale,
+                                                      s, s), reps[0]),
+             "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, True,
+                                                             scale), reps[1]),
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, scale=scale, enable_gqa=True),
+                 reps[2]),
+             # q, k, v in and out once; the flops at the bf16 rate.
+             "bound": bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                            flops, BF16_FLOP_PER_S),
+             "f32_ms": flops / F32_FLOP_PER_S * 1e3}
+        timing[label] = e
+        print(f"[timing] flash_attention {tuple(q.shape)}/{tuple(k.shape)} "
+              f"bf16 causal: {e['ms']:.4f} ms per launch "
+              f"({flops / e['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{e['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"{e['library_ms']:.4f} ms, bound {e['bound'][0]:.4f} ms "
+              f"({e['bound'][1]}: {flops} flop at "
+              f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16), the kernel's "
+              f"f32 CUDA-core ceiling {e['f32_ms']:.4f} ms")
+    phase_done("timing")
+
+    e = timing["main"]
+    return [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:80",
+        "launches": launches,
+        "max_abs_err": max(errs["main_bf16"], errs["main_f32"]),
+        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+        "bound_by": e["bound"][1], "library_ms": e["library_ms"]}]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -1177,6 +1525,8 @@ def main() -> None:
           f"L2 {props.L2_cache_size} bytes, {props.multi_processor_count} SMs")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products sum in f32 to the end, as the JAX reference asks.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     print("[build] nvcc, one process per source, in parallel")
     t0 = time.perf_counter()
@@ -1193,6 +1543,7 @@ def main() -> None:
     print(f"[phase] dense slice (K2000) {time.perf_counter() - t0:.1f} s")
     rows += plane_slice()
     rows += colored_slice()
+    rows += lm_slice()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

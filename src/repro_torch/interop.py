@@ -1,5 +1,5 @@
-"""Carry the JAX package's problems, planes, configs, fused state and
-colored plans into the port.
+"""Carry the JAX package's problems, planes, configs, fused state, colored
+plans, and LM configs and parameters into the port.
 
 Everything crosses as numpy arrays and plain Python values, so this module
 imports neither ``jax`` nor ``repro``: a test converts with ``np.asarray``
@@ -17,6 +17,7 @@ from .core.schedules import Schedule
 from .core.solver import SolverConfig
 from .graphs.coloring import Coloring
 from .kernels.ops import ColoredPlan
+from .models.config import ModelConfig
 
 #: dtypes of the fused state ``(u, s, e, best_e, best_s, num_flips)``.
 STATE_DTYPES = (torch.float32,) * 5 + (torch.int32,)
@@ -100,3 +101,32 @@ def colored_plan_from_numpy(colors, perm, offsets, problem: IsingProblem,
             planes_from_numpy(pos, neg, problem.num_spins), plan.store.fmt)
     return plan
 
+
+
+def _tensor_from_numpy(x, device, dtype) -> torch.Tensor:
+    """One leaf. numpy has no bfloat16: a JAX bf16 array comes out of
+    ``np.asarray`` as an ``ml_dtypes`` array that ``torch.from_numpy``
+    refuses, so it crosses as float32 (exact for bf16) and is cast back."""
+    x = np.asarray(x)
+    bf16 = x.dtype.name == "bfloat16"
+    t = torch.from_numpy(np.array(x, dtype=np.float32 if bf16 else None))
+    if dtype is None and bf16:
+        dtype = torch.bfloat16
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(tree, device=None, dtype=None) -> dict:
+    """The port's parameter dict from a JAX LM parameter tree with numpy
+    leaves (``jax.tree.map(np.asarray, params)``): the same keys and
+    layouts, each leaf on ``device`` in its own dtype, or in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    return _tensor_from_numpy(tree, device, dtype)
+
+
+def model_config_from_dict(d: dict) -> ModelConfig:
+    """A ``ModelConfig`` from ``dataclasses.asdict`` of the JAX one."""
+    d = dict(d)
+    d["block_pattern"] = tuple(d.get("block_pattern", ("attn:mlp",)))
+    return ModelConfig(**d)

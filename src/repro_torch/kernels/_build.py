@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"sweep": "sweep.cu", "colored_sweep": "colored_sweep.cu",
            "local_field": "local_field.cu",
-           "bitplane_field": "bitplane_field.cu"}
+           "bitplane_field": "bitplane_field.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

@@ -2,8 +2,11 @@
 
 Port of ``repro.kernels.ref``'s ``local_field_init``,
 ``bitplane_field_init``, ``mcmc_sweep`` and ``colored_sweep`` (dense J or
-packed planes). The wrappers in ``local_field.py``, ``bitplane_field.py``
-and ``sweep.py`` run these for CPU tensors; the tests hold them against the JAX package, and
+packed planes), and ``flash_attention`` (the forward of
+``repro.kernels.flash_attention``, whose oracle in the JAX package is
+``models.layers.chunked_attention``). The wrappers in ``local_field.py``,
+``bitplane_field.py``, ``sweep.py`` and ``flash_attention.py`` run these for
+CPU tensors; the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
@@ -15,6 +18,8 @@ import torch
 from ..core import coupling as coupling_store
 from ..core.bitplane import BitPlanes, hamming_fields
 from . import common
+
+NEG_INF = -1e30
 
 
 def local_field_init(spins: torch.Tensor, couplings: torch.Tensor,
@@ -197,3 +202,47 @@ def colored_sweep(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
         be = torch.where(better, e, be)
         bs = torch.where(better[:, None], s, bs)
     return (u, s.to(spins0.dtype), e, be, bs.to(spins0.dtype), nf, rf)
+
+
+#: Score elements one step of the plain attention holds (f32): 512 MiB.
+FLASH_PLAIN_SCORE_ELEMENTS = 1 << 27
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, scale: float) -> torch.Tensor:
+    """Straightforward GQA attention with the flash kernel's cast points:
+    q·scale, the scores, the softmax and P·V in f32, the causal mask
+    ``row >= col`` on absolute positions (top-left aligned), out = acc /
+    max(l, 1e-30) cast to q's dtype (round to nearest even).
+
+    q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D). The scores of one batch entry
+    and a slice of query rows are formed at a time, at most
+    ``FLASH_PLAIN_SCORE_ELEMENTS`` of them.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    rows = max(1, FLASH_PLAIN_SCORE_ELEMENTS // (hq * skv))
+    out = torch.empty_like(q)
+    cols = torch.arange(skv, device=q.device)
+    for bi in range(b):
+        kb, vb = k[bi].float(), v[bi].float()                 # (Hkv, Skv, D)
+        qb = q[bi].reshape(hkv, rep, sq, d)
+        for r0 in range(0, sq, rows):
+            r1 = min(sq, r0 + rows)
+            qs = qb[:, :, r0:r1].float() * scale              # (Hkv, rep, n, D)
+            s = torch.matmul(qs.reshape(hkv, -1, d), kb.transpose(1, 2))
+            s = s.reshape(hkv, rep, r1 - r0, skv)
+            if causal:
+                pos = torch.arange(r0, r1, device=q.device)
+                mask = pos[:, None] >= cols[None, :]
+                s = torch.where(mask, s, NEG_INF)
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            if causal:
+                p = torch.where(mask, p, 0.0)
+            l = p.sum(dim=-1, keepdim=True)
+            acc = torch.matmul(p.reshape(hkv, -1, skv), vb)
+            o = acc.reshape(hkv, rep, r1 - r0, d) / torch.clamp(l, min=1e-30)
+            out[bi, :, r0:r1] = o.reshape(hq, r1 - r0, d).to(q.dtype)
+    return out

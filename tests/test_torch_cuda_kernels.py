@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the
-single-flip and colored sweeps on every tier, and the two field inits.
+single-flip and colored sweeps on every tier, the two field inits, and the
+flash-attention forward with the LM serving path around it.
 
 Marked ``cuda``; each test skips (inside the ``cuda_device`` fixture) when
 no card is present. The file imports neither JAX nor the JAX package, so it
@@ -19,8 +20,12 @@ from repro_torch.core.coupling import CouplingStore
 from repro_torch.core.solver import solve
 from repro_torch.graphs import (complete_bipolar, maxcut_to_ising,
                                 sparse_bipolar_edges, torus_grid_edges)
+from repro_torch.configs import get_config
 from repro_torch.kernels import (bitplane_field, common, local_field, ops,
                                  parity, ref, sweep)
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import model as lm_model
+from repro_torch.models.params import init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -293,3 +298,101 @@ def test_colored_solve_on_card_equals_cpu(cuda_device):
     with pytest.raises(ValueError, match="cluster"):
         ops.colored_anneal(problem, 1, dataclasses.replace(
             cfg, num_replicas=16), block_r=16, device=cuda_device)
+
+
+def _qkv(shape_q, shape_kv, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(sh, generator=g, device=dev).to(dtype)
+            for sh in (shape_q, shape_kv, shape_kv)]
+
+
+#: f32: the plain version sums the same products in another order (2e-5,
+#: JAX's own flash-against-chunked bound); bf16: one bf16 ulp of |out| ≤ 2
+#: (2^-7), where the two f32 results round apart (2e-2, JAX's bf16 bound).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [
+    (2, 6, 2, 256, 256, 64),
+    (1, 4, 4, 128, 128, 32),     # MHA
+    (2, 8, 1, 128, 128, 64),     # MQA
+    (1, 2, 2, 192, 192, 16),     # non-power-of-two seq
+    (1, 28, 4, 256, 256, 128),   # qwen2-7b's heads
+    (1, 4, 2, 160, 96, 80),      # ragged rows and keys, Sq > Skv
+    (1, 6, 3, 100, 200, 160),    # Sq < Skv
+    (1, 4, 1, 64, 64, 192),
+    (1, 2, 1, 70, 70, 256),
+])
+def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, d,
+                                    causal, dtype):
+    q, k, v = _qkv((b, hq, sq, d), (b, hkv, skv, d), dtype, cuda_device)
+    before = fa.counter.count
+    got = fa.flash_attention(q, k, v, causal, d ** -0.5, sq, skv)
+    assert fa.counter.count == before + 1
+    want = ref.flash_attention(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
+    q, k, v = _qkv((1, 4, 64, 24), (1, 2, 64, 24), torch.float32, cuda_device)
+    before = fa.counter.count
+    with pytest.raises(ValueError, match="head dim 24"):
+        fa.flash_attention(q, k, v, True, 0.2)
+    # The kernel's own check refuses the launch as well (no silent run).
+    out = torch.empty_like(q)
+    rc = fa._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  1, 4, 2, 64, 64, 24, 0.2, 1, 0,
+                  torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    q, k, v = _qkv((1, 4, 64, 32), (1, 2, 64, 32), torch.float16, cuda_device)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fa.flash_attention(q, k, v, True, 0.2)
+    q, k, v = _qkv((1, 4, 64, 32), (1, 2, 64, 32), torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k,
+                           v, True, 0.2)
+    with pytest.raises(ValueError, match="not divisible"):
+        fa.flash_attention(q, k, v, True, 0.2, 48, 48)
+    assert fa.counter.count == before
+
+
+def test_lm_serving_path_on_card(cuda_device):
+    """qwen2-7b smoke on the card: the flash forward launches the kernel
+    once a layer and agrees with the chunked path and with the CPU's flash
+    forward, and decode reproduces the forward (bf16; 0.03 of max |logit|,
+    the bound tests/test_arch_smoke.py uses for bf16 path differences)."""
+    import dataclasses as dc
+    cfg = dc.replace(get_config("qwen2-7b", smoke=True), attn_impl="flash")
+    params = init_params(lm_model.model_specs(cfg),
+                         torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                         device=cuda_device)
+    fa.counter.reset()
+    flash = lm_model.forward(cfg, params, tokens=toks).logits.float()
+    assert fa.counter.count == cfg.num_layers
+    chunked = lm_model.forward(dc.replace(cfg, attn_impl="chunked"), params,
+                               tokens=toks).logits.float()
+    cpu = lm_model.forward(cfg, _to_cpu(params),
+                           tokens=toks.cpu()).logits.float()
+    scale = float(flash.abs().max())
+    assert float((flash - chunked).abs().max()) / scale < 0.03
+    assert float((flash.cpu() - cpu).abs().max()) / scale < 0.03
+    cache = lm_model.init_decode_cache(cfg, 2, 64, device=cuda_device)
+    outs = []
+    for t in range(64):
+        lg, cache = lm_model.decode_step(cfg, params, cache, t,
+                                         tokens=toks[:, t:t + 1])
+        outs.append(lg[:, 0].float())
+    dec = torch.stack(outs, dim=1)
+    assert float((flash - dec).abs().max()) / scale < 0.03
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}

@@ -3,8 +3,9 @@
 Every module of ``repro_torch`` imports without JAX or the JAX package;
 entry points with no device raise when there is no card (they never fall
 back to the CPU); unported backends and tiers raise naming their ROADMAP
-item, and the fused path refuses a colored config; the CLI runs end to end
-on the CPU when asked, single-flip and colored.
+item, and the fused path refuses a colored config, as do the LM archs that
+need blocks the port lacks; the CLI runs end to end on the CPU when asked,
+single-flip and colored.
 """
 import pkgutil
 import subprocess
@@ -35,6 +36,11 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.sweep" in mods and len(mods) >= 20
+    for name in ("repro_torch.models.model", "repro_torch.models.layers",
+                 "repro_torch.models.params", "repro_torch.models.config",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.configs.qwen2_7b"):
+        assert name in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in {mods!r}:
@@ -150,3 +156,13 @@ def test_cut_matches_energy_on_a_cpu_solve():
                        for x in s])
     np.testing.assert_array_equal(cuts, direct)
     assert torch.equal(res.best_energy, ising.energy(problem, res.best_spins))
+
+
+def test_unported_archs_raise_naming_their_roadmap_item():
+    from repro_torch.configs import ARCH_IDS, UNPORTED, get_config
+    assert len(ARCH_IDS) == 6 and len(UNPORTED) == 4
+    for arch in UNPORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
+            get_config(arch)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
