@@ -8,7 +8,9 @@ each main path with the launch counts zeroed just before it, and checks the
 results:
 
 * the dense tier on K2000 (N=2000, R=8, 256-step chunks): ``solve(K2000,
-  seed, default_solver(2000, 20000, mode), backend="fused")``, RSA and RWA;
+  seed, default_solver(2000, 20000, mode), backend="fused")``, RSA and RWA,
+  with the local-field init timed by CUDA-graph replay beside
+  ``torch.addmm``;
 * the ``bitplane`` tier on K4096 (``complete_bipolar(4096, seed=4096)``,
   20,000 steps) and the dense-J-free ``bitplane_hbm`` tier on the sparse
   N=16384 instance (``sparse_bipolar_edges(16384, 8·16384, seed=16384)`` →
@@ -25,11 +27,11 @@ results:
   colored solves equal to the CPU's;
 * the LM serving path: qwen2-7b at full width and depth in bf16 with
   weights made on the card from a seed, ``forward(cfg, params,
-  tokens=(4, 4096))`` through the flash-attention kernel (28 launches),
-  held against the chunked path (bf16 layer by layer, and f32), then
-  ``decode_step`` one token at a time from ``init_decode_cache``, with the
-  kernel against its plain version and beside
-  ``scaled_dot_product_attention``.
+  tokens=(4, 4096))`` through the flash-attention kernel's tensor-core
+  entry (28 launches, none of the f32 entry), held against the chunked
+  path (bf16 layer by layer, and f32), then ``decode_step`` one token at a
+  time from ``init_decode_cache``, with both entries against their plain
+  version and the bf16 one beside ``scaled_dot_product_attention``.
 
 Prints the card, the build, every check and each phase's seconds, a
 ``{"kernels": [...]}`` line with times and bounds, and as the last line
@@ -38,9 +40,11 @@ nonzero. Without a CUDA device it exits nonzero before printing a result.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -114,6 +118,11 @@ DECODE_PROMPT, DECODE_NEW = 64, 16
 BF16_PATH_BOUND = 0.03
 #: The same two paths in f32 compute (tests/test_torch_lm_model.py).
 F32_PATH_BOUND = 1e-4
+#: Flash against chunked logits at full depth (max |Δ| / max |logit|) when
+#: bf16 inputs went through the f32 CUDA-core kernel (q·scale and p in f32),
+#: measured on an H100 80GB HBM3; the tensor-core kernel's cast points are
+#: those of the chunked path.
+CUDA_CORE_LOGIT_GAP = 0.051517
 
 
 def depth_bound(num_layers: int) -> float:
@@ -148,6 +157,39 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_tc_kernel<128>`` from a mangled kernel name: the identifier
+    ending in ``kernel`` whose length prefix fits, and its integer template
+    arguments."""
+    for m in re.finditer(r"(?=(\d{1,3})([A-Za-z_]\w*))", mangled):
+        n = int(m.group(1))
+        ident = m.group(2)[:n]
+        if len(ident) == n and ident.endswith("kernel"):
+            rest = m.group(2)[n:]
+            args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+            if not args:
+                return ident
+            nums = re.findall(r"L[ib](\d+)E", args.group(0))
+            return f"{ident}<{','.join(nums)}>"
+    return mangled
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel from ``nvcc -Xptxas -v``: its name with its
+    template arguments, registers, shared memory and spills."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+            name, spill = None, ""
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call by CUDA events, after one warm-up call."""
     fn()
@@ -157,6 +199,31 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of the device work alone: ``reps`` calls
+    captured in one CUDA graph and replayed, timed by CUDA events. For a
+    kernel of a few microseconds, back-to-back calls from Python time the
+    host's dispatch instead (``cuda_ms``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -272,12 +339,30 @@ def dense_slice() -> list:
     want = ref.local_field_init(s0, problem.couplings, problem.fields)
     check(torch.equal(got, want), "local_field_init bit-equal to plain")
     lf = {"err": max_abs_err([got], [want])}
-    lf["ms"] = cuda_ms(lambda: local_field.local_field_init(
-        s0, problem.couplings, problem.fields), 50)
-    lf["plain_ms"] = cuda_ms(lambda: ref.local_field_init(
-        s0, problem.couplings, problem.fields), 50)
-    lf["library_ms"] = cuda_ms(lambda: torch.addmm(
-        problem.fields, s0, problem.couplings.T), 50)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    j_real = torch.randn((N, N), generator=gen, device="cuda")
+    h_real = torch.randn((N,), generator=gen, device="cuda")
+    got = local_field.local_field_init(s0, j_real, h_real)
+    gap = (got.double() - (s0.double() @ j_real.double().T
+                           + h_real.double())).abs()
+    lim = local_field.order_error_bound(s0, j_real, h_real)
+    check(bool((gap <= lim).all()), "local_field_init on normal J and h "
+          f"within its order bound of the exact product (max gap "
+          f"{float(gap.max()):.3e}, at most {float((gap / lim).max()):.4f} "
+          "of the bound)")
+    del j_real, got
+    # Device time by CUDA-graph replay (the kernel, its plain version and
+    # torch.addmm alike); the host-dispatch time of back-to-back calls is
+    # printed beside it.
+    calls = {"ms": lambda: local_field.local_field_init(
+                 s0, problem.couplings, problem.fields),
+             "plain_ms": lambda: ref.local_field_init(
+                 s0, problem.couplings, problem.fields),
+             "library_ms": lambda: torch.addmm(
+                 problem.fields, s0, problem.couplings.T)}
+    for key, call in calls.items():
+        lf[key] = graph_ms(call, 50)
+        lf["host_" + key] = cuda_ms(call, 50)
     lf["bound"] = bound(4 * (N * N + R * N + N + R * N), 2 * R * N * N)
 
     sw = {}
@@ -411,9 +496,13 @@ def dense_slice() -> list:
         print(f"[timing] mcmc_sweep {label}: {entry['ms']:.4f} ms "
               f"({entry['ms'] / T * 1e3:.3f} us/step), plain "
               f"{entry['plain_ms']:.2f} ms, bound {entry['bound'][0]:.5f} ms")
-    print(f"[timing] local_field_init: {lf['ms']:.5f} ms, plain "
-          f"{lf['plain_ms']:.5f} ms, torch.addmm {lf['library_ms']:.5f} ms, "
-          f"bound {lf['bound'][0]:.5f} ms")
+    print(f"[timing] local_field_init (CUDA-graph replay): {lf['ms']:.5f} "
+          f"ms, plain {lf['plain_ms']:.5f} ms, torch.addmm "
+          f"{lf['library_ms']:.5f} ms ({lf['ms'] / lf['library_ms']:.3f}x "
+          f"its time), bound {lf['bound'][0]:.5f} ms ({lf['bound'][1]}; "
+          f"{lf['bound'][0] / lf['ms']:.1%} of it); back-to-back calls from "
+          f"the host: {lf['host_ms']:.5f} / {lf['host_plain_ms']:.5f} / "
+          f"{lf['host_library_ms']:.5f} ms")
 
     src = "src/repro_torch/kernels/csrc/"
     line = {"kernels": []}
@@ -1220,6 +1309,15 @@ def colored_slice() -> list:
         "library_ms": None}]
 
 
+def reset_flash_counts() -> None:
+    fa.tc_counter.reset()
+    fa.f32_counter.reset()
+
+
+def flash_launches() -> int:
+    return fa.tc_counter.count + fa.f32_counter.count
+
+
 def attention_flops(b: int, hq: int, s: int, d: int,
                     causal: bool = True) -> int:
     """QKᵀ and P·V of one attention forward, over the kept (row, col)
@@ -1316,20 +1414,23 @@ def lm_slice() -> list:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    fa.counter.reset()
+    reset_flash_counts()
     t0 = time.perf_counter()
     logits = forward(cfg, params, tokens=tokens).logits
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.counter.count
+    launches = fa.tc_counter.count
+    launches_f32 = fa.f32_counter.count
     others = read_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"[main] prefill {wall * 1e3:.3f} ms, "
           f"{LM_BATCH * LM_SEQ / wall:.1f} tokens/s, peak device memory "
-          f"{peak} bytes, launches flash_attention={launches} "
-          f"(others {others})")
+          f"{peak} bytes, launches flash_attention bf16 (tensor cores)="
+          f"{launches} f32={launches_f32} (others {others})")
     check(launches == cfg.num_layers,
-          f"flash_attention launched {cfg.num_layers} times, once a layer")
+          f"flash_attention's tensor-core entry launched {cfg.num_layers} "
+          "times, once a layer")
+    check(launches_f32 == 0, "flash_attention's f32 entry launched 0 times")
     check(tuple(logits.shape) == (LM_BATCH, LM_SEQ, cfg.vocab_size)
           and logits.dtype == torch.bfloat16,
           f"logits are bf16 of shape ({LM_BATCH}, {LM_SEQ}, {cfg.vocab_size})")
@@ -1344,14 +1445,16 @@ def lm_slice() -> list:
 
     print("[reference] the same forward with attn_impl='chunked' (plain "
           "torch, no kernel)")
-    fa.counter.reset()
+    reset_flash_counts()
     chunked_logits = forward(dataclasses.replace(cfg, attn_impl="chunked"),
                              params, tokens=tokens).logits
-    check(fa.counter.count == 0, "the chunked path launches no kernel")
+    check(flash_launches() == 0, "the chunked path launches no kernel")
     err = rel_err(logits, chunked_logits)
     print(f"[reference] flash against chunked logits: max abs err / max "
           f"|logit| = {err:.6f} (max |logit| "
-          f"{max(float(x.float().abs().max()) for x in chunked_logits):.4f})")
+          f"{max(float(x.float().abs().max()) for x in chunked_logits):.4f})"
+          f"; {'below' if err < CUDA_CORE_LOGIT_GAP else 'not below'} the "
+          f"{CUDA_CORE_LOGIT_GAP} of the f32 CUDA-core kernel on bf16 inputs")
     del chunked_logits
     errs = layer_errors(cfg, params, tokens[:1])
     print("[reference] per layer, hidden state of request 0, max abs err / "
@@ -1386,7 +1489,7 @@ def lm_slice() -> list:
     cache = init_decode_cache(cfg, LM_BATCH, max_len=LM_SEQ)
     cache_bytes = sum(t.numel() * t.element_size() for blk in cache.values()
                       for t in blk["attn"].values())
-    fa.counter.reset()
+    reset_flash_counts()
     outs, times = [], []
     nxt = None
     for t in range(DECODE_PROMPT + DECODE_NEW):
@@ -1411,7 +1514,7 @@ def lm_slice() -> list:
           f"{decode_bound:.3f} ms (bf16 weights + the KV cache read, at "
           f"{HBM_BYTES_PER_S / 1e12} TB/s); cache {cache_bytes} bytes; "
           f"greedy tokens of request 0: {nxt[0].tolist()} (last)")
-    check(fa.counter.count == 0, "decode launches no flash_attention")
+    check(flash_launches() == 0, "decode launches no flash_attention")
     check(derr <= bound_l, f"decode logits at positions 0-"
           f"{DECODE_PROMPT - 1} within {bound_l:.4f} of max |logit| of the "
           f"prefill's (got {derr:.6f}; full-depth bf16 path bound)")
@@ -1451,7 +1554,7 @@ def lm_slice() -> list:
     errs["main_f32"] = against_plain(
         "random f32 at the main path's shapes", rand(qs, torch.float32),
         rand(ks, torch.float32), rand(ks, torch.float32))
-    for d in (80, 128, 160):
+    for d in (80, 128, 160, 192):
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = (rand((2, 8, 512, d), dtype),
@@ -1473,6 +1576,10 @@ def lm_slice() -> list:
                                  long_q, long_k, long_v)
     phase_done("kernels")
 
+    smem = _build.load("flash_attention").flash_attention_bf16_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    print("[build] flash_tc_kernel dynamic shared memory per block: "
+          + ", ".join(f"D={d}: {smem(d)} B" for d in (80, 128, 160, 192)))
     print("[timing] CUDA events: the kernel, its plain version and "
           "scaled_dot_product_attention (causal, GQA) on the same inputs")
     timing = {}
@@ -1494,13 +1601,17 @@ def lm_slice() -> list:
              "f32_ms": flops / F32_FLOP_PER_S * 1e3}
         timing[label] = e
         print(f"[timing] flash_attention {tuple(q.shape)}/{tuple(k.shape)} "
-              f"bf16 causal: {e['ms']:.4f} ms per launch "
-              f"({flops / e['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"bf16 causal (tensor cores): {e['ms']:.4f} ms per launch "
+              f"({flops / e['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{e['bound'][0] / e['ms']:.1%} of the bound), plain "
               f"{e['plain_ms']:.4f} ms, scaled_dot_product_attention "
-              f"{e['library_ms']:.4f} ms, bound {e['bound'][0]:.4f} ms "
+              f"{e['library_ms']:.4f} ms (kernel / SDPA "
+              f"{e['ms'] / e['library_ms']:.2f}), bound {e['bound'][0]:.4f} ms "
               f"({e['bound'][1]}: {flops} flop at "
-              f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16), the kernel's "
-              f"f32 CUDA-core ceiling {e['f32_ms']:.4f} ms")
+              f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16), the f32 "
+              f"CUDA-core ceiling {e['f32_ms']:.4f} ms")
+        check(e["ms"] < e["f32_ms"], f"{label}: the bf16 kernel beats the "
+              f"f32 CUDA-core ceiling ({e['ms']:.4f} < {e['f32_ms']:.4f} ms)")
     phase_done("timing")
 
     e = timing["main"]
@@ -1534,9 +1645,8 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t0:.2f} s wall")
     for b in built.values():
         print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}")
-        for line in b.log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+        for line in ptxas_summary(b.log):
+            print(f"[build]   {line}")
 
     t0 = time.perf_counter()
     rows = dense_slice()

@@ -4,9 +4,9 @@ Each ``.cu`` file exports a plain C interface and is compiled on its own by
 ``nvcc`` into a shared library under ``build/kernels/`` at the repository
 root (listed in ``.gitignore``), then loaded with ``ctypes``. The build runs
 at first use; a library's file name carries a hash of its source, of the
-shared headers (``csrc/*.cuh``) and of the flags, so an edited source or
-header is rebuilt and an unchanged one is reused. Several sources build in
-parallel, one ``nvcc`` each.
+shared headers (``csrc/*.cuh``) and of its own flags (``NVCC_FLAGS``), so
+an edited source, header or flag is rebuilt and an unchanged one is
+reused. Several sources build in parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
 
@@ -26,9 +26,16 @@ SOURCES = {"sweep": "sweep.cu", "colored_sweep": "colored_sweep.cu",
            "local_field": "local_field.cu",
            "bitplane_field": "bitplane_field.cu",
            "flash_attention": "flash_attention.cu"}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: The Ising kernels round every multiply and add on its own (-fmad=false)
+#: to agree bitwise with their plain versions; flash attention contracts.
+EXACT = ("-fmad=false",)
+NVCC_FLAGS = {"sweep": COMMON_FLAGS + EXACT,
+              "colored_sweep": COMMON_FLAGS + EXACT,
+              "local_field": COMMON_FLAGS + EXACT,
+              "bitplane_field": COMMON_FLAGS + EXACT,
+              "flash_attention": COMMON_FLAGS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +64,7 @@ def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS[name]).encode())
     digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -76,7 +83,7 @@ def build(names=None) -> dict[str, Built]:
             done[name] = Built(name, target, 0.0, "")
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *NVCC_FLAGS[name], "-o", str(tmp),
                str(CSRC / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

@@ -1,10 +1,13 @@
-"""Flash-attention forward, GQA-native and causal-aware: the CUDA kernel and
-its plain version (port of ``repro.kernels.flash_attention``).
+"""Flash-attention forward, GQA-native and causal-aware: the CUDA kernels
+and their plain version (port of ``repro.kernels.flash_attention``).
 
-A CPU tensor goes to the plain version (``ref.flash_attention``); a CUDA
-tensor launches ``csrc/flash_attention.cu`` or raises. The backward (the JAX
-package recomputes it through ``chunked_attention``) waits for the training
-slice.
+A CPU tensor goes to the plain version (``ref.flash_attention``). A CUDA
+tensor launches ``csrc/flash_attention.cu`` or raises: bfloat16 inputs its
+tensor-core entry (``flash_attention_forward_bf16``, counted by
+``tc_counter``), float32 inputs its CUDA-core entry
+(``flash_attention_forward_f32``, counted by ``f32_counter``). The backward
+(the JAX package recomputes it through ``chunked_attention``) waits for the
+training slice.
 """
 from __future__ import annotations
 
@@ -16,21 +19,23 @@ import torch
 from . import _build, ref
 from ._launch import LaunchCounter
 
-counter = LaunchCounter("flash_attention")
+tc_counter = LaunchCounter("flash_attention_bf16")
+f32_counter = LaunchCounter("flash_attention_f32")
 
-#: Input dtypes the kernel takes (q, k and v alike).
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernel entry and its launch count for each input dtype (q, k and v
+#: alike).
+ENTRIES = {torch.bfloat16: ("flash_attention_forward_bf16", tc_counter),
+           torch.float32: ("flash_attention_forward_f32", f32_counter)}
 
-#: Head dims the kernel takes: multiples of 16 up to 256.
+#: Head dims the kernels take: multiples of 16 up to 256.
 MAX_HEAD_DIM = 256
 
 
 @functools.cache
-def _fn():
-    fn = _build.load("flash_attention").flash_attention_forward
+def _fn(entry: str):
+    fn = getattr(_build.load("flash_attention"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -56,7 +61,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as there (each sequence a multiple of its tile, clipped to the
     sequence) and otherwise unused: the CUDA kernel tiles by itself and
     masks ragged edges. On the card q, k and v must be contiguous, all
-    float32 or all bfloat16, with D a multiple of 16 up to 256.
+    float32 or all bfloat16, each starting on a 16-byte boundary, with D a
+    multiple of 16 up to 256.
     """
     _check_shapes(q, k, v)
     sq, skv = q.shape[2], k.shape[2]
@@ -68,26 +74,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
-    b, hq, _, d = q.shape
-    hkv = k.shape[1]
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must all be float32 or all bfloat16, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    d = q.shape[3]
     if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d}: the kernel takes multiples of 16 up "
                          f"to {MAX_HEAD_DIM}")
-    out = torch.empty_like(q)
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   b, hq, hkv, sq, skv, d, float(scale), int(bool(causal)),
-                   DTYPES[q.dtype], stream)
+        return _launch(q, k, v, causal, scale, stream)
+
+
+def _launch(q, k, v, causal: bool, scale: float, stream: int) -> torch.Tensor:
+    """Launch the entry for q's dtype on ``stream`` and count it."""
+    entry, counter = ENTRIES[q.dtype]
+    b, hq, sq, d = q.shape
+    out = torch.empty_like(q)
+    rc = _fn(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, hq, k.shape[1], sq, k.shape[2], d, float(scale),
+                    int(bool(causal)), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     counter.count += 1
     return out

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -44,3 +45,18 @@ def local_field_init(spins: torch.Tensor, couplings: torch.Tensor,
         raise RuntimeError(f"local_field_init launch failed: CUDA error {rc}")
     counter.count += 1
     return out
+
+
+def order_error_bound(spins: torch.Tensor, couplings: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """(R, N) float64 bound on |u − u_exact| for the kernel's summation
+    order. Each product J_ik·s_rk is rounded once, then passes through at
+    most ⌈N/32⌉ + 4 adds in its lane, 5 shuffle adds and the add of h:
+    n = ⌈N/32⌉ + 11 roundings, so |u − u_exact| ≤ γ_n·(Σ_k |J_ik s_rk| +
+    |h_i|) with γ_n = n·2⁻²⁴ / (1 − n·2⁻²⁴) (recursive summation's bound).
+    For integer J and h with sums below 2²⁴ every sum is exact instead."""
+    n = math.ceil(couplings.shape[0] / 32) + 11
+    gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    mag = (torch.abs(spins.double()) @ torch.abs(couplings.double()).T
+           + torch.abs(bias.double()))
+    return gamma * mag

@@ -210,10 +210,18 @@ FLASH_PLAIN_SCORE_ELEMENTS = 1 << 27
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, scale: float) -> torch.Tensor:
-    """Straightforward GQA attention with the flash kernel's cast points:
-    q·scale, the scores, the softmax and P·V in f32, the causal mask
-    ``row >= col`` on absolute positions (top-left aligned), out = acc /
-    max(l, 1e-30) cast to q's dtype (round to nearest even).
+    """Straightforward GQA attention with the flash kernels' cast points:
+    the scores, the softmax and P·V in f32, the causal mask ``row >= col``
+    on absolute positions (top-left aligned), out = acc / max(l, 1e-30)
+    cast to q's dtype (round to nearest even).
+
+    f32 inputs: q·scale in f32, as the TPU kernel and the CUDA-core kernel.
+    bf16 inputs, as the tensor-core kernel: q and k enter the product as
+    their bf16 values, the scale multiplies the f32 scores, and
+    p = exp(s − m) is rounded to bf16 before P·V (the row sum l adds the
+    f32 p). The kernel's m is the running max of the keys seen so far, this
+    version's the max of the whole row, so the two round p relative to
+    different maxima and may differ in the last bf16 digit of out.
 
     q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D). The scores of one batch entry
     and a slice of query rows are formed at a time, at most
@@ -222,6 +230,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     rep = hq // hkv
+    bf16 = q.dtype == torch.bfloat16
     rows = max(1, FLASH_PLAIN_SCORE_ELEMENTS // (hq * skv))
     out = torch.empty_like(q)
     cols = torch.arange(skv, device=q.device)
@@ -230,9 +239,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qb = q[bi].reshape(hkv, rep, sq, d)
         for r0 in range(0, sq, rows):
             r1 = min(sq, r0 + rows)
-            qs = qb[:, :, r0:r1].float() * scale              # (Hkv, rep, n, D)
+            qs = qb[:, :, r0:r1].float()                      # (Hkv, rep, n, D)
+            if not bf16:
+                qs = qs * scale
             s = torch.matmul(qs.reshape(hkv, -1, d), kb.transpose(1, 2))
             s = s.reshape(hkv, rep, r1 - r0, skv)
+            if bf16:
+                s = s * scale
             if causal:
                 pos = torch.arange(r0, r1, device=q.device)
                 mask = pos[:, None] >= cols[None, :]
@@ -242,6 +255,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if causal:
                 p = torch.where(mask, p, 0.0)
             l = p.sum(dim=-1, keepdim=True)
+            if bf16:
+                p = p.to(torch.bfloat16).float()
             acc = torch.matmul(p.reshape(hkv, -1, skv), vb)
             o = acc.reshape(hkv, rep, r1 - r0, d) / torch.clamp(l, min=1e-30)
             out[bi, :, r0:r1] = o.reshape(hq, r1 - r0, d).to(q.dtype)

@@ -56,13 +56,34 @@ def _state(n, r, t, dev, seed=0):
     return problem, (problem.couplings, u0, s0, e0, unif, temps)
 
 
-@pytest.mark.parametrize("n,r", [(250, 8), (2000, 8), (1000, 13)])
+@pytest.mark.parametrize("n,r", [(250, 8), (2000, 8), (1000, 13),
+                                 # rows not 16-byte aligned (N % 4 != 0)
+                                 (250, 1), (250, 33), (1001, 1), (1001, 8),
+                                 (1001, 13), (1001, 33), (2000, 33)])
 def test_local_field_kernel_bitwise(cuda_device, n, r):
     problem, (J, _, s0, *_rest) = _state(n, r, 1, cuda_device)
     before = local_field.counter.count
     got = local_field.local_field_init(s0, J, problem.fields)
     assert local_field.counter.count == before + 1
     assert torch.equal(got, ref.local_field_init(s0, J, problem.fields))
+
+
+@pytest.mark.parametrize("n,r", [(1001, 13), (2000, 8)])
+def test_local_field_kernel_within_order_bound_for_real_j(cuda_device, n, r):
+    """Non-integer J and h: the kernel sums in its own order, within the
+    stated bound (``local_field.order_error_bound``) of the exact float64
+    product, and so within twice it of the plain version's."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + r)
+    J = torch.randn((n, n), generator=g, device=cuda_device)
+    h = torch.randn((n,), generator=g, device=cuda_device)
+    s = torch.where(torch.rand((r, n), generator=g, device=cuda_device) < 0.5,
+                    -1.0, 1.0)
+    got = local_field.local_field_init(s, J, h)
+    exact = s.double() @ J.double().T + h.double()
+    lim = local_field.order_error_bound(s, J, h)
+    assert bool(((got.double() - exact).abs() <= lim).all())
+    want = ref.local_field_init(s, J, h)
+    assert bool(((got.double() - want.double()).abs() <= 2 * lim).all())
 
 
 @pytest.mark.parametrize("n", [250, 2000])
@@ -324,13 +345,18 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 6, 3, 100, 200, 160),    # Sq < Skv
     (1, 4, 1, 64, 64, 192),
     (1, 2, 1, 70, 70, 256),
+    (1, 8, 2, 200, 200, 192),    # nemotron's head dim, GQA
+    (2, 28, 4, 200, 200, 128),   # rep = 7, Sq no multiple of 128
 ])
 def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, d,
                                     causal, dtype):
     q, k, v = _qkv((b, hq, sq, d), (b, hkv, skv, d), dtype, cuda_device)
-    before = fa.counter.count
+    # bf16 goes to the tensor-core entry, f32 to the CUDA-core one.
+    mine, other = ((fa.tc_counter, fa.f32_counter) if dtype == torch.bfloat16
+                   else (fa.f32_counter, fa.tc_counter))
+    before = (mine.count, other.count)
     got = fa.flash_attention(q, k, v, causal, d ** -0.5, sq, skv)
-    assert fa.counter.count == before + 1
+    assert (mine.count, other.count) == (before[0] + 1, before[1])
     want = ref.flash_attention(q, k, v, causal, d ** -0.5)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -340,15 +366,16 @@ def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, d,
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
     q, k, v = _qkv((1, 4, 64, 24), (1, 2, 64, 24), torch.float32, cuda_device)
-    before = fa.counter.count
+    before = (fa.tc_counter.count, fa.f32_counter.count)
     with pytest.raises(ValueError, match="head dim 24"):
         fa.flash_attention(q, k, v, True, 0.2)
-    # The kernel's own check refuses the launch as well (no silent run).
+    # Each entry's own check refuses the launch as well (no silent run).
     out = torch.empty_like(q)
-    rc = fa._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  1, 4, 2, 64, 64, 24, 0.2, 1, 0,
-                  torch.cuda.current_stream().cuda_stream)
-    assert rc != 0
+    for entry, _ in fa.ENTRIES.values():
+        rc = fa._fn(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), 1, 4, 2, 64, 64, 24, 0.2, 1,
+                           torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, entry
     q, k, v = _qkv((1, 4, 64, 32), (1, 2, 64, 32), torch.float16, cuda_device)
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         fa.flash_attention(q, k, v, True, 0.2)
@@ -358,14 +385,19 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
                            v, True, 0.2)
     with pytest.raises(ValueError, match="not divisible"):
         fa.flash_attention(q, k, v, True, 0.2, 48, 48)
-    assert fa.counter.count == before
+    qb = torch.empty(4 * 64 * 32 + 1, dtype=torch.bfloat16,
+                     device=cuda_device)[1:].view(1, 4, 64, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(qb, k.bfloat16(), v.bfloat16(), True, 0.2)
+    assert (fa.tc_counter.count, fa.f32_counter.count) == before
 
 
 def test_lm_serving_path_on_card(cuda_device):
-    """qwen2-7b smoke on the card: the flash forward launches the kernel
-    once a layer and agrees with the chunked path and with the CPU's flash
-    forward, and decode reproduces the forward (bf16; 0.03 of max |logit|,
-    the bound tests/test_arch_smoke.py uses for bf16 path differences)."""
+    """qwen2-7b smoke on the card: the bf16 flash forward launches the
+    tensor-core kernel once a layer (the f32 one never) and agrees with the
+    chunked path and with the CPU's flash forward, and decode reproduces
+    the forward (bf16; 0.03 of max |logit|, the bound
+    tests/test_arch_smoke.py uses for bf16 path differences)."""
     import dataclasses as dc
     cfg = dc.replace(get_config("qwen2-7b", smoke=True), attn_impl="flash")
     params = init_params(lm_model.model_specs(cfg),
@@ -373,9 +405,11 @@ def test_lm_serving_path_on_card(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
                          device=cuda_device)
-    fa.counter.reset()
+    fa.tc_counter.reset()
+    fa.f32_counter.reset()
     flash = lm_model.forward(cfg, params, tokens=toks).logits.float()
-    assert fa.counter.count == cfg.num_layers
+    assert fa.tc_counter.count == cfg.num_layers
+    assert fa.f32_counter.count == 0
     chunked = lm_model.forward(dc.replace(cfg, attn_impl="chunked"), params,
                                tokens=toks).logits.float()
     cpu = lm_model.forward(cfg, _to_cpu(params),

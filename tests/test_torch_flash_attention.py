@@ -7,8 +7,8 @@ Inputs are numpy normals from a seed, handed to both packages. Tolerances
 are JAX's own for flash against chunked (``tests/test_flash_attention.py``):
 2e-5 in f32 (the two sum the same products in another order and the chunked
 path rescales per KV block), 2e-2 in bf16 (one bf16 ulp at |out| ≤ 2 is
-2^-7 ≈ 0.008, and the chunked path rounds q·scale and p to bf16 where the
-kernel stays in f32).
+2^-7 ≈ 0.008; both round p to bf16 before P·V, but the chunked path also
+rounds q·scale to bf16 where the flash versions scale the f32 scores).
 """
 import jax  # noqa: F401  (the port's tests import both packages)
 import jax.numpy as jnp
@@ -56,6 +56,95 @@ def test_flash_matches_jax_chunked(causal, b, hq, hkv, s, d, bq, bk):
     assert got.dtype == torch.float32 and got.shape == (b, hq, s, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,s,d,bq,bk", CASES)
+def test_flash_bf16_matches_jax_chunked(causal, b, hq, hkv, s, d, bq, bk):
+    """bf16 inputs: the plain version's cast points (q and k as bf16 values,
+    scale on the f32 scores, p rounded to bf16 before P·V) against JAX's
+    chunked path in bf16, 2e-2 as above."""
+    arrays = _qkv(b + s, b, hq, hkv, s, d)
+    scale = 1.0 / d ** 0.5
+    got = fa.flash_attention(*_port(arrays, torch.bfloat16), causal, scale,
+                             bq, bk)
+    want = jax_chunked(*_jax(arrays, jnp.bfloat16), causal=causal,
+                       q_chunk=bq, kv_chunk=bk, scale=scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, s, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _attention_with_p(q, k, v, causal, scale, round_p):
+    """Attention of bf16 q, k, v in f32 with the bf16 kernel's cast points,
+    p rounded to bf16 before P·V or not."""
+    rep = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    s = (q.float() @ kf.transpose(-1, -2)) * scale
+    if causal:
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = torch.where(mask, s, ref.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if causal:
+        p = torch.where(mask, p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if round_p:
+        p = p.to(torch.bfloat16).float()
+    return ((p @ vf) / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_plain_rounds_p_before_pv(causal):
+    """The bf16 plain version rounds p (and only p) to bf16 before P·V, as
+    the tensor-core kernel does: it equals an independent computation with
+    that cast bitwise, and differs from the same computation with an f32 p
+    by at most 2e-2 (one bf16 ulp of |out| ≤ 2, the bf16 bound)."""
+    q, k, v = _port(_qkv(11, 1, 4, 2, 96, 32), torch.bfloat16)
+    got = ref.flash_attention(q, k, v, causal, 0.2)
+    assert torch.equal(got, _attention_with_p(q, k, v, causal, 0.2, True))
+    f32_p = _attention_with_p(q, k, v, causal, 0.2, False)
+    assert not torch.equal(got, f32_p)
+    torch.testing.assert_close(got.float(), f32_p.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,entry", [
+    (torch.bfloat16, "flash_attention_forward_bf16"),
+    (torch.float32, "flash_attention_forward_f32")])
+def test_flash_launch_routes_by_dtype(monkeypatch, dtype, entry):
+    """The launch picks the C entry by dtype and bumps only that entry's
+    counter (a stand-in for the library records the calls; no card)."""
+    calls = []
+
+    def fake_fn(name):
+        def launch(*args):
+            calls.append((name, args))
+            return 0
+        return launch
+
+    monkeypatch.setattr(fa, "_fn", fake_fn)
+    q, k, v = _port(_qkv(3, 2, 6, 2, 64, 32), dtype)
+    before = {c.name: c.count for c in (fa.tc_counter, fa.f32_counter)}
+    out = fa._launch(q, k, v, True, 0.25, 7)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert [name for name, _ in calls] == [entry]
+    args = calls[0][1]
+    assert args[4:10] == (2, 6, 2, 64, 64, 32) and args[11:] == (1, 7)
+    bumped = fa.ENTRIES[dtype][1]
+    for c in (fa.tc_counter, fa.f32_counter):
+        assert c.count == before[c.name] + (c is bumped)
+
+
+def test_flash_launch_refuses_a_failed_entry(monkeypatch):
+    """A non-zero return from the entry raises and counts nothing."""
+    monkeypatch.setattr(fa, "_fn", lambda name: lambda *args: 1)
+    q, k, v = _port(_qkv(4, 1, 2, 1, 32, 16), torch.bfloat16)
+    before = fa.tc_counter.count
+    with pytest.raises(RuntimeError, match="flash_attention_forward_bf16"):
+        fa._launch(q, k, v, False, 0.25, 0)
+    assert fa.tc_counter.count == before
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -126,7 +215,8 @@ def test_flash_never_falls_back_for_a_device_tensor(monkeypatch):
     monkeypatch.setattr(ref, "flash_attention",
                         lambda *a, **k: called.append(1))
     q = torch.empty((1, 2, 64, 16), device="meta")
-    before = fa.counter.count
+    before = (fa.tc_counter.count, fa.f32_counter.count)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fa.flash_attention(q, q, q, True, 0.25)
-    assert not called and fa.counter.count == before
+    assert not called
+    assert (fa.tc_counter.count, fa.f32_counter.count) == before

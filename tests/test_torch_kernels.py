@@ -104,6 +104,57 @@ def test_local_field_plain_close_for_real_j():
                                atol=1e-4)
 
 
+def _kernel_order_fields(s, J, h):
+    """u = s Jᵀ + h summed in float32 in the CUDA kernel's order
+    (``csrc/local_field.cu``): lane L of the row's warp adds its columns of
+    each 1024-column tile, 4·L + 128·q + {0..3} where N is a multiple of 4,
+    L + 32·q otherwise, one rounded product and one rounded add at a time;
+    then the butterfly adds over 16, 8, 4, 2, 1 lanes, then h."""
+    r, n = s.shape
+    acc = np.zeros((32, r, n), np.float32)            # (lane, replica, row)
+    for k0 in range(0, n, 1024):
+        kn = min(1024, n - k0)
+        for q in range(32):
+            cols = (4 * np.arange(32)[:, None] + 128 * (q // 4) + q % 4
+                    if n % 4 == 0 else np.arange(32)[:, None] + 32 * q)
+            cols = cols[:, 0]
+            for lane in np.flatnonzero(cols < kn):
+                c = k0 + cols[lane]
+                acc[lane] = acc[lane] + (s[:, c:c + 1] * J[:, c][None, :])
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[np.arange(32) ^ off]
+    return acc[0] + h[None, :]
+
+
+@pytest.mark.parametrize("n,r", [(250, 3), (1001, 2), (2000, 1)])
+def test_local_field_kernel_order_exact_on_integer_j(n, r):
+    """The CUDA kernel's summation order, emulated, equals the plain version
+    bitwise on integer J and h (every partial sum is an exact integer)."""
+    J = _coupling(n, n, scale=3.0)
+    h = np.rint(np.random.default_rng(1).normal(size=n) * 4).astype(np.float32)
+    s = np.where(np.random.default_rng(2).random((r, n)) < 0.5, 1, -1
+                 ).astype(np.float32)
+    want = local_field.local_field_init(*_torch((s, J, h))).numpy()
+    np.testing.assert_array_equal(_kernel_order_fields(s, J, h), want)
+
+
+@pytest.mark.parametrize("n,r", [(250, 3), (1001, 2), (2000, 1)])
+def test_local_field_kernel_order_within_stated_bound(n, r):
+    """Normal J, h and real-valued spins: the kernel's order, emulated in
+    float32, stays within ``order_error_bound`` of the float64 product, and
+    the bound is tight enough to matter (below 1e-4 of Σ|J s|)."""
+    g = np.random.default_rng(n)
+    J = g.normal(size=(n, n)).astype(np.float32)
+    h = g.normal(size=n).astype(np.float32)
+    s = g.normal(size=(r, n)).astype(np.float32)
+    got = _kernel_order_fields(s, J, h).astype(np.float64)
+    exact = s.astype(np.float64) @ J.astype(np.float64).T + h
+    lim = local_field.order_error_bound(*_torch((s, J, h))).numpy()
+    assert np.all(np.abs(got - exact) <= lim)
+    mag = np.abs(s.astype(np.float64)) @ np.abs(J.astype(np.float64)).T
+    assert np.all(lim <= 1e-4 * (mag + np.abs(h)))
+
+
 RSA_VARIANTS = {
     "warm": dict(),
     "zero_t": dict(temps="zero"),
