@@ -10,7 +10,11 @@ results:
 * the dense tier on K2000 (N=2000, R=8, 256-step chunks): ``solve(K2000,
   seed, default_solver(2000, 20000, mode), backend="fused")``, RSA and RWA,
   with the local-field init timed by CUDA-graph replay beside
-  ``torch.addmm``;
+  ``torch.addmm``; the keyed sweep's device draw against ``rng.uniform01``
+  and the keyed sweep against the reading one; for every single-flip
+  main path its device idle share, launches per chunk (at most 8) and
+  fixed cost, and kernel A's cluster-width sweep (c = 1, 2, 4, 8) beside
+  its earlier one-block design's times;
 * the ``bitplane`` tier on K4096 (``complete_bipolar(4096, seed=4096)``,
   20,000 steps) and the dense-J-free ``bitplane_hbm`` tier on the sparse
   N=16384 instance (``sparse_bipolar_edges(16384, 8·16384, seed=16384)`` →
@@ -88,6 +92,25 @@ BF16_FLOP_PER_S = 989e12
 #: Floating-point operations of one PWL flip probability: divide, max, min,
 #: subtract, multiply, fused multiply-add (2).
 PWL_FLOPS = 7
+#: Integer operations of one threefry2x32 uniform (counted at the f32 rate):
+#: 20 rounds of add, rotate and xor, five key injections of three adds, the
+#: two initial adds, the xor of the two words, the conversion and the scale.
+THREEFRY_OPS = 80
+
+#: Kernel A's ms per 256-step launch in its earlier design (one block per
+#: replica, uniforms drawn on the host; PERF.md §6 rows 1, 1b, 1c, on an H100
+#: 80GB HBM3 at 700 W), printed beside this run's.
+ONE_BLOCK_SWEEP_MS = {("dense", "rsa"): 1.1015, ("dense", "rwa"): 2.3083,
+                 ("bitplane", "rsa"): 1.2422, ("bitplane", "rwa"): 2.3177,
+                 ("bitplane_hbm", "rsa"): 1.5700,
+                 ("bitplane_hbm", "rwa"): 6.9444}
+#: The RSA main paths' best cuts (PERF.md §5). RSA + PWL on integer J is
+#: bitwise the JAX trajectory, so no design of the kernel may move them.
+RSA_MAIN_CUT = {"dense": 31271, "bitplane": 81663, "bitplane_hbm": 17592}
+#: Most device launches a single-flip chunk may take (the sweep, the merge).
+MAX_CHUNK_LAUNCHES = 8
+#: Cluster widths of the width sweep.
+SWEEP_WIDTHS = (1, 2, 4, 8)
 
 SEED = 0
 R, N, T = 8, K2000.num_vertices, 256
@@ -141,6 +164,9 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: flips/s of the single-flip bitplane_hbm main path at N=16384, by mode,
 #: printed beside the colored main path's (one run, one card).
 SINGLE_FLIP_RATE: dict = {}
+#: Each single-flip main path's host-clock µs/step, flips/s, best cut,
+#: launches per chunk and profile, by (tier, mode): the summary lines.
+MAIN_PATHS: dict = {}
 
 
 def check(cond, msg: str) -> None:
@@ -255,14 +281,16 @@ def sweep_inputs(problem, r: int, t: int, temps_row, seed: int):
 
 def sweep_bytes_flops(mode: str, r: int, n: int, t: int, flips: int,
                       segs: int):
-    """What one sweep must move and compute for these inputs: u0, s0, e0,
-    uniforms, temps and the table in; u, s, best_s, e, best_e, num_flips and
+    """What one keyed sweep must move and compute for these inputs: u0, s0,
+    e0, temps and the table in; u, s, best_s, e, best_e, num_flips and
     rows_fetched out; one J row per accepted flip (a rejected step needs no
-    row). RSA evaluates one flip probability a step, RWA all N."""
-    nbytes = 4 * (2 * r * n + r + t * r * 4 + t * r + 3 * (segs + 1)
+    row). It draws T·R·4 threefry uniforms; RSA evaluates one flip
+    probability a step, RWA all N."""
+    nbytes = 4 * (2 * r * n + r + t * r + 3 * (segs + 1)
                   + 3 * r * n + 4 * r) + 4 * flips * n
     evals = t * r * (n if mode == "rwa" else 1)
-    flops = evals * (PWL_FLOPS + (1 if mode == "rwa" else 0)) + 2 * flips * n
+    flops = (evals * (PWL_FLOPS + (1 if mode == "rwa" else 0))
+             + 2 * flips * n + t * r * 4 * THREEFRY_OPS)
     return nbytes, flops
 
 
@@ -287,12 +315,13 @@ def profile_main_path(problem, config, store=None,
                                  store=store))
 
 
-def profile_device(run) -> None:
+def profile_device(run, top: int = 8, tag: str = "[profile]"):
     """Device time by kernel and the device's busy share of the host wall
     time, over one call of ``run``. Only device-side events (kernels,
     copies, fills) count: a host operator's own device time is that of the
     kernels it launched, which are listed themselves. Prints "not measured"
-    if the trace has no device time."""
+    and returns None if the trace has no device time; else returns
+    ``{"wall", "busy", "events"}`` (seconds, seconds, device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -313,12 +342,93 @@ def profile_device(run) -> None:
                    if ev.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(us for us, _, _ in rows) / 1e6
     if busy <= 0:
-        print("[profile] device time not measured (no device events)")
-        return
-    print(f"[profile] wall {wall:.4f} s (profiled), device busy "
+        print(f"{tag} device time not measured (no device events)")
+        return None
+    print(f"{tag} wall {wall:.4f} s (profiled), device busy "
           f"{busy:.4f} s = {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
-    for us, count, key in rows[:8]:
-        print(f"[profile]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    for us, count, key in rows[:top]:
+        print(f"{tag}   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    return {"wall": wall, "busy": busy,
+            "events": sum(count for _, count, _ in rows),
+            "sweep_s": sum(us for us, _, key in rows
+                           if "sweep_kernel" in key) / 1e6}
+
+
+def launches_per_chunk(problem, config, store=None) -> float:
+    """Device launches (kernels, copies, fills) per chunk of a single-flip
+    solve: the device events of a 6-chunk solve less those of a 2-chunk
+    one, over 4 (the init's launches cancel)."""
+    events = []
+    for chunks in (2, 6):
+        c = dataclasses.replace(config, num_steps=256 * chunks)
+        prof = profile_device(lambda c=c: solve(problem, SEED, c,
+                                                store=store), top=0,
+                              tag="[main]   launches:")
+        if prof is None:
+            raise RuntimeError("the profiler saw no device events")
+        events.append(prof["events"])
+    return (events[1] - events[0]) / 4
+
+
+def fixed_cost_ms(problem, config, store=None) -> float:
+    """Host-clock ms of a one-step solve, the best of three: what a solve
+    costs besides its steps (store, replica init, temperature table, one
+    launch and merge)."""
+    c = dataclasses.replace(config, num_steps=1)
+    best = math.inf
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(problem, SEED, c, store=store)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def single_flip_main(label: str, problem, config, steps: int, store=None):
+    """The profile of one main-path solve (device busy and idle share, and
+    kernel A's own µs/step in it), its launches per chunk and the fixed
+    cost of a solve, printed on ``[main]``; checks the launch count."""
+    prof = profile_device(lambda: solve(problem, SEED, config, store=store),
+                          top=3, tag=f"[main] {label} profile:")
+    per_chunk = launches_per_chunk(problem, config, store)
+    fixed = fixed_cost_ms(problem, config, store)
+    kernel_us = (math.nan if prof is None
+                 else prof["sweep_s"] / steps * 1e6)
+    print(f"[main] {label}: {per_chunk:.2f} device launches per chunk "
+          f"({steps} steps = {math.ceil(steps / 256)} chunks); kernel A's "
+          f"own {kernel_us:.3f} us/step in the profiled solve; a one-step "
+          f"solve {fixed:.3f} ms (host clock)")
+    check(per_chunk <= MAX_CHUNK_LAUNCHES,
+          f"{label}: at most {MAX_CHUNK_LAUNCHES} launches per chunk")
+    return prof, per_chunk, {"kernel_us": kernel_us, "fixed_ms": fixed}
+
+
+def width_sweep(label: str, couplings, args, tbl, words, fmt: str) -> dict:
+    """Kernel A's ms per 256-step launch (CUDA events, the keyed variant)
+    at each cluster width that fits, for RSA and RWA, beside the width
+    the rule picks."""
+    u0, s0, e0, _, temps = args
+    n = u0.shape[1]
+    lane = common.default_lane(n)
+    segs = tbl.shape[0] - 1
+    out = {}
+    for mode in ("rsa", "rwa"):
+        fits = sweep.widths(n, lane, segs, mode == "rwa")
+        times = {}
+        for c in SWEEP_WIDTHS:
+            if c not in fits:
+                continue
+            times[c] = cuda_ms(lambda c=c, mode=mode: sweep.mcmc_sweep_at_width(
+                c, couplings, u0, s0, e0, temps, tbl, base_words=words,
+                chunk=0, mode=mode, coupling=fmt), 10)
+        pick = sweep.cluster_width(n, lane, segs, mode == "rwa",
+                                   fmt != "dense")
+        out[mode] = times
+        print(f"[timing] width sweep {label} {mode}: "
+              + ", ".join(f"c={c} {ms:.4f} ms" for c, ms in times.items())
+              + f"; the rule picks c={pick}")
+    return out
 
 
 def dense_slice() -> list:
@@ -364,6 +474,20 @@ def dense_slice() -> list:
         lf[key] = graph_ms(call, 50)
         lf["host_" + key] = cuda_ms(call, 50)
     lf["bound"] = bound(4 * (N * N + R * N + N + R * N), 2 * R * N * N)
+
+    print("[kernels] snowball_sweep_uniforms, the keyed sweep's device "
+          "draw, against rng.uniform01 of the chunk's stream")
+    base = rng.fold_in(rng.key(0), SEED)
+    words = rng.words(base)
+    for chunk, t in ((0, T), (1, T), (78, 17), (1000, 130)):
+        got = sweep.sweep_uniforms(words, chunk, t, R, device="cuda")
+        want = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, chunk),
+                             (t, R, 4))
+        check(torch.equal(got.cpu(), want),
+              f"chunk {chunk}, T={t}: the device draw equals rng.uniform01 "
+              "bitwise")
+    check(torch.equal(unif, sweep.sweep_uniforms(words, 0, T, R, "cuda")),
+          "the main-path checks' uniforms are chunk 0's draw")
 
     sw = {}
     print("[kernels] mcmc_sweep RSA + PWL against its plain version "
@@ -416,6 +540,20 @@ def dense_slice() -> list:
                      "flips": flips, "pwl": v["pwl"],
                      "uniformized": v["uniformized"]}
 
+    print("[kernels] the keyed sweep (the main path's, drawing its "
+          "uniforms) against the reading one fed the same words")
+    for label, entry in sw.items():
+        mode = "rsa" if label == "rsa" else "rwa"
+        table = tbl if entry.get("pwl", True) else None
+        uni = entry.get("uniformized", False)
+        a = sweep.mcmc_sweep_keyed(problem.couplings, u0, s0, e0, words, 0,
+                                   temps, table, mode=mode, uniformized=uni)
+        b = sweep.mcmc_sweep(problem.couplings, u0, s0, e0, unif, temps,
+                             table, mode=mode, uniformized=uni)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{label}: keyed kernel bit-equal to the reading kernel, all "
+              "seven outputs")
+
     print("[reference] small input: the card's solve against the CPU's "
           "(N=250, RSA + PWL, linear schedule)")
     small = maxcut_to_ising(complete_bipolar(250, seed=3))
@@ -439,6 +577,7 @@ def dense_slice() -> list:
           f"mode), backend='fused'), R={R}")
     solve(problem, SEED, default_solver(N, 512, mode="rwa"), backend="fused")
     main_runs = {}
+    lane = common.default_lane(N)
     for mode in ("rsa", "rwa"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -457,7 +596,17 @@ def dense_slice() -> list:
               f"{sorted(cuts.tolist(), reverse=True)}), "
               f"{wall / STEPS * 1e6:.3f} us/step, {flips / wall:.4e} flips/s, "
               f"wall {wall:.4f} s, peak device memory {peak / 2**20:.1f} MiB, "
-              f"launches sweep={launches['sweep']} init={launches['init']}")
+              f"launches sweep={launches['sweep']} init={launches['init']}, "
+              f"cluster width {sweep.cluster_width(N, lane, segs, mode == 'rwa')}")
+        prof, per_chunk, extra = single_flip_main(
+            f"K2000 dense {mode}", problem, cfg[mode], STEPS)
+        MAIN_PATHS[("dense", mode)] = {
+            "us_step": wall / STEPS * 1e6, "flips_s": flips / wall,
+            "cut": float(cuts.max()), "per_chunk": per_chunk, "prof": prof,
+            **extra}
+        if mode == "rsa":
+            check(int(cuts.max()) == RSA_MAIN_CUT["dense"],
+                  f"rsa: best cut {RSA_MAIN_CUT['dense']}, as before")
         check(launches["sweep"] == math.ceil(STEPS / 256),
               f"{mode}: sweep launched ceil({STEPS}/256) = 79 times")
         check(launches["init"] == 1, f"{mode}: local_field_init launched once")
@@ -474,16 +623,14 @@ def dense_slice() -> list:
         check(cuts.max() > 0, f"{mode}: best cut positive")
         main_runs[mode] = launches
 
-    print("[profile] torch.profiler over one RWA main-path solve")
-    profile_main_path(problem, cfg["rwa"])
-
-    print("[timing] CUDA events at the main path's shapes")
+    print("[timing] CUDA events at the main path's shapes (the keyed "
+          "sweep, as the main path runs it)")
     for label, entry in sw.items():
         mode = "rsa" if label == "rsa" else "rwa"
         table = tbl if entry.get("pwl", True) else None
         uni = entry.get("uniformized", False)
-        run = (lambda table=table, mode=mode, uni=uni: sweep.mcmc_sweep(
-            problem.couplings, u0, s0, e0, unif, temps, table, mode=mode,
+        run = (lambda table=table, mode=mode, uni=uni: sweep.mcmc_sweep_keyed(
+            problem.couplings, u0, s0, e0, words, 0, temps, table, mode=mode,
             uniformized=uni))
         entry["ms"] = cuda_ms(run, 20)
         entry["plain_ms"] = cuda_ms(lambda table=table, mode=mode, uni=uni:
@@ -493,9 +640,15 @@ def dense_slice() -> list:
                                                    uniformized=uni), 2)
         entry["bound"] = bound(*sweep_bytes_flops(
             mode, R, N, T, entry["flips"], segs if table is not None else 0))
+        before = ONE_BLOCK_SWEEP_MS.get(("dense", label))
         print(f"[timing] mcmc_sweep {label}: {entry['ms']:.4f} ms "
-              f"({entry['ms'] / T * 1e3:.3f} us/step), plain "
-              f"{entry['plain_ms']:.2f} ms, bound {entry['bound'][0]:.5f} ms")
+              f"({entry['ms'] / T * 1e3:.3f} us/step)"
+              + (f" [one block, host uniforms: {before:.4f} ms]"
+                 if before else "")
+              + f", plain {entry['plain_ms']:.2f} ms, bound "
+              f"{entry['bound'][0]:.5f} ms")
+    width_sweep("K2000 dense", problem.couplings, (u0, s0, e0, unif, temps),
+                tbl, words, "dense")
     print(f"[timing] local_field_init (CUDA-graph replay): {lf['ms']:.5f} "
           f"ms, plain {lf['plain_ms']:.5f} ms, torch.addmm "
           f"{lf['library_ms']:.5f} ms ({lf['ms'] / lf['library_ms']:.3f}x "
@@ -598,15 +751,15 @@ def rsa_rows_fetched(n: int, seed: int, config, block_r: int = 8):
 
 def plane_sweep_bytes_flops(mode: str, r: int, n: int, t: int, flips: int,
                             segs: int, num_planes: int):
-    """What one plane sweep must move and compute for these inputs: as
-    :func:`sweep_bytes_flops`, with a packed row (2·B·⌈N/32⌉ words) per
+    """What one keyed plane sweep must move and compute for these inputs:
+    as :func:`sweep_bytes_flops`, with a packed row (2·B·⌈N/32⌉ words) per
     accepted flip, decoded at 6 integer operations per plane and spin."""
     words = -(-n // 32)
-    nbytes = 4 * (2 * r * n + r + t * r * 4 + t * r + 3 * (segs + 1)
+    nbytes = 4 * (2 * r * n + r + t * r + 3 * (segs + 1)
                   + 3 * r * n + 4 * r) + 4 * flips * 2 * num_planes * words
     evals = t * r * (n if mode == "rwa" else 1)
     flops = (evals * (PWL_FLOPS + (1 if mode == "rwa" else 0))
-             + flips * n * (2 + 6 * num_planes))
+             + flips * n * (2 + 6 * num_planes) + t * r * 4 * THREEFRY_OPS)
     return nbytes, flops
 
 
@@ -679,6 +832,26 @@ def plane_kernel_checks(k_store, sp_store, k_h, sp_h, cfg, tbl):
         else:
             check(total == R * CHECK_T, f"{label}: rows_fetched == R*T")
         err[("rsa", fmt, key)] = max_abs_err(got, want)
+
+    print("[kernels] the keyed plane sweep (the main path's) against the "
+          f"reading one fed the same words (R={R}, T={CHECK_T})")
+    words = rng.words(rng.fold_in(rng.key(0), SEED))
+    for key, fmt, store, h in (("k", "bitplane", k_store, k_h),
+                               ("sp", "bitplane_hbm", sp_store, sp_h)):
+        pl = store.planes
+        n = pl.num_spins
+        temps0 = cfg[(n, "rsa")].schedule(
+            torch.arange(CHECK_T, dtype=torch.int32))
+        u0, s0, e0, unif, temps = plane_inputs(pl, h, R, CHECK_T, temps0,
+                                               SEED)
+        for mode in ("rsa", "rwa"):
+            a = sweep.mcmc_sweep_keyed(pl, u0, s0, e0, words, 0, temps, tbl,
+                                       mode=mode, coupling=fmt)
+            b = sweep.mcmc_sweep(pl, u0, s0, e0, unif, temps, tbl, mode=mode,
+                                 coupling=fmt)
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"N={n} {fmt} {mode}: keyed kernel bit-equal to the "
+                  "reading kernel, all seven outputs")
 
     print("[kernels] plane mcmc_sweep RWA + PWL: invariants over T, then "
           "per-step picks from 512 states")
@@ -807,7 +980,17 @@ def plane_slice() -> list:
                   f"sweep={launches['sweep']} "
                   f"bitplane_field_init={launches['init']} "
                   f"local_field_init={launches['dense_init']}, "
-                  f"rows_fetched {int(res.rows_fetched.sum())}")
+                  f"rows_fetched {int(res.rows_fetched.sum())}, cluster "
+                  f"width {sweep.cluster_width(n, common.default_lane(n), segs, mode == 'rwa', True)}")
+            prof, per_chunk, extra = single_flip_main(
+                f"N={n} {fmt} {mode}", prob, c, steps, store)
+            MAIN_PATHS[(fmt, mode)] = {
+                "us_step": wall / steps * 1e6, "flips_s": flips / wall,
+                "cut": float(cuts.max()), "per_chunk": per_chunk,
+                "prof": prof, **extra}
+            if mode == "rsa":
+                check(int(cuts.max()) == RSA_MAIN_CUT[fmt],
+                      f"N={n} rsa: best cut {RSA_MAIN_CUT[fmt]}, as before")
             check(launches["sweep"] == math.ceil(steps / 256),
                   f"N={n} {mode}: sweep launched ceil({steps}/256) = "
                   f"{math.ceil(steps / 256)} times")
@@ -828,13 +1011,6 @@ def plane_slice() -> list:
             if fmt == "bitplane_hbm":
                 SINGLE_FLIP_RATE[mode] = flips / wall
     phase_done("main")
-
-    print(f"[profile] torch.profiler over one sparse N={SPARSE_N} RSA "
-          "main-path solve")
-    profile_main_path(sp_prob, dataclasses.replace(
-        cfg[(SPARSE_N, "rsa")], coupling_format="bitplane_hbm"),
-        store=sp_store)
-    phase_done("profile")
 
     print(f"[tiers] dense, bitplane and bitplane_hbm: one RSA + PWL solve of "
           f"{TIER_STEPS} steps each, K{K_PLANE_N} and N={SPARSE_N}")
@@ -875,6 +1051,19 @@ def plane_slice() -> list:
               "its sites, <= R*T")
     phase_done("tiers")
 
+    print("[reference] at full width: a 1024-step RSA + PWL solve of "
+          f"K{K_PLANE_N} on bitplane and of N={SPARSE_N} on bitplane_hbm, "
+          "the card's against the CPU's")
+    for n, fmt, prob in ((K_PLANE_N, "bitplane", k_prob),
+                         (SPARSE_N, "bitplane_hbm", sp_prob)):
+        c = dataclasses.replace(default_solver(n, 1024, mode="rsa"),
+                                coupling_format=fmt)
+        on_card = solve(prob, SEED, c, store=tier_stores[n][fmt])
+        on_cpu = solve(prob, SEED, c, device="cpu")
+        for name, a, b in zip(on_card._fields, on_card, on_cpu):
+            check(torch.equal(a.cpu(), b), f"N={n} {fmt} 1024-step solve "
+                  f"{name}: card == CPU")
+
     print("[reference] small input: the card's plane solves against the "
           "CPU's (sparse N=256, RSA + PWL, linear schedule)")
     small_edges = sparse_bipolar_edges(256, 2048, seed=3)
@@ -889,17 +1078,22 @@ def plane_slice() -> list:
                   "card == CPU")
     phase_done("reference")
 
-    print("[timing] CUDA events at the main paths' shapes (T=256)")
+    print("[timing] CUDA events at the main paths' shapes (T=256; the keyed "
+          "sweep, as the main path runs it)")
     timing = {}
+    base_words = rng.words(rng.fold_in(rng.key(0), SEED))
     for key, fmt, store, h in (("k", "bitplane", k_store, k_h),
                                ("sp", "bitplane_hbm", sp_store, sp_h)):
         pl = store.planes
         n = pl.num_spins
         temps0 = cfg[(n, "rsa")].schedule(torch.arange(T, dtype=torch.int32))
         args = plane_inputs(pl, h, R, T, temps0, SEED)
+        u0, s0, e0, _, temps = args
         for mode in ("rsa", "rwa"):
-            run = (lambda mode=mode, pl=pl, fmt=fmt, args=args:
-                   sweep.mcmc_sweep(pl, *args, tbl, mode=mode, coupling=fmt))
+            run = (lambda mode=mode, pl=pl, fmt=fmt, u0=u0, s0=s0, e0=e0,
+                   temps=temps: sweep.mcmc_sweep_keyed(
+                       pl, u0, s0, e0, base_words, 0, temps, tbl, mode=mode,
+                       coupling=fmt))
             out = run()
             e = {"ms": cuda_ms(run, 10),
                  "plain_ms": cuda_ms(lambda mode=mode, pl=pl, fmt=fmt,
@@ -910,16 +1104,18 @@ def plane_slice() -> list:
                      mode, R, n, T, int(out[5].sum()), segs, pl.num_planes))}
             timing[(fmt, mode)] = e
             print(f"[timing] mcmc_sweep {fmt} {mode} N={n}: {e['ms']:.4f} ms "
-                  f"({e['ms'] / T * 1e3:.3f} us/step), plain "
+                  f"({e['ms'] / T * 1e3:.3f} us/step) [one block, host "
+                  f"uniforms: {ONE_BLOCK_SWEEP_MS[(fmt, mode)]:.4f} ms], plain "
                   f"{e['plain_ms']:.2f} ms, bound {e['bound'][0]:.5f} ms "
                   f"({e['bound'][1]})")
         if fmt == "bitplane_hbm":
             for mode in ("rsa", "rwa"):
-                ms = cuda_ms(lambda mode=mode: sweep.mcmc_sweep(
-                    pl, *args, tbl, mode=mode, coupling=fmt, coalesce=False),
-                    10)
+                ms = cuda_ms(lambda mode=mode: sweep.mcmc_sweep_keyed(
+                    pl, u0, s0, e0, base_words, 0, temps, tbl, mode=mode,
+                    coupling=fmt, coalesce=False), 10)
                 print(f"[timing] mcmc_sweep {fmt} {mode} N={n} uncoalesced: "
                       f"{ms:.4f} ms ({ms / T * 1e3:.3f} us/step)")
+        width_sweep(f"N={n} {fmt}", pl, args, tbl, base_words, fmt)
     dense_sp_j = sp_dense_prob.couplings
     for key, dense_j in (("k", k_prob.couplings), ("sp", dense_sp_j)):
         pl, s0, words = field_in[key]
@@ -951,10 +1147,11 @@ def plane_slice() -> list:
                 temps0 = c.schedule(torch.arange(T, dtype=torch.int32))
                 pl = store.planes if store.planes is not None else \
                     tier_stores[n]["bitplane"].planes
-                args = plane_inputs(pl, h, R, T, temps0, SEED)
-                ms = cuda_ms(lambda op=op, fmt=fmt, mode=mode, args=args:
-                             sweep.mcmc_sweep(op, *args, tbl, mode=mode,
-                                              coupling=fmt), 10)
+                u0, s0, e0, _, temps = plane_inputs(pl, h, R, T, temps0, SEED)
+                ms = cuda_ms(lambda op=op, fmt=fmt, mode=mode, u0=u0, s0=s0,
+                             e0=e0, temps=temps: sweep.mcmc_sweep_keyed(
+                                 op, u0, s0, e0, base_words, 0, temps, tbl,
+                                 mode=mode, coupling=fmt), 10)
                 solve(prob, SEED, c, store=store)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1652,6 +1849,19 @@ def main() -> None:
     rows = dense_slice()
     print(f"[phase] dense slice (K2000) {time.perf_counter() - t0:.1f} s")
     rows += plane_slice()
+    print("[summary] single-flip main paths: host-clock us/step (kernel A's "
+          "own in the profiled solve; a one-step solve's fixed cost), "
+          "flips/s, best cut, device idle share (profiled solve), launches "
+          "per chunk")
+    for (fmt, mode), m in MAIN_PATHS.items():
+        prof = m["prof"]
+        idle = ("not measured" if prof is None
+                else f"{1 - prof['busy'] / prof['wall']:.1%}")
+        print(f"[summary] {fmt} {mode}: {m['us_step']:.3f} us/step "
+              f"(kernel A's own {m['kernel_us']:.3f}; a one-step solve "
+              f"{m['fixed_ms']:.3f} ms), {m['flips_s']:.4e} flips/s, best "
+              f"cut {m['cut']:.0f}, idle {idle}, {m['per_chunk']:.2f} "
+              f"launches per chunk")
     rows += colored_slice()
     rows += lm_slice()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -25,11 +25,13 @@ the widest store that still fits L2:
   N ≤ √(4·L2) = 14481 (:data:`BITPLANE_L2_MAX_N`);
 * ``bitplane_hbm`` past that.
 
-Every tier is also capped by the sweep state in one block's shared memory
-(u, s and best_s, 12·N bytes of the 232,448 a block may use): N ≤ 19370
-(:data:`SWEEP_STATE_MAX_N`; the sweep wrapper checks the exact budget of
-each mode). Past it every tier raises, naming ROADMAP queue 2 item 8. These
-thresholds are a hypothesis: ``chip_smoke.py``'s per-tier timings test it.
+Every tier is also capped by the sweep state in shared memory: the
+single-flip sweep splits each replica's u, s and best_s (12·N bytes) over
+the at most 8 blocks of a thread-block cluster, each holding 232,448 bytes,
+so N ≤ 154,965 (:data:`SWEEP_STATE_MAX_N`; the sweep wrapper checks the
+exact budget of each mode and width, ``kernels.sweep.max_n``). Past it every
+tier raises. These thresholds are a hypothesis: ``chip_smoke.py``'s
+per-tier timings test it.
 
 ``CouplingStore.build`` is the single host-side resolve → encode entry point;
 an :class:`~repro_torch.core.ising.EdgeList` packs straight into planes in
@@ -62,9 +64,13 @@ BITPLANE_L2_MAX_N = math.isqrt(4 * L2_BYTES)
 #: Dynamic shared memory one block may use on Hopper.
 SHARED_MEMORY_BYTES = 232_448
 
-#: The sweep keeps u, s and best_s (3·N f32) of one replica in one block's
-#: shared memory, on every tier.
-SWEEP_STATE_MAX_N = SHARED_MEMORY_BYTES // 12
+#: Blocks of the thread-block cluster that holds one replica of the sweep
+#: (the portable cluster size).
+SWEEP_MAX_BLOCKS = 8
+
+#: The sweep splits u, s and best_s (3·N f32) of one replica over the shared
+#: memory of at most :data:`SWEEP_MAX_BLOCKS` blocks, on every tier.
+SWEEP_STATE_MAX_N = SWEEP_MAX_BLOCKS * SHARED_MEMORY_BYTES // 12
 
 #: Word-axis alignment of the streamed tier's planes (the JAX package's 128-
 #: word lane tile; zero bits, which decoders truncate).
@@ -74,8 +80,8 @@ STREAM_ALIGN_WORDS = 128
 DENSE_COUPLING_BITS = 32
 
 _SHARED_MEMORY_CEILING = (
-    "the sweep keeps u, s and best_s of one replica in one block's shared "
-    "memory; lifting that ceiling is ROADMAP queue 2 item 8")
+    "the sweep splits u, s and best_s of one replica over the shared memory "
+    f"of at most {SWEEP_MAX_BLOCKS} blocks of a thread-block cluster")
 
 
 @dataclasses.dataclass(frozen=True)

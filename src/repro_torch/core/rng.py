@@ -58,6 +58,19 @@ def key(seed: int, device=None) -> torch.Tensor:
                         dtype=torch.int64, device=device)
 
 
+def from_words(hi: int, lo: int, device=None) -> torch.Tensor:
+    """The key whose two 32-bit words are ``(hi, lo)``."""
+    return torch.tensor([hi & MASK32, lo & MASK32], dtype=torch.int64,
+                        device=device)
+
+
+def words(key: torch.Tensor) -> tuple:
+    """The two words of one key as Python ints (a device read if the key
+    lies on the card)."""
+    hi, lo = key.tolist()
+    return int(hi), int(lo)
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: hash the count pair ``(0, data)`` under ``key``.
 

@@ -18,6 +18,10 @@ from ..core.bitplane import WORD_BITS, as_uint32
 #: Widest lane block of the two-level roulette (the JAX package's value).
 MAX_LANE = 128
 
+#: Steps whose uniforms and temperatures the card's single-flip sweep stages
+#: in shared memory at a time (one uniform per thread of a 256-thread block).
+SWEEP_WINDOW = 64
+
 
 def fit_block(n: int, target: int) -> int:
     """Largest divisor of ``n`` that is ≤ target."""

@@ -1,5 +1,6 @@
 // Device functions shared by the sweep kernels (sweep.cu, colored_sweep.cu):
-// the coupling store, the plane-row decode, the flip probability and dE.
+// the coupling store, the plane-row decode, the flip probability, dE and
+// the threefry uniforms of a sweep chunk.
 // Both kernels repeat the float operations of kernels/common.py in the same
 // order, so they agree bitwise with the plain versions where that is
 // claimed; build with -fmad=false (see sweep.cu).
@@ -87,6 +88,52 @@ __device__ __forceinline__ float flip_probability(float de, float t,
 __device__ __forceinline__ float delta_e(const float* s, const float* u,
                                          int i) {
   return __fmul_rn(__fmul_rn(2.f, s[i]), u[i]);
+}
+
+// Threefry-2x32 (20 rounds) in uint32 arithmetic, bit-equal to
+// core/rng.threefry2x32 and so to jax.random's partitionable threefry.
+__device__ __forceinline__ void threefry_mix4(unsigned& x1, unsigned& x2,
+                                              int a, int b, int c, int d) {
+  x1 += x2; x2 = __funnelshift_l(x2, x2, a) ^ x1;
+  x1 += x2; x2 = __funnelshift_l(x2, x2, b) ^ x1;
+  x1 += x2; x2 = __funnelshift_l(x2, x2, c) ^ x1;
+  x1 += x2; x2 = __funnelshift_l(x2, x2, d) ^ x1;
+}
+
+__device__ __forceinline__ uint2 threefry2x32(unsigned k1, unsigned k2,
+                                              unsigned x1, unsigned x2) {
+  const unsigned k3 = k1 ^ k2 ^ 0x1BD11BDAu;
+  x1 += k1;
+  x2 += k2;
+  threefry_mix4(x1, x2, 13, 15, 26, 6);
+  x1 += k2; x2 += k3 + 1u;
+  threefry_mix4(x1, x2, 17, 29, 16, 24);
+  x1 += k3; x2 += k1 + 2u;
+  threefry_mix4(x1, x2, 13, 15, 26, 6);
+  x1 += k1; x2 += k2 + 3u;
+  threefry_mix4(x1, x2, 17, 29, 16, 24);
+  x1 += k2; x2 += k3 + 4u;
+  threefry_mix4(x1, x2, 13, 15, 26, 6);
+  x1 += k3; x2 += k1 + 5u;
+  return make_uint2(x1, x2);
+}
+
+// jax.random.fold_in: the count pair (0, data) hashed under the key.
+__device__ __forceinline__ uint2 fold_in(uint2 key, unsigned data) {
+  return threefry2x32(key.x, key.y, 0u, data);
+}
+
+// The key of a sweep chunk: stream(base, Salt.SWEEP = 7, chunk).
+__device__ __forceinline__ uint2 sweep_chunk_key(unsigned base0,
+                                                 unsigned base1, int chunk) {
+  return fold_in(fold_in(make_uint2(base0, base1), 7u), (unsigned)chunk);
+}
+
+// Element `count` of rng.uniform01(key, shape): the bits o1 ^ o2 of the
+// count pair (0, count), rounded to f32 and scaled by 2^-32 (exact).
+__device__ __forceinline__ float uniform_at(uint2 key, unsigned count) {
+  const uint2 o = threefry2x32(key.x, key.y, 0u, count);
+  return __fmul_rn(__uint2float_rn(o.x ^ o.y), __int_as_float(0x2F800000));
 }
 
 }  // namespace

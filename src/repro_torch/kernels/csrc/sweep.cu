@@ -11,48 +11,80 @@
 //
 // What bounds it on this card: the T steps of one replica form a serial
 // chain, and each step reads one J row that it needs before the next step
-// can select. At R=8 that is 8 blocks of a 132-SM card, so the pace is set
-// by the latency of one step (a row read from L2 or HBM plus the
-// block-wide barriers), not by the bytes: R*N*4 bytes a step is 64 KB at
+// can select. So the pace is set by the latency of one step (a row read
+// from L2 or HBM, the barriers, and for RWA the evaluation and scan of all
+// N flip probabilities), not by the bytes: R*N*4 bytes a step is 64 KB at
 // K2000, a few ns at 3.35 TB/s; a B=1 plane row is 16x smaller still.
 //
-// What the design does about it: one thread block per replica keeps the
-// replica's u, s and best_s in shared memory for the whole chunk (the
-// analogue of the Pallas kernel's VMEM-resident state), so a step touches
-// device memory only for its uniforms, its temperature and the accepted
-// row. A rejected step reads no row at all: its coefficient is 0, so u is
-// unchanged. The RWA block sums are computed by all warps; the two prefix
-// scans and <=-counts of the roulette run in one warp.
+// What the design does about it:
+//
+// * One thread-block cluster per replica. Its c blocks (c <= 8, chosen by
+//   the wrapper from N, the mode and the store) split N into slices of N/c
+//   spins, each a whole number of lane blocks; rank q keeps u, s and best_s
+//   of its slice in shared memory for the whole chunk (the analogue of the
+//   Pallas kernel's VMEM-resident state). At R=8 and c=8 a solve runs on 64
+//   SMs instead of 8, and N reaches c times what one block holds.
+// * The step's uniforms and temperature come from shared memory: every 64
+//   steps the 256 threads of a block stage the next window's 64 x 4
+//   uniforms and 64 temperatures. The DRAW variant computes the uniforms
+//   in place with threefry2x32 from the chunk key (stream(base, SWEEP,
+//   chunk), derived in the kernel from the two base words): element
+//   (t, r, k) is uniform01's count (t*R + r)*4 + k, the same words as
+//   rng.uniform01(chunk_key, (T, R, 4)). The read variant loads them from
+//   a (T, R, 4) tensor (the kernel-level parity tests feed it).
+// * RWA, each step: every rank sums its slice's lane blocks and posts its
+//   total (all warps, then warp 0); cluster barrier 1; every rank reads the
+//   c totals through distributed shared memory, adds them in rank order
+//   (so every rank holds the same W, radius and owner bitwise), and the
+//   owner rank alone runs the lane-block pick and the lane pick on its own
+//   slice, as the single-block kernel's warp 0 did; it posts the decision
+//   (j, accept, dE, s_old) into every rank's mailbox; cluster barrier 2;
+//   every rank applies it to its slice. The degenerate fallback is decided
+//   by the rank holding site(u0), the uniformized null transition by the
+//   owner.
+// * RSA, each step: the rank holding site(u0) decides the accept from its
+//   own u and s and posts the decision; one cluster barrier; every rank
+//   applies it.
+// * A rejected step reads no row at all: its coefficient is 0, so u is
+//   unchanged.
+//
+// Barriers, and why they are enough. No rank ever reads another rank's u,
+// s or best_s: only the posted totals and the mailboxes cross blocks. A
+// step's mailbox is mail[t & 1]. A rank reads mail[t & 1] after the step's
+// last cluster barrier and before it arrives at the next one; a decider
+// writes mail[(t+1) & 1] only after that next barrier (RWA) or before it
+// (RSA), and writes mail[t & 1] again only at step t+2, after a barrier
+// that every rank reaches only once it has read step t's. A rank's posted
+// total is written before barrier 1 and read by its peers between
+// barriers 1 and 2; it is written again only after barrier 2. So RSA takes
+// one cluster barrier a step and RWA two; each step ends with a block
+// barrier, since the next decision reads u and s that other threads of
+// the block just updated. With c = 1 the cluster barriers are block
+// barriers.
 //
 // Plane tiers: row j is decoded where it is used. A warp covers the 1024
 // spins of 32 packed words: it reads those words with one coalesced load
 // per plane and sign, a shuffle broadcasts each word to the warp, and lane
 // L takes bit L for spin 32*word + L, so the u update stays conflict-free
-// in shared memory. The decoded coupling
-// sum_b 2^b (bit_pos - bit_neg) is a small integer and coef is 0 or +-2, so
-// u - coef*row is the same exact operation as on the dense tier and the
-// trajectories of the three tiers are bitwise equal. The TPU kernel's
-// double buffer (replica r+1's row DMA overlapping replica r's decode
-// inside one grid step) has no counterpart here: the replicas are separate
-// blocks that run concurrently.
+// in shared memory; a rank decodes the words of its own slice. The decoded
+// coupling sum_b 2^b (bit_pos - bit_neg) is a small integer and coef is 0
+// or +-2, so u - coef*row is the same exact operation as on the dense tier
+// and the trajectories of the three tiers are bitwise equal.
 //
 // rows_fetched on the coalesced tier (bitplane_hbm with coalesce): the JAX
-// kernel fetches each step's unique rows once per block of br replicas and
-// charges each to the lowest replica selecting it. Here the br replicas of
-// a group form one thread-block cluster. Each block logs its sites in
-// shared memory; every kLogSteps steps (and after the last) the cluster
-// meets at a barrier, each block reads the lower-ranked blocks' logs
-// through distributed shared memory and counts the steps whose site none
-// of them chose, and a second barrier lets the logs be reused. A barrier
-// per step would make the replicas walk in lockstep, so each step would
-// last as long as the group's slowest (an accepted RSA flip against a
-// rejected one); a barrier per window costs that only once per window.
+// kernel fetches each step's unique rows once per group of br replicas and
+// charges each to the lowest replica selecting it. Here rank 0 of each
+// replica logs the chunk's sites in a (T, R) int32 scratch tensor; when a
+// replica is done it fences its log and bumps its group's counter, and the
+// cluster that arrives last counts the group's unique rows per step. No
+// cluster waits on another.
 //
 // Arithmetic: build with -fmad=false, so no multiply-add is contracted
 // except the explicit __fmaf_rn of the PWL table, which the JAX reference
 // also rounds once (XLA's CPU compiler contracts it). Division is the
-// IEEE-rounded __fdiv_rn. The roulette adds block and lane sums in another
-// order than the reference's cumsum, so RWA picks agree except near ties.
+// IEEE-rounded __fdiv_rn. The roulette adds block, lane and rank sums in
+// another order than the reference's cumsum, so RWA picks agree except
+// near ties.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -65,13 +97,47 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLane = 128;
-// Steps between the coalesced tier's cluster barriers (its site log).
-constexpr int kLogSteps = 64;
+constexpr int kMaxWidth = 8;
+// Steps whose uniforms (kSlots each) and temperatures a block stages at a
+// time: one uniform per thread.
+constexpr int kWindow = 64;
+constexpr int kSlots = 4;
+static_assert(kWindow * kSlots == kThreads, "one staged uniform a thread");
 
-// Where the couplings live (the Store of snowball_device.cuh): a dense
-// (N, N) f32 J, (B, N, W) uint32 pos/neg planes, or the planes with the
-// coalesced rows_fetched count.
-enum StoreKind { kDense = 0, kPlanes = 1, kPlanesCoalesced = 2 };
+// Where the couplings live (the Store of snowball_device.cuh).
+enum StoreKind { kDense = 0, kPlanes = 1 };
+
+// One step's outcome, posted by the deciding rank to every rank.
+struct __align__(16) Decision {
+  int j;         // the selected site (global index)
+  int accept;
+  float de;      // its dE
+  float s_old;   // its spin before the step
+};
+
+struct SweepParams {
+  Store st;
+  const float* u0;
+  const float* s0;
+  const float* e0;
+  const float* unif;   // (T, R, 4), the read variant; nullptr: DRAW
+  unsigned key0, key1; // DRAW: the two words of the solve's base key
+  int chunk;           // DRAW: the chunk index of stream(base, SWEEP, chunk)
+  const float* temps;  // (T, R)
+  const float* pwl;    // icpt[segs], slope[segs], z_lo, z_hi, inv_step
+  int segs;
+  float* u_out;
+  float* s_out;
+  float* e_out;
+  float* be_out;
+  float* bs_out;
+  int* nf_out;
+  int* rf_out;
+  int* site_log;       // (T, R) coalesced tier's site log; nullptr: T rows
+  int* group_done;     // (R / group) arrival counters, zeroed
+  int group;           // replicas per coalescing group
+  int R, N, T, lane, width;
+};
 
 __device__ __forceinline__ int site_from_uniform(float u, int n) {
   return min((int)__fmul_rn(u, (float)n), n - 1);
@@ -128,80 +194,121 @@ __device__ __forceinline__ float warp_prefix_before(const float* x, int m,
   return at == 0 ? 0.f : v;
 }
 
-// Adds to *count the logged steps whose site no lower-ranked block of the
-// cluster chose at the same step (the rows this block fetches). All blocks
-// of the cluster call it at the same steps; the first barrier publishes
-// every log, the second keeps each log until its peers have read it (and
-// keeps a block from leaving while its shared memory is read).
-__device__ void count_unique_rows(const int* log, int steps, int* count) {
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int rank = (int)cluster.block_rank();
-  int mine = 0;
-  for (int k = threadIdx.x; k < steps; k += kThreads) {
-    bool dup = false;
-    for (int q = 0; q < rank && !dup; ++q)
-      dup = cluster.map_shared_rank(log, q)[k] == log[k];
-    mine += !dup;
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    mine += __shfl_xor_sync(kFull, mine, off);
-  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(count, mine);
-  cluster.sync();
+// A barrier of the replica's blocks: the cluster's, or the block's alone.
+__device__ __forceinline__ void replica_sync(cg::cluster_group& cluster,
+                                             int width) {
+  if (width > 1)
+    cluster.sync();
+  else
+    __syncthreads();
 }
 
-template <bool RWA, bool UNIFORMIZED, bool PWL, int STORE>
-__global__ void __launch_bounds__(kThreads) sweep_kernel(
-    const Store st, const float* __restrict__ u0,
-    const float* __restrict__ s0, const float* __restrict__ e0,
-    const float* __restrict__ unif, const float* __restrict__ temps,
-    const float* __restrict__ pwl_in, int segs, float* __restrict__ u_out, float* __restrict__ s_out,
-    float* __restrict__ e_out, float* __restrict__ be_out,
-    float* __restrict__ bs_out, int* __restrict__ nf_out,
-    int* __restrict__ rf_out, int R, int N, int T, int lane) {
+// Lane k < width of the calling warp writes d into rank k's mailbox.
+__device__ __forceinline__ void post(cg::cluster_group& cluster,
+                                     Decision* mail, const Decision& d,
+                                     int width) {
+  const int k = threadIdx.x & 31;
+  if (k < width) *(width > 1 ? cluster.map_shared_rank(mail, k) : mail) = d;
+}
+
+// Stages the uniforms and temperatures of steps [t0, t0 + kWindow):
+// thread tid takes slot tid % 4 of step t0 + tid / 4.
+template <bool DRAW>
+__device__ __forceinline__ void stage_window(const SweepParams& p, int r,
+                                             int t0, uint2 key, float* wunif,
+                                             float* wtemp) {
+  const int tid = threadIdx.x;
+  const int t = t0 + tid / kSlots;
+  if (t < p.T) {
+    const size_t at = ((size_t)t * p.R + r) * kSlots + tid % kSlots;
+    wunif[tid] = DRAW ? uniform_at(key, (unsigned)at) : p.unif[at];
+  }
+  if (tid < kWindow && t0 + tid < p.T)
+    wtemp[tid] = p.temps[(size_t)(t0 + tid) * p.R + r];
+}
+
+// The coalesced tier's count, by the last cluster of a group to finish:
+// replica r0 + k is charged one row at step t unless a lower replica of
+// its group chose the same site (common.rows_fetched_step).
+__device__ void count_group_rows(const SweepParams& p, int r0) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  for (int k = warp; k < p.group; k += kWarps) {
+    int mine = 0;
+    for (int t = wl; t < p.T; t += 32) {
+      const int* row = p.site_log + (size_t)t * p.R + r0;
+      const int j = __ldcg(row + k);
+      bool dup = false;
+      for (int m = 0; m < k && !dup; ++m) dup = __ldcg(row + m) == j;
+      mine += !dup;
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      mine += __shfl_xor_sync(kFull, mine, off);
+    if (wl == 0) p.rf_out[r0 + k] = mine;
+  }
+}
+
+template <bool RWA, bool UNIFORMIZED, bool PWL, int STORE, bool DRAW>
+__global__ void __launch_bounds__(kThreads) sweep_kernel(const SweepParams p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = p.width;
+  const int q = (int)cluster.block_rank();   // rank in the replica's cluster
+  const int r = blockIdx.x / c;
+  const int nc = p.N / c;                     // spins of this rank's slice
+  const int lo = q * nc;
+  const int lane = p.lane;
+  const int gq = nc / lane;                   // lane blocks of the slice
+
   extern __shared__ float smem[];
   float* u = smem;
-  float* s = u + N;
-  float* bs = s + N;
-  float* pwl_mem = bs + N;                       // icpt[S], slope[S]
-  float* blk = pwl_mem + (PWL ? 2 * segs : 0);   // G block sums
-  const int G = N / lane;
-  float* lanebuf = blk + (RWA ? G : 0);          // kMaxLane weights
+  float* s = u + nc;
+  float* bs = s + nc;
+  float* pwl_mem = bs + nc;                      // icpt[S], slope[S]
+  float* wunif = pwl_mem + (PWL ? 2 * p.segs : 0);  // kWindow * kSlots
+  float* wtemp = wunif + kWindow * kSlots;       // kWindow
+  float* blk = wtemp + kWindow;                  // gq block sums (RWA)
+  float* lanebuf = blk + (RWA ? gq : 0);         // kMaxLane weights (RWA)
+  __shared__ Decision mail[2];
+  __shared__ float part;                         // this slice's total (RWA)
+  __shared__ int sh_last;
 
-  __shared__ int sh_j, sh_accept, sh_better;
-  __shared__ float sh_coef, sh_new_sj;
-  __shared__ int sh_log[kLogSteps];  // this window's sites, for the peers
-  __shared__ int sh_rf;              // rows this block fetched
-  constexpr bool kCoalesce = STORE == kPlanesCoalesced;
-
-  const int r = blockIdx.x;
   const int tid = threadIdx.x;
-  const size_t row0 = (size_t)r * N;
-  for (int i = tid; i < N; i += kThreads) {
-    u[i] = u0[row0 + i];
-    float si = s0[row0 + i];
+  const size_t row0 = (size_t)r * p.N + lo;
+  for (int i = tid; i < nc; i += kThreads) {
+    u[i] = p.u0[row0 + i];
+    float si = p.s0[row0 + i];
     s[i] = si;
     bs[i] = si;
   }
-  Pwl pwl{pwl_mem, pwl_mem + segs, 0.f, 0.f, 0.f, segs};
+  Pwl pwl{pwl_mem, pwl_mem + p.segs, 0.f, 0.f, 0.f, p.segs};
   if (PWL) {
-    for (int k = tid; k < 2 * segs; k += kThreads) pwl_mem[k] = pwl_in[k];
-    pwl.z_lo = pwl_in[2 * segs];
-    pwl.z_hi = pwl_in[2 * segs + 1];
-    pwl.inv_step = pwl_in[2 * segs + 2];
+    for (int k = tid; k < 2 * p.segs; k += kThreads) pwl_mem[k] = p.pwl[k];
+    pwl.z_lo = p.pwl[2 * p.segs];
+    pwl.z_hi = p.pwl[2 * p.segs + 1];
+    pwl.inv_step = p.pwl[2 * p.segs + 2];
   }
-  float e = e0[r], be = e;  // meaningful in thread 0
+  const uint2 key = DRAW ? sweep_chunk_key(p.key0, p.key1, p.chunk)
+                         : make_uint2(0u, 0u);
+  float e = p.e0[r], be = e;  // every thread of every rank keeps the same
   int nf = 0;
-  if (tid == 0) sh_rf = 0;
-  __syncthreads();
+  // Every block of the cluster has started and loaded its slice.
+  replica_sync(cluster, c);
 
   const int warp = tid >> 5, wl = tid & 31;
-  for (int t = 0; t < T; ++t) {
-    const float temp = temps[(size_t)t * R + r];
-    const float* un = unif + ((size_t)t * R + r) * 4;
+  const bool log_sites = p.site_log != nullptr && q == 0 && tid == 0;
+  for (int t = 0; t < p.T; ++t) {
+    const int w = t % kWindow;
+    if (w == 0) {
+      // The previous window was last read before the barrier that ended
+      // the previous step.
+      stage_window<DRAW>(p, r, t, key, wunif, wtemp);
+      __syncthreads();
+    }
+    const float temp = wtemp[w];
+    const float* un = wunif + w * kSlots;
+    Decision* box = mail + (t & 1);
     if (RWA) {
-      // Block sums of the flip probabilities, one warp per block of sites.
-      for (int g = warp; g < G; g += kWarps) {
+      // The slice's lane-block sums, one warp per block of sites.
+      for (int g = warp; g < gq; g += kWarps) {
         float acc = 0.f;
         for (int k = wl; k < lane; k += 32) {
           int i = g * lane + k;
@@ -213,88 +320,116 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
         if (wl == 0) blk[g] = acc;
       }
       __syncthreads();
+      float excl = 0.f;
       if (warp == 0) {
-        float total;
-        float excl = warp_exclusive_prefix(blk, G, &total);
-        bool degenerate = (total <= 0.f) || !isfinite(total);
-        float radius = __fmul_rn(un[2], degenerate ? 1.f : total);
-        int g = min(warp_count_le(blk, G, excl, radius), G - 1);
-        float base = warp_prefix_before(blk, G, excl, g);
-        float residual = __fsub_rn(radius, base);
-        for (int k = wl; k < lane; k += 32)
-          lanebuf[k] = flip_probability<PWL>(delta_e(s, u, g * lane + k),
-                                             temp, pwl);
-        __syncwarp();
-        float lane_total;
-        float lexcl = warp_exclusive_prefix(lanebuf, lane, &lane_total);
-        int l = min(warp_count_le(lanebuf, lane, lexcl, residual), lane - 1);
-        if (wl == 0) {
-          int j = g * lane + l;
-          bool accept;
-          if (UNIFORMIZED) {
-            accept = !degenerate && __fmul_rn(un[3], (float)N) < total;
-          } else if (degenerate) {
-            j = site_from_uniform(un[0], N);
-            accept = un[1] < flip_probability<PWL>(delta_e(s, u, j), temp,
-                                                   pwl);
+        float mine;
+        excl = warp_exclusive_prefix(blk, gq, &mine);
+        if (wl == 0) part = mine;
+      }
+      replica_sync(cluster, c);  // barrier 1: every slice's total is posted
+      if (warp == 0) {
+        // Every rank: the c totals, added in rank order, the radius and
+        // the owner rank (the count of rank prefixes <= radius).
+        float pk = 0.f;
+        if (wl < c) pk = c > 1 ? *cluster.map_shared_rank(&part, wl) : part;
+        float total = 0.f;
+        int owner = 0;
+        const float radius_unit = un[2];
+        for (int k = 0; k < c; ++k)
+          total = __fadd_rn(total, __shfl_sync(kFull, pk, k));
+        const bool degenerate = (total <= 0.f) || !isfinite(total);
+        const float radius = __fmul_rn(radius_unit, degenerate ? 1.f : total);
+        float run = 0.f;
+        for (int k = 0; k < c; ++k) {
+          run = __fadd_rn(run, __shfl_sync(kFull, pk, k));
+          owner += run <= radius;
+        }
+        owner = min(owner, c - 1);
+        float base_rank = 0.f;
+        for (int k = 0; k < owner; ++k)
+          base_rank = __fadd_rn(base_rank, __shfl_sync(kFull, pk, k));
+        const int j_fb = site_from_uniform(un[0], p.N);
+        const bool fallback = !UNIFORMIZED && degenerate;
+        const int decider = fallback ? j_fb / nc : owner;
+        if (q == decider) {
+          Decision d;
+          if (fallback) {
+            const int jl = j_fb - lo;
+            d.j = j_fb;
+            d.de = delta_e(s, u, jl);
+            d.accept = un[1] < flip_probability<PWL>(d.de, temp, pwl);
+            d.s_old = s[jl];
           } else {
-            accept = true;
+            const float residual_rank = __fsub_rn(radius, base_rank);
+            int g = min(warp_count_le(blk, gq, excl, residual_rank), gq - 1);
+            float base = warp_prefix_before(blk, gq, excl, g);
+            float residual = __fsub_rn(residual_rank, base);
+            for (int k = wl; k < lane; k += 32)
+              lanebuf[k] = flip_probability<PWL>(delta_e(s, u, g * lane + k),
+                                                 temp, pwl);
+            __syncwarp();
+            float lane_total;
+            float lexcl = warp_exclusive_prefix(lanebuf, lane, &lane_total);
+            int l = min(warp_count_le(lanebuf, lane, lexcl, residual),
+                        lane - 1);
+            const int jl = g * lane + l;
+            d.j = lo + jl;
+            d.de = delta_e(s, u, jl);
+            d.s_old = s[jl];
+            d.accept = UNIFORMIZED
+                           ? (!degenerate &&
+                              __fmul_rn(un[3], (float)p.N) < total)
+                           : true;
           }
-          sh_j = j;
-          sh_accept = accept;
+          post(cluster, box, d, c);
         }
       }
-      __syncthreads();
-    }
-    if (tid == 0) {
-      int j;
-      bool accept;
-      if (RWA) {
-        j = sh_j;
-        accept = sh_accept;
-      } else {
-        j = site_from_uniform(un[0], N);
-        accept = un[1] < flip_probability<PWL>(delta_e(s, u, j), temp, pwl);
+    } else if (warp == 0) {
+      const int j = site_from_uniform(un[0], p.N);
+      if (j >= lo && j < lo + nc) {  // this rank holds site j: it decides
+        Decision d;
+        d.j = j;
+        d.de = delta_e(s, u, j - lo);
+        d.accept = un[1] < flip_probability<PWL>(d.de, temp, pwl);
+        d.s_old = s[j - lo];
+        post(cluster, box, d, c);
       }
-      float s_old = s[j];
-      float de = delta_e(s, u, j);
-      float acc = accept ? 1.f : 0.f;
-      e = __fadd_rn(e, __fmul_rn(acc, de));
-      nf += accept;
-      bool better = e < be;
-      if (better) be = e;
-      sh_j = j;
-      sh_accept = accept;
-      sh_better = better;
-      sh_coef = __fmul_rn(__fmul_rn(2.f, acc), s_old);
-      sh_new_sj = __fmul_rn(s_old, __fsub_rn(1.f, __fmul_rn(2.f, acc)));
-      if constexpr (kCoalesce) sh_log[t % kLogSteps] = j;
     }
-    __syncthreads();
+    replica_sync(cluster, c);  // the step's decision is in every mailbox
+    const Decision d = *box;
+    if (log_sites) p.site_log[(size_t)t * p.R + r] = d.j;
+    const float acc = d.accept ? 1.f : 0.f;
+    e = __fadd_rn(e, __fmul_rn(acc, d.de));
+    nf += d.accept;
+    const bool better = e < be;
+    if (better) be = e;
     // A rejected step leaves e, and so best, unchanged: nothing to apply.
-    if (sh_accept) {
-      const float coef = sh_coef;
-      const int j = sh_j;
-      const bool better = sh_better;
+    if (d.accept) {
+      const float coef = __fmul_rn(__fmul_rn(2.f, acc), d.s_old);
+      const float new_sj =
+          __fmul_rn(d.s_old, __fsub_rn(1.f, __fmul_rn(2.f, acc)));
+      const int jl = d.j - lo;  // outside [0, nc) on the other ranks
       if constexpr (STORE == kDense) {
-        for (int i = tid; i < N; i += kThreads) {
-          const float row = __ldg(st.J + (size_t)j * N + i);
+        const float* jrow = p.st.J + (size_t)d.j * p.N + lo;
+        for (int i = tid; i < nc; i += kThreads) {
+          const float row = __ldg(jrow + i);
           u[i] = __fsub_rn(u[i], __fmul_rn(coef, row));
-          if (i == j) s[i] = sh_new_sj;
+          if (i == jl) s[i] = new_sj;
           if (better) bs[i] = s[i];
         }
       } else {
-        // Warp w takes words w*32 .. w*32+31 (1024 spins), then the next
-        // 8192 spins; lane L updates spin 32*word + L.
-        for (int w0 = warp * 32; w0 * 32 < N; w0 += kWarps * 32) {
+        // Warp w takes words w*32 .. w*32+31 of the slice (1024 spins),
+        // then the next 8192 spins; lane L updates spin 32*word + L.
+        const int wend = (lo + nc + 31) / 32;
+        for (int w0 = lo / 32 + warp * 32; w0 < wend; w0 += kWarps * 32) {
           float row[32];
-          plane_couplings(st, j, N, w0, row);
+          plane_couplings(p.st, d.j, p.N, w0, row);
 #pragma unroll
           for (int k = 0; k < 32; ++k) {
-            const int i = (w0 + k) * 32 + wl;
-            if (i < N) {
+            const int i = (w0 + k) * 32 + wl - lo;
+            if (i >= 0 && i < nc) {
               u[i] = __fsub_rn(u[i], __fmul_rn(coef, row[k]));
-              if (i == j) s[i] = sh_new_sj;
+              if (i == jl) s[i] = new_sj;
               if (better) bs[i] = s[i];
             }
           }
@@ -302,73 +437,64 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
       }
     }
     __syncthreads();
-    if constexpr (kCoalesce) {
-      if ((t + 1) % kLogSteps == 0 || t + 1 == T)
-        count_unique_rows(sh_log, t % kLogSteps + 1, &sh_rf);
+  }
+
+  for (int i = tid; i < nc; i += kThreads) {
+    p.u_out[row0 + i] = u[i];
+    p.s_out[row0 + i] = s[i];
+    p.bs_out[row0 + i] = bs[i];
+  }
+  if (q == 0 && tid == 0) {
+    p.e_out[r] = e;
+    p.be_out[r] = be;
+    p.nf_out[r] = nf;
+    if (p.site_log == nullptr) p.rf_out[r] = p.T;  // one row a step
+  }
+  if (p.site_log != nullptr && q == 0) {
+    const int r0 = r - r % p.group;
+    if (tid == 0) {
+      __threadfence();  // this replica's sites before its arrival
+      sh_last = atomicAdd(p.group_done + r / p.group, 1) == p.group - 1;
+    }
+    __syncthreads();
+    if (sh_last) {
+      __threadfence();
+      count_group_rows(p, r0);
     }
   }
-
-  for (int i = tid; i < N; i += kThreads) {
-    u_out[row0 + i] = u[i];
-    s_out[row0 + i] = s[i];
-    bs_out[row0 + i] = bs[i];
-  }
-  if (tid == 0) {
-    e_out[r] = e;
-    be_out[r] = be;
-    nf_out[r] = nf;
-    // One row per replica per step, or the cluster's unique rows.
-    rf_out[r] = kCoalesce ? sh_rf : T;
-  }
+  // No rank leaves while a peer could still address its shared memory.
+  if (c > 1) cluster.sync();
 }
 
-template <bool RWA, bool UNIFORMIZED, bool PWL, int STORE>
-int launch(const Store& st, const float* u0, const float* s0, const float* e0,
-           const float* unif, const float* temps, const float* pwl_in,
-           int segs, float* u_out, float* s_out, float* e_out, float* be_out,
-           float* bs_out, int* nf_out, int* rf_out, int R, int N, int T,
-           int lane, int cluster, size_t smem, cudaStream_t stream) {
-  auto kernel = sweep_kernel<RWA, UNIFORMIZED, PWL, STORE>;
+template <bool RWA, bool UNIFORMIZED, bool PWL, int STORE, bool DRAW>
+int launch(const SweepParams& p, size_t smem, cudaStream_t stream) {
+  auto kernel = sweep_kernel<RWA, UNIFORMIZED, PWL, STORE, DRAW>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if constexpr (STORE == kPlanesCoalesced) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(R);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, kernel, st, u0, s0, e0, unif, temps,
-                             pwl_in, segs, u_out, s_out, e_out, be_out,
-                             bs_out, nf_out, rf_out, R, N, T, lane);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    kernel<<<R, kThreads, smem, stream>>>(
-        st, u0, s0, e0, unif, temps, pwl_in, segs, u_out, s_out, e_out,
-        be_out, bs_out, nf_out, rf_out, R, N, T, lane);
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.R * p.width);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.width;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int STORE>
-int dispatch(const Store& st, const float* u0, const float* s0,
-             const float* e0, const float* unif, const float* temps,
-             const float* pwl_in, int segs, float* u_out, float* s_out,
-             float* e_out, float* be_out, float* bs_out, int* nf_out,
-             int* rf_out, int R, int N, int T, int rwa, int uniformized,
-             int lane, int cluster, size_t smem, cudaStream_t st_) {
-  const bool pwl = pwl_in != nullptr;
-#define SNOWBALL_LAUNCH(A, B, C)                                              \
-  return launch<A, B, C, STORE>(st, u0, s0, e0, unif, temps, pwl_in, segs,    \
-                                u_out, s_out, e_out, be_out, bs_out, nf_out,  \
-                                rf_out, R, N, T, lane, cluster, smem, st_)
+template <int STORE, bool DRAW>
+int dispatch(const SweepParams& p, int rwa, int uniformized, size_t smem,
+             cudaStream_t stream) {
+  const bool pwl = p.pwl != nullptr;
+#define SNOWBALL_LAUNCH(A, B, C) \
+  return launch<A, B, C, STORE, DRAW>(p, smem, stream)
   if (!rwa) {
     if (pwl) SNOWBALL_LAUNCH(false, false, true);
     SNOWBALL_LAUNCH(false, false, false);
@@ -382,71 +508,86 @@ int dispatch(const Store& st, const float* u0, const float* s0,
 #undef SNOWBALL_LAUNCH
 }
 
-bool bad_args(int R, int N, int T, int lane, const float* pwl_in, int segs) {
-  return R <= 0 || N <= 0 || T < 0 || lane <= 0 || lane > kMaxLane ||
-         N % lane != 0 || (pwl_in != nullptr && segs <= 0);
+__global__ void uniforms_kernel(unsigned key0, unsigned key1, int chunk,
+                                int count, float* out) {
+  const uint2 key = sweep_chunk_key(key0, key1, chunk);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += gridDim.x * blockDim.x)
+    out[i] = uniform_at(key, (unsigned)i);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block, in bytes (the wrapper's size check).
-size_t snowball_sweep_smem_bytes(int N, int lane, int segs, int rwa) {
-  size_t floats = 3 * (size_t)N + 2 * (size_t)segs;
-  if (rwa) floats += (size_t)(N / lane) + kMaxLane;
+// Dynamic shared memory of one block of a width-`width` cluster, in bytes
+// (the wrapper's size check): u, s and best_s of the slice, the PWL
+// table, the staged window, and for RWA the slice's block sums and one
+// lane buffer.
+size_t snowball_sweep_smem_bytes(int N, int lane, int segs, int rwa,
+                                 int width) {
+  const size_t nc = (size_t)(N / width);
+  size_t floats = 3 * nc + 2 * (size_t)segs + kWindow * (kSlots + 1);
+  if (rwa) floats += nc / lane + kMaxLane;
   return floats * sizeof(float);
 }
 
-// T steps for R replicas on a dense J. pwl_in packs the PWL table as
-// icpt[segs], slope[segs], z_lo, z_hi, inv_step; pwl_in == nullptr selects
-// the exact sigmoid. Returns the launch's CUDA error (0 on success).
-int snowball_sweep_dense(const float* J, const float* u0, const float* s0,
-                         const float* e0, const float* unif,
-                         const float* temps, const float* pwl_in, int segs,
-                         float* u_out, float* s_out,
-                         float* e_out, float* be_out, float* bs_out,
-                         int* nf_out, int* rf_out, int R, int N, int T,
-                         int rwa, int uniformized, int lane, void* stream) {
-  if (bad_args(R, N, T, lane, pwl_in, segs)) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      snowball_sweep_smem_bytes(N, lane, pwl_in ? segs : 0, rwa);
-  const Store st{J, nullptr, nullptr, 0, 0};
-  return dispatch<kDense>(st, u0, s0, e0, unif, temps, pwl_in, segs, u_out,
-                          s_out, e_out, be_out, bs_out, nf_out, rf_out, R, N,
-                          T, rwa, uniformized, lane, 0, smem,
-                          (cudaStream_t)stream);
-}
-
-// The same on (B, N, W) uint32 pos/neg planes. cluster > 0 groups that many
-// consecutive replicas (a divisor of R, at most 8) into one thread-block
-// cluster and counts rows_fetched as the group's unique rows per step;
-// cluster == 0 counts one row per replica per step.
-int snowball_sweep_planes(const unsigned* pos, const unsigned* neg, int B,
-                          int W, const float* u0, const float* s0,
-                          const float* e0, const float* unif,
-                          const float* temps, const float* pwl_in, int segs,
-                          float* u_out, float* s_out, float* e_out,
-                          float* be_out, float* bs_out, int* nf_out,
-                          int* rf_out, int R, int N, int T, int rwa,
-                          int uniformized, int lane, int cluster,
-                          void* stream) {
-  if (bad_args(R, N, T, lane, pwl_in, segs) || B <= 0 || B > 30 ||
-      W * 32 < N || cluster < 0 || cluster > 8 ||
-      (cluster > 0 && R % cluster != 0))
+// T steps for R replicas. The couplings are a dense (N, N) f32 J (pos ==
+// neg == nullptr) or (B, N, W) uint32 pos/neg planes (J == nullptr).
+// unif != nullptr reads the (T, R, 4) uniforms; unif == nullptr draws them
+// from stream(base, SWEEP, chunk), base = (key0, key1). pwl_in packs the
+// PWL table as icpt[segs], slope[segs], z_lo, z_hi, inv_step; pwl_in ==
+// nullptr selects the exact sigmoid. width blocks (a cluster, 1..8, with
+// N/width a multiple of lane) run each replica. site_log != nullptr counts
+// rows_fetched as the unique rows per step of each group of `group`
+// consecutive replicas (site_log (T, R) int32 scratch, group_done (R/group)
+// int32 zeros); nullptr counts one row per replica per step. Returns the
+// launch's CUDA error (0 on success).
+int snowball_sweep(const float* J, const unsigned* pos, const unsigned* neg,
+                   int B, int W, const float* u0, const float* s0,
+                   const float* e0, const float* unif, unsigned key0,
+                   unsigned key1, int chunk, const float* temps,
+                   const float* pwl_in, int segs, float* u_out, float* s_out,
+                   float* e_out, float* be_out, float* bs_out, int* nf_out,
+                   int* rf_out, int* site_log, int* group_done, int group,
+                   int R, int N, int T, int rwa, int uniformized, int lane,
+                   int width, void* stream) {
+  const bool planes = J == nullptr;
+  if (R <= 0 || N <= 0 || T < 0 || lane <= 0 || lane > kMaxLane ||
+      width < 1 || width > kMaxWidth || N % width != 0 ||
+      (N / width) % lane != 0 || (pwl_in != nullptr && segs <= 0) ||
+      (planes && (pos == nullptr || neg == nullptr || B <= 0 || B > 30 ||
+                  W * 32 < N)) ||
+      (site_log != nullptr &&
+       (group_done == nullptr || group <= 0 || R % group != 0)))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
-      snowball_sweep_smem_bytes(N, lane, pwl_in ? segs : 0, rwa);
-  const Store st{nullptr, pos, neg, B, W};
-  if (cluster > 0)
-    return dispatch<kPlanesCoalesced>(
-        st, u0, s0, e0, unif, temps, pwl_in, segs, u_out, s_out, e_out,
-        be_out, bs_out, nf_out, rf_out, R, N, T, rwa, uniformized, lane,
-        cluster, smem, (cudaStream_t)stream);
-  return dispatch<kPlanes>(st, u0, s0, e0, unif, temps, pwl_in, segs, u_out,
-                           s_out, e_out, be_out, bs_out, nf_out, rf_out, R, N,
-                           T, rwa, uniformized, lane, 0, smem,
-                           (cudaStream_t)stream);
+      snowball_sweep_smem_bytes(N, lane, pwl_in ? segs : 0, rwa, width);
+  SweepParams p{Store{J, pos, neg, B, W}, u0, s0, e0, unif, key0, key1,
+                chunk, temps, pwl_in, pwl_in ? segs : 0, u_out, s_out,
+                e_out, be_out, bs_out, nf_out, rf_out, site_log, group_done,
+                group, R, N, T, lane, width};
+  const int uni = uniformized && rwa;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool draw = unif == nullptr;
+  if (planes)
+    return draw ? dispatch<kPlanes, true>(p, rwa, uni, smem, st)
+                : dispatch<kPlanes, false>(p, rwa, uni, smem, st);
+  return draw ? dispatch<kDense, true>(p, rwa, uni, smem, st)
+              : dispatch<kDense, false>(p, rwa, uni, smem, st);
+}
+
+// Writes the (T, R, 4) uniforms of stream(base, SWEEP, chunk) that the DRAW
+// sweep draws, with the same device function, into out.
+int snowball_sweep_uniforms(unsigned key0, unsigned key1, int chunk, int T,
+                            int R, float* out, void* stream) {
+  if (T < 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  const int count = T * R * kSlots;
+  if (count == 0) return 0;
+  const int blocks = min((count + kThreads - 1) / kThreads, 1024);
+  uniforms_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      key0, key1, chunk, count, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

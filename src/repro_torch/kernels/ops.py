@@ -5,8 +5,10 @@ store (``core.coupling.CouplingStore``), replica init (threefry-exact
 spins; u₀ from the local-field kernel on a dense J, or from the popcount
 kernel on the planes with e₀ from ``ising.energy_from_fields``, so no dense
 J is needed), then a Python loop over chunks — the JAX ``scan`` — with one
-sweep launch per chunk, uniforms from the chunk's ``Salt.SWEEP`` stream and
-temperatures from the schedule.
+sweep launch per chunk: the kernel draws the chunk's ``Salt.SWEEP``
+uniforms itself from the base key's two words (computed on the CPU once
+per solve), and reads its temperatures as a row slice of the solve's
+(num_steps, R) table, computed on the CPU and copied to the card once.
 
 ``colored_anneal`` is the graph-colored solve (``flip_mode="colored"``):
 the same init and chunk loop on the color-sorted problem of a
@@ -74,10 +76,12 @@ def fused_init_state(problem: ising.IsingProblem, base: torch.Tensor, r: int,
     on the plane u^(J), the same contractions ``ising.energy`` runs on J s,
     so plane-fed and dense-fed replicas start from bitwise-equal energies."""
     n = problem.num_spins
-    keys = rng.stream(rng.stream(base, rng.Salt.REPLICA,
-                                 torch.arange(r, device=base.device)),
-                      rng.Salt.INIT)
-    spins0 = ising.random_spins(keys, (n,)).to(torch.float32)
+    # The R replica keys on the CPU: each of their threefry's few hundred
+    # elementwise ops would be a launch of its own on the card.
+    keys = rng.stream(rng.stream(base.cpu(), rng.Salt.REPLICA,
+                                 torch.arange(r)), rng.Salt.INIT)
+    spins0 = ising.random_spins(keys.to(problem.fields.device),
+                                (n,)).to(torch.float32)
     if planes is not None:
         u_j = plane_local_fields(planes, spins0)
         u0 = u_j + problem.fields[None, :]
@@ -97,32 +101,39 @@ def solver_pwl_table(config: SolverConfig,
     return _pwl_table(config.pwl_segments, config.pwl_zmax, device=device)
 
 
-def fused_sweep_chunk(couplings: Union[torch.Tensor, BitPlanes], state,
-                      chunk_key: torch.Tensor, num_steps: int,
-                      temps: torch.Tensor, *, mode: str,
-                      uniformized: bool = False,
-                      pwl_table: Optional[torch.Tensor] = None,
-                      gather: str = "dynamic", block_r: int = 8,
-                      coupling: Optional[str] = None, coalesce: bool = True,
-                      with_rows_fetched: bool = False):
-    """One sweep chunk plus the best-so-far merge. ``couplings`` is the dense
-    J or a ``BitPlanes``; ``coupling`` names the tier (None: "bitplane" for
-    planes, else "dense"). ``state`` is the 6-tuple ``(u, s, e, best_e,
-    best_s, num_flips)``; returns it updated, and the chunk's rows-fetched
-    count as a second element when asked."""
-    u, s, e, be, bs, nf = state
-    r = e.shape[0]
-    if coupling is None:
-        coupling = "bitplane" if isinstance(couplings, BitPlanes) else "dense"
-    uniforms = rng.uniform01(chunk_key, (num_steps, r, 4))
-    u, s, e, ce, cs, cf, rf = _sweep.mcmc_sweep(
-        couplings, u, s, e, uniforms, temps, pwl_table, mode=mode,
-        uniformized=uniformized, gather=gather, coupling=coupling,
-        block_r=block_r, coalesce=coalesce)
+def _merge(state, out, with_rows_fetched: bool):
+    """The best-so-far merge of a chunk's sweep outputs into ``state``."""
+    _, _, _, be, bs, nf = state
+    u, s, e, ce, cs, cf, rf = out
     better = ce < be
     state = (u, s, e, torch.where(better, ce, be),
              torch.where(better[:, None], cs, bs), nf + cf)
     return (state, rf) if with_rows_fetched else state
+
+
+def keyed_sweep_chunk(couplings: Union[torch.Tensor, BitPlanes], state,
+                      base_words, chunk: int, temps: torch.Tensor, *,
+                      mode: str, uniformized: bool = False,
+                      pwl_table: Optional[torch.Tensor] = None,
+                      gather: str = "dynamic", block_r: int = 8,
+                      coupling: Optional[str] = None, coalesce: bool = True,
+                      with_rows_fetched: bool = False):
+    """One sweep chunk plus the best-so-far merge: the JAX
+    ``fused_sweep_chunk`` on the uniforms of ``stream(base, Salt.SWEEP,
+    chunk)``, which the card's sweep draws itself from the base key's two
+    words (``base_words``, Python ints); T = ``temps.shape[0]``.
+    ``couplings`` is the dense J or a ``BitPlanes``; ``coupling`` names the
+    tier (None: "bitplane" for planes, else "dense"). ``state`` is the
+    6-tuple ``(u, s, e, best_e, best_s, num_flips)``; returns it updated,
+    and the chunk's rows-fetched count as a second element when asked."""
+    if coupling is None:
+        coupling = "bitplane" if isinstance(couplings, BitPlanes) else "dense"
+    u, s, e = state[:3]
+    out = _sweep.mcmc_sweep_keyed(
+        couplings, u, s, e, base_words, chunk, temps, pwl_table, mode=mode,
+        uniformized=uniformized, gather=gather, coupling=coupling,
+        block_r=block_r, coalesce=coalesce)
+    return _merge(state, out, with_rows_fetched)
 
 
 def anneal_chunk_plan(config: SolverConfig, chunk_steps: int):
@@ -155,30 +166,50 @@ def anneal_gather(store: CouplingStore, gather: str, n: int) -> str:
     return gather
 
 
+def _chunk_schedule(config: SolverConfig, c: int, clen: int,
+                    chunk_len: int) -> torch.Tensor:
+    """(clen,) f32 temperatures of global steps [c·chunk_len, +clen), on the
+    CPU. One call per chunk: ``torch.pow`` takes a vector's tail through
+    the scalar ``pow``, so a geometric temperature depends on where it
+    falls in the call, and only the chunk's own call gives its values."""
+    steps = c * chunk_len + torch.arange(clen, dtype=torch.int32)
+    return config.schedule(steps).to(torch.float32)
+
+
 def chunk_temps(config: SolverConfig, c: int, clen: int, chunk_len: int,
                 device) -> torch.Tensor:
     """(clen, R) temperatures of global steps [c·chunk_len, +clen). Computed
     on the CPU and copied, so every device anneals on identical values."""
-    steps = c * chunk_len + torch.arange(clen, dtype=torch.int32)
-    temps = config.schedule(steps).to(torch.float32)
+    temps = _chunk_schedule(config, c, clen, chunk_len)
     temps = temps[:, None].expand(clen, config.num_replicas).contiguous()
     return temps.to(device)
 
 
-def anneal_chunk_step(store: CouplingStore, state, base: torch.Tensor,
-                      c: int, *, clen: int, chunk_len: int,
-                      config: SolverConfig, gather: str, block_r: int = 8,
+def anneal_temps(config: SolverConfig, chunk_len: int, chunks,
+                 device) -> torch.Tensor:
+    """(steps, R) temperatures of every chunk of a solve, made on the CPU
+    and copied once; chunk c's rows ``[c·chunk_len, +clen)`` equal
+    :func:`chunk_temps` bitwise (the table is built from the same per-chunk
+    calls)."""
+    temps = torch.cat([_chunk_schedule(config, c, clen, chunk_len)
+                       for c, clen in chunks])
+    temps = temps[:, None].expand(temps.shape[0], config.num_replicas)
+    return temps.contiguous().to(device)
+
+
+def anneal_chunk_step(store: CouplingStore, state, base_words, c: int,
+                      temps: torch.Tensor, *, config: SolverConfig,
+                      gather: str, block_r: int = 8,
                       pwl_table: Optional[torch.Tensor] = None,
                       with_rows_fetched: bool = False):
-    """One annealing chunk: the temps of its steps, its ``Salt.SWEEP``
-    stream, and the sweep and merge of :func:`fused_sweep_chunk` on the
-    store's tier."""
-    temps = chunk_temps(config, c, clen, chunk_len, state[0].device)
-    return fused_sweep_chunk(
-        store.kernel_operand, state, rng.stream(base, rng.Salt.SWEEP, c),
-        clen, temps, mode=config.mode, uniformized=config.uniformized,
-        pwl_table=pwl_table, gather=gather, block_r=block_r,
-        coupling=store.fmt, with_rows_fetched=with_rows_fetched)
+    """One annealing chunk on the store's tier: the sweep of
+    :func:`keyed_sweep_chunk` on chunk c's ``Salt.SWEEP`` stream and its
+    rows ``temps`` of the solve's table, and the merge."""
+    return keyed_sweep_chunk(
+        store.kernel_operand, state, base_words, c, temps, mode=config.mode,
+        uniformized=config.uniformized, pwl_table=pwl_table, gather=gather,
+        block_r=block_r, coupling=store.fmt,
+        with_rows_fetched=with_rows_fetched)
 
 
 def _store_for(problem: ising.IsingProblem, config: SolverConfig, coupling,
@@ -243,17 +274,20 @@ def fused_anneal(problem: ising.IsingProblem, seed, config: SolverConfig, *,
     n = problem.num_spins
     r = config.num_replicas
     gather = anneal_gather(store, gather, n)
-    base = rng.fold_in(rng.key(0, device=dev), int(seed))
+    base = rng.fold_in(rng.key(0), int(seed))   # on the CPU: no device read
     state = fused_init_state(problem, base, r, planes=store.planes)
     pwl = solver_pwl_table(config, device=dev)
     chunk_len, chunks = chunk_list(config, chunk_steps)
+    temps = anneal_temps(config, chunk_len, chunks, dev)
+    words = rng.words(base)
     rows = torch.zeros(r, dtype=torch.int32, device=dev)
     trace = []
     for c, clen in chunks:
-        state, rf = anneal_chunk_step(store, state, base, c, clen=clen,
-                                      chunk_len=chunk_len, config=config,
-                                      gather=gather, block_r=block_r,
-                                      pwl_table=pwl, with_rows_fetched=True)
+        state, rf = anneal_chunk_step(
+            store, state, words, c,
+            temps[c * chunk_len:c * chunk_len + clen], config=config,
+            gather=gather, block_r=block_r, pwl_table=pwl,
+            with_rows_fetched=True)
         rows = rows + rf
         if config.trace_every:  # traced plans have no remainder chunk
             trace.append(state[3])
@@ -389,10 +423,10 @@ def colored_sweep_chunk(couplings, state, chunk_key: torch.Tensor,
                         block_r: int = 8, coupling: str = "dense",
                         with_rows_fetched: bool = False):
     """One colored sweep chunk plus the best-so-far merge — the colored
-    counterpart of :func:`fused_sweep_chunk`, with the same 6-tuple state
-    and per-chunk ``Salt.SWEEP`` stream. The chunk draws ``(num_steps, R,
-    window)`` accept uniforms, one per window slot; ``sched`` is the
-    (num_steps, 3) class schedule."""
+    counterpart of :func:`keyed_sweep_chunk`, with the same 6-tuple state
+    and per-chunk ``Salt.SWEEP`` stream. The host draws the chunk's
+    ``(num_steps, R, window)`` accept uniforms, one per window slot;
+    ``sched`` is the (num_steps, 3) class schedule."""
     u, s, e, be, bs, nf = state
     r = e.shape[0]
     uniforms = rng.uniform01(chunk_key, (num_steps, r, window))

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from ..core import coupling as coupling_store
+from ..core import rng
 from ..core.bitplane import BitPlanes, hamming_fields
 from . import common
 
@@ -123,6 +124,34 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
         be = torch.where(better, e, be)
         bs = torch.where(better[:, None], s, bs)
     return u, s, e, be, bs, nf, rf
+
+
+def sweep_uniforms(base_words, chunk: int, num_steps: int,
+                   r: int) -> torch.Tensor:
+    """The (T, R, 4) uniforms the card's keyed sweep draws, computed as its
+    blocks stage them: the chunk key ``fold_in(fold_in(base, SWEEP),
+    chunk)`` from the base key's two words, then, window by window of
+    ``common.SWEEP_WINDOW`` steps, thread ``tid`` of replica r's block
+    takes slot ``tid % 4`` of step ``t0 + tid // 4``: the bits ``o1 ^ o2``
+    of threefry2x32(chunk_key, (0, (t·R + r)·4 + slot)), rounded to f32
+    and scaled by 2⁻³². The plain version of ``snowball_sweep_uniforms``;
+    equal to ``rng.uniform01(rng.stream(base, SWEEP, chunk), (T, R, 4))``."""
+    key = rng.fold_in(rng.fold_in(rng.from_words(*base_words),
+                                  rng.Salt.SWEEP), chunk)
+    out = torch.empty((num_steps, r, 4), dtype=torch.float32)
+    tid = torch.arange(4 * common.SWEEP_WINDOW, dtype=torch.int64)
+    reps = torch.arange(r, dtype=torch.int64)
+    for t0 in range(0, num_steps, common.SWEEP_WINDOW):
+        t = t0 + tid // 4
+        slot = tid % 4
+        keep = t < num_steps
+        t, slot = t[keep], slot[keep]
+        count = (t[:, None] * r + reps[None, :]) * 4 + slot[:, None]
+        o1, o2 = rng.threefry2x32(key[0], key[1], torch.zeros_like(count),
+                                  count & rng.MASK32)
+        out[t[:, None], reps[None, :], slot[:, None]] = (
+            (o1 ^ o2).to(torch.float32) * (2.0 ** -32))
+    return out
 
 
 def colored_sweep(couplings, fields0: torch.Tensor, spins0: torch.Tensor,

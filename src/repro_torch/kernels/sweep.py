@@ -5,54 +5,120 @@ Gibbs), each with ``coupling="dense"|"bitplane"|"bitplane_hbm"``.
 
 A CPU tensor goes to the plain version (``ref.mcmc_sweep``,
 ``ref.colored_sweep``); a CUDA tensor launches ``csrc/sweep.cu`` or
-``csrc/colored_sweep.cu``, or raises. Both kernels keep one replica's u, s
-and best_s in one thread block's shared memory, which sets the port's N
-ceiling on every tier: see :func:`dense_max_n`.
+``csrc/colored_sweep.cu``, or raises. ``mcmc_sweep`` takes the (T, R, 4)
+uniforms as a tensor, as the JAX kernel does; ``mcmc_sweep_keyed``, the
+solve's entry, takes the base key's two words and the chunk index and
+lets the kernel draw the same uniforms itself. The single-flip kernel runs
+each replica on a thread-block cluster of :func:`cluster_width` blocks that
+split N (:func:`max_n` is its ceiling); the colored kernel keeps one
+replica's u, s and best_s in one block (:func:`colored_shared_bytes`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import weakref
+from typing import Optional, Sequence
 
 import torch
 
 from ..core import coupling as coupling_store
+from ..core import rng
 from ..core.bitplane import BitPlanes
 from . import _build, common, ref
 from ._launch import LaunchCounter, check_operands
 
 counter = LaunchCounter("mcmc_sweep")
 colored_counter = LaunchCounter("colored_sweep")
+uniforms_counter = LaunchCounter("sweep_uniforms")
 
-#: Static shared memory the kernel keeps for itself (the step's scalars and
-#: the coalesced tier's 64-step site log), with room to spare.
+#: Static shared memory the kernels keep for themselves (the step's
+#: mailboxes and scalars), with room to spare.
 STATIC_SHARED_BYTES = 1024
 
 #: Dynamic shared memory one block may use on Hopper: the 227 KB a block
 #: may hold (after ``cudaFuncSetAttribute``) less the static part.
 MAX_SHARED_BYTES = coupling_store.SHARED_MEMORY_BYTES - STATIC_SHARED_BYTES
 
-#: Largest thread-block cluster the coalesced tier forms (the portable size).
-MAX_CLUSTER = 8
+#: Largest thread-block cluster (the portable size): the widest split of a
+#: replica's spins, and the colored tier's largest replica group.
+MAX_CLUSTER = coupling_store.SWEEP_MAX_BLOCKS
 
 GATHERS = ("dynamic", "onehot", "auto")
 
 
-def shared_bytes(n: int, lane: int, segs: int, rwa: bool) -> int:
-    """Shared memory of one sweep block: u, s and best_s (3·N f32), the PWL
-    intercepts and slopes (2·S), and for RWA the N/lane block sums plus one
-    128-wide lane buffer. Mirrors ``snowball_sweep_smem_bytes``."""
-    floats = 3 * n + 2 * segs + ((n // lane) + common.MAX_LANE if rwa else 0)
+def shared_bytes(n: int, lane: int, segs: int, rwa: bool,
+                 width: int = 1) -> int:
+    """Shared memory of one block of a ``width``-block sweep cluster: u, s
+    and best_s of its N/width slice (3·N/width f32), the PWL intercepts and
+    slopes (2·S), the staged window (64 steps × 4 uniforms and 64
+    temperatures), and for RWA the slice's block sums plus one 128-wide
+    lane buffer. Mirrors ``snowball_sweep_smem_bytes``."""
+    nc = n // width
+    floats = (3 * nc + 2 * segs + common.SWEEP_WINDOW * 5
+              + ((nc // lane) + common.MAX_LANE if rwa else 0))
     return 4 * floats
 
 
-def dense_max_n(rwa: bool = True, segs: int = 64) -> int:
-    """Largest N whose sweep state fits one block's shared memory, with the
-    default lane. About 19.3k spins (RSA) — the port's ceiling on every
-    tier, in place of the TPU's VMEM wall at N=2000."""
-    n = (MAX_SHARED_BYTES // 4 - 2 * segs) // 3
-    while shared_bytes(n, common.default_lane(n), segs, rwa) > MAX_SHARED_BYTES:
+def widths(n: int, lane: int, segs: int, rwa: bool) -> list:
+    """The cluster widths the sweep can run N on: c ≤ 8 whose slices N/c
+    are whole lane blocks and fit one block's shared memory."""
+    return [c for c in range(1, MAX_CLUSTER + 1)
+            if n % c == 0 and (n // c) % lane == 0
+            and shared_bytes(n, lane, segs, rwa, c) <= MAX_SHARED_BYTES]
+
+
+#: Spins of a plane row that one block's 8 warps decode in one pass (1024
+#: each: 32 packed words a warp).
+PLANE_PASS_SPINS = 8 * 1024
+
+
+def cluster_width(n: int, lane: int, segs: int, rwa: bool,
+                  planes: bool = False) -> int:
+    """The blocks per replica the sweep runs on (chosen here from N, the
+    mode and the store, not by the caller). RWA takes the widest width
+    that fits, and so does RSA on a dense J; RSA on planes takes the
+    narrowest width whose slice one block decodes in one pass
+    (:data:`PLANE_PASS_SPINS`). Raises past the ceiling (:func:`max_n`).
+
+    ``chip_smoke.py``'s width sweep (an H100 80GB HBM3 at a 700 W limit; ms
+    per 256-step launch of the keyed sweep, R=8, at c = 1, 2, 4, 8): K2000
+    dense RSA 0.3432, 0.3796, 0.2800, 0.2651 and RWA 1.6411, 1.5150,
+    1.3186, 1.3130; K4096 ``bitplane`` RSA 0.4399, 0.5395, 0.5551, 0.4893
+    and RWA 1.8670, 1.8205, 1.6662, 1.5883; N=16384 ``bitplane_hbm`` RSA
+    0.8537, 0.5924, 0.5769, 0.5791 and RWA 6.5139, 3.9008, 2.7735, 2.2571.
+    A wider cluster spreads RWA's N flip probabilities, and the row update,
+    over more SMs for two cluster barriers a step. An RSA step is one row
+    update: on a dense J every thread takes fewer columns, but a plane row
+    is decoded 1024 spins a warp, so a split pays only while a block would
+    need a second pass (N=16384) and costs a cluster barrier where one
+    pass suffices (K4096)."""
+    fits = widths(n, lane, segs, rwa)
+    if not fits:
+        raise ValueError(
+            f"N={n} does not fit the sweep at any cluster width up to "
+            f"{MAX_CLUSTER}: a block's slice needs "
+            f"{shared_bytes(n, lane, segs, rwa, MAX_CLUSTER)} bytes of "
+            f"shared memory at width {MAX_CLUSTER} (at most "
+            f"{MAX_SHARED_BYTES}), or N/width is not a whole number of "
+            f"{lane}-wide lane blocks; the sweep takes N ≤ "
+            f"{max_n(rwa, segs)} with the default lane")
+    if planes and not rwa:
+        one_pass = [c for c in fits if n // c <= PLANE_PASS_SPINS]
+        if one_pass:
+            return one_pass[0]
+    return fits[-1]
+
+
+@functools.cache
+def max_n(rwa: bool = True, segs: int = 64) -> int:
+    """Largest N the sweep takes with the default lane: 8 blocks of a
+    cluster each hold a slice, so about 8 × 19.1k spins, in place of the
+    TPU's VMEM wall at N=2000."""
+    per_block = (MAX_SHARED_BYTES // 4 - 2 * segs - 5 * common.SWEEP_WINDOW
+                 - (common.MAX_LANE if rwa else 0)) // 3
+    n = MAX_CLUSTER * per_block
+    while not widths(n, common.default_lane(n), segs, rwa):
         n -= 1
     return n
 
@@ -68,14 +134,59 @@ def colored_shared_bytes(n: int, window: int, segs: int) -> int:
 @functools.cache
 def _fns():
     lib = _build.load("sweep")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    dense = lib.snowball_sweep_dense
-    dense.argtypes = [p] * 7 + [i] + [p] * 7 + [i] * 6 + [p]
-    dense.restype = ctypes.c_int
-    planes = lib.snowball_sweep_planes
-    planes.argtypes = [p, p, i, i] + [p] * 6 + [i] + [p] * 7 + [i] * 7 + [p]
-    planes.restype = ctypes.c_int
-    return dense, planes
+    p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    fn = lib.snowball_sweep
+    fn.argtypes = ([p] * 3 + [i] * 2 + [p] * 4 + [w] * 2 + [i] + [p] * 2
+                   + [i] + [p] * 9 + [i] * 8 + [p])
+    fn.restype = ctypes.c_int
+    draw = lib.snowball_sweep_uniforms
+    draw.argtypes = [w, w, i, i, i, p, p]
+    draw.restype = ctypes.c_int
+    return fn, draw
+
+
+#: The packed PWL table of each live table tensor, by id: (a weak
+#: reference to it, its version, the packed tensor, S). A solve passes one
+#: table to every chunk's launch.
+_PACKED_PWL: dict = {}
+
+
+def _pwl_args(pwl_table: Optional[torch.Tensor]):
+    """(pointer, S) of the table the kernels read: icpt[S], slopes[S], z_lo,
+    z_hi, inv_step, computed on the table's device with the plain version's
+    arithmetic (no host round trip), once per table tensor as long as it
+    lives unmodified; (None, 0) for the exact sigmoid."""
+    if pwl_table is None:
+        return None, 0
+    key = id(pwl_table)
+    hit = _PACKED_PWL.get(key)
+    if (hit is None or hit[0]() is not pwl_table
+            or hit[1] != pwl_table._version):
+        c = common.pwl_coefficients(pwl_table)
+        packed = torch.cat([c.icpt, c.slopes,
+                            torch.stack([c.z_lo, c.z_hi, c.inv_step])])
+        ref_ = weakref.ref(pwl_table,
+                           lambda _, key=key: _PACKED_PWL.pop(key, None))
+        hit = (ref_, pwl_table._version, packed, c.icpt.shape[0])
+        _PACKED_PWL[key] = hit
+    return hit[2].data_ptr(), hit[3]
+
+
+def _check_call(couplings, fields0: torch.Tensor, mode: str, gather: str,
+                coupling: str, lane: Optional[int], coalesce: bool):
+    """The arguments every sweep entry checks; returns the lane and whether
+    rows_fetched is coalesced."""
+    if mode not in ("rsa", "rwa"):
+        raise ValueError(f"mode must be 'rsa' or 'rwa', got {mode!r}")
+    if gather not in GATHERS:
+        raise ValueError(f"gather must be one of {GATHERS}, got {gather!r}")
+    n = fields0.shape[1]
+    coupling_store.validate_kernel_operand(coupling, couplings, n, gather)
+    lane = common.default_lane(n) if lane is None else lane
+    if n % lane or lane > common.MAX_LANE:
+        raise ValueError(f"N={n} not divisible by lane={lane} (or lane > "
+                         f"{common.MAX_LANE})")
+    return lane, coalesce and coupling_store.FORMATS[coupling].coalescable
 
 
 def mcmc_sweep(couplings, fields0: torch.Tensor,
@@ -100,29 +211,115 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
     ``(fields, spins, energy, best_energy, best_spins, num_flips,
     rows_fetched)``.
     """
-    if mode not in ("rsa", "rwa"):
-        raise ValueError(f"mode must be 'rsa' or 'rwa', got {mode!r}")
-    if gather not in GATHERS:
-        raise ValueError(f"gather must be one of {GATHERS}, got {gather!r}")
-    r, n = fields0.shape
-    t = uniforms.shape[0]
-    coupling_store.validate_kernel_operand(coupling, couplings, n, gather)
-    lane = common.default_lane(n) if lane is None else lane
-    if n % lane or lane > common.MAX_LANE:
-        raise ValueError(f"N={n} not divisible by lane={lane} (or lane > "
-                         f"{common.MAX_LANE})")
-    coalesce = coalesce and coupling_store.FORMATS[coupling].coalescable
+    lane, coalesce = _check_call(couplings, fields0, mode, gather, coupling,
+                                 lane, coalesce)
     if fields0.device.type == "cpu":
         return ref.mcmc_sweep(couplings, fields0, spins0, energy0, uniforms,
                               temps, pwl_table, mode=mode,
                               uniformized=uniformized, lane=lane,
                               coupling=coupling, block_r=block_r,
                               coalesce=coalesce)
+    return _launch(couplings, fields0, spins0, energy0, temps, pwl_table,
+                   uniforms=uniforms, key=None, mode=mode,
+                   uniformized=uniformized, block_r=block_r, lane=lane,
+                   coalesce=coalesce, width=None)
+
+
+def mcmc_sweep_keyed(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
+                     energy0: torch.Tensor, base_words: Sequence[int],
+                     chunk: int, temps: torch.Tensor,
+                     pwl_table: Optional[torch.Tensor] = None, *,
+                     mode: str = "rsa", uniformized: bool = False,
+                     gather: str = "dynamic", coupling: str = "dense",
+                     block_r: int = 8, lane: Optional[int] = None,
+                     coalesce: bool = True):
+    """:func:`mcmc_sweep` on the uniforms of ``rng.uniform01(rng.stream(
+    base, Salt.SWEEP, chunk), (T, R, 4))``, where ``base_words`` are the two
+    words of the base key (Python ints) and T = ``temps.shape[0]``. On the
+    card the kernel draws them itself (no uniforms tensor, no host RNG);
+    on the CPU the plain version runs on the drawn tensor."""
+    lane, coalesce = _check_call(couplings, fields0, mode, gather, coupling,
+                                 lane, coalesce)
+    if fields0.device.type == "cpu":
+        base = rng.from_words(*base_words)
+        uniforms = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, chunk),
+                                 (temps.shape[0], fields0.shape[0], 4))
+        return ref.mcmc_sweep(couplings, fields0, spins0, energy0, uniforms,
+                              temps, pwl_table, mode=mode,
+                              uniformized=uniformized, lane=lane,
+                              coupling=coupling, block_r=block_r,
+                              coalesce=coalesce)
+    return _launch(couplings, fields0, spins0, energy0, temps, pwl_table,
+                   uniforms=None, key=(base_words, chunk), mode=mode,
+                   uniformized=uniformized, block_r=block_r, lane=lane,
+                   coalesce=coalesce, width=None)
+
+
+def mcmc_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
+                        spins0: torch.Tensor, energy0: torch.Tensor,
+                        temps: torch.Tensor,
+                        pwl_table: Optional[torch.Tensor] = None, *,
+                        uniforms: Optional[torch.Tensor] = None,
+                        base_words: Optional[Sequence[int]] = None,
+                        chunk: int = 0, mode: str = "rsa",
+                        uniformized: bool = False, coupling: str = "dense",
+                        block_r: int = 8, lane: Optional[int] = None,
+                        coalesce: bool = True):
+    """The card's sweep at a cluster width of the caller's choice (one of
+    :func:`widths`) in place of :func:`cluster_width`'s: for the width
+    sweep and the card tests, never the solve. Takes ``uniforms`` or
+    ``base_words`` and ``chunk``."""
+    lane, coalesce = _check_call(couplings, fields0, mode, "dynamic",
+                                 coupling, lane, coalesce)
+    if fields0.device.type != "cuda":
+        raise ValueError("mcmc_sweep_at_width runs the kernel: CUDA tensors "
+                         "only")
+    if (uniforms is None) == (base_words is None):
+        raise ValueError("pass uniforms or base_words, not both")
+    key = None if base_words is None else (base_words, chunk)
+    return _launch(couplings, fields0, spins0, energy0, temps, pwl_table,
+                   uniforms=uniforms, key=key, mode=mode,
+                   uniformized=uniformized, block_r=block_r, lane=lane,
+                   coalesce=coalesce, width=width)
+
+
+def sweep_uniforms(base_words: Sequence[int], chunk: int, t: int, r: int,
+                   device=None) -> torch.Tensor:
+    """The (T, R, 4) uniforms the keyed sweep draws for ``chunk``: on the
+    card by the kernel's own device function (``snowball_sweep_uniforms``),
+    on the CPU by its plain version (``ref.sweep_uniforms``). The solve
+    never calls it; the checks hold the in-kernel draw against
+    ``rng.uniform01`` with it."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    if device.type == "cpu":
+        return ref.sweep_uniforms(base_words, chunk, t, r)
+    if t * r * 4 >= 2 ** 31:
+        raise ValueError(f"T·R·4 = {t * r * 4} uniforms exceed one launch")
+    out = torch.empty((t, r, 4), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _fns()[1](base_words[0], base_words[1], chunk, t, r,
+                       out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_uniforms launch failed: CUDA error {rc}")
+    uniforms_counter.count += 1
+    return out
+
+
+def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
+            uniforms, key, mode, uniformized, block_r, lane, coalesce,
+            width):
+    """Checks the operands and launches ``snowball_sweep`` (reading
+    ``uniforms``, or drawing from ``key = (base_words, chunk)``)."""
+    r, n = fields0.shape
+    t = temps.shape[0]
     rwa = mode == "rwa"
     dev = fields0.device
     checks = (("fields0", fields0, (r, n)),
               ("spins0", spins0, (r, n)), ("energy0", energy0, (r,)),
-              ("uniforms", uniforms, (t, r, 4)), ("temps", temps, (t, r)))
+              ("temps", temps, (t, r)))
+    if uniforms is not None:
+        checks += (("uniforms", uniforms, (t, r, 4)),)
     if pwl_table is not None:
         checks += (("pwl_table", pwl_table, (pwl_table.shape[0], 3)),)
     check_operands(dev, checks)
@@ -131,32 +328,28 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
         check_operands(dev, (("planes.pos", couplings.pos, shape),
                              ("planes.neg", couplings.neg, shape)),
                        dtype=torch.int32)
+        store = (None, couplings.pos.data_ptr(), couplings.neg.data_ptr(),
+                 couplings.num_planes, couplings.num_words)
     else:
         check_operands(dev, (("couplings", couplings, (n, n)),))
-    cluster = common.fit_block(r, block_r) if coalesce else 0
-    if cluster > MAX_CLUSTER:
-        raise ValueError(
-            f"coalesced rows_fetched groups block_r={block_r} replicas in one "
-            f"thread-block cluster; the card's portable limit is "
-            f"{MAX_CLUSTER} (pass block_r <= {MAX_CLUSTER})")
-    if pwl_table is not None:
-        # icpt[S], slopes[S], z_lo, z_hi, inv_step, computed on the card
-        # with the plain version's arithmetic (no host round trip).
-        c = common.pwl_coefficients(pwl_table)
-        segs = c.icpt.shape[0]
-        packed = torch.cat([c.icpt, c.slopes,
-                            torch.stack([c.z_lo, c.z_hi, c.inv_step])])
-        pwl_args = (packed.data_ptr(), segs)
+        store = (couplings.data_ptr(), None, None, 0, 0)
+    if t * r * 4 >= 2 ** 32:
+        raise ValueError(f"T·R·4 = {t * r * 4} uniform counters exceed the "
+                         "32-bit count of one threefry draw")
+    if key is None:
+        draw = (uniforms.data_ptr(), 0, 0, 0)
     else:
-        segs = 0
-        pwl_args = (None, 0)
-    need = shared_bytes(n, lane, segs, rwa)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"N={n} needs {need} bytes of shared memory per replica block; "
-            f"the sweep's ceiling is {MAX_SHARED_BYTES} "
-            f"(N ≤ {dense_max_n(rwa, segs)} here). Lifting that ceiling is "
-            "ROADMAP queue 2 item 8")
+        (w0, w1), chunk = key
+        draw = (None, int(w0), int(w1), int(chunk))
+    pwl_args = _pwl_args(pwl_table)
+    segs = pwl_args[1]
+    if width is None:
+        width = cluster_width(n, lane, segs, rwa,
+                              isinstance(couplings, BitPlanes))
+    elif width not in widths(n, lane, segs, rwa):
+        raise ValueError(f"cluster width {width} does not fit N={n} (lane "
+                         f"{lane}): the widths that do are "
+                         f"{widths(n, lane, segs, rwa)}")
     u = torch.empty((r, n), dtype=torch.float32, device=dev)
     s = torch.empty((r, n), dtype=torch.float32, device=dev)
     bs = torch.empty((r, n), dtype=torch.float32, device=dev)
@@ -164,20 +357,21 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
     be = torch.empty((r,), dtype=torch.float32, device=dev)
     nf = torch.empty((r,), dtype=torch.int32, device=dev)
     rf = torch.empty((r,), dtype=torch.int32, device=dev)
+    if coalesce:
+        group = common.fit_block(r, block_r)
+        site_log = torch.empty((max(t, 1), r), dtype=torch.int32, device=dev)
+        done = torch.zeros((r // group,), dtype=torch.int32, device=dev)
+        rows = (site_log.data_ptr(), done.data_ptr(), group)
+    else:
+        rows = (None, None, 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        state = (fields0.data_ptr(), spins0.data_ptr(), energy0.data_ptr(),
-                 uniforms.data_ptr(), temps.data_ptr(), *pwl_args,
-                 u.data_ptr(), s.data_ptr(), e.data_ptr(), be.data_ptr(),
-                 bs.data_ptr(), nf.data_ptr(), rf.data_ptr(), r, n, t,
-                 int(rwa), int(uniformized and rwa), lane)
-        dense_fn, planes_fn = _fns()
-        if isinstance(couplings, BitPlanes):
-            rc = planes_fn(couplings.pos.data_ptr(), couplings.neg.data_ptr(),
-                           couplings.num_planes, couplings.num_words, *state,
-                           cluster, stream)
-        else:
-            rc = dense_fn(couplings.data_ptr(), *state, stream)
+        rc = _fns()[0](
+            *store, fields0.data_ptr(), spins0.data_ptr(),
+            energy0.data_ptr(), *draw, temps.data_ptr(), *pwl_args,
+            u.data_ptr(), s.data_ptr(), e.data_ptr(), be.data_ptr(),
+            bs.data_ptr(), nf.data_ptr(), rf.data_ptr(), *rows, r, n, t,
+            int(rwa), int(uniformized and rwa), lane, width, stream)
     if rc != 0:
         raise RuntimeError(f"mcmc_sweep launch failed: CUDA error {rc}")
     counter.count += 1
@@ -257,22 +451,15 @@ def colored_sweep(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
             f"colored rows_fetched groups block_r={block_r} replicas in one "
             f"thread-block cluster; the card's portable limit is "
             f"{MAX_CLUSTER} (pass block_r <= {MAX_CLUSTER})")
-    if pwl_table is not None:
-        c = common.pwl_coefficients(pwl_table)
-        segs = c.icpt.shape[0]
-        packed = torch.cat([c.icpt, c.slopes,
-                            torch.stack([c.z_lo, c.z_hi, c.inv_step])])
-        pwl_args = (packed.data_ptr(), segs)
-    else:
-        segs = 0
-        pwl_args = (None, 0)
+    pwl_args = _pwl_args(pwl_table)
+    segs = pwl_args[1]
     need = colored_shared_bytes(n, win, segs)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"N={n} with a class window of S={win} needs {need} bytes of "
             f"shared memory per replica block; the colored sweep's ceiling "
             f"is {MAX_SHARED_BYTES}. Lifting that ceiling is ROADMAP queue 2 "
-            "item 8")
+            "item 9")
     u = torch.empty((r, n), dtype=torch.float32, device=dev)
     s = torch.empty((r, n), dtype=torch.float32, device=dev)
     bs = torch.empty((r, n), dtype=torch.float32, device=dev)

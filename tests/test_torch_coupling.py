@@ -60,11 +60,13 @@ def test_thresholds_follow_from_l2_and_shared_memory():
     n = tcoupling.BITPLANE_L2_MAX_N
     assert n * n // 4 <= l2 < (n + 1) ** 2 // 4 and n == 14481
     n = tcoupling.SWEEP_STATE_MAX_N
-    assert 12 * n <= tcoupling.SHARED_MEMORY_BYTES < 12 * (n + 1)
+    blocks = tcoupling.SWEEP_MAX_BLOCKS
+    assert blocks == sweep.MAX_CLUSTER == 8
+    assert 12 * n <= blocks * tcoupling.SHARED_MEMORY_BYTES < 12 * (n + 1)
     assert (sweep.MAX_SHARED_BYTES + sweep.STATIC_SHARED_BYTES
             == tcoupling.SHARED_MEMORY_BYTES)
     for rwa in (False, True):
-        assert sweep.dense_max_n(rwa) <= tcoupling.SWEEP_STATE_MAX_N
+        assert sweep.max_n(rwa) <= tcoupling.SWEEP_STATE_MAX_N
 
 
 @pytest.mark.parametrize("fmt", [None, "auto", "dense", "bitplane",
@@ -106,10 +108,15 @@ def test_unserved_tiers_and_past_the_ceiling_raise():
     big = tcoupling.SWEEP_STATE_MAX_N + 1
     edges = tising.EdgeList.create([0], [big - 1], [1], big)
     for fmt in ("auto", "bitplane", "bitplane_hbm"):
-        with pytest.raises(ValueError, match="queue 2 item 8"):
+        with pytest.raises(ValueError, match="thread-block cluster"):
             tcoupling.resolve_format(fmt, edges, big)
     edges = tising.EdgeList.create([0], [big - 2], [1], big - 1)
     assert tcoupling.resolve_format("auto", edges, big - 1) == "bitplane_hbm"
+    # Past one block's old ceiling of 19,370 spins the tiers are served.
+    for n in (19_371, 32_768):
+        edges = tising.EdgeList.create([0], [n - 1], [1], n)
+        assert tcoupling.resolve_format("bitplane_hbm", edges, n) == \
+            "bitplane_hbm"
 
 
 def test_store_build_and_accessors():

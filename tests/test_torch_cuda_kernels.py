@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the
-single-flip and colored sweeps on every tier, the two field inits, and the
-flash-attention forward with the LM serving path around it.
+single-flip sweep on every tier (its device draw of the uniforms, the keyed
+and reading variants at every cluster width, the coalesced row count, N
+past one block's shared memory) and the colored sweep, the two field
+inits, and the flash-attention forward with the LM serving path around it.
 
 Marked ``cuda``; each test skips (inside the ``cuda_device`` fixture) when
 no card is present. The file imports neither JAX nor the JAX package, so it
@@ -146,8 +148,10 @@ def test_sweep_kernel_rejects_bad_input(cuda_device):
         sweep.mcmc_sweep(J, u0, s0, e0, unif[:, :4].contiguous(), temps)
     with pytest.raises(ValueError, match="on"):
         sweep.mcmc_sweep(J.cpu(), u0, s0, e0, unif, temps)
-    big = sweep.dense_max_n(rwa=False) + 200
-    with pytest.raises(ValueError, match="shared memory"):
+    # A prime N past one block's budget has no cluster width to split it.
+    big = 20_011
+    assert sweep.shared_bytes(big, 1, 0, False) > sweep.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="cluster width"):
         z = torch.zeros((1, big), device=cuda_device)
         sweep.mcmc_sweep(torch.zeros((big, big), device=cuda_device), z, z,
                          torch.zeros(1, device=cuda_device),
@@ -234,10 +238,179 @@ def test_plane_solve_on_card_equals_cpu_and_dense(cuda_device):
             assert torch.equal(a.cpu(), b), (fmt, name)
             if name != "rows_fetched":
                 assert torch.equal(a, d), (fmt, name)
-    with pytest.raises(ValueError, match="cluster"):
-        ops.fused_anneal(problem, 1, dataclasses.replace(
-            cfg, coupling_format="bitplane_hbm", num_replicas=16),
-            block_r=16, device=cuda_device)
+    # The coalescing group is no longer a cluster: 16 replicas may share it.
+    c16 = dataclasses.replace(cfg, coupling_format="bitplane_hbm",
+                              num_replicas=16)
+    on_card = ops.fused_anneal(problem, 1, c16, block_r=16,
+                               device=cuda_device)
+    on_cpu = ops.fused_anneal(problem, 1, c16, block_r=16, device="cpu")
+    for name, a, b in zip(on_card._fields, on_card, on_cpu):
+        assert torch.equal(a.cpu(), b), ("block_r=16", name)
+
+
+@pytest.mark.parametrize("seed,chunk,t", [(0, 0, 256), (3, 1, 100),
+                                          (2**31 + 5, 78, 17),
+                                          (2**32 - 1, 1000, 130)])
+def test_sweep_uniforms_kernel_bitwise(cuda_device, seed, chunk, t):
+    """The keyed sweep's device draw equals ``rng.uniform01`` of the chunk's
+    stream bitwise."""
+    base = rng.fold_in(rng.key(0), seed)
+    words = rng.words(base)
+    before = sweep.uniforms_counter.count
+    got = sweep.sweep_uniforms(words, chunk, t, 8, device=cuda_device)
+    assert sweep.uniforms_counter.count == before + 1
+    want = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, chunk), (t, 8, 4))
+    assert torch.equal(got.cpu(), want)
+
+
+def _width_operands(n, fmt, r, t, dev, seed=0):
+    """A store of the sparse G(n, 8n) instance (or its dense J), a state
+    on it and temperatures across an anneal."""
+    edges = sparse_bipolar_edges(n, 8 * n, seed=seed)
+    J = torch.from_numpy(edges.to_dense()).to(dev)
+    op = (J if fmt == "dense"
+          else CouplingStore.build(edges, fmt).to(dev).planes)
+    key = rng.fold_in(rng.key(0, device=dev), seed)
+    s0 = ising.random_spins(rng.stream(key, rng.Salt.INIT,
+                                       torch.arange(r, device=dev)),
+                            (n,)).to(torch.float32)
+    u0 = s0 @ J.T
+    e0 = -0.5 * (s0 * u0).sum(1)
+    temps = torch.linspace(4.0, 0.1, t, device=dev)[:, None].expand(
+        t, r).contiguous()
+    return op, J, (u0, s0, e0, temps)
+
+
+WIDTH_MODES = {"rsa": dict(mode="rsa", pwl=True, uniformized=False),
+               "rsa_exact": dict(mode="rsa", pwl=False, uniformized=False),
+               "rwa": dict(mode="rwa", pwl=True, uniformized=False),
+               "rwa_uniformized": dict(mode="rwa", pwl=True,
+                                       uniformized=True),
+               "rwa_exact": dict(mode="rwa", pwl=False, uniformized=False)}
+
+
+@pytest.mark.parametrize("fmt,n", [("dense", 2000), ("bitplane", 4096),
+                                   ("bitplane_hbm", 16384)])
+@pytest.mark.parametrize("variant", sorted(WIDTH_MODES))
+def test_draw_kernel_equals_read_kernel_at_every_width(cuda_device, fmt, n,
+                                                       variant):
+    """The keyed (DRAW) kernel equals the read kernel fed the drawn tensor
+    bitwise, at every cluster width; RSA + PWL also equals the plain
+    version, and every width walks one trajectory."""
+    v = WIDTH_MODES[variant]
+    r, t = 8, 130
+    op, J, (u0, s0, e0, temps) = _width_operands(n, fmt, r, t, cuda_device)
+    tbl = pwl.pwl_table(device=cuda_device) if v["pwl"] else None
+    words = rng.words(rng.fold_in(rng.key(0), 11))
+    unif = sweep.sweep_uniforms(words, 3, t, r, device=cuda_device)
+    kw = dict(mode=v["mode"], uniformized=v["uniformized"], coupling=fmt)
+    lane = common.default_lane(n)
+    runs = {}
+    for width in sweep.widths(n, lane, 64 if v["pwl"] else 0,
+                              v["mode"] == "rwa"):
+        got = sweep.mcmc_sweep_at_width(width, op, u0, s0, e0, temps, tbl,
+                                        base_words=words, chunk=3, **kw)
+        read = sweep.mcmc_sweep_at_width(width, op, u0, s0, e0, temps, tbl,
+                                         uniforms=unif, **kw)
+        for name, a, b in zip(NAMES, got, read):
+            assert torch.equal(a, b), (width, name)
+        assert torch.equal(got[0], got[1] @ J.T), width
+        runs[width] = got
+    if v["mode"] == "rsa":
+        want = ref.mcmc_sweep(op, u0, s0, e0, unif, temps, tbl, **kw)
+        for width, got in runs.items():
+            if v["pwl"]:
+                for name, a, b in zip(NAMES, got, want):
+                    assert torch.equal(a, b), (width, name)
+            for name, a, b in zip(NAMES, got, runs[1]):
+                assert torch.equal(a, b), (width, name)
+
+
+@pytest.mark.parametrize("fmt,n", [("dense", 2000), ("bitplane", 4096),
+                                   ("bitplane_hbm", 16384)])
+def test_rsa_pwl_solve_on_card_equals_cpu(cuda_device, fmt, n):
+    """An RSA + PWL solve at the rule's width, sparse ±1 J, equals the CPU
+    plain solve bitwise (the keyed path: the card draws its uniforms)."""
+    edges = sparse_bipolar_edges(n, 8 * n, seed=n)
+    problem = (ising.IsingProblem.create(edges.to_dense()) if fmt == "dense"
+               else ising.IsingProblem.create_sparse(edges))
+    cfg = dataclasses.replace(default_solver(n, 600, mode="rsa"),
+                              coupling_format=fmt, trace_every=200)
+    sweep.counter.reset()
+    on_card = solve(problem, 2, cfg, device=cuda_device)
+    assert sweep.counter.count == 3
+    on_cpu = solve(problem, 2, cfg, device="cpu")
+    for name, a, b in zip(on_card._fields, on_card, on_cpu):
+        assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("n", [2000, 16384])
+def test_rwa_one_step_splits_only_at_near_ties(cuda_device, n):
+    """One RWA + PWL step from 512 states at the rule's width: every state
+    the kernel and the plain version disagree on is a near tie."""
+    r = 512
+    fmt = "dense" if n == 2000 else "bitplane_hbm"
+    op, J, (u0, s0, e0, _) = _width_operands(n, fmt, r, 1, cuda_device,
+                                             seed=4)
+    temps = torch.linspace(0.1, 3.0 * math.sqrt(n), r,
+                           device=cuda_device)[None, :].contiguous()
+    words = rng.words(rng.fold_in(rng.key(0), 5))
+    unif = sweep.sweep_uniforms(words, 0, 1, r, device=cuda_device)
+    tbl = pwl.pwl_table(device=cuda_device)
+    kw = dict(mode="rwa", coupling=fmt)
+    got = sweep.mcmc_sweep_keyed(op, u0, s0, e0, words, 0, temps, tbl, **kw)
+    want = ref.mcmc_sweep(op, u0, s0, e0, unif, temps, tbl, **kw)
+    p_all = common.flip_probability(2.0 * s0 * u0, temps[0][:, None], tbl)
+    tie = parity.roulette_near_tie(p_all, unif[0, :, 2], unif[0, :, 3],
+                                   False)
+    same = torch.ones(r, dtype=torch.bool, device=cuda_device)
+    for a, b in zip(got, want):
+        same &= (a == b).reshape(r, -1).all(dim=1)
+    assert bool((same | tie).all())
+    assert int(tie.sum()) <= 0.35 * r
+
+
+@pytest.mark.parametrize("block_r", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["rsa", "rwa"])
+def test_coalesced_rows_fetched_equals_plain(cuda_device, block_r, mode):
+    """The last cluster of each group counts its unique rows per step: the
+    plain version's count, for every group size."""
+    n, r, t = 4096, 8, 200
+    op, _, (u0, s0, e0, temps) = _width_operands(n, "bitplane_hbm", r, t,
+                                                 cuda_device, seed=6)
+    words = rng.words(rng.fold_in(rng.key(0), 9))
+    unif = sweep.sweep_uniforms(words, 0, t, r, device=cuda_device)
+    unif[::2, :4, 0] = unif[::2, :1, 0]   # shared sites on even steps
+    unif = unif.contiguous()
+    tbl = pwl.pwl_table(device=cuda_device)
+    kw = dict(mode=mode, coupling="bitplane_hbm", block_r=block_r)
+    got = sweep.mcmc_sweep(op, u0, s0, e0, unif, temps, tbl, **kw)
+    plain = ref.mcmc_sweep(op, u0, s0, e0, unif, temps, tbl, **kw)
+    if mode == "rsa":
+        for name, a, b in zip(NAMES, got, plain):
+            assert torch.equal(a, b), name
+    else:
+        # RWA sites come from the state: count the kernel's own sites.
+        assert int(got[6].sum()) <= r * t
+    if block_r == 1:
+        assert int(got[6].sum()) == r * t
+    elif mode == "rsa":
+        assert int(got[6].sum()) < r * t
+
+
+def test_sparse_past_one_block_ceiling_equals_plain(cuda_device):
+    """A sparse N=32768 bitplane_hbm RSA + PWL solve (past the old 19,370
+    spins of one block) runs on a two-block cluster and equals the CPU."""
+    n = 32768
+    problem = ising.IsingProblem.create_sparse(
+        sparse_bipolar_edges(n, 8 * n, seed=n))
+    cfg = dataclasses.replace(default_solver(n, 300, mode="rsa"),
+                              coupling_format="bitplane_hbm")
+    assert sweep.cluster_width(n, common.default_lane(n), 64, False) > 1
+    on_card = solve(problem, 0, cfg, device=cuda_device)
+    on_cpu = solve(problem, 0, cfg, device="cpu")
+    for name, a, b in zip(on_card._fields, on_card, on_cpu):
+        assert torch.equal(a.cpu(), b), name
 
 
 def _colored_operands(edges, fmt, r, t, dev, seed=0, hi=2.5):

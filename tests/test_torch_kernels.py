@@ -30,7 +30,12 @@ from repro.kernels.sweep import mcmc_sweep as jkernel
 from repro_torch import interop
 from repro_torch.core import ising as tising
 from repro_torch.core import pwl as tpwl
-from repro_torch.kernels import common, local_field, parity, sweep
+from repro_torch.core import coupling as tcoupling
+from repro_torch.core import rng as trng
+from repro_torch.core import schedules as tsched
+from repro_torch.core.solver import SolverConfig
+from repro_torch.kernels import common, local_field, ops, parity, sweep
+from repro_torch.kernels import ref as tref
 
 NAMES = ("fields", "spins", "energy", "best_energy", "best_spins",
          "num_flips", "rows_fetched")
@@ -311,9 +316,81 @@ def test_interop_state_round_trip_feeds_a_chunk():
 
 
 def test_shared_memory_ceiling():
-    assert sweep.shared_bytes(2000, 125, 64, True) < sweep.MAX_SHARED_BYTES
+    """The split's limit: each of at most 8 blocks holds a slice of N/c
+    spins (u, s, best_s) with the PWL table, the staged window and, for
+    RWA, the slice's block sums and a lane buffer."""
+    assert sweep.shared_bytes(2000, 125, 64, True) == 4 * (
+        3 * 2000 + 128 + 320 + 16 + 128)
+    assert sweep.shared_bytes(16384, 128, 64, True, 8) == 4 * (
+        3 * 2048 + 128 + 320 + 16 + 128)
     for rwa in (False, True):
-        n = sweep.dense_max_n(rwa)
-        assert sweep.shared_bytes(n, common.default_lane(n), 64, rwa) <= \
+        n = sweep.max_n(rwa)
+        lane = common.default_lane(n)
+        assert sweep.MAX_CLUSTER in sweep.widths(n, lane, 64, rwa)
+        assert sweep.shared_bytes(n, lane, 64, rwa, sweep.MAX_CLUSTER) <= \
             sweep.MAX_SHARED_BYTES
-        assert 14_000 < n < 19_400
+        assert 150_000 < n <= tcoupling.SWEEP_STATE_MAX_N
+        # Past it no width fits.
+        for m in range(n + 1, n + 64):
+            assert not sweep.widths(m, common.default_lane(m), 64, rwa)
+    # The rule: RWA and dense RSA take the widest width that fits; RSA on
+    # planes the narrowest whose slice one decode pass covers (8192 spins).
+    assert sweep.widths(16384, 128, 64, False) == [1, 2, 4, 8]
+    assert sweep.widths(32768, 128, 64, False) == [2, 4, 8]
+    assert sweep.cluster_width(32768, 128, 64, False) == 8
+    assert sweep.cluster_width(2000, 125, 64, False) == 8
+    assert sweep.cluster_width(16384, 128, 64, True, planes=True) == 8
+    for n, c in ((4096, 1), (16384, 2), (32768, 4), (65536, 8),
+                 (131072, 8)):
+        assert sweep.cluster_width(n, 128, 64, False, planes=True) == c
+    assert sweep.widths(1001, 91, 64, True) == [1]
+    big = sweep.max_n(False) + 1024
+    with pytest.raises(ValueError, match="cluster width"):
+        sweep.cluster_width(big, common.default_lane(big), 64, False)
+
+
+def _keyed_inputs(n, r, t, seed):
+    J, h, (J, u0, s0, e0, _, temps) = _inputs(n, r, t, seed)
+    return J, h, _torch((J, u0, s0, e0, temps))
+
+
+@pytest.mark.parametrize("variant", sorted(STEP_VARIANTS))
+@pytest.mark.parametrize("chunk", [0, 5])
+def test_keyed_sweep_plain_equals_sweep_on_the_drawn_uniforms(variant, chunk):
+    """On the CPU the keyed entry (the solve's) is ``ref.mcmc_sweep`` fed
+    ``rng.uniform01(rng.stream(base, SWEEP, c), (T, R, 4))``; T = 100 is not
+    a multiple of the kernel's 64-step window."""
+    v = STEP_VARIANTS[variant]
+    r, t = 8, 100
+    J, h, (tj, u0, s0, e0, temps) = _keyed_inputs(64, r, t, seed=21)
+    tbl = tpwl.pwl_table() if v["pwl"] else None
+    base = trng.fold_in(trng.key(0), 2**31 + 5)
+    words = trng.words(base)
+    kw = dict(mode=v["mode"], uniformized=v["uniformized"])
+    got = sweep.mcmc_sweep_keyed(tj, u0, s0, e0, words, chunk, temps, tbl,
+                                 **kw)
+    unif = trng.uniform01(trng.stream(base, trng.Salt.SWEEP, chunk),
+                          (t, r, 4))
+    want = tref.mcmc_sweep(tj, u0, s0, e0, unif, temps, tbl, **kw)
+    for name, a, b in zip(NAMES, got, want):
+        assert torch.equal(a, b), name
+    _invariants(J, h, got, t)
+
+
+@pytest.mark.parametrize("kind", ["geometric", "linear"])
+@pytest.mark.parametrize("steps,chunk_steps", [(20000, 256), (1000, 256),
+                                               (777, 100), (64, 256)])
+def test_solve_temperature_table_slices_equal_chunk_temps(kind, steps,
+                                                          chunk_steps):
+    """The (steps, R) table copied once per solve, sliced per chunk, is
+    ``chunk_temps`` bitwise, the remainder chunk included."""
+    sched = getattr(tsched, kind)(16.0, 0.05, steps)
+    cfg = SolverConfig(num_steps=steps, schedule=sched, num_replicas=8)
+    chunk_len, chunks = ops.chunk_list(cfg, chunk_steps)
+    table = ops.anneal_temps(cfg, chunk_len, chunks, "cpu")
+    assert table.shape == (steps, 8) and table.is_contiguous()
+    for c, clen in chunks:
+        part = table[c * chunk_len:c * chunk_len + clen]
+        assert part.is_contiguous()
+        assert torch.equal(part, ops.chunk_temps(cfg, c, clen, chunk_len,
+                                                 "cpu")), (c, clen)

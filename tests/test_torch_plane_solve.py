@@ -200,11 +200,10 @@ def test_chunk_driver_bitwise_with_jax_coalescing_on_and_off(tier, coalesce):
             jnp.asarray(temps), mode="rsa", pwl_table=jpwl.pwl_table(),
             coupling=tier, coalesce=coalesce, block_r=4,
             with_rows_fetched=True, interpret=True)
-        tstate, trf = ops.fused_sweep_chunk(
-            tplanes, tstate, trng.stream(tbase, trng.Salt.SWEEP, c), clen,
-            torch.from_numpy(temps), mode="rsa", pwl_table=tpwl.pwl_table(),
-            coupling=tier, coalesce=coalesce, block_r=4,
-            with_rows_fetched=True)
+        tstate, trf = ops.keyed_sweep_chunk(
+            tplanes, tstate, trng.words(tbase), c, torch.from_numpy(temps),
+            mode="rsa", pwl_table=tpwl.pwl_table(), coupling=tier,
+            coalesce=coalesce, block_r=4, with_rows_fetched=True)
         for a, b in zip(jstate + (jrf,), tstate + (trf,)):
             np.testing.assert_array_equal(np.asarray(a), b.numpy())
 

@@ -15,6 +15,8 @@ from repro.core import ising as jising
 from repro.core import rng as jrng
 from repro_torch.core import ising as tising
 from repro_torch.core import rng as trng
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import sweep
 
 SEEDS = [0, 1, 7, 12345, 2**31 + 5, 2**32 - 1]
 
@@ -43,6 +45,30 @@ def test_sweep_uniforms_match(seed, chunk):
                          shape)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2**31 + 5, 2**32 - 1])
+@pytest.mark.parametrize("chunk", [0, 1, 78, 1000])
+@pytest.mark.parametrize("t", [17, 64, 130])
+def test_sweep_kernel_draw_mirror_matches(seed, chunk, t):
+    """The keyed sweep's in-kernel draw, mirrored in torch (the chunk key
+    from the base key's two words, then each staged window's per-thread
+    counter (t·R + r)·4 + slot), equals ``rng.uniform01`` of the chunk's
+    stream and JAX's draw bitwise, also where T is not a multiple of the
+    64-step window."""
+    r = 8
+    base = _tbase(seed)
+    words = trng.words(base)
+    assert torch.equal(trng.from_words(*words), base)
+    got = tref.sweep_uniforms(words, chunk, t, r)
+    want = trng.uniform01(trng.stream(base, trng.Salt.SWEEP, chunk),
+                          (t, r, 4))
+    assert got.dtype == torch.float32 and got.shape == (t, r, 4)
+    assert torch.equal(got, want)
+    assert torch.equal(sweep.sweep_uniforms(words, chunk, t, r), want)
+    jwant = jrng.uniform01(jrng.stream(_jbase(seed), jrng.Salt.SWEEP, chunk),
+                           (t, r, 4))
+    np.testing.assert_array_equal(np.asarray(jwant), got.numpy())
 
 
 def test_fold_in_chains_and_key_seeds_match():
