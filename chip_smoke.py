@@ -26,9 +26,13 @@ results:
   χ = 11): ``solve(P, 0, replace(default_solver(16384, 64·χ, mode="rsa"),
   flip_mode="colored", coupling_format="bitplane_hbm"), backend="colored")``,
   704 steps, with the colored sweep held against its plain version on all
-  three tiers and on a χ=2 torus, the exact sigmoid's near ties counted,
-  the three tiers' colored trajectories bitwise equal and the card's small
-  colored solves equal to the CPU's;
+  three tiers, on a χ=2 torus and at N=20,000 (a shorter last slice) at
+  every cluster width, the keyed sweep against the reading one and the
+  draw's plain version against ``rng.uniform01``, the width sweeps (R=8
+  and 32, small N), the exact sigmoid's near ties counted,
+  launches per chunk (6), the three tiers' colored trajectories bitwise
+  equal, the card's small colored solves and a sparse N=32768 one equal
+  to the CPU's;
 * the LM serving path: qwen2-7b at full width and depth in bf16 with
   weights made on the card from a seed, ``forward(cfg, params,
   tokens=(4, 4096))`` through the flash-attention kernel's tensor-core
@@ -109,6 +113,26 @@ ONE_BLOCK_SWEEP_MS = {("dense", "rsa"): 1.1015, ("dense", "rwa"): 2.3083,
 RSA_MAIN_CUT = {"dense": 31271, "bitplane": 81663, "bitplane_hbm": 17592}
 #: Most device launches a single-flip chunk may take (the sweep, the merge).
 MAX_CHUNK_LAUNCHES = 8
+#: Device launches of a colored chunk: the keyed sweep, the four ops of the
+#: best merge and the rows_fetched add (no host RNG, no schedule work).
+COLORED_CHUNK_LAUNCHES = 6
+#: Kernel D's ms per 256-step launch in its earlier design (one block per
+#: replica, uniforms drawn on the host; PERF.md §6 row 2, an H100 80GB HBM3
+#: at 700 W), printed beside this run's.
+ONE_BLOCK_COLORED_MS = {"bitplane_hbm": 127.4532, "bitplane": 127.1380,
+                        "dense": 1377.7280}
+#: The colored main path's trajectory (PERF.md §5): PWL on integer J, and
+#: the keyed kernel draws the same words, so no design may move them.
+COLORED_MAIN = {"cut": 23163, "flips": 1927656, "rows_fetched": 615118}
+#: The sparse colored solve past one block's old ceiling (~18.8k spins), and
+#: its steps (three 16-step chunks: the CPU's plain version takes ~1 s a
+#: step at this N).
+COLORED_BIG_N = 32768
+COLORED_BIG_STEPS = 48
+#: Replicas of the colored width sweep's wide line, and the N of its
+#: unequal-slice check (no width splits 20,000 into equal words).
+COLORED_WIDE_R = 32
+UNEVEN_N = 20000
 #: Cluster widths of the width sweep.
 SWEEP_WIDTHS = (1, 2, 4, 8)
 
@@ -348,20 +372,23 @@ def profile_device(run, top: int = 8, tag: str = "[profile]"):
           f"{busy:.4f} s = {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
     for us, count, key in rows[:top]:
         print(f"{tag}   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
-    return {"wall": wall, "busy": busy,
+    return {"wall": wall, "busy": busy, "rows": [(us / 1e6, c, k)
+                                                 for us, c, k in rows],
             "events": sum(count for _, count, _ in rows),
             "sweep_s": sum(us for us, _, key in rows
                            if "sweep_kernel" in key) / 1e6}
 
 
-def launches_per_chunk(problem, config, store=None) -> float:
-    """Device launches (kernels, copies, fills) per chunk of a single-flip
-    solve: the device events of a 6-chunk solve less those of a 2-chunk
-    one, over 4 (the init's launches cancel)."""
+def launches_per_chunk(problem, config, store=None,
+                       backend: str = "fused") -> float:
+    """Device launches (kernels, copies, fills) per chunk of a solve: the
+    device events of a 6-chunk solve less those of a 2-chunk one, over 4
+    (the init's launches cancel)."""
     events = []
     for chunks in (2, 6):
         c = dataclasses.replace(config, num_steps=256 * chunks)
         prof = profile_device(lambda c=c: solve(problem, SEED, c,
+                                                backend=backend,
                                                 store=store), top=0,
                               tag="[main]   launches:")
         if prof is None:
@@ -1211,32 +1238,151 @@ def colored_inputs(plan, r: int, t: int, temps, seed: int):
     return u0, s0, e0, unif, temps.contiguous(), sched
 
 
-def colored_bytes_ops(plan, r: int, t: int, segs: int, out):
-    """What one colored sweep must move and compute for these inputs: u0,
-    s0, e0, uniforms (T·R·S), temps, the schedule and the table in; u, s,
-    best_s, e, best_e, num_flips and rows_fetched out; one coupling row for
-    every slot that some replica of a group accepted (Σ rows_fetched). The
-    operations: a flip probability per window slot, and per accepted
-    (replica, slot) an N-wide multiply and subtract plus, on the plane
-    tiers, the decode at 6 integer operations per plane and spin."""
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each uint32 value held in an int64 tensor."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def row_nonzeros(store) -> torch.Tensor:
+    """Nonzero couplings of each row of J: the popcount of the planes'
+    pos | neg words over every plane, or J's nonzeros on the dense tier."""
+    if store.planes is None:
+        return (store.kernel_operand != 0).sum(dim=1)
+    words = store.planes.pos | store.planes.neg         # (B, N, W)
+    union = words[0]
+    for b in range(1, words.shape[0]):
+        union = union | words[b]
+    return popcount32(union.to(torch.int64) & 0xFFFFFFFF).sum(dim=1)
+
+
+def colored_replay(op, args, tbl, fmt: str, nnz: torch.Tensor,
+                   block_r: int = 8) -> dict:
+    """The accepted (replica, slot) pairs of a colored launch, step by step:
+    the reading kernel run one step a launch on the same uniforms (its
+    trajectory is the launch's), the accepted spins being those that
+    flipped. Returns the accepted pairs, the rows one fetch per rows group
+    and step needs (the union of the group's accepts: Σ rows_fetched), and
+    the nonzero couplings of both."""
+    u, s, e, unif, temps, sched = args
+    r, n = u.shape
+    br = common.fit_block(r, block_r)
+    got = {"flips": 0, "rows": 0, "flip_nnz": 0, "row_nnz": 0}
+    for t in range(unif.shape[0]):
+        u1, s1, e1, *_ = sweep.colored_sweep(
+            op, u, s, e, unif[t:t + 1], temps[t:t + 1], sched[t:t + 1], tbl,
+            coupling=fmt)
+        acc = s1 != s
+        rows = acc.view(r // br, br, n).any(dim=1)
+        got["flips"] += int(acc.sum())
+        got["rows"] += int(rows.sum())
+        got["flip_nnz"] += int((acc * nnz).sum())
+        got["row_nnz"] += int((rows * nnz).sum())
+        u, s, e = u1, s1, e1
+    return got
+
+
+def colored_bytes_ops(plan, r: int, t: int, segs: int, out, sched,
+                      replay: dict, keyed: bool = True):
+    """What one colored sweep must move and compute for these inputs, the
+    least work for its outputs: u0, s0, e0, temps, the schedule and the
+    table in (the uniforms too when it reads them); u, s, best_s, e,
+    best_e, num_flips and rows_fetched out; one coupling row for every slot
+    some replica of a rows group accepted (Σ rows_fetched; 4·N bytes
+    dense, 2·B·W words of planes). Operations, from ``replay`` (this
+    run's accepted slots): per fetched plane row a scan of its B·W words
+    and a decode of its nonzero couplings (6·B integer operations each);
+    per accepted (replica, slot) a multiply and subtract at each nonzero
+    coupling of its row; per class slot and replica a flip probability
+    and, keyed, a threefry draw. Returns (bytes, ops), then the same for
+    two earlier counts: a dense decode (6·B operations at every spin of
+    a fetched row, an N-wide multiply and subtract per accepted pair), and
+    the one that charged a decode to every accepted pair and a flip
+    probability to every window slot."""
     n, win = plan.problem.num_spins, plan.window
     flips, rows = int(out[5].sum()), int(out[6].sum())
+    check(replay["flips"] == flips and replay["rows"] == rows,
+          f"the step-by-step replay accepts the launch's {flips} flips and "
+          f"fetches its {rows} rows")
     if plan.store.planes is not None:
-        b = plan.store.planes.num_planes
-        row_bytes = 4 * 2 * b * plan.store.planes.num_words
+        b, w = plan.store.planes.num_planes, plan.store.planes.num_words
+        row_bytes = 4 * 2 * b * w
     else:
-        b, row_bytes = 0, 4 * n
-    nbytes = 4 * (2 * r * n + r + t * r * win + t * r + 3 * t
-                  + 3 * (segs + 1) + 3 * r * n + 4 * r) + rows * row_bytes
-    ops_ = t * r * win * PWL_FLOPS + flips * n * (2 + 6 * b)
-    return nbytes, ops_
+        b, w, row_bytes = 0, 0, 4 * n
+    wst = sched[:, 0].clamp(0, n - win)
+    lo = torch.maximum(wst, sched[:, 1])
+    hi = torch.minimum(wst + win, sched[:, 1] + sched[:, 2])
+    slots = int((hi - lo).clamp(min=0).sum()) * r
+    state = 4 * (2 * r * n + r + t * r + 3 * t + 3 * (segs + 1)
+                 + 3 * r * n + 4 * r)
+    nbytes = state + (0 if keyed else 4 * t * r * win) + rows * row_bytes
+    per_slot = slots * (PWL_FLOPS + (THREEFRY_OPS if keyed else 0))
+    ops_ = (rows * b * w + replay["row_nnz"] * 6 * b
+            + replay["flip_nnz"] * 2 + per_slot)
+    dense_ops = rows * n * 6 * b + flips * 2 * n + per_slot
+    old_bytes = state + 4 * t * r * win + rows * row_bytes
+    old_ops = t * r * win * PWL_FLOPS + flips * n * (2 + 6 * b)
+    return nbytes, ops_, nbytes, dense_ops, old_bytes, old_ops
+
+
+def colored_sweep_widths(plan, op, args, tbl, fmt, want, label, err):
+    """Kernel D at every cluster width against the plain version's outputs
+    ``want`` on the same (read) inputs, bitwise."""
+    u0, s0, e0, unif, temps, sched = args
+    r, n = u0.shape
+    names = ("u", "s", "e", "best_e", "best_s", "num_flips", "rows_fetched")
+    segs = 0 if tbl is None else tbl.shape[0] - 1
+    widths = sweep.colored_widths(n, plan.window, segs, fmt == "dense")
+    bad = []
+    for c in widths:
+        got = sweep.colored_sweep_at_width(c, op, u0, s0, e0, temps, sched,
+                                           tbl, uniforms=unif, coupling=fmt)
+        bad += [(c, nm) for nm, a, b in zip(names, got, want)
+                if not torch.equal(a, b)]
+        err[(label, fmt, c)] = max_abs_err(got, want)
+    check(not bad, f"{label} {fmt} colored kernel bit-equal to plain at all "
+          f"{len(widths)} cluster widths {widths}"
+          + (f"; differ: {bad[:6]}" if bad else ""))
+    return widths
+
+
+def colored_width_sweep(op, args, tbl, fmt: str, words, label: str) -> None:
+    """Kernel D's ms per launch (keyed, CUDA events) at every cluster width
+    for these inputs, beside the rule's pick; every width's outputs equal
+    the rule's, bitwise."""
+    u0, s0, e0, _, temps, sched = args
+    r, n = u0.shape
+    win = args[3].shape[2]
+    segs = tbl.shape[0] - 1
+    dense = fmt == "dense"
+    rule = sweep.colored_width(n, win, segs, r, dense)
+    want = sweep.colored_sweep_at_width(rule, op, u0, s0, e0, temps, sched,
+                                        tbl, base_words=words, window=win,
+                                        coupling=fmt)
+    swept = []
+    for c in sweep.colored_widths(n, win, segs, dense):
+        run = (lambda c=c: sweep.colored_sweep_at_width(
+            c, op, u0, s0, e0, temps, sched, tbl, base_words=words,
+            window=win, coupling=fmt))
+        same = all(torch.equal(a, b) for a, b in zip(run(), want))
+        check(same, f"{label}: width {c} equals the rule's width {rule}")
+        swept.append(f"C={c} {cuda_ms(run, 3):.4f}")
+    print(f"[timing] width sweep {label} (keyed; ms per {temps.shape[0]}-"
+          f"step launch): {', '.join(swept)}; the rule picks C={rule}")
 
 
 def colored_slice() -> list:
     """The colored path on the sparse N=16384 anchor: the coloring and the
-    plans, the kernel against its plain version on every tier (and on a
-    χ=2 torus), the 704-step main path on bitplane_hbm, a profile, the
-    cross-tier check, the card against the CPU and the timings. Returns the
+    plans, the kernel against its plain version on every tier and at every
+    cluster width (and on a χ=2 torus and at an N that splits into unequal
+    slices), the keyed kernel against the reading one and the draw's plain
+    version against ``rng.uniform01``, the
+    704-step main path on bitplane_hbm with a prebuilt plan and with the
+    plan build, its launches per chunk and a profile, the cross-tier check,
+    the card against the CPU (N=256, and a sparse N=32768 past one block's
+    old ceiling) and the timings with the width sweeps. Returns the
     ``kernels`` row of the colored sweep."""
     phase_t = time.perf_counter()
 
@@ -1274,6 +1420,12 @@ def colored_slice() -> list:
           "window 3072")
     coloring.validate_against(edges)   # raises on a monochromatic edge
     print("  ok: no edge joins two spins of one color")
+    print(f"[setup] the rule's cluster widths at N={SPARSE_N}, S="
+          f"{plan.window}, R={R}: planes "
+          f"{sweep.colored_width(SPARSE_N, plan.window, 64, R)}, dense "
+          f"{sweep.colored_width(SPARSE_N, plan.window, 64, R, True)}; "
+          f"ceiling colored_max_n({plan.window}) = "
+          f"{sweep.colored_max_n(plan.window)} spins")
     phase_done("setup")
 
     main_steps = 64 * chi
@@ -1287,7 +1439,8 @@ def colored_slice() -> list:
         torch.int32))
     err = {}
     print(f"[kernels] colored_sweep against its plain version, N={SPARSE_N}, "
-          f"R={R}, T={CHECK_T}, PWL, temperatures across the anneal")
+          f"R={R}, T={CHECK_T}, PWL, temperatures across the anneal, at "
+          "every cluster width")
     args = colored_inputs(plan, R, CHECK_T, spread, SEED)
     h = plan.problem.fields
     for fmt in ("bitplane_hbm", "bitplane", "dense"):
@@ -1296,7 +1449,7 @@ def colored_slice() -> list:
         want = ref.colored_sweep(op, *args, tbl)
         for name, a, b in zip(names, got, want):
             check(torch.equal(a, b), f"N={SPARSE_N} {fmt} colored {name} "
-                  "bit-equal to plain")
+                  "bit-equal to plain at the rule's width")
         err[fmt] = max_abs_err(got, want)
         print(f"[kernels] {fmt}: max_abs_err {err[fmt]}, flips "
               f"{int(got[5].sum())}, rows_fetched {int(got[6].sum())}")
@@ -1306,7 +1459,51 @@ def colored_slice() -> list:
         check(bool((got[6] <= got[5]).all())
               and int(got[6].sum()) < int(got[5].sum()),
               f"{fmt}: rows_fetched <= num_flips per replica, below in sum")
+        colored_sweep_widths(plans[fmt], op, args, tbl, fmt, want,
+                             f"N={SPARSE_N}", err)
+        for block_r in ((1, 2, 4) if fmt == "bitplane_hbm" else ()):
+            got = sweep.colored_sweep(op, *args, tbl, coupling=fmt,
+                                      block_r=block_r)
+            want = ref.colored_sweep(op, *args, tbl, block_r=block_r)
+            check(torch.equal(got[6], want[6]) and torch.equal(got[5],
+                                                               want[5]),
+                  f"{fmt} block_r={block_r}: rows_fetched and num_flips "
+                  "equal the plain version's")
         del got, want
+
+    print("[kernels] the keyed colored sweep's draw: its plain version "
+          "(ref.colored_uniforms) against rng.uniform01 of the chunk's "
+          "stream, and the keyed kernel against the reading one fed the "
+          "same words")
+    base = rng.fold_in(rng.key(0), SEED)
+    words = rng.words(base)
+    u0, s0, e0, _, temps, sched = args
+    for chunk, t, at in ((0, CHECK_T, 0), (2, 37, 600), (1000, 64, 5)):
+        sc = ops.colored_class_schedule(plan.wstarts, plan.offsets,
+                                        plan.sizes,
+                                        torch.arange(t, device="cuda") + at)
+        want = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, chunk),
+                             (t, R, plan.window))
+        plain = ref.colored_uniforms(words, chunk, sc, R, plan.window,
+                                     SPARSE_N)
+        drawn = plain != 1.0
+        check(torch.equal(plain[drawn], want[drawn])
+              and int(drawn.sum()) > 0,
+              f"chunk {chunk}, T={t} from step {at}: the draw's plain "
+              "version equals rng.uniform01 at every class slot "
+              f"({int(drawn.sum())} of them) bitwise")
+    unif0 = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, 0),
+                          (CHECK_T, R, plan.window)).to("cuda")
+    for fmt in ("bitplane_hbm", "bitplane", "dense"):
+        op = plans[fmt].store.kernel_operand
+        a = sweep.colored_sweep_keyed(op, u0, s0, e0, words, 0, temps, sched,
+                                      tbl, window=plan.window, coupling=fmt)
+        b = sweep.colored_sweep(op, u0, s0, e0, unif0, temps, sched, tbl,
+                                coupling=fmt)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{fmt}: keyed colored kernel (drawing on the card) bit-equal "
+              "to the reading kernel fed rng.uniform01, all seven outputs")
+        del a, b
 
     print("[kernels] colored_sweep, exact sigmoid: one step from 64 states "
           "at temperatures across the anneal (block_r=1)")
@@ -1343,7 +1540,7 @@ def colored_slice() -> list:
     del a, b, got
 
     print(f"[kernels] colored_sweep on torus_grid_edges(64, 64), chi=2, "
-          f"R={R}, T={CHECK_T}")
+          f"R={R}, T={CHECK_T}, at every cluster width")
     t_edges = torus_grid_edges(64, 64, seed=1)
     t_prob = ising.IsingProblem.create_sparse(t_edges, device="cuda")
     t_dense = ising.IsingProblem(torch.from_numpy(t_edges.to_dense()).to(
@@ -1366,6 +1563,21 @@ def colored_slice() -> list:
         err[("torus", fmt)] = max_abs_err(got, want)
         print(f"[kernels] torus {fmt}: max_abs_err {err[('torus', fmt)]}, "
               f"flips {int(got[5].sum())}, rows_fetched {int(got[6].sum())}")
+        colored_sweep_widths(t_plan, op, t_args, tbl, fmt, want, "torus",
+                             err)
+    u_edges = sparse_bipolar_edges(UNEVEN_N, 8 * UNEVEN_N, seed=UNEVEN_N)
+    u_plan = ops.colored_plan(ising.IsingProblem.create_sparse(u_edges),
+                              "bitplane_hbm").to("cuda")
+    u_args = colored_inputs(u_plan, R, CHECK_T // 2, spread[::2], SEED)
+    op = u_plan.store.kernel_operand
+    print(f"[kernels] colored_sweep on sparse N={UNEVEN_N} (S="
+          f"{u_plan.window}; a shorter last slice at every width "
+          f"{sweep.colored_widths(UNEVEN_N, u_plan.window, segs)}), "
+          f"R={R}, T={CHECK_T // 2}, bitplane_hbm, at every cluster width")
+    want = ref.colored_sweep(op, *u_args, tbl)
+    colored_sweep_widths(u_plan, op, u_args, tbl, "bitplane_hbm", want,
+                         f"N={UNEVEN_N}", err)
+    del want
     phase_done("kernels")
 
     print(f"[main] solve(sparse N={SPARSE_N}, seed={SEED}, "
@@ -1392,13 +1604,8 @@ def colored_slice() -> list:
           f"{float(res.best_energy.min()):.0f}, flips {flips} "
           f"({flips / main_steps:.1f} per step), {flips / wall:.4e} flips/s, "
           f"{wall / main_steps * 1e6:.3f} us/step (host clock, the solve's "
-          f"own plan build of {plan_s['bitplane_hbm']:.4f} s included), wall "
-          f"{wall:.4f} s, host coloring {color_s:.4f} s, rows_fetched {rows}, "
+          f"own plan build included), wall {wall:.4f} s, rows_fetched {rows}, "
           f"launches {launches}")
-    for mode, rate in SINGLE_FLIP_RATE.items():
-        print(f"[main] same run, single-flip bitplane_hbm {mode} main "
-              f"path at N={SPARSE_N}: {rate:.4e} flips/s (colored "
-              f"{flips / wall / rate:.1f}x)")
     check(launches["colored_sweep"] == math.ceil(main_steps / 256),
           f"colored_sweep launched ceil({main_steps}/256) = "
           f"{math.ceil(main_steps / 256)} times")
@@ -1415,11 +1622,51 @@ def colored_slice() -> list:
           "colored best_energy == energy(best_spins) exactly, from the "
           "original edges after the un-permutation")
     check(0 < rows < flips, "colored rows_fetched positive, below num_flips")
+    check(round(cuts.max()) == COLORED_MAIN["cut"]
+          and flips == COLORED_MAIN["flips"]
+          and rows == COLORED_MAIN["rows_fetched"],
+          f"the colored main path's trajectory is unchanged: best cut "
+          f"{COLORED_MAIN['cut']}, flips {COLORED_MAIN['flips']}, "
+          f"rows_fetched {COLORED_MAIN['rows_fetched']}")
     main_launches = launches["colored_sweep"]
+    for mode, rate in SINGLE_FLIP_RATE.items():
+        print(f"[main] same run, single-flip bitplane_hbm {mode} main "
+              f"path at N={SPARSE_N}: {rate:.4e} flips/s (colored "
+              f"{flips / wall / rate:.1f}x)")
+    host_plan = ops.colored_plan(prob, "bitplane_hbm")
+    prebuilt = host_plan.to("cuda")
+    ops.colored_anneal(prob, SEED, dataclasses.replace(cfg, num_steps=256),
+                       plan=prebuilt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_p = ops.colored_anneal(prob, SEED, cfg, plan=prebuilt)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    check(all(torch.equal(x, y) for x, y in zip(res, res_p)),
+          "the solve with a prebuilt plan= equals the one that builds it")
+    print(f"[main] colored with a prebuilt plan=: "
+          f"{wall_p / main_steps * 1e6:.3f} us/step (host clock), "
+          f"{flips / wall_p:.4e} flips/s; with the plan build "
+          f"{wall / main_steps * 1e6:.3f}")
+    per_chunk = launches_per_chunk(prob, cfg, backend="colored")
+    print(f"[main] colored: {per_chunk:.2f} device launches per chunk")
+    check(per_chunk <= min(MAX_CHUNK_LAUNCHES, COLORED_CHUNK_LAUNCHES),
+          f"colored: at most {COLORED_CHUNK_LAUNCHES} launches per chunk "
+          "(the keyed sweep, the merge, the rows add; no host RNG)")
     phase_done("main")
 
-    print("[profile] torch.profiler over one colored main-path solve")
+    print("[profile] torch.profiler over one colored main-path solve, with "
+          "the plan build and with a prebuilt plan")
     profile_main_path(prob, cfg, backend="colored")
+    prof = profile_device(lambda: ops.colored_anneal(prob, SEED, cfg,
+                                                     plan=prebuilt),
+                          top=3, tag="[profile] prebuilt plan:")
+    if prof is not None:
+        kernel_s = sum(
+            us for us, _, key in prof["rows"] if "colored_kernel" in key)
+        print(f"[profile] colored with a prebuilt plan: kernel D's own "
+              f"{kernel_s / main_steps * 1e6:.3f} us/step of "
+              f"{prof['wall'] / main_steps * 1e6:.3f}")
     phase_done("profile")
 
     print(f"[tiers] dense, bitplane and bitplane_hbm colored solves of "
@@ -1452,45 +1699,105 @@ def colored_slice() -> list:
         for name, a_, b_ in zip(on_card._fields, on_card, on_cpu):
             check(torch.equal(a_.cpu(), b_), f"N=256 colored {fmt} solve "
                   f"{name}: card == CPU")
+    big_edges = sparse_bipolar_edges(COLORED_BIG_N, 8 * COLORED_BIG_N,
+                                     seed=COLORED_BIG_N)
+    big = ising.IsingProblem.create_sparse(big_edges)
+    big_plan = ops.colored_plan(big, "bitplane_hbm")
+    big_cfg = dataclasses.replace(
+        default_solver(COLORED_BIG_N, COLORED_BIG_STEPS, mode="rsa"),
+        flip_mode="colored",
+        coupling_format="bitplane_hbm")
+    width = sweep.colored_width(COLORED_BIG_N, big_plan.window, segs, R)
+    print(f"[reference] sparse N={COLORED_BIG_N} (chi="
+          f"{big_plan.coloring.num_classes}, window {big_plan.window}; one "
+          f"block held at most ~18.8k spins before): card at width {width} "
+          f"against the CPU, {COLORED_BIG_STEPS} steps in 16-step chunks")
+    sweep.colored_counter.reset()
+    on_card = ops.colored_anneal(big, 4, big_cfg, chunk_steps=16,
+                                 plan=big_plan, device="cuda")
+    check(sweep.colored_counter.count == COLORED_BIG_STEPS // 16,
+          f"{COLORED_BIG_STEPS // 16} colored launches on the card")
+    on_cpu = ops.colored_anneal(big, 4, big_cfg, chunk_steps=16,
+                                plan=big_plan, device="cpu")
+    for name in ("best_energy", "best_spins", "num_flips", "rows_fetched",
+                 "final_energy"):
+        check(torch.equal(getattr(on_card, name).cpu(),
+                          getattr(on_cpu, name)),
+              f"N={COLORED_BIG_N} colored solve {name}: card == CPU")
     phase_done("reference")
 
     print("[timing] colored_sweep ms per 256-step launch (CUDA events), "
-          "temperatures across the anneal")
+          "temperatures across the anneal; the keyed kernel (the main "
+          "path's) at the rule's width, and the width sweeps")
     steps_t = cfg.schedule(torch.linspace(0, main_steps - 1, T).to(
         torch.int32))
     args = colored_inputs(plan, R, T, steps_t, SEED)
+    u0, s0, e0, unif, temps, sched = args
     timing = {}
     for fmt, p_ in plans.items():
         op = p_.store.kernel_operand
-        run = (lambda op=op, fmt=fmt: sweep.colored_sweep(op, *args, tbl,
-                                                          coupling=fmt))
+        dense = fmt == "dense"
+        rule = sweep.colored_width(SPARSE_N, plan.window, segs, R, dense)
+        run = (lambda op=op, fmt=fmt: sweep.colored_sweep_keyed(
+            op, u0, s0, e0, words, 0, temps, sched, tbl, window=plan.window,
+            coupling=fmt))
         out = run()
-        e_ = {"ms": cuda_ms(run, 5),
-              "bound": bound(*colored_bytes_ops(p_, R, T, segs, out)),
-              "flips": int(out[5].sum()), "rows": int(out[6].sum())}
+        replay = colored_replay(op, args, tbl, fmt, row_nonzeros(p_.store))
+        count = colored_bytes_ops(p_, R, T, segs, out, sched, replay)
+        e_ = {"ms": cuda_ms(run, 5), "bound": bound(*count[:2]),
+              "dense_bound": bound(*count[2:4]),
+              "old_bound": bound(*count[4:]), "flips": int(out[5].sum()),
+              "rows": int(out[6].sum()),
+              "read_ms": cuda_ms(lambda op=op, fmt=fmt: sweep.colored_sweep(
+                  op, *args, tbl, coupling=fmt), 3)}
         if fmt == "bitplane_hbm":
             e_["plain_ms"] = cuda_ms(lambda: ref.colored_sweep(
                 op, *args, tbl), 1)
         timing[fmt] = e_
-        print(f"[timing] colored_sweep {fmt} N={SPARSE_N}: {e_['ms']:.4f} ms "
-              f"({e_['ms'] / T * 1e3:.3f} us/step), flips {e_['flips']}, "
-              f"rows {e_['rows']}, bound {e_['bound'][0]:.5f} ms "
-              f"({e_['bound'][1]})"
+        print(f"[timing] colored_sweep {fmt} N={SPARSE_N} keyed at C={rule}"
+              f": {e_['ms']:.4f} ms ({e_['ms'] / T * 1e3:.3f} us/step; "
+              f"reading {e_['read_ms']:.4f}; one block a replica "
+              f"{ONE_BLOCK_COLORED_MS[fmt]}), flips {e_['flips']} (on "
+              f"{replay['flip_nnz']} nonzero couplings), rows {e_['rows']} "
+              f"({replay['row_nnz']}), bound {e_['bound'][0]:.5f} ms "
+              f"({e_['bound'][1]}; {e_['bound'][0] / e_['ms']:.1%} of it; a "
+              f"dense decode {e_['dense_bound'][0]:.5f} ms, "
+              f"{e_['dense_bound'][1]}; a decode per accepted pair "
+              f"{e_['old_bound'][0]:.5f} ms, {e_['old_bound'][1]})"
               + (f", plain {e_['plain_ms']:.2f} ms" if "plain_ms" in e_
                  else ""))
+        if fmt != "bitplane":   # the same kernel and bytes as bitplane_hbm
+            colored_width_sweep(op, args, tbl, fmt, words,
+                                f"{fmt} N={SPARSE_N} R={R}")
+    r_args = colored_inputs(plan, COLORED_WIDE_R, T, steps_t, SEED)
+    colored_width_sweep(plan.store.kernel_operand, r_args, tbl,
+                        "bitplane_hbm", words,
+                        f"bitplane_hbm N={SPARSE_N} R={COLORED_WIDE_R}")
+    del r_args
     t_edges = torus_grid_edges(128, 128, seed=1)
     t_plan = ops.colored_plan(ising.IsingProblem.create_sparse(t_edges),
                               "bitplane_hbm").to("cuda")
     t_args = colored_inputs(t_plan, R, T, torch.linspace(3.0, 0.1, T), SEED)
-    out = sweep.colored_sweep(t_plan.store.kernel_operand, *t_args, tbl,
-                              coupling="bitplane_hbm")
-    ms = cuda_ms(lambda: sweep.colored_sweep(t_plan.store.kernel_operand,
-                                             *t_args, tbl,
+    op = t_plan.store.kernel_operand
+    out = sweep.colored_sweep(op, *t_args, tbl, coupling="bitplane_hbm")
+    ms = cuda_ms(lambda: sweep.colored_sweep(op, *t_args, tbl,
                                              coupling="bitplane_hbm"), 5)
-    tb = bound(*colored_bytes_ops(t_plan, R, T, segs, out))
+    replay = colored_replay(op, t_args, tbl, "bitplane_hbm",
+                            row_nonzeros(t_plan.store))
+    tb = bound(*colored_bytes_ops(t_plan, R, T, segs, out, t_args[5], replay,
+                                  keyed=False)[:2])
     print(f"[timing] colored_sweep bitplane_hbm torus 128x128 (chi=2, "
           f"S={t_plan.window}): {ms:.4f} ms ({ms / T * 1e3:.3f} us/step), "
           f"flips {int(out[5].sum())}, bound {tb[0]:.5f} ms ({tb[1]})")
+    for label, edges in (("torus 32x32", torus_grid_edges(32, 32, seed=1)),
+                         (f"sparse N={K_PLANE_N}", sparse_bipolar_edges(
+                             K_PLANE_N, 8 * K_PLANE_N, seed=K_PLANE_N))):
+        s_plan = ops.colored_plan(ising.IsingProblem.create_sparse(edges),
+                                  "bitplane_hbm").to("cuda")
+        s_args = colored_inputs(s_plan, R, T, steps_t, SEED)
+        colored_width_sweep(s_plan.store.kernel_operand, s_args, tbl,
+                            "bitplane_hbm", words,
+                            f"bitplane_hbm {label} S={s_plan.window} R={R}")
     phase_done("timing")
 
     e_ = timing["bitplane_hbm"]
@@ -1499,8 +1806,7 @@ def colored_slice() -> list:
         "source": "src/repro_torch/kernels/csrc/colored_sweep.cu",
         "replaces": "src/repro/kernels/sweep.py:475",
         "launches": main_launches,
-        "max_abs_err": max(err["bitplane_hbm"], err["bitplane"],
-                           err["dense"]),
+        "max_abs_err": max(v for v in err.values()),
         "ms": e_["ms"], "plain_ms": e_["plain_ms"],
         "bound_ms": e_["bound"][0], "bound_by": e_["bound"][1],
         "library_ms": None}]

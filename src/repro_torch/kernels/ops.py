@@ -12,8 +12,10 @@ per solve), and reads its temperatures as a row slice of the solve's
 
 ``colored_anneal`` is the graph-colored solve (``flip_mode="colored"``):
 the same init and chunk loop on the color-sorted problem of a
-:class:`ColoredPlan`, one ``colored_sweep`` launch per chunk, results mapped
-back to the original vertex order.
+:class:`ColoredPlan`, one keyed ``colored_sweep`` launch per chunk (the
+kernel draws its accept uniforms; the temperatures and the class schedule
+are row slices of tables made once per solve), results mapped back to the
+original vertex order.
 """
 from __future__ import annotations
 
@@ -416,46 +418,37 @@ def colored_class_schedule(wstarts: torch.Tensor, offsets: torch.Tensor,
                        dim=1).to(torch.int32).contiguous()
 
 
-def colored_sweep_chunk(couplings, state, chunk_key: torch.Tensor,
-                        num_steps: int, temps: torch.Tensor,
-                        sched: torch.Tensor, *, window: int,
-                        pwl_table: Optional[torch.Tensor] = None,
+def colored_sweep_chunk(couplings, state, base_words, chunk: int,
+                        temps: torch.Tensor, sched: torch.Tensor, *,
+                        window: int, pwl_table: Optional[torch.Tensor] = None,
                         block_r: int = 8, coupling: str = "dense",
                         with_rows_fetched: bool = False):
     """One colored sweep chunk plus the best-so-far merge — the colored
     counterpart of :func:`keyed_sweep_chunk`, with the same 6-tuple state
-    and per-chunk ``Salt.SWEEP`` stream. The host draws the chunk's
-    ``(num_steps, R, window)`` accept uniforms, one per window slot;
-    ``sched`` is the (num_steps, 3) class schedule."""
-    u, s, e, be, bs, nf = state
-    r = e.shape[0]
-    uniforms = rng.uniform01(chunk_key, (num_steps, r, window))
-    u, s, e, ce, cs, cf, rf = _sweep.colored_sweep(
-        couplings, u, s, e, uniforms, temps, sched, pwl_table,
-        coupling=coupling, block_r=block_r)
-    better = ce < be
-    state = (u, s, e, torch.where(better, ce, be),
-             torch.where(better[:, None], cs, bs), nf + cf)
-    return (state, rf) if with_rows_fetched else state
+    and per-chunk ``Salt.SWEEP`` stream: the JAX ``colored_sweep_chunk`` on
+    the ``(T, R, window)`` accept uniforms of ``stream(base, Salt.SWEEP,
+    chunk)``, which the card's sweep draws itself from the base key's two
+    words (``base_words``, Python ints); T = ``temps.shape[0]`` and
+    ``sched`` is the (T, 3) class schedule."""
+    u, s, e = state[:3]
+    out = _sweep.colored_sweep_keyed(
+        couplings, u, s, e, base_words, chunk, temps, sched, pwl_table,
+        window=window, coupling=coupling, block_r=block_r)
+    return _merge(state, out, with_rows_fetched)
 
 
-def colored_chunk_step(plan: ColoredPlan, state, base: torch.Tensor, c: int,
-                       *, clen: int, chunk_len: int, config: SolverConfig,
-                       block_r: int = 8, with_rows_fetched: bool = False):
-    """One annealing chunk of the colored trajectory: the temps of global
-    steps [c·chunk_len, +clen), their class schedule, the chunk's
-    ``Salt.SWEEP`` stream and the flip probability of ``config``, on the
-    plan's store (which must be on the state's device)."""
-    dev = state[0].device
-    temps = chunk_temps(config, c, clen, chunk_len, dev)
-    steps = c * chunk_len + torch.arange(clen, dtype=torch.int64)
-    sched = colored_class_schedule(plan.wstarts, plan.offsets, plan.sizes,
-                                   steps.to(plan.wstarts.device)).to(dev)
+def colored_chunk_step(plan: ColoredPlan, state, base_words, c: int,
+                       temps: torch.Tensor, sched: torch.Tensor, *,
+                       block_r: int = 8,
+                       pwl_table: Optional[torch.Tensor] = None,
+                       with_rows_fetched: bool = False):
+    """One annealing chunk of the colored trajectory on the plan's store
+    (on the state's device): the sweep of :func:`colored_sweep_chunk` on
+    chunk c's ``Salt.SWEEP`` stream, its rows ``temps`` and ``sched`` of
+    the solve's tables, and the merge."""
     return colored_sweep_chunk(
-        plan.store.kernel_operand, state, rng.stream(base, rng.Salt.SWEEP, c),
-        clen, temps, sched, window=plan.window,
-        pwl_table=solver_pwl_table(config, device=dev),
-        block_r=fit_block(config.num_replicas, block_r),
+        plan.store.kernel_operand, state, base_words, c, temps, sched,
+        window=plan.window, pwl_table=pwl_table, block_r=block_r,
         coupling=plan.store.fmt, with_rows_fetched=with_rows_fetched)
 
 
@@ -508,16 +501,26 @@ def colored_anneal(problem: ising.IsingProblem, seed, config: SolverConfig,
                          f"N={problem.num_spins}")
     plan = plan.to(dev)
     r = config.num_replicas
-    base = rng.fold_in(rng.key(0, device=dev), int(seed))
+    base = rng.fold_in(rng.key(0), int(seed))   # on the CPU: no device read
     state = fused_init_state(plan.problem, base, r, planes=plan.store.planes)
+    pwl = solver_pwl_table(config, device=dev)
     chunk_len, chunks = chunk_list(config, chunk_steps)
+    # The solve's (steps, R) temperatures and (steps, 3) class schedule, made
+    # once; each chunk takes a row slice of both.
+    temps = anneal_temps(config, chunk_len, chunks, dev)
+    sched = colored_class_schedule(
+        plan.wstarts, plan.offsets, plan.sizes,
+        torch.arange(temps.shape[0], device=plan.wstarts.device))
+    words = rng.words(base)
+    block_r = fit_block(r, block_r)
     rows = torch.zeros(r, dtype=torch.int32, device=dev)
     trace = []
     for c, clen in chunks:
-        state, rf = colored_chunk_step(plan, state, base, c, clen=clen,
-                                       chunk_len=chunk_len, config=config,
-                                       block_r=block_r,
-                                       with_rows_fetched=True)
+        at = c * chunk_len
+        state, rf = colored_chunk_step(
+            plan, state, words, c, temps[at:at + clen],
+            sched[at:at + clen], block_r=block_r, pwl_table=pwl,
+            with_rows_fetched=True)
         rows = rows + rf
         if config.trace_every:
             trace.append(state[3])

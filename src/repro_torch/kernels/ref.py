@@ -2,7 +2,8 @@
 
 Port of ``repro.kernels.ref``'s ``local_field_init``,
 ``bitplane_field_init``, ``mcmc_sweep`` and ``colored_sweep`` (dense J or
-packed planes), and ``flash_attention`` (the forward of
+packed planes), the keyed sweeps' per-thread draws (``sweep_uniforms``,
+``colored_uniforms``), and ``flash_attention`` (the forward of
 ``repro.kernels.flash_attention``, whose oracle in the JAX package is
 ``models.layers.chunked_attention``). The wrappers in ``local_field.py``,
 ``bitplane_field.py``, ``sweep.py`` and ``flash_attention.py`` run these for
@@ -151,6 +152,37 @@ def sweep_uniforms(base_words, chunk: int, num_steps: int,
                                   count & rng.MASK32)
         out[t[:, None], reps[None, :], slot[:, None]] = (
             (o1 ^ o2).to(torch.float32) * (2.0 ** -32))
+    return out
+
+
+def colored_uniforms(base_words, chunk: int, sched: torch.Tensor, r: int,
+                     window: int, n: int) -> torch.Tensor:
+    """The (T, R, S) uniforms the card's keyed colored sweep draws, computed
+    as its threads draw them: the chunk key ``fold_in(fold_in(base,
+    SWEEP), chunk)`` from the base key's two words; at step t, the thread
+    deciding replica r's window slot k (spin w + k, w the window start
+    clamped into [0, N − S]) where w + k lies in the class [offset,
+    offset + size) takes the bits ``o1 ^ o2`` of threefry2x32(chunk_key,
+    (0, (t·R + r)·S + k)), rounded to f32 and scaled by 2⁻³². A slot
+    outside the class is never drawn (it is never accepted) and reads 1.
+    The plain version of the keyed colored kernel's draw; equal to
+    ``rng.uniform01(rng.stream(base, SWEEP, chunk), (T, R, S))`` at the
+    class slots."""
+    key = rng.fold_in(rng.fold_in(rng.from_words(*base_words),
+                                  rng.Salt.SWEEP), chunk)
+    sched = sched.cpu().to(torch.int64)
+    t = sched.shape[0]
+    w = sched[:, 0].clamp(0, n - window)
+    idx = w[:, None] + torch.arange(window)[None, :]               # (T, S)
+    klass = (idx >= sched[:, 1:2]) & (idx < sched[:, 1:2] + sched[:, 2:3])
+    out = torch.ones((t, r, window), dtype=torch.float32)
+    tt, kk = torch.nonzero(klass, as_tuple=True)
+    reps = torch.arange(r, dtype=torch.int64)
+    count = (tt[:, None] * r + reps[None, :]) * window + kk[:, None]
+    o1, o2 = rng.threefry2x32(key[0], key[1], torch.zeros_like(count),
+                              count & rng.MASK32)
+    out[tt[:, None], reps[None, :], kk[:, None]] = (
+        (o1 ^ o2).to(torch.float32) * (2.0 ** -32))
     return out
 
 

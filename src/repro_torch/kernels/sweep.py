@@ -5,13 +5,15 @@ Gibbs), each with ``coupling="dense"|"bitplane"|"bitplane_hbm"``.
 
 A CPU tensor goes to the plain version (``ref.mcmc_sweep``,
 ``ref.colored_sweep``); a CUDA tensor launches ``csrc/sweep.cu`` or
-``csrc/colored_sweep.cu``, or raises. ``mcmc_sweep`` takes the (T, R, 4)
-uniforms as a tensor, as the JAX kernel does; ``mcmc_sweep_keyed``, the
-solve's entry, takes the base key's two words and the chunk index and
-lets the kernel draw the same uniforms itself. The single-flip kernel runs
-each replica on a thread-block cluster of :func:`cluster_width` blocks that
-split N (:func:`max_n` is its ceiling); the colored kernel keeps one
-replica's u, s and best_s in one block (:func:`colored_shared_bytes`).
+``csrc/colored_sweep.cu``, or raises. ``mcmc_sweep`` and ``colored_sweep``
+take their uniforms as a tensor, as the JAX kernels do;
+``mcmc_sweep_keyed`` and ``colored_sweep_keyed``, the solves' entries, take
+the base key's two words and the chunk index and let the kernel draw the
+same uniforms itself. The single-flip kernel runs each replica on a
+thread-block cluster of :func:`cluster_width` blocks that split N
+(:func:`max_n` is its ceiling); the colored kernel runs each replica on a
+cluster of :func:`colored_width` blocks that split N (:func:`colored_max_n`
+is its ceiling).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ STATIC_SHARED_BYTES = 1024
 MAX_SHARED_BYTES = coupling_store.SHARED_MEMORY_BYTES - STATIC_SHARED_BYTES
 
 #: Largest thread-block cluster (the portable size): the widest split of a
-#: replica's spins, and the colored tier's largest replica group.
+#: replica's spins.
 MAX_CLUSTER = coupling_store.SWEEP_MAX_BLOCKS
 
 GATHERS = ("dynamic", "onehot", "auto")
@@ -123,12 +125,109 @@ def max_n(rwa: bool = True, segs: int = 64) -> int:
     return n
 
 
-def colored_shared_bytes(n: int, window: int, segs: int) -> int:
-    """Shared memory of one colored block: u, s and best_s (3·N f32), the
-    PWL intercepts and slopes (2·S f32), the accept mask (⌈window/32⌉
-    words) and the accepted-slot list (window × 2 bytes). Mirrors
+#: Blocks of the colored kernel's clusters: up to 16, the non-portable
+#: cluster size Hopper allows.
+COLORED_CLUSTERS = (1, 2, 4, 8, 16)
+#: Dense row slices in a colored block thread's cp.async ring (``kRing``).
+COLORED_RING = 8
+#: SMs of an H100 SXM: the colored rule keeps R·C blocks within them.
+COLORED_SMS = 132
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def colored_slice_len(n: int, cluster: int) -> int:
+    """Spins of a colored block's slice: all of N for one block, else a
+    whole number of 32-spin words, ⌈⌈N/C⌉/32⌉ of them (the last block holds
+    what is left). Mirrors ``slice_len``."""
+    if cluster == 1:
+        return n
+    per = -(-n // cluster)
+    return 32 * -(-per // 32)
+
+
+def colored_shared_bytes(n: int, window: int, segs: int, cluster: int = 1,
+                         dense: bool = False) -> int:
+    """Shared memory of one colored block holding a slice of
+    :func:`colored_slice_len` spins: u, s and best_s word-transposed at an
+    odd pitch (3·32·(⌈slice/32⌉ | 1) f32), the PWL intercepts and slopes,
+    the two mailboxes (accept and sign words, ⌈S/32⌉+1 each), the partial
+    sums, the accepted-slot list (S words) and, on the dense tier, the
+    cp.async ring of :data:`COLORED_RING` row slices. Mirrors
     ``snowball_colored_smem_bytes``."""
-    return 4 * (3 * n + 2 * segs) + 4 * (-(-window // 32)) + 2 * window
+    nc = colored_slice_len(n, cluster)
+    pitch = -(-nc // 32) | 1
+    nwm = -(-window // 32) + 1
+    total = _align16(3 * 32 * pitch * 4)
+    total += _align16(2 * segs * 4)
+    total += _align16(4 * nwm * 4)
+    total += _align16(4 * cluster * 4)
+    total += _align16(2 * 8 * 4)
+    total += _align16(window * 4)
+    if dense:
+        total += _align16(COLORED_RING * -(-nc // 4) * 16)
+    return total
+
+
+def colored_widths(n: int, window: int, segs: int,
+                   dense: bool = False) -> list:
+    """The cluster widths C the colored kernel can run N on: C blocks whose
+    slices (:func:`colored_slice_len`, the last one nonempty) fit one
+    block's shared memory."""
+    if not 1 <= window <= min(n, 65536):
+        return []
+    return [c for c in COLORED_CLUSTERS
+            if (c == 1 or (c - 1) * colored_slice_len(n, c) < n)
+            and colored_shared_bytes(n, window, segs, c, dense)
+            <= MAX_SHARED_BYTES]
+
+
+def colored_width(n: int, window: int, segs: int, r: int,
+                  dense: bool = False) -> int:
+    """The blocks per replica the colored sweep runs on (chosen here from
+    N, the window, R and the tier, not by the caller): the widest width
+    that fits whose R·C blocks stay within the card's :data:`COLORED_SMS`,
+    or the narrowest that fits where none does. Raises past the ceiling
+    (:func:`colored_max_n`).
+
+    ``chip_smoke.py``'s width sweeps (one run on an H100 80GB HBM3 at a
+    700 W limit; keyed, ms per 256-step launch at C = 1, 2, 4, 8, 16;
+    ``bitplane_hbm`` unless named): the N=16384, χ=11 anchor at R=8 28.1019,
+    15.4860, 11.9641, 10.9607, 10.5691 and dense (C ≥ 4) 74.6341, 46.0407,
+    31.1564; the anchor at R=32 23.4669, 13.1221, 12.6279, 21.8349,
+    31.3539; a 32×32 torus (N=1024) at R=8 4.3129, 4.0312, 3.2925, 2.9631,
+    2.9100; sparse N=4096 at R=8 3.8849, 3.3235, 2.9734, 2.7924, 3.1658.
+    A wider cluster splits each row's loads and the accept pass over more
+    SMs; that paid at every N measured, even at 64-spin slices, until R·C
+    passes the SMs and blocks share them (R=32: C=8 and 16 lose). The rule picks the fastest width in four of these five lines
+    and one 13 % slower than the fastest at N=4096."""
+    fits = colored_widths(n, window, segs, dense)
+    if not fits:
+        raise ValueError(
+            f"N={n} with a class window of S={window} fits no colored "
+            f"cluster width: a block holds its slice of u, s and best_s, "
+            f"the window's list and mailboxes in {MAX_SHARED_BYTES} bytes "
+            f"of shared memory, with C ≤ {COLORED_CLUSTERS[-1]} blocks; at "
+            f"this window the colored sweep takes "
+            f"{window} ≤ N ≤ {colored_max_n(window, segs)} (colored_max_n)")
+    ok = [c for c in fits if r * c <= COLORED_SMS]
+    return ok[-1] if ok else fits[0]
+
+
+@functools.cache
+def colored_max_n(window: int, segs: int = 64) -> int:
+    """Largest N the colored sweep takes on the plane tiers at a class
+    window of S: 16 blocks a replica, each holding a slice of up to N/16
+    spins (~288k spins at S=3072, ~18.8k in one block). Every N from S up to
+    it fits some width."""
+    c = COLORED_CLUSTERS[-1]
+    nc = 32
+    while colored_shared_bytes(c * (nc + 32), window, segs, c) \
+            <= MAX_SHARED_BYTES:
+        nc += 32
+    return c * nc
 
 
 @functools.cache
@@ -379,14 +478,33 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
 
 
 @functools.cache
-def _colored_fn():
+def _colored_fns():
     lib = _build.load("colored_sweep")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn = lib.snowball_colored_sweep
-    fn.argtypes = ([p] * 3 + [i] * 2 + [p] * 7 + [i] + [p] * 8 + [i] * 5
-                   + [p])
+    fn.argtypes = ([p] * 3 + [i] * 2 + [p] * 4 + [w] * 2 + [i] + [p] * 3
+                   + [i] + [p] * 9 + [i] * 6 + [p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_colored(couplings, fields0, spins0, energy0, temps, sched,
+                   coupling: str, window: int,
+                   uniforms: Optional[torch.Tensor] = None) -> None:
+    """The shapes every colored entry checks, on any device."""
+    r, n = fields0.shape
+    t = temps.shape[0]
+    coupling_store.validate_kernel_operand(coupling, couplings, n)
+    shapes = [("spins0", spins0, (r, n)), ("energy0", energy0, (r,)),
+              ("temps", temps, (t, r)), ("sched", sched, (t, 3))]
+    if uniforms is not None:
+        shapes.append(("uniforms", uniforms, (t, r, window)))
+    for name, x, shape in shapes:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                             f"{shape}")
+    if not 1 <= window <= n:
+        raise ValueError(f"class window S={window} must lie in [1, N={n}]")
 
 
 def colored_sweep(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
@@ -404,62 +522,136 @@ def colored_sweep(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
     window; ``sched`` (T, 3) int32 rows of ``(window_start, class_offset,
     class_size)``, the window start clamped into [0, N − S]. ``rows_fetched``
     counts each slot that any replica of a ``fit_block(R, block_r)`` group
-    accepted once, charged to the group's lowest-index accepting replica —
-    on every tier. On the card a group is one thread-block cluster, so
-    ``block_r`` is at most 8.
+    accepted once, charged to the group's lowest-index accepting replica.
     """
-    r, n = fields0.shape
     if uniforms.dim() != 3:
         raise ValueError(f"uniforms must be (T, R, S), got shape "
                          f"{tuple(uniforms.shape)}")
-    t, _, win = uniforms.shape
-    coupling_store.validate_kernel_operand(coupling, couplings, n)
-    for name, x, shape in (("spins0", spins0, (r, n)),
-                           ("energy0", energy0, (r,)),
-                           ("uniforms", uniforms, (t, r, win)),
-                           ("temps", temps, (t, r)), ("sched", sched, (t, 3))):
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                             f"{shape}")
-    if not 1 <= win <= n:
-        raise ValueError(f"class window S={win} must lie in [1, N={n}]")
+    win = uniforms.shape[2]
+    _check_colored(couplings, fields0, spins0, energy0, temps, sched,
+                   coupling, win, uniforms)
     if fields0.device.type == "cpu":
         return ref.colored_sweep(couplings, fields0, spins0, energy0,
                                  uniforms, temps, sched, pwl_table,
                                  block_r=block_r)
+    return _colored_launch(couplings, fields0, spins0, energy0, temps, sched,
+                           pwl_table, uniforms=uniforms, key=None,
+                           window=win, block_r=block_r, width=None)
+
+
+def colored_sweep_keyed(couplings, fields0: torch.Tensor,
+                        spins0: torch.Tensor, energy0: torch.Tensor,
+                        base_words: Sequence[int], chunk: int,
+                        temps: torch.Tensor, sched: torch.Tensor,
+                        pwl_table: Optional[torch.Tensor] = None, *,
+                        window: int, coupling: str = "dense",
+                        block_r: int = 8):
+    """:func:`colored_sweep` on the uniforms of ``rng.uniform01(rng.stream(
+    base, Salt.SWEEP, chunk), (T, R, window))``, where ``base_words`` are the
+    two words of the base key (Python ints) and T = ``temps.shape[0]``. On
+    the card the kernel draws the class slots' uniforms itself (no uniforms
+    tensor, no host RNG; ``ref.colored_uniforms`` is its plain version); on
+    the CPU the plain version runs on the drawn tensor."""
+    _check_colored(couplings, fields0, spins0, energy0, temps, sched,
+                   coupling, window)
+    if fields0.device.type == "cpu":
+        uniforms = rng.uniform01(
+            rng.stream(rng.from_words(*base_words), rng.Salt.SWEEP, chunk),
+            (temps.shape[0], fields0.shape[0], window))
+        return ref.colored_sweep(couplings, fields0, spins0, energy0,
+                                 uniforms, temps, sched, pwl_table,
+                                 block_r=block_r)
+    return _colored_launch(couplings, fields0, spins0, energy0, temps, sched,
+                           pwl_table, uniforms=None, key=(base_words, chunk),
+                           window=window, block_r=block_r, width=None)
+
+
+def colored_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
+                           spins0: torch.Tensor, energy0: torch.Tensor,
+                           temps: torch.Tensor, sched: torch.Tensor,
+                           pwl_table: Optional[torch.Tensor] = None, *,
+                           uniforms: Optional[torch.Tensor] = None,
+                           base_words: Optional[Sequence[int]] = None,
+                           chunk: int = 0, window: Optional[int] = None,
+                           coupling: str = "dense", block_r: int = 8):
+    """The card's colored sweep at a cluster width of the caller's choice
+    (one of :func:`colored_widths`) in place of :func:`colored_width`'s:
+    for the width sweep and the card tests, never the solve. Takes
+    ``uniforms``, or ``base_words``, ``chunk`` and ``window``."""
+    if (uniforms is None) == (base_words is None):
+        raise ValueError("pass uniforms or base_words, not both")
+    win = uniforms.shape[2] if uniforms is not None else window
+    if win is None:
+        raise ValueError("the keyed sweep needs its class window")
+    _check_colored(couplings, fields0, spins0, energy0, temps, sched,
+                   coupling, win, uniforms)
+    if fields0.device.type != "cuda":
+        raise ValueError("colored_sweep_at_width runs the kernel: CUDA "
+                         "tensors only")
+    key = None if base_words is None else (base_words, chunk)
+    return _colored_launch(couplings, fields0, spins0, energy0, temps, sched,
+                           pwl_table, uniforms=uniforms, key=key, window=win,
+                           block_r=block_r, width=int(width))
+
+
+#: The rows_fetched arrival counters of each (device, stream): the kernel
+#: leaves them at zero, so they are zeroed once, not at every launch.
+_ARRIVALS: dict = {}
+
+
+def _arrivals(dev: torch.device, stream: int, groups: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    have = _ARRIVALS.get(key)
+    if have is None or have.numel() < groups:
+        have = torch.zeros(max(groups, 64), dtype=torch.int32, device=dev)
+        _ARRIVALS[key] = have
+    return have
+
+
+def _colored_launch(couplings, fields0, spins0, energy0, temps, sched,
+                    pwl_table, *, uniforms, key, window, block_r, width):
+    """Checks the operands and launches ``snowball_colored_sweep`` (reading
+    ``uniforms``, or drawing from ``key = (base_words, chunk)``) at cluster
+    width ``width``, or at :func:`colored_width`'s."""
+    r, n = fields0.shape
+    t = temps.shape[0]
     dev = fields0.device
     checks = (("fields0", fields0, (r, n)), ("spins0", spins0, (r, n)),
-              ("energy0", energy0, (r,)), ("uniforms", uniforms, (t, r, win)),
-              ("temps", temps, (t, r)))
+              ("energy0", energy0, (r,)), ("temps", temps, (t, r)))
+    if uniforms is not None:
+        checks += (("uniforms", uniforms, (t, r, window)),)
     if pwl_table is not None:
         checks += (("pwl_table", pwl_table, (pwl_table.shape[0], 3)),)
     check_operands(dev, checks)
     check_operands(dev, (("sched", sched, (t, 3)),), dtype=torch.int32)
-    if isinstance(couplings, BitPlanes):
-        shape = (couplings.num_planes, n, couplings.num_words)
-        check_operands(dev, (("planes.pos", couplings.pos, shape),
-                             ("planes.neg", couplings.neg, shape)),
+    dense = not isinstance(couplings, BitPlanes)
+    if dense:
+        check_operands(dev, (("couplings", couplings, (n, n)),))
+        store = (couplings.data_ptr(), None, None, 0, 0)
+    else:
+        pshape = (couplings.num_planes, n, couplings.num_words)
+        check_operands(dev, (("planes.pos", couplings.pos, pshape),
+                             ("planes.neg", couplings.neg, pshape)),
                        dtype=torch.int32)
         store = (None, couplings.pos.data_ptr(), couplings.neg.data_ptr(),
                  couplings.num_planes, couplings.num_words)
+    if t * r * window >= 2 ** 32:
+        raise ValueError(f"T·R·S = {t * r * window} uniform counters exceed "
+                         "the 32-bit count of one threefry draw")
+    if key is None:
+        draw = (uniforms.data_ptr(), 0, 0, 0)
     else:
-        check_operands(dev, (("couplings", couplings, (n, n)),))
-        store = (couplings.data_ptr(), None, None, 0, 0)
-    cluster = common.fit_block(r, block_r)
-    if cluster > MAX_CLUSTER:
-        raise ValueError(
-            f"colored rows_fetched groups block_r={block_r} replicas in one "
-            f"thread-block cluster; the card's portable limit is "
-            f"{MAX_CLUSTER} (pass block_r <= {MAX_CLUSTER})")
+        (w0, w1), chunk = key
+        draw = (None, int(w0), int(w1), int(chunk))
     pwl_args = _pwl_args(pwl_table)
     segs = pwl_args[1]
-    need = colored_shared_bytes(n, win, segs)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"N={n} with a class window of S={win} needs {need} bytes of "
-            f"shared memory per replica block; the colored sweep's ceiling "
-            f"is {MAX_SHARED_BYTES}. Lifting that ceiling is ROADMAP queue 2 "
-            "item 9")
+    if width is None:
+        width = colored_width(n, window, segs, r, dense)
+    elif width not in colored_widths(n, window, segs, dense):
+        raise ValueError(f"colored cluster width {width} does not fit N={n}"
+                         f", S={window}: the widths that do are "
+                         f"{colored_widths(n, window, segs, dense)}")
+    br = common.fit_block(r, block_r)
     u = torch.empty((r, n), dtype=torch.float32, device=dev)
     s = torch.empty((r, n), dtype=torch.float32, device=dev)
     bs = torch.empty((r, n), dtype=torch.float32, device=dev)
@@ -467,16 +659,17 @@ def colored_sweep(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
     be = torch.empty((r,), dtype=torch.float32, device=dev)
     nf = torch.empty((r,), dtype=torch.int32, device=dev)
     rf = torch.empty((r,), dtype=torch.int32, device=dev)
-    masks = torch.empty((max(t, 1), r, -(-win // 32)), dtype=torch.int32,
-                        device=dev)
+    masks = torch.empty((max(t, 1), r, -(-window // 32) + 1),
+                        dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _colored_fn()(
+        arrivals = _arrivals(dev, stream, r // br)
+        rc = _colored_fns()(
             *store, fields0.data_ptr(), spins0.data_ptr(), energy0.data_ptr(),
-            uniforms.data_ptr(), temps.data_ptr(), sched.data_ptr(),
-            *pwl_args, u.data_ptr(), s.data_ptr(), e.data_ptr(),
-            be.data_ptr(), bs.data_ptr(), nf.data_ptr(), rf.data_ptr(),
-            masks.data_ptr(), r, n, t, win, cluster, stream)
+            *draw, temps.data_ptr(), sched.data_ptr(), *pwl_args,
+            u.data_ptr(), s.data_ptr(), e.data_ptr(), be.data_ptr(),
+            bs.data_ptr(), nf.data_ptr(), rf.data_ptr(), masks.data_ptr(),
+            arrivals.data_ptr(), br, r, n, t, window, width, stream)
     if rc != 0:
         raise RuntimeError(f"colored_sweep launch failed: CUDA error {rc}")
     colored_counter.count += 1

@@ -1,8 +1,11 @@
 """The CUDA kernels against their plain versions, on the card: the
 single-flip sweep on every tier (its device draw of the uniforms, the keyed
 and reading variants at every cluster width, the coalesced row count, N
-past one block's shared memory) and the colored sweep, the two field
-inits, and the flash-attention forward with the LM serving path around it.
+past one block's shared memory) and the colored sweep (the keyed and
+reading variants and every cluster width against the plain version, a
+shorter last slice, rows_fetched at every group size, N past one block's
+shared memory), the two field inits, and the flash-attention forward with
+the LM serving path around it.
 
 Marked ``cuda``; each test skips (inside the ``cuda_device`` fixture) when
 no card is present. The file imports neither JAX nor the JAX package, so it
@@ -458,9 +461,11 @@ def test_colored_kernel_bitwise(cuda_device, fmt, graph, use_pwl):
     assert int(nf.sum()) > 0 and bool((rf <= nf).all())
 
 
-@pytest.mark.parametrize("block_r", [1, 4, 8])
+@pytest.mark.parametrize("block_r", [1, 2, 4, 8])
 def test_colored_rows_fetched_per_cluster(cuda_device, block_r):
-    """The cluster count of rows_fetched equals the plain per-group count;
+    """The kernel's count of rows_fetched (the last cluster of each rows
+    group counts it) equals the plain per-group count at every shape,
+    whether a group spans several clusters or a cluster several groups;
     with block_r=1 every replica counts its own accepts."""
     edges = sparse_bipolar_edges(4096, 8 * 4096, seed=3)
     plan, _, args = _colored_operands(edges, "bitplane_hbm", 8, 96,
@@ -472,6 +477,13 @@ def test_colored_rows_fetched_per_cluster(cuda_device, block_r):
                              block_r=block_r)
     for name, a, b in zip(NAMES, got, want):
         assert torch.equal(a, b), name
+    u0, s0, e0, unif, temps, sched = args
+    for width in sweep.colored_widths(4096, plan.window, 64):
+        at = sweep.colored_sweep_at_width(
+            width, plan.store.kernel_operand, u0, s0, e0, temps, sched, tbl,
+            uniforms=unif, coupling="bitplane_hbm", block_r=block_r)
+        for name, a, b in zip(NAMES, at, want):
+            assert torch.equal(a, b), (width, name)
     if block_r == 1:
         assert torch.equal(got[6], got[5])
     else:
@@ -489,9 +501,72 @@ def test_colored_solve_on_card_equals_cpu(cuda_device):
     on_cpu = solve(problem, 1, cfg, backend="colored", device="cpu")
     for name, a, b in zip(on_card._fields, on_card, on_cpu):
         assert torch.equal(a.cpu(), b), name
-    with pytest.raises(ValueError, match="cluster"):
-        ops.colored_anneal(problem, 1, dataclasses.replace(
-            cfg, num_replicas=16), block_r=16, device=cuda_device)
+    # A rows group is no longer a cluster: 16 replicas may share one.
+    c16 = dataclasses.replace(cfg, num_replicas=16)
+    on_card = ops.colored_anneal(problem, 1, c16, block_r=16,
+                                 device=cuda_device)
+    on_cpu = ops.colored_anneal(problem, 1, c16, block_r=16, device="cpu")
+    for name, a, b in zip(on_card._fields, on_card, on_cpu):
+        assert torch.equal(a.cpu(), b), ("block_r=16", name)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "bitplane", "bitplane_hbm"])
+@pytest.mark.parametrize("graph", ["torus", "sparse", "uneven"])
+def test_colored_keyed_equals_read_and_every_width_equals_plain(
+        cuda_device, fmt, graph):
+    """The keyed kernel (drawing its uniforms) equals the reading one fed
+    ``rng.uniform01`` of the chunk's stream, bitwise; every cluster width
+    equals the plain version bitwise (PWL, integer J), also at N=2000,
+    which no width splits into equal whole words."""
+    edges = {"torus": lambda: torus_grid_edges(32, 32, seed=1),
+             "sparse": lambda: sparse_bipolar_edges(2048, 8 * 2048, seed=2),
+             "uneven": lambda: sparse_bipolar_edges(2000, 8 * 2000,
+                                                    seed=5)}[graph]()
+    r, t = 8, 48
+    plan, _, (u0, s0, e0, _, temps, sched) = _colored_operands(
+        edges, fmt, r, t, cuda_device)
+    n, win = edges.num_spins, plan.window
+    op = plan.store.kernel_operand
+    tbl = pwl.pwl_table(device=cuda_device)
+    words = rng.words(rng.fold_in(rng.key(0), 13))
+    unif = rng.uniform01(rng.stream(rng.from_words(*words), rng.Salt.SWEEP,
+                                    5), (t, r, win)).to(cuda_device)
+    keyed = sweep.colored_sweep_keyed(op, u0, s0, e0, words, 5, temps, sched,
+                                      tbl, window=win, coupling=fmt)
+    read = sweep.colored_sweep(op, u0, s0, e0, unif, temps, sched, tbl,
+                               coupling=fmt)
+    for name, a, b in zip(NAMES, keyed, read):
+        assert torch.equal(a, b), name
+    want = ref.colored_sweep(op, u0, s0, e0, unif, temps, sched, tbl)
+    widths = sweep.colored_widths(n, win, 64, fmt == "dense")
+    assert sweep.colored_width(n, win, 64, r, fmt == "dense") in widths
+    if graph == "uneven" and fmt != "dense":
+        assert widths[-1] == 16
+    for width in widths:
+        got = sweep.colored_sweep_at_width(width, op, u0, s0, e0, temps,
+                                           sched, tbl, base_words=words,
+                                           chunk=5, window=win, coupling=fmt)
+        for name, a, b in zip(NAMES, got, want):
+            assert torch.equal(a, b), (width, name)
+
+
+def test_colored_sparse_past_one_block_ceiling_equals_cpu(cuda_device):
+    """A sparse N=32768 bitplane_hbm colored solve (past the ~18.8k spins
+    one block held) runs on a cluster and equals the CPU's solve."""
+    n = 32768
+    problem = ising.IsingProblem.create_sparse(
+        sparse_bipolar_edges(n, 8 * n, seed=n))
+    plan = ops.colored_plan(problem, "bitplane_hbm")
+    assert 1 not in sweep.colored_widths(n, plan.window, 64)
+    cfg = dataclasses.replace(default_solver(n, 40, mode="rsa"),
+                              flip_mode="colored",
+                              coupling_format="bitplane_hbm")
+    on_card = ops.colored_anneal(problem, 3, cfg, chunk_steps=16, plan=plan,
+                                 device=cuda_device)
+    on_cpu = ops.colored_anneal(problem, 3, cfg, chunk_steps=16, plan=plan,
+                                device="cpu")
+    for name, a, b in zip(on_card._fields, on_card, on_cpu):
+        assert torch.equal(a.cpu(), b), name
 
 
 def _qkv(shape_q, shape_kv, dtype, dev, seed=0):
