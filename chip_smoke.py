@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -96,6 +97,10 @@ BF16_FLOP_PER_S = 989e12
 #: Floating-point operations of one PWL flip probability: divide, max, min,
 #: subtract, multiply, fused multiply-add (2).
 PWL_FLOPS = 7
+#: Popcounts a clock per SM on compute capability 9.0, a quarter of the
+#: integer add rate (the CUDA C++ Programming Guide's arithmetic-throughput
+#: table). Kernel C's bound counts them at the card's top SM clock.
+POPC_PER_CLOCK_SM = 16
 #: Integer operations of one threefry2x32 uniform (counted at the f32 rate):
 #: 20 rounds of add, rotate and xor, five key injections of three adds, the
 #: two initial adds, the xor of the two words, the conversion and the scale.
@@ -146,6 +151,20 @@ K_PLANE_N = 4096
 SPARSE_N = 16384
 SPARSE_EDGES = 8 * SPARSE_N
 SPARSE_STEPS = 4 * SPARSE_N        # four sweeps' worth of steps
+#: Kernel C's ms per launch in its earlier design (two popcounts per replica
+#: and word, 8 replicas' spin words staged in shared memory), by CUDA events
+#: from the host at R=8 (PERF.md §6 row 4, an H100 80GB HBM3 at 700 W),
+#: printed beside this run's.
+STAGED_FIELD_MS = {K_PLANE_N: 0.04483, SPARSE_N: 0.04925}
+#: Replica counts kernel C is held at on the main paths' planes; the widest
+#: is timed beside the main path's R.
+FIELD_RS = (1, 8, 32)
+#: Kernel C on random plane words, pos and neg overlapping: (B, rows, W, R).
+#: W=7,265 is one word past the earlier design's shared-memory ceiling, not a
+#: multiple of 4 (4-byte loads); the widest W is a colored solve's at its
+#: ceiling, sweep.colored_max_n(256) / 32 = 9,552.
+FIELD_WORD_SHAPES = ((3, K_PLANE_N, 128, 8), (1, 64, 7265, 8),
+                     (1, 64, None, 8), (3, 64, None, 32), (2, 64, None, 13))
 #: Steps of the cross-tier solves, and of the short full-width kernel checks.
 TIER_STEPS = 4096
 CHECK_T = 64
@@ -199,28 +218,62 @@ def check(cond, msg: str) -> None:
     print(f"  ok: {msg}")
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.cache
+def popc_per_s() -> tuple:
+    """The card's popcount rate: ``POPC_PER_CLOCK_SM`` on every SM at the
+    top SM clock ``nvidia-smi`` reports. Returns (rate, MHz)."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLOCK_SM * sms * mhz * 1e6, mhz
+
+
+#: Builtin types of the Itanium mangling that kernel templates take.
+MANGLED_BUILTINS = {"j": "unsigned", "i": "int", "f": "float", "b": "bool"}
+
+
+def template_args(rest: str) -> list:
+    """The template arguments at the head of a mangled name's tail
+    (``ILi8E5uint4E...`` -> ``['8', 'uint4']``): integer and bool literals,
+    named types and builtin types; [] where there are none or they are of
+    another form."""
+    if not rest.startswith("I"):
+        return []
+    i, args = 1, []
+    while i < len(rest) and rest[i] != "E":
+        lit = re.match(r"L[ib](\d+)E", rest[i:])
+        named = re.match(r"(\d+)", rest[i:])
+        if lit:
+            args.append(lit.group(1))
+            i += lit.end()
+        elif named:
+            start = i + named.end()
+            args.append(rest[start:start + int(named.group(1))])
+            i = start + int(named.group(1))
+        elif rest[i] in MANGLED_BUILTINS:
+            args.append(MANGLED_BUILTINS[rest[i]])
+            i += 1
+        else:
+            return []
+    return args
+
+
 def kernel_name(mangled: str) -> str:
-    """``flash_tc_kernel<128>`` from a mangled kernel name: the identifier
-    ending in ``kernel`` whose length prefix fits, and its integer template
-    arguments."""
+    """``flash_tc_kernel<128>`` or ``bitplane_field_kernel<8,uint4>`` from a
+    mangled kernel name: the identifier ending in ``kernel`` whose length
+    prefix fits, and its template arguments."""
     for m in re.finditer(r"(?=(\d{1,3})([A-Za-z_]\w*))", mangled):
         n = int(m.group(1))
         ident = m.group(2)[:n]
         if len(ident) == n and ident.endswith("kernel"):
-            rest = m.group(2)[n:]
-            args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
-            if not args:
-                return ident
-            nums = re.findall(r"L[ib](\d+)E", args.group(0))
-            return f"{ident}<{','.join(nums)}>"
+            args = template_args(m.group(2)[n:])
+            return f"{ident}<{','.join(args)}>" if args else ident
     return mangled
 
 
@@ -790,13 +843,14 @@ def plane_sweep_bytes_flops(mode: str, r: int, n: int, t: int, flips: int,
     return nbytes, flops
 
 
-def field_bytes_ops(planes, r: int):
-    """Plane bytes read once, spin words in, u out; an AND, a popcount and an
-    add per word, replica and sign, and a popcount and an add per word and
-    sign for m (integer operations, counted at the f32 issue rate)."""
-    b, n, w = planes.pos.shape
+def field_bytes_ops(pos, r: int):
+    """Kernel C's work: the plane bytes read once, the spin words in and u
+    out; and its popcounts, the issue-limited operation: one per replica
+    and word (of the select (p & x) | (q & ~x)) and two per word (popc(p)
+    and popc(q)), (R+2)·B·N·W, counted at ``popc_per_s``."""
+    b, n, w = pos.shape
     nbytes = 4 * (2 * b * n * w + r * w + r * n)
-    return nbytes, 3 * r * 2 * b * n * w + 2 * 2 * b * n * w
+    return nbytes, (r + 2) * b * n * w
 
 
 def reset_counts() -> None:
@@ -809,6 +863,29 @@ def read_counts() -> dict:
             "dense_init": local_field.counter.count}
 
 
+def field_word_checks() -> list:
+    """Kernel C against its plain version on random plane words (pos and
+    neg overlapping) at ``FIELD_WORD_SHAPES``. Returns each max_abs_err."""
+    wide = sweep.colored_max_n(256) // 32
+    g = np.random.default_rng(SEED)
+    errs = []
+    for b, n, w, r in FIELD_WORD_SHAPES:
+        w = w or wide
+        pos, neg = (torch.from_numpy(
+            g.integers(0, 2 ** 32, (b, n, w), dtype=np.uint32).view(
+                np.int32)).to("cuda") for _ in range(2))
+        words = torch.from_numpy(g.integers(0, 2 ** 32, (r, w),
+                                            dtype=np.uint32).view(
+                                                np.int32)).to("cuda")
+        got = bitplane_field.bitplane_field_init(pos, neg, words)
+        want = ref.bitplane_field_init(pos, neg, words)
+        check(torch.equal(got, want), f"bitplane_field_init on random "
+              f"overlapping words B={b} rows={n} W={w} R={r} bit-equal to "
+              "plain")
+        errs.append(max_abs_err([got], [want]))
+    return errs
+
+
 def plane_kernel_checks(k_store, sp_store, k_h, sp_h, cfg, tbl):
     """The popcount init and the plane sweep against their plain versions at
     the main paths' widths (K4096 and sparse N=16384). Returns the
@@ -818,19 +895,24 @@ def plane_kernel_checks(k_store, sp_store, k_h, sp_h, cfg, tbl):
     err = {}
 
     print(f"[kernels] bitplane_field_init against its plain version "
-          f"(R={R}, B=1; K{K_PLANE_N} and N={SPARSE_N})")
+          f"(B=1; K{K_PLANE_N} and N={SPARSE_N} at R = {FIELD_RS})")
     field_in = {}
+    errs = []
     for key, store, h in (("k", k_store, k_h), ("sp", sp_store, sp_h)):
         pl = store.planes
-        s0 = plane_inputs(pl, h, R, 1, torch.ones(1), SEED)[1]
-        words = pack_spins(s0, pl.num_words)
-        got = bitplane_field.bitplane_field_init(pl.pos, pl.neg, words)
-        want = ref.bitplane_field_init(pl.pos, pl.neg, words)
-        check(torch.equal(got, want),
-              f"bitplane_field_init N={pl.num_spins} bit-equal to plain")
-        err[f"field_{key}"] = max_abs_err([got], [want])
-        check(err[f"field_{key}"] == 0.0, "max_abs_err == 0.0")
-        field_in[key] = (pl, s0, words)
+        for r in FIELD_RS:
+            s0 = plane_inputs(pl, h, r, 1, torch.ones(1), SEED)[1]
+            words = pack_spins(s0, pl.num_words)
+            got = bitplane_field.bitplane_field_init(pl.pos, pl.neg, words)
+            want = ref.bitplane_field_init(pl.pos, pl.neg, words)
+            check(torch.equal(got, want), f"bitplane_field_init "
+                  f"N={pl.num_spins} W={pl.num_words} R={r} bit-equal to "
+                  "plain")
+            errs.append(max_abs_err([got], [want]))
+            field_in[(key, r)] = (pl, s0, words)
+    errs += field_word_checks()
+    err["field"] = max(errs)
+    check(err["field"] == 0.0, "bitplane_field_init max_abs_err == 0.0")
 
     print(f"[kernels] plane mcmc_sweep RSA + PWL against its plain version "
           f"(R={R}, T={CHECK_T}; shared site uniforms on even steps)")
@@ -1143,21 +1225,41 @@ def plane_slice() -> list:
                 print(f"[timing] mcmc_sweep {fmt} {mode} N={n} uncoalesced: "
                       f"{ms:.4f} ms ({ms / T * 1e3:.3f} us/step)")
         width_sweep(f"N={n} {fmt}", pl, args, tbl, base_words, fmt)
+    rate, mhz = popc_per_s()
+    print(f"[timing] bitplane_field_init by CUDA-graph replay (from the "
+          f"host: back-to-back calls by CUDA events); bound: bytes at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s, popcounts at {POPC_PER_CLOCK_SM} a "
+          f"clock per SM x {torch.cuda.get_device_properties(0).multi_processor_count}"
+          f" SMs x {mhz:.0f} MHz (clocks.max.sm)")
     dense_sp_j = sp_dense_prob.couplings
-    for key, dense_j in (("k", k_prob.couplings), ("sp", dense_sp_j)):
-        pl, s0, words = field_in[key]
-        h = torch.zeros(pl.num_spins, device="cuda")
-        e = {"ms": cuda_ms(lambda: bitplane_field.bitplane_field_init(
-                pl.pos, pl.neg, words), 20),
-             "plain_ms": cuda_ms(lambda: ref.bitplane_field_init(
-                 pl.pos, pl.neg, words), 2),
-             "library_ms": cuda_ms(lambda: torch.addmm(h, s0, dense_j.T), 20),
-             "bound": bound(*field_bytes_ops(pl, R))}
-        timing[("field", key)] = e
-        print(f"[timing] bitplane_field_init N={pl.num_spins}: {e['ms']:.5f} "
-              f"ms, plain {e['plain_ms']:.3f} ms, torch.addmm on the dense "
-              f"f32 J {e['library_ms']:.5f} ms, bound {e['bound'][0]:.5f} ms "
-              f"({e['bound'][1]})")
+    for key, r, dense_j in (("k", R, k_prob.couplings), ("sp", R, dense_sp_j),
+                            ("sp", FIELD_RS[-1], dense_sp_j)):
+        pl, s0, words = field_in[(key, r)]
+        n = pl.num_spins
+        h = torch.zeros(n, device="cuda")
+        run = (lambda pl=pl, words=words: bitplane_field.bitplane_field_init(
+            pl.pos, pl.neg, words))
+        lib = lambda h=h, s0=s0, dense_j=dense_j: torch.addmm(h, s0,
+                                                              dense_j.T)
+        nbytes, pops = field_bytes_ops(pl.pos, r)
+        e = {"ms": graph_ms(run, 50), "host_ms": cuda_ms(run, 50),
+             "plain_ms": cuda_ms(lambda pl=pl, words=words:
+                                 ref.bitplane_field_init(pl.pos, pl.neg,
+                                                         words), 2),
+             "library_ms": graph_ms(lib, 20), "library_host_ms":
+                 cuda_ms(lib, 20), "bound": bound(nbytes, pops, rate)}
+        timing[("field", key, r)] = e
+        before = (f" [spin words staged in shared memory, events from the "
+                  f"host: {STAGED_FIELD_MS[n]:.5f} ms]" if r == R else "")
+        print(f"[timing] bitplane_field_init N={n} W={pl.num_words} R={r}: "
+              f"{e['ms']:.5f} ms by graph replay ({e['host_ms']:.5f} from the "
+              f"host){before}, plain {e['plain_ms']:.3f} ms, torch.addmm on "
+              f"the dense f32 J {e['library_ms']:.5f} ms by graph replay "
+              f"({e['library_host_ms']:.5f} from the host), bound "
+              f"{e['bound'][0]:.5f} ms ({e['bound'][1]}: bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {pops} popcounts "
+              f"{pops / rate * 1e3:.5f} ms), {e['bound'][0] / e['ms']:.1%} "
+              "of it")
 
     print("[timing] per tier: sweep ms per 256-step launch (CUDA events) and "
           f"us/step of a {TIER_STEPS}-step solve (host clock)")
@@ -1203,13 +1305,13 @@ def plane_slice() -> list:
                 "max_abs_err": err[(mode, fmt, key)], "ms": e["ms"],
                 "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
                 "bound_by": e["bound"][1], "library_ms": None})
-    e = timing[("field", "sp")]
+    e = timing[("field", "sp", R)]
     rows.append({
         "name": "bitplane_field_init", "route": "cuda",
         "source": src + "bitplane_field.cu",
         "replaces": "src/repro/kernels/bitplane_field.py:42",
         "launches": sum(m["init"] for m in mains.values()),
-        "max_abs_err": max(err["field_k"], err["field_sp"]), "ms": e["ms"],
+        "max_abs_err": err["field"], "ms": e["ms"],
         "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
         "bound_by": e["bound"][1], "library_ms": e["library_ms"]})
     return rows

@@ -2,7 +2,11 @@
 plain version (port of ``repro.kernels.bitplane_field``).
 
 A CPU tensor goes to the plain version (``ref.bitplane_field_init``); a CUDA
-tensor launches ``csrc/bitplane_field.cu`` or raises.
+tensor launches ``csrc/bitplane_field.cu`` or raises. The kernel takes any
+number of words W, planes B (up to 30) and replicas R: it uses no shared
+memory, reads the planes once for every 32 replicas, and loads 16 bytes at a
+time where W is a multiple of 4 and every operand is 16-byte aligned, 4
+bytes otherwise.
 """
 from __future__ import annotations
 

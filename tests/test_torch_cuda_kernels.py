@@ -4,8 +4,10 @@ and reading variants at every cluster width, the coalesced row count, N
 past one block's shared memory) and the colored sweep (the keyed and
 reading variants and every cluster width against the plain version, a
 shorter last slice, rows_fetched at every group size, N past one block's
-shared memory), the two field inits, and the flash-attention forward with
-the LM serving path around it.
+shared memory), the two field inits (the popcount init also on random
+overlapping plane words, W past the earlier design's shared-memory ceiling
+and misaligned words), and the flash-attention forward with the LM serving
+path around it.
 
 Marked ``cuda``; each test skips (inside the ``cuda_device`` fixture) when
 no card is present. The file imports neither JAX nor the JAX package, so it
@@ -173,6 +175,8 @@ def _planes(n, fmt, dev, seed=0):
 
 @pytest.mark.parametrize("n,r,fmt", [(250, 8, "bitplane"),
                                      (4096, 8, "bitplane_hbm"),
+                                     (4096, 1, "bitplane_hbm"),
+                                     (4096, 32, "bitplane_hbm"),
                                      (1000, 13, "bitplane")])
 def test_bitplane_field_kernel_bitwise(cuda_device, n, r, fmt):
     planes, J = _planes(n, fmt, cuda_device)
@@ -184,6 +188,42 @@ def test_bitplane_field_kernel_bitwise(cuda_device, n, r, fmt):
     assert torch.equal(got, ref.bitplane_field_init(planes.pos, planes.neg,
                                                     words))
     assert torch.equal(got, s0 @ J.T)
+
+
+def _random_words(shape, dev, seed, offset=0):
+    """Random int32-held uint32 words; ``offset`` words into a larger
+    buffer, so the tensor is contiguous but not 16-byte aligned."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    numel = math.prod(shape)
+    buf = torch.randint(-2 ** 31, 2 ** 31, (numel + offset,),
+                        dtype=torch.int64, generator=g).to(torch.int32)
+    return buf.to(dev)[offset:].view(shape)
+
+
+# (B, rows, W, R, offset): B=3; W=7,265, one word past the earlier design's
+# shared-memory ceiling and not a multiple of 4; W=9,552, a colored solve's
+# at sweep.colored_max_n(256); words 4 bytes off 16-byte alignment; R past
+# 32 (two reads of the planes).
+@pytest.mark.parametrize("b,n,w,r,offset", [(3, 512, 128, 8, 0),
+                                            (3, 64, 128, 32, 0),
+                                            (1, 64, 7265, 8, 0),
+                                            (1, 64, 9552, 8, 0),
+                                            (3, 64, 9552, 1, 0),
+                                            (2, 64, 512, 13, 1),
+                                            (1, 100, 96, 40, 0)])
+def test_bitplane_field_kernel_bitwise_on_random_words(cuda_device, b, n, w,
+                                                       r, offset):
+    """pos and neg words drawn independently overlap on about a quarter of
+    their bits, which no real plane does; the kernel's select identity does
+    not need them disjoint."""
+    pos = _random_words((b, n, w), cuda_device, 1, offset)
+    neg = _random_words((b, n, w), cuda_device, 2, offset)
+    words = _random_words((r, w), cuda_device, 3, offset)
+    assert bool(((pos & neg) != 0).float().mean() > 0.9)
+    before = bitplane_field.counter.count
+    got = bitplane_field.bitplane_field_init(pos, neg, words)
+    assert bitplane_field.counter.count == before + 1
+    assert torch.equal(got, ref.bitplane_field_init(pos, neg, words))
 
 
 @pytest.mark.parametrize("fmt,coalesce", [("bitplane", True),
