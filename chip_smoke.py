@@ -1914,6 +1914,419 @@ def colored_slice() -> list:
         "library_ms": None}]
 
 
+#: Steps of the reference engine's RWA check on the card, and the band its
+#: best cut must fall in besides: within 3 % of the CPU's. The card adds
+#: RWA's sums in another order than the CPU, so the two split at near ties
+#: (each one shown to be one, step by step, by ``engine_rwa_lockstep``) and
+#: the split replicas go their own ways; the others must end bitwise on the
+#: CPU's run. The best cut of K2000 at this length spreads over 1.7 %
+#: across seeds 0-3 on the CPU (32,585-33,157).
+ENGINE_RWA_STEPS = 2048
+ENGINE_RWA_BAND = 0.03
+#: The statistical tier's chains: R replicas, chunks of CHUNK steps, the
+#: states at the chunk boundaries after BURN pooled (as the CPU tests).
+STAT_R, STAT_CHUNK, STAT_CHUNKS, STAT_BURN, STAT_TEMP = 64, 48, 130, 10, 2.5
+#: The roulette's pick law at full width: one N=16384 state copied to 32
+#: replicas, one step per chunk key, the sites in 64 bins of equal mass.
+PICK_R, PICK_KEYS, PICK_BINS = 32, 2000, 64
+#: A request far past the card's 80 GB: must raise an out-of-memory error
+#: that the tier ladder classifies as an allocation failure.
+OOM_BYTES = 200 * 2 ** 30
+#: Chunks between snapshots of the supervised sparse N=16384 run (256
+#: chunks: 16 snapshots).
+SPARSE_CKPT_EVERY = 16
+#: Snapshots of the [resilient] runs (under build/, which git ignores).
+RUN_ROOT = Path(__file__).resolve().parent / "build" / "resilient_runs"
+
+
+def kernel_counters() -> dict:
+    return {"mcmc_sweep": sweep.counter,
+            "colored_sweep": sweep.colored_counter,
+            "local_field_init": local_field.counter,
+            "bitplane_field_init": bitplane_field.counter}
+
+
+def reset_all_counts() -> None:
+    for c in kernel_counters().values():
+        c.reset()
+
+
+def read_all_counts() -> dict:
+    return {name: c.count for name, c in kernel_counters().items()}
+
+
+def timed(run):
+    """``(result, host-clock seconds)`` of ``run()``, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_result(a, b, fields=None) -> bool:
+    """Every field (or ``fields``) of two ``SolveResult``s bitwise equal,
+    on the CPU."""
+    for name in fields or a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None or y is None:
+            if not (x is None and y is None):
+                return False
+        elif not torch.equal(x.cpu(), y.cpu()):
+            return False
+    return True
+
+
+def engine_phase() -> None:
+    """[engine]: the reference engine (plain PyTorch, no kernel) on the
+    card against the port's CPU reference."""
+    inst = complete_bipolar(N, seed=SEED)
+    problem = maxcut_to_ising(inst, device="cuda")
+    cfg = default_solver(N, STEPS, mode="rsa")
+    print(f"[engine] solve(K2000, seed={SEED}, default_solver(2000, {STEPS}, "
+          f"'rsa'), backend='reference'), R={R}, PWL: the card against the "
+          "CPU")
+    reset_all_counts()
+    card, wall = timed(lambda: solve(problem, SEED, cfg, backend="reference"))
+    counts = read_all_counts()
+    cpu, cpu_wall = timed(lambda: solve(problem, SEED, cfg,
+                                        backend="reference", device="cpu"))
+    check(not any(counts.values()), f"the reference engine launched no "
+          f"kernel ({counts})")
+    check(same_result(card, cpu), "reference RSA on the card == the CPU's, "
+          "bitwise: best_energy, best_spins, final_energy, num_flips, "
+          "trace_energy")
+    check(torch.equal(card.best_energy, ising.energy(problem,
+                                                     card.best_spins)),
+          "reference best_energy == energy(best_spins) exactly")
+    cuts = cut_from_energy(inst, card.best_energy.cpu().numpy())
+    fused = MAIN_PATHS[("dense", "rsa")]["us_step"]
+    print(f"[engine] rsa: best cut {cuts.max():.0f}, card "
+          f"{wall / STEPS * 1e6:.3f} us/step (host clock; the fused path "
+          f"{fused:.3f}, {wall / STEPS * 1e6 / fused:.1f}x), the CPU's "
+          f"{cpu_wall / STEPS * 1e6:.3f} us/step")
+    rcfg = default_solver(N, ENGINE_RWA_STEPS, mode="rwa")
+    card, wall = timed(lambda: solve(problem, SEED, rcfg,
+                                     backend="reference"))
+    cpu = solve(problem, SEED, rcfg, backend="reference", device="cpu")
+    split, t_lock = timed(lambda: engine_rwa_lockstep(problem, rcfg, cpu))
+    card_cut = cut_from_energy(inst, card.best_energy.cpu().numpy())
+    cpu_cut = cut_from_energy(inst, cpu.best_energy.numpy())
+    same = torch.ones(R, dtype=torch.bool)
+    for name in ("best_energy", "best_spins", "final_energy", "num_flips"):
+        x, y = getattr(card, name).cpu(), getattr(cpu, name)
+        same &= (x == y).reshape(R, -1).all(dim=1)
+    # A replica no step of whose CPU trajectory splits from the card's pick
+    # runs the same trajectory on the card: every state update is the same
+    # elementwise arithmetic on both (the RSA check above holds it bitwise).
+    check(bool(same[~split].all()) and int(same.sum()) >= R // 2,
+          f"reference RWA, {ENGINE_RWA_STEPS} steps: {int(same.sum())} of "
+          f"{R} replicas end bitwise on the CPU's run (best and final "
+          f"energy, best spins, flips; at least {R // 2}), every replica "
+          f"without a split among them ({int((~split).sum())})")
+    gap = abs(card_cut.max() - cpu_cut.max()) / cpu_cut.max()
+    check(gap <= ENGINE_RWA_BAND,
+          f"reference RWA, {ENGINE_RWA_STEPS} steps: the card's best cut "
+          f"{card_cut.max():.0f} within {ENGINE_RWA_BAND:.0%} of the CPU's "
+          f"{cpu_cut.max():.0f} ({gap:.2%}); lockstep {t_lock:.2f} s")
+    check(torch.equal(card.best_energy, ising.energy(problem,
+                                                     card.best_spins))
+          and int(card.num_flips.sum()) == R * ENGINE_RWA_STEPS,
+          "reference RWA: best_energy == energy(best_spins), one flip a "
+          "step")
+    fused = MAIN_PATHS[("dense", "rwa")]["us_step"]
+    print(f"[engine] rwa: card {wall / ENGINE_RWA_STEPS * 1e6:.3f} us/step "
+          f"(host clock; the fused path {fused:.3f} at {STEPS} steps)")
+
+
+def engine_rwa_lockstep(problem, cfg, cpu) -> torch.Tensor:
+    """Every step of the CPU's reference RWA run taken again on the card
+    from the CPU's state at that step, on the same draws: where the two
+    pick different sites the step must be a near tie
+    (``parity.roulette_near_tie``), elsewhere the card's next state must be
+    the CPU's bitwise. Returns the (R,) replicas with a split."""
+    from repro_torch.core import mcmc, solver
+
+    steps, n = cfg.num_steps, problem.num_spins
+    mc = solver._mcmc_config(cfg)
+    host = problem.to("cpu")
+    states, keys = solver.reference_init_state(host, SEED, cfg)
+    temps = solver.step_temperatures(cfg.schedule, steps)
+    draws = mcmc.step_draws(
+        rng.stream(keys[None], torch.arange(steps)[:, None]), n, mc)
+    split = torch.zeros(R, dtype=torch.bool)
+    splits = ties = 0
+    unequal = []
+    for t in range(steps):
+        d = draws.map(lambda x: x[t])
+        on_card, c_info = mcmc.step_drawn(
+            problem, mcmc.ChainState(*(x.cuda() for x in states)),
+            d.map(lambda x: x.cuda()), temps[t].cuda(), mc)
+        nxt, info = mcmc.step_drawn(host, states, d, temps[t], mc)
+        differ = c_info.site.cpu() != info.site
+        if differ.any():
+            delta = 2.0 * states.spins.to(torch.float32) * states.fields
+            tie = roulette_near_tie(mc.flip_prob(delta, temps[t]),
+                                    d.roulette, d.roulette, False)
+            splits += int(differ.sum())
+            ties += int((differ & tie).sum())
+            split |= differ
+        agree = ~differ
+        if not all(torch.equal(x.cpu()[agree], y[agree])
+                   for x, y in zip(on_card, nxt)):
+            unequal.append(t)
+        states = nxt
+    check(not unequal, f"reference RWA lockstep: the card's next state == "
+          f"the CPU's wherever the picks agree (steps {unequal[:8]} not)")
+    check(torch.equal(states.best_energy + host.offset, cpu.best_energy)
+          and torch.equal(states.best_spins, cpu.best_spins),
+          "the lockstep's CPU trajectory is the CPU solve's")
+    check(splits == ties,
+          f"reference RWA lockstep, {steps} steps x {R} replicas: the card "
+          f"picks another site than the CPU in {splits} steps, {ties} of "
+          f"them near ties (all must be; replicas with a split "
+          f"{split.nonzero().flatten().tolist()})")
+    return split
+
+
+class SimulatedCrash(BaseException):
+    """A process death at a chunk boundary: escapes the supervisor's
+    handlers, as a kill would."""
+
+
+def crash_after(chunk: int):
+    def hook(kind, info):
+        if kind == "snapshot" and info["chunk"] == chunk:
+            raise SimulatedCrash()
+    return hook
+
+
+def flip_byte(path: Path) -> None:
+    data = bytearray(path.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    path.write_bytes(bytes(data))
+
+
+def resilient_phase() -> None:
+    """[resilient]: run_resilient at the main paths' sizes against the
+    monolithic solve; crash and resume, a corrupt newest snapshot, an
+    injected and a real allocation failure."""
+    import shutil
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core.backend import get_backend
+    from repro_torch.checkpoint import snapshot_steps
+    from repro_torch.core.resilience import (inject_faults,
+                                             is_allocation_failure,
+                                             problem_fingerprint,
+                                             run_resilient)
+
+    shutil.rmtree(RUN_ROOT, ignore_errors=True)
+    k_prob = maxcut_to_ising(complete_bipolar(N, seed=SEED), device="cuda")
+    edges = sparse_bipolar_edges(SPARSE_N, SPARSE_EDGES, seed=SPARSE_N)
+    sp_prob = ising.IsingProblem.create_sparse(edges, device="cuda")
+    chi = greedy_coloring(edges).num_classes
+    paths = (
+        ("K2000 dense rwa", k_prob, default_solver(N, STEPS, mode="rwa"),
+         "fused", 1, ("mcmc_sweep", "local_field_init")),
+        (f"sparse N={SPARSE_N} bitplane_hbm rwa", sp_prob,
+         dataclasses.replace(default_solver(SPARSE_N, SPARSE_STEPS,
+                                            mode="rwa"),
+                             coupling_format="bitplane_hbm"),
+         "fused", SPARSE_CKPT_EVERY, ("mcmc_sweep", "bitplane_field_init")),
+        (f"colored N={SPARSE_N}", sp_prob,
+         dataclasses.replace(default_solver(SPARSE_N, 64 * chi, mode="rsa"),
+                             flip_mode="colored",
+                             coupling_format="bitplane_hbm"),
+         "colored", 1, ("colored_sweep", "bitplane_field_init")))
+    _, fp_s = timed(lambda: problem_fingerprint(k_prob))
+    print(f"[resilient] problem_fingerprint(K2000): {fp_s * 1e3:.3f} ms (the "
+          "dense J copied to the host and hashed; once a run, and only for "
+          "a run with a run_dir)")
+    for label, prob, cfg, backend, every, kernels in paths:
+        steps = cfg.num_steps
+        print(f"[resilient] {label}: run_resilient(..., backend="
+              f"'{backend}', checkpoint_every={every}) against solve(), "
+              f"{steps} steps, R={R}")
+        mono, mono_s = timed(lambda: solve(prob, SEED, cfg, backend=backend))
+        bare, bare_s = timed(lambda: run_resilient(prob, SEED, cfg,
+                                                   backend=backend))
+        run_dir = RUN_ROOT / label.replace(" ", "_")
+        stamps = {}
+
+        def stamp(kind, info):
+            if kind in ("chunk", "snapshot"):
+                stamps[(kind, info["chunk"])] = time.perf_counter()
+
+        reset_all_counts()
+        rr, rr_s = timed(lambda: run_resilient(
+            prob, SEED, cfg, str(run_dir / "full"), backend=backend,
+            checkpoint_every=every, on_event=stamp))
+        counts = read_all_counts()
+        total = rr.total_chunks
+        # Between a chunk's "chunk" and "snapshot" events the loop copies
+        # the state to the host (waiting for the chunk's kernels) and for a
+        # write still running; the write itself runs on a thread, timed
+        # here alone on the final state.
+        stalls = [stamps[("snapshot", k)] - stamps[("chunk", k)]
+                  for k in range(1, total + 1) if ("snapshot", k) in stamps]
+        writes = []
+        state = get_backend(backend).runner(prob, SEED, cfg).init()
+        for i in range(3):
+            t0 = time.perf_counter()
+            ckpt.save(str(run_dir / "timing"), i, {"state": state})
+            writes.append(time.perf_counter() - t0)
+        del state
+        print(f"[resilient] {label}: launches in the supervised run "
+              f"{counts}")
+        check(all(counts[k] > 0 for k in kernels),
+              f"{label}: the supervised run launched "
+              + " and ".join(kernels))
+        check(counts[kernels[0]] == total,
+              f"{label}: {kernels[0]} launched once a chunk ({total})")
+        check(rr.stop_reason == "completed" and not rr.downgrades
+              and same_result(mono, rr.result) and same_result(
+                  mono, bare.result),
+              f"{label}: run_resilient == solve() bitwise, every field "
+              "(rows_fetched too), with and without snapshots; no "
+              "downgrade recorded")
+        print(f"[resilient] {label}: solve() {mono_s / steps * 1e6:.3f} "
+              f"us/step, run_resilient without snapshots "
+              f"{bare_s / steps * 1e6:.3f}, with {len(stalls)} snapshots "
+              f"{rr_s / steps * 1e6:.3f} (host clock): "
+              f"{(rr_s - bare_s) / total * 1e3:.3f} ms per chunk; the loop "
+              f"stalls {np.median(stalls) * 1e3:.3f} ms at a snapshot "
+              f"(median; mean {np.mean(stalls) * 1e3:.3f}: the device "
+              f"finishing the chunks queued since the last one, the copy to "
+              f"the host, a write still running), a write alone takes "
+              f"{np.median(writes) * 1e3:.3f} ms (median of 3)")
+        mid = every * max(2, (total // every) // 2)
+        for case in ("crash", "corrupt"):
+            d = str(run_dir / case)
+            try:
+                run_resilient(prob, SEED, cfg, d, backend=backend,
+                              checkpoint_every=every, keep=10,
+                              on_event=crash_after(mid))
+                raise RuntimeError("the simulated crash did not happen")
+            except SimulatedCrash:
+                pass
+            want = mid
+            if case == "corrupt":
+                steps_on_disk = snapshot_steps(d)
+                check(steps_on_disk[-1] == mid and len(steps_on_disk) >= 2,
+                      f"{label}: snapshots {steps_on_disk[-3:]} on disk "
+                      "after the crash")
+                flip_byte(Path(d) / f"step_{mid}" / "arrays.npz")
+                want = steps_on_disk[-2]
+            res, res_s = timed(lambda: run_resilient(
+                prob, SEED, cfg, d, backend=backend,
+                checkpoint_every=every, keep=10))
+            check(res.resumed_from_chunk == want
+                  and same_result(mono, res.result),
+                  f"{label}: {case} after snapshot {mid}, resumed from "
+                  f"chunk {want} == solve() bitwise ({res_s:.3f} s)")
+    print("[resilient] tier ladder: an allocation failure injected at "
+          "store_build on K2000, coupling_format='auto'")
+    cfg = default_solver(N, STEPS, mode="rwa")
+    mono = solve(k_prob, SEED, cfg)
+
+    def oom_at_dense(site, info):
+        if site == "store_build" and info["fmt"] == "dense":
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (injected)")
+
+    with inject_faults(oom_at_dense):
+        res = run_resilient(k_prob, SEED, cfg)
+    check(res.downgrades == (("dense", "bitplane", 0),)
+          and res.result.rows_fetched is not None
+          and same_result(mono, res.result),
+          f"K2000 'auto': dense -> bitplane recorded ({res.downgrades}), "
+          "the result unchanged bitwise (integer J)")
+    try:
+        torch.empty(OOM_BYTES, dtype=torch.uint8, device="cuda")
+        raise RuntimeError(f"a {OOM_BYTES}-byte request did not fail")
+    except torch.cuda.OutOfMemoryError as e:
+        check(is_allocation_failure(e), "a real torch.cuda.OutOfMemoryError "
+              f"({OOM_BYTES / 2**30:.0f} GiB) is an allocation failure")
+    shutil.rmtree(RUN_ROOT, ignore_errors=True)
+
+
+def stat_phase() -> None:
+    """[stat]: the statistical tier through kernels A and D on the card,
+    with the CPU tests' gates, and the roulette's pick law at full
+    width."""
+    from repro_torch.kernels import parity
+
+    def gates(label, g):
+        chi2 = ("" if "x2" not in g else
+                f"chi2 {g['x2']:.2f} (df {g['df']}, gate "
+                f"{2 * g['crit']:.2f}), ")
+        check(parity.gates_pass(g),
+              f"{label}: {chi2}TV {g['tv']:.4f} (< 0.05), at 2T and T/2 "
+              f"{g['tv_wrong'][0]:.4f} / {g['tv_wrong'][1]:.4f} (> 3x)")
+
+    g = np.random.default_rng(11)
+    J = np.triu(np.rint(g.normal(size=(6, 6)) * 1.2), 1)
+    h = np.rint(g.normal(size=6)).astype(np.float32)
+    tiny = ising.IsingProblem.create(J + J.T, h, device="cuda")
+    chain = dict(r=STAT_R, chunk=STAT_CHUNK, chunks=STAT_CHUNKS,
+                 burn=STAT_BURN)
+    reset_all_counts()
+    counts = {}
+    for mode, uni in (("rsa", False), ("rwa", True), ("rwa", False)):
+        _, idx, _ = parity.sweep_chain(tiny, STAT_TEMP, mode=mode,
+                                       uniformized=uni, **chain)
+        counts[(mode, uni)] = np.bincount(idx, minlength=64).astype(float)
+    for mode, uni in (("rsa", False), ("rwa", True)):
+        gates(f"kernel A {mode}{' uniformized' if uni else ''}, N=6, "
+              f"T={STAT_TEMP}", parity.boltzmann_gates(
+                  counts[(mode, uni)], tiny, STAT_TEMP))
+    a, b = counts[("rsa", False)], counts[("rwa", True)]
+    cross = parity.tv_distance(a, b / b.sum())
+    check(cross < 0.07, f"kernel A: RSA against uniformized RWA, TV "
+          f"{cross:.4f} (< 0.07)")
+    gates("kernel A plain RWA, its jump chain weighted by 1/W(s)",
+          parity.boltzmann_gates(counts[("rwa", False)], tiny, STAT_TEMP,
+                                 1.0 / parity.total_weight(tiny, STAT_TEMP)))
+    g = np.random.default_rng(13)
+    i, j = g.integers(0, 7, size=10), g.integers(0, 7, size=10)
+    keep = i != j
+    sedges = ising.EdgeList.create(i[keep], j[keep],
+                                   g.choice([-2, -1, 1, 2], size=10)[keep], 7)
+    sparse = ising.IsingProblem.create_sparse(
+        sedges, h=np.rint(g.normal(size=7)).astype(np.float32))
+    plan = ops.colored_plan(sparse, "bitplane").to("cuda")
+    pdense = ising.IsingProblem.create(plan.problem.edges.to_dense(),
+                                       h=plan.problem.fields.cpu().numpy())
+    _, idx, _ = parity.colored_chain(plan, STAT_TEMP, **chain)
+    gates(f"kernel D, N=7, chi={plan.coloring.num_classes}",
+          parity.boltzmann_gates(np.bincount(idx, minlength=128).astype(
+              float), pdense, STAT_TEMP))
+    launched = read_all_counts()
+    check(launched["mcmc_sweep"] == 3 * STAT_CHUNKS
+          and launched["colored_sweep"] == STAT_CHUNKS,
+          f"the chains ran on kernels A and D ({launched})")
+
+    edges = sparse_bipolar_edges(SPARSE_N, SPARSE_EDGES, seed=SPARSE_N)
+    sp_prob = ising.IsingProblem.create_sparse(edges, device="cuda")
+    store = CouplingStore.build(edges, "bitplane_hbm").to("cuda")
+    cfg = default_solver(SPARSE_N, SPARSE_STEPS, mode="rwa")
+    temp = float(cfg.schedule(torch.tensor(SPARSE_STEPS // 4)))
+    state = ops.fused_init_state(sp_prob, rng.fold_in(rng.key(0), SEED), 1,
+                                 planes=store.planes)
+    u, s, e = (x.expand((PICK_R,) + tuple(x.shape[1:])).contiguous()
+               for x in state[:3])
+    sweep.counter.reset()
+    (picks, p), wall = timed(lambda: parity.roulette_picks(
+        store, u, s, e, temp, ops.solver_pwl_table(cfg, device="cuda"),
+        keys=PICK_KEYS))
+    x2, df, crit = parity.pick_law_chi2(p, picks, PICK_BINS)
+    check(sweep.counter.count == PICK_KEYS and x2 < 2 * crit,
+          f"kernel A's roulette at N={SPARSE_N} bitplane_hbm, T={temp:.4f}: "
+          f"{picks.size} picks ({PICK_KEYS} chunk keys x {PICK_R} "
+          f"replicas) against p_i/W in {PICK_BINS} bins of equal mass, "
+          f"chi2 {x2:.2f} (df {df}, gate {2 * crit:.2f}); {wall:.2f} s")
+
+
 def reset_flash_counts() -> None:
     fa.tc_counter.reset()
     fa.f32_counter.reset()
@@ -2271,6 +2684,12 @@ def main() -> None:
               f"cut {m['cut']:.0f}, idle {idle}, {m['per_chunk']:.2f} "
               f"launches per chunk")
     rows += colored_slice()
+    for name, phase in (("engine", engine_phase),
+                        ("resilient", resilient_phase),
+                        ("stat", stat_phase)):
+        t0 = time.perf_counter()
+        phase()
+        print(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
     rows += lm_slice()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,268 @@
+"""Atomic, checksummed checkpointing with retention and async save. Port of
+``repro.checkpoint.manager``.
+
+* **Atomicity.** A snapshot is written to ``step_<N>.tmp/`` and then
+  renamed to ``step_<N>/`` with ``os.replace``: a crash mid-write never
+  leaves a half-written ``step_<N>/``.
+* **Integrity.** The manifest (``manifest.json``) records the sha256 of
+  ``arrays.npz``; :func:`restore` re-hashes before reading a value and
+  raises :class:`SnapshotCorruptError` on a mismatch, an unreadable file or
+  a missing leaf, so a caller holding older snapshots can fall back
+  newest-first.
+* **Layout.** A tree of dicts, tuples, lists and named tuples whose leaves
+  are tensors, numpy arrays or Python scalars. Arrays are saved as numpy
+  values keyed by their path (``state/fields``, ``state/0``, ``trace``);
+  scalars go into the manifest. :func:`restore` rebuilds each tensor on the
+  template leaf's device with its dtype.
+* **Async.** ``CheckpointManager(async_save=True)`` writes on a thread; the
+  copy of every tensor to the host happens first, on the caller's thread,
+  and finishes before the write starts.
+* **Retention.** The newest ``keep`` snapshots stay (default 3).
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+import shutil
+import struct
+import threading
+import zipfile
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+_STEP_RE = re.compile(r"^step_(\d+)$")
+_SCALARS = (int, float, str, bool)
+
+
+class SnapshotCorruptError(RuntimeError):
+    """A snapshot directory exists but cannot be trusted: an unreadable
+    manifest or array archive, a checksum mismatch, or a leaf the template
+    expects is missing (a truncated write)."""
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _children(node):
+    """``[(path part, child), ...]`` of an inner node, or None for a leaf.
+    Dict keys in sorted order, named-tuple fields by name, sequences by
+    index (the paths of the JAX checkpoint's tree flattening)."""
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return list(zip(node._fields, node))
+    if isinstance(node, (tuple, list)):
+        return [(str(i), x) for i, x in enumerate(node)]
+    return None
+
+
+def _flatten_with_paths(tree, prefix: str = "") -> dict[str, Any]:
+    kids = _children(tree)
+    if kids is None:
+        return {prefix: tree}
+    flat = {}
+    for part, child in kids:
+        flat.update(_flatten_with_paths(
+            child, f"{prefix}/{part}" if prefix else part))
+    return flat
+
+
+def _unflatten(like, values: dict, prefix: str = ""):
+    """``like``'s structure with each leaf replaced by ``values[path]``."""
+    kids = _children(like)
+    if kids is None:
+        return values[prefix]
+    built = [_unflatten(child, values, f"{prefix}/{part}" if prefix
+                        else part) for part, child in kids]
+    if isinstance(like, dict):
+        return dict(zip(sorted(like), built))
+    if hasattr(like, "_fields"):
+        return type(like)(*built)
+    return type(like)(built)
+
+
+def _to_host(leaf):
+    """A numpy copy of a tensor or array leaf (a blocking device-to-host
+    copy for a tensor on the card); scalars pass through."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy().copy()
+    if isinstance(leaf, _SCALARS):
+        return leaf
+    return np.array(leaf)
+
+
+def save(directory: str, step: int, tree, extra: Optional[dict] = None) -> str:
+    """Atomically write snapshot ``step`` of ``tree``."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    arrays, scalars = {}, {}
+    for key, leaf in _flatten_with_paths(tree).items():
+        if isinstance(leaf, _SCALARS):
+            scalars[key] = leaf
+        else:
+            arrays[key] = _to_host(leaf)
+    arrays_path = os.path.join(tmp, "arrays.npz")
+    np.savez(arrays_path, **arrays)
+    with open(arrays_path, "rb") as fh:
+        os.fsync(fh.fileno())
+    manifest = {"step": step, "scalars": scalars, "extra": extra or {},
+                "num_arrays": len(arrays),
+                "arrays_sha256": _sha256_file(arrays_path)}
+    with open(os.path.join(tmp, "manifest.json"), "w") as fh:
+        json.dump(manifest, fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def snapshot_steps(directory: str) -> list[int]:
+    """Every snapshot step on disk, ascending (corrupt or not: validation
+    happens at restore, so callers can walk newest-first)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for name in os.listdir(directory)
+                  if (m := _STEP_RE.match(name)))
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = snapshot_steps(directory)
+    return steps[-1] if steps else None
+
+
+def read_manifest(directory: str, step: int) -> dict:
+    """The snapshot's manifest, or :class:`SnapshotCorruptError` if it cannot
+    be read or parsed."""
+    path = os.path.join(directory, f"step_{step}", "manifest.json")
+    try:
+        with open(path) as fh:
+            return json.load(fh)
+    except (OSError, ValueError) as e:
+        raise SnapshotCorruptError(
+            f"unreadable manifest for snapshot step_{step}: {e}") from e
+
+
+def _restore_leaf(val: np.ndarray, leaf):
+    if isinstance(leaf, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(val)).to(
+            device=leaf.device, dtype=leaf.dtype)
+    return np.asarray(val, dtype=getattr(leaf, "dtype", None))
+
+
+def restore(directory: str, step: int, like):
+    """Restore snapshot ``step`` into the structure of the template ``like``
+    (e.g. a freshly initialized state): each tensor on its template leaf's
+    device and dtype. When the manifest carries ``arrays_sha256`` the
+    archive is re-hashed before any value is read; every corruption mode
+    raises :class:`SnapshotCorruptError`."""
+    path = os.path.join(directory, f"step_{step}")
+    manifest = read_manifest(directory, step)
+    arrays_path = os.path.join(path, "arrays.npz")
+    expect = manifest.get("arrays_sha256")
+    if expect is not None:
+        try:
+            got = _sha256_file(arrays_path)
+        except OSError as e:
+            raise SnapshotCorruptError(
+                f"unreadable arrays.npz for snapshot step_{step}: {e}") from e
+        if got != expect:
+            raise SnapshotCorruptError(
+                f"checksum mismatch for snapshot step_{step}: arrays.npz "
+                f"hashes to {got[:12]}…, manifest records {expect[:12]}…")
+    try:
+        with np.load(arrays_path) as data:
+            arrays = {k: data[k] for k in data.files}
+    # np.load's failure surface is wide: a zero-byte file raises EOFError and
+    # a mangled header struct.error; a manifest without a checksum reaches
+    # this load unchecked, so both must become a fallback, not a crash.
+    except (OSError, ValueError, zipfile.BadZipFile, KeyError, EOFError,
+            struct.error) as e:
+        raise SnapshotCorruptError(
+            f"unreadable arrays.npz for snapshot step_{step}: {e}") from e
+    values = {}
+    for key, leaf in _flatten_with_paths(like).items():
+        if key in arrays:
+            values[key] = _restore_leaf(arrays[key], leaf)
+        elif key in manifest.get("scalars", {}):
+            values[key] = manifest["scalars"][key]
+        else:
+            raise SnapshotCorruptError(
+                f"snapshot step_{step} missing leaf {key!r}")
+    return _unflatten(like, values)
+
+
+class CheckpointManager:
+    """Retention and optional async IO around :func:`save` and
+    :func:`restore`. With ``async_save`` one write runs at a time on a
+    thread; :meth:`wait` joins it and raises what it raised."""
+
+    def __init__(self, directory: str, keep: int = 3,
+                 async_save: bool = False):
+        self.directory = directory
+        self.keep = keep
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def save(self, step: int, tree, extra: Optional[dict] = None):
+        # The host copy is made here, on the caller's thread, before any
+        # write starts: a later chunk's tensors never reach this snapshot.
+        host = _unflatten(tree, {k: _to_host(v) for k, v in
+                                 _flatten_with_paths(tree).items()})
+
+        def do_save():
+            save(self.directory, step, host, extra)
+            self._gc()
+
+        def on_thread():
+            try:
+                do_save()
+            except BaseException as e:   # noqa: BLE001 — raised by wait()
+                self._error = e
+
+        self.wait()
+        if self.async_save:
+            self._thread = threading.Thread(target=on_thread, daemon=True)
+            self._thread.start()
+        else:
+            do_save()
+
+    def _gc(self):
+        steps = snapshot_steps(self.directory)
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
+                          ignore_errors=True)
+
+    def latest(self) -> Optional[int]:
+        self.wait()
+        return latest_step(self.directory)
+
+    def restore(self, like, step: Optional[int] = None):
+        self.wait()
+        step = step if step is not None else self.latest()
+        if step is None:
+            return None, None
+        return restore(self.directory, step, like), step

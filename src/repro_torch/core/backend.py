@@ -1,0 +1,317 @@
+"""The execution-path registry: every solve driver behind one interface.
+Port of ``repro.core.backend``.
+
+* :class:`Backend`: ``prepare`` resolves the coupling tier and builds (or
+  passes through) the stored operands, ``run`` is the monolithic solve,
+  ``runner`` the chunk-granular driver the resilient supervisor
+  (:mod:`repro_torch.core.resilience`) consumes.
+* :class:`Capabilities`: what each path can serve.
+* :data:`BACKENDS` and :func:`register`: the registry. ``solve``, the
+  supervisor and the registry tests enumerate it.
+
+The port registers three paths: "reference" (the plain PyTorch engine of
+``core.mcmc``), "fused" (the sweep kernel over the dense, ``bitplane`` and
+``bitplane_hbm`` tiers) and "colored" (the colored sweep kernel). The JAX
+package's "tempering", "sharded", "sharded_2d" and "distributed" are later
+slices: :func:`get_backend` raises for each, naming its ROADMAP item.
+
+Chunk-runner protocol (what ``runner()`` returns): ``init() -> state``,
+``run_chunk(state, k) -> state``, ``unit_len(k)``, ``best_energy(state)
+-> float``, ``trace_row(state)``, ``finalize(state, rows) -> result``, and
+the attributes ``total_units``, ``collect_trace``, ``num_replicas``,
+``backend``, ``fmt``. The state is a tuple of tensors on the runner's
+device that round-trips through a snapshot losslessly, and every chunk's
+random numbers are a pure function of (seed, chunk index), with no carried
+RNG state: a fresh runner continues a restored state bitwise. The runners
+are the monolithic solves' own loops (``ops.FusedRunner``,
+``ops.ColoredRunner``, ``solver.ReferenceRunner``; ``runner.drive()`` is
+the monolithic solve), so a run chunk by chunk equals it bitwise.
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Optional
+
+from . import ising
+from .coupling import KERNEL_COUPLING_MODES, CouplingStore, resolve_format
+from .solver import (ReferenceRunner, SolverConfig, _run,  # noqa: F401
+                     require_dense)
+from ..kernels import ops
+from ..kernels.ops import ColoredRunner, FusedRunner  # noqa: F401
+
+#: Backends of the JAX registry that the port has not yet, and the ROADMAP
+#: item that ports each.
+_LATER_BACKENDS = {
+    "tempering": "queue 1 item 9 (tempering)",
+    "sharded": "queue 1 item 12 (multi-GPU)",
+    "sharded_2d": "queue 1 item 12 (multi-GPU)",
+    "distributed": "queue 1 item 12 (multi-GPU)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Capabilities:
+    """What an execution path can serve.
+
+    ``edge_list``       dense-J-free (``EdgeList``) problems.
+    ``needs_mesh``      needs several devices (none of the port's paths).
+    ``supports_store``  accepts a prebuilt ``CouplingStore``.
+    ``supports_resume`` drivable chunk by chunk with bitwise resume.
+    ``tier_fallback``   rides the coupling-tier ladder (``coupling_format=
+                        "auto"`` only).
+    ``fixed_fmt``       the one tier the path serves, or None when the tier
+                        follows ``config.coupling_format``.
+    ``auto``            eligible for ``backend="auto"`` (the reference
+                        engine is explicit-only).
+    """
+    edge_list: bool
+    needs_mesh: bool
+    supports_store: bool
+    supports_resume: bool
+    tier_fallback: bool
+    fixed_fmt: Optional[str] = None
+    auto: bool = True
+    summary: str = ""
+
+
+class Backend(abc.ABC):
+    """One registered execution path. Stateless: every method takes the
+    problem and config, so one instance serves every request."""
+
+    name: str
+    capabilities: Capabilities
+
+    def config_cls(self) -> type:
+        return SolverConfig
+
+    def check_config(self, config) -> None:
+        cls = self.config_cls()
+        if not isinstance(config, cls):
+            raise TypeError(
+                f"backend {self.name!r} consumes {cls.__name__}, got "
+                f"{type(config).__name__}")
+
+    def matches_config(self, config) -> bool:
+        """Whether ``backend="auto"`` may resolve to this path for
+        ``config`` (``flip_mode`` splits ``SolverConfig`` between the
+        single-flip and colored paths)."""
+        return isinstance(config, self.config_cls())
+
+    def prepare(self, problem: ising.IsingProblem, config, *,
+                fmt: Optional[str] = None, store=None):
+        """Resolve the tier and build the stored operands (``fmt`` is the
+        tier ladder's override). None for a path with no separable store."""
+        return None
+
+    @abc.abstractmethod
+    def run(self, problem: ising.IsingProblem, seed, config, *, store=None,
+            device=None):
+        """The monolithic solve."""
+
+    @abc.abstractmethod
+    def runner(self, problem: ising.IsingProblem, seed, config, *,
+               chunk_steps: int = 256, fmt: Optional[str] = None,
+               store=None, device=None):
+        """The chunk-granular driver, bitwise equal to ``run`` under any
+        chunk boundary (the plan of ``chunk_steps``)."""
+
+
+BACKENDS: dict[str, Backend] = {}
+
+
+def register(backend: Backend) -> Backend:
+    """Add an execution path (the latest registration of a name wins, so a
+    test can shadow one)."""
+    BACKENDS[backend.name] = backend
+    return backend
+
+
+def backend_names() -> tuple:
+    return tuple(sorted(BACKENDS))
+
+
+def get_backend(name: str) -> Backend:
+    if name in BACKENDS:
+        return BACKENDS[name]
+    if name in _LATER_BACKENDS:
+        raise NotImplementedError(
+            f"backend={name!r} is not ported yet (ROADMAP "
+            f"{_LATER_BACKENDS[name]})")
+    raise ValueError(
+        f"unknown backend {name!r}: registered backends are "
+        f"{backend_names()}; 'auto' resolves one from the config type")
+
+
+def resolve_backend(config, backend: str = "auto") -> str:
+    """``backend="auto"``: the registered path whose config class and mode
+    match ``config`` ("fused" for single-flip, "colored" for colored
+    configs). An explicit name is checked against the registry."""
+    if backend != "auto":
+        get_backend(backend)
+        return backend
+    cands = [b for _, b in sorted(BACKENDS.items())
+             if b.capabilities.auto and b.matches_config(config)]
+    if not cands:
+        raise TypeError(f"unrecognized config type {type(config).__name__}")
+    return min(cands, key=lambda b: b.capabilities.needs_mesh).name
+
+
+def current_fmt(problem: ising.IsingProblem, config, backend: str,
+                fmt: Optional[str]) -> str:
+    """The tier a run attempt uses: the ladder's override if one is active,
+    the backend's fixed tier if it has one, else the resolved
+    ``config.coupling_format``."""
+    if fmt is not None:
+        return fmt
+    fixed = get_backend(backend).capabilities.fixed_fmt
+    if fixed is not None:
+        return fixed
+    return resolve_format(getattr(config, "coupling_format", "auto"),
+                          problem.coupling_source, problem.num_spins)
+
+
+def fallback_enabled(config, backend: str) -> bool:
+    """Whether the tier ladder applies: the backend opts in and the config
+    left the tier on "auto"."""
+    return (get_backend(backend).capabilities.tier_fallback
+            and getattr(config, "coupling_format", None) == "auto")
+
+
+def capability_rows() -> list:
+    """(name, Capabilities) rows in name order."""
+    return [(name, BACKENDS[name].capabilities) for name in backend_names()]
+
+
+# --------------------------------------------------------------------------
+# The registered execution paths. Their chunk runners are the loops of the
+# monolithic solves themselves (``ops.FusedRunner``, ``ops.ColoredRunner``,
+# ``solver.ReferenceRunner``): ``run`` drives one to the end, the
+# supervisor chunk by chunk.
+
+def _require_single_flip(config, name: str) -> None:
+    """A colored config reaching a single-flip path directly (not through
+    ``backend="auto"``) fails loudly, never runs single-flip sweeps."""
+    if getattr(config, "flip_mode", "single") != "single":
+        raise ValueError(
+            f"backend {name!r} runs single-flip updates (flip_mode="
+            f"{config.flip_mode!r}); colored block updates are served by "
+            "backend='colored'")
+
+
+def _resolve_store(problem, config, *, fmt=None, store=None, caller: str):
+    """A prebuilt store passes through untouched unless the tier ladder's
+    ``fmt`` forces a rebuild (the ladder must not bring back the tier that
+    just failed to allocate); otherwise ``config.coupling_format`` is
+    resolved and encoded once."""
+    if store is None or fmt is not None:
+        store = CouplingStore.build(problem.coupling_source,
+                                    fmt or config.coupling_format)
+    store.require(KERNEL_COUPLING_MODES, caller)
+    return store
+
+
+class ReferenceBackend(Backend):
+    name = "reference"
+    capabilities = Capabilities(
+        edge_list=False, needs_mesh=False, supports_store=False,
+        supports_resume=True, tier_fallback=False, fixed_fmt="dense",
+        auto=False,
+        summary="plain PyTorch one-flip-per-step oracle (core.mcmc), no "
+                "kernel")
+
+    def _check(self, problem, config, store) -> None:
+        self.check_config(config)
+        _require_single_flip(config, self.name)
+        if store is not None:
+            raise ValueError(
+                "a prebuilt CouplingStore serves the fused backend only; "
+                "backend='reference' always reads the dense J")
+        require_dense(problem)
+
+    def run(self, problem, seed, config, *, store=None, device=None):
+        self._check(problem, config, store)
+        return _run(problem, seed, config, device)
+
+    def runner(self, problem, seed, config, *, chunk_steps=256, fmt=None,
+               store=None, device=None):
+        self._check(problem, config, store)
+        return ReferenceRunner(problem, seed, config, chunk_steps, device)
+
+
+class FusedBackend(Backend):
+    name = "fused"
+    capabilities = Capabilities(
+        edge_list=True, needs_mesh=False, supports_store=True,
+        supports_resume=True, tier_fallback=True, fixed_fmt=None,
+        summary="the sweep kernel (csrc/sweep.cu) over the dense, bitplane "
+                "and bitplane_hbm tiers")
+
+    def matches_config(self, config) -> bool:
+        return (isinstance(config, SolverConfig)
+                and config.flip_mode == "single")
+
+    def prepare(self, problem, config, *, fmt=None, store=None):
+        return _resolve_store(problem, config, fmt=fmt, store=store,
+                              caller=f"backend {self.name!r}")
+
+    def run(self, problem, seed, config, *, store=None, device=None):
+        self.check_config(config)
+        return ops.fused_anneal(problem, seed, config, store=store,
+                                device=device)
+
+    def runner(self, problem, seed, config, *, chunk_steps=256, fmt=None,
+               store=None, device=None):
+        self.check_config(config)
+        _require_single_flip(config, self.name)
+        store = self.prepare(problem, config, fmt=fmt, store=store)
+        return FusedRunner(problem, seed, config, chunk_steps=chunk_steps,
+                           store=store, device=device)
+
+
+class ColoredBackend(Backend):
+    name = "colored"
+    capabilities = Capabilities(
+        edge_list=True, needs_mesh=False, supports_store=False,
+        supports_resume=True, tier_fallback=True, fixed_fmt=None,
+        summary="graph-colored block updates (csrc/colored_sweep.cu): one "
+                "color class per step, O(N/χ) flips on sparse instances")
+
+    def matches_config(self, config) -> bool:
+        return (isinstance(config, SolverConfig)
+                and config.flip_mode == "colored")
+
+    def _check(self, config, store) -> None:
+        if getattr(config, "flip_mode", None) != "colored":
+            raise ValueError(
+                f"backend 'colored' serves flip_mode='colored' configs, got "
+                f"{getattr(config, 'flip_mode', None)!r}")
+        if store is not None:
+            # A prebuilt store is in the original spin order; the colored
+            # path runs in color-sorted order.
+            raise ValueError(
+                "backend='colored' rebuilds its store in color-sorted spin "
+                "order; a prebuilt CouplingStore (original order) cannot be "
+                "reused — memoize the ops.colored_plan instead")
+
+    def prepare(self, problem, config, *, fmt=None, store=None):
+        self._check(config, store)
+        return ops.colored_plan(problem, fmt if fmt is not None
+                                else config.coupling_format)
+
+    def run(self, problem, seed, config, *, store=None, device=None):
+        self.check_config(config)
+        self._check(config, store)
+        return ops.colored_anneal(problem, seed, config, device=device)
+
+    def runner(self, problem, seed, config, *, chunk_steps=256, fmt=None,
+               store=None, device=None):
+        self.check_config(config)
+        plan = self.prepare(problem, config, fmt=fmt, store=store)
+        return ColoredRunner(problem, seed, config, chunk_steps=chunk_steps,
+                             plan=plan, device=device)
+
+
+register(ReferenceBackend())
+register(FusedBackend())
+register(ColoredBackend())

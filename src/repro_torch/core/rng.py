@@ -122,6 +122,47 @@ def index_from_uniform(u01: torch.Tensor, n: int) -> torch.Tensor:
     return torch.clamp(j, max=n - 1)
 
 
+#: Largest N for which :func:`uniform_index` uses the float rescaling of
+#: :func:`index_from_uniform` (the sweep's site pick).
+FLOAT_INDEX_MAX_N = 4096
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (partitionable threefry): key i of the split is
+    the hash of the count pair ``(0, i)``, the same as ``fold_in(key, i)``.
+    A ``(..., 2)`` key gives ``(..., num, 2)``."""
+    return fold_in(key[..., None, :],
+                   torch.arange(num, dtype=torch.int64, device=key.device))
+
+
+def randint(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.randint(key, (), 0, n, int32)`` for 0 < n < 2**31: two
+    32-bit draws from the two halves of :func:`split`, combined modulo n in
+    uint32 arithmetic (JAX's ``_randint``; its products wrap at 2**32)."""
+    halves = split(key)
+    higher = bits(halves[..., 0, :], ())
+    lower = bits(halves[..., 1, :], ())
+    multiplier = (1 << 16) % n
+    multiplier = ((multiplier * multiplier) & MASK32) % n
+    offset = (((higher % n) * multiplier) & MASK32) + lower % n
+    return (offset & MASK32) % n
+
+
+def uniform_index(key: torch.Tensor, n: int) -> torch.Tensor:
+    """Uniform site index in [0, n) per key, as int64, equal to
+    ``repro.core.rng.uniform_index``: the float rescaling up to
+    :data:`FLOAT_INDEX_MAX_N`, the exact fixed point ``floor(u·n/2³²)`` up
+    to 2¹⁶, then :func:`randint`."""
+    if n <= FLOAT_INDEX_MAX_N:
+        return index_from_uniform(uniform01(key), n).to(torch.int64)
+    if n <= 1 << 16:
+        u = bits(key, ())
+        hi = u >> 16
+        lo = u & 0xFFFF
+        return (hi * n + ((lo * n) >> 16)) >> 16
+    return randint(key, n)
+
+
 def bernoulli_half(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.bernoulli(key, 0.5, shape)``: JAX's float32 uniform built
     from the top 23 bits (``bits >> 9 | 0x3F800000`` viewed as f32, minus 1)

@@ -1,5 +1,5 @@
-"""Carry the JAX package's problems, planes, configs, fused state, colored
-plans, and LM configs and parameters into the port.
+"""Carry the JAX package's problems, planes, configs, fused state, chain
+state, colored plans, and LM configs and parameters into the port.
 
 Everything crosses as numpy arrays and plain Python values, so this module
 imports neither ``jax`` nor ``repro``: a test converts with ``np.asarray``
@@ -13,6 +13,7 @@ import torch
 from .core.bitplane import BitPlanes
 from .core.coupling import CouplingStore
 from .core.ising import EdgeList, IsingProblem
+from .core.mcmc import ChainState
 from .core.schedules import Schedule
 from .core.solver import SolverConfig
 from .graphs.coloring import Coloring
@@ -76,6 +77,28 @@ def state_from_numpy(state, device=None):
 def state_to_numpy(state):
     """The fused 6-tuple as numpy arrays (float32 and int32)."""
     return tuple(x.detach().cpu().numpy() for x in state)
+
+
+#: dtypes of a reference-engine ``ChainState``, field by field.
+CHAIN_DTYPES = (torch.int8, torch.float32, torch.float32, torch.float32,
+                torch.int8, torch.int32)
+
+
+def chain_state_from_numpy(state, device=None) -> ChainState:
+    """A ``ChainState`` from the reference's (its six fields in order, e.g.
+    ``[np.asarray(x) for x in jax_state]``), batched over any leading axes
+    they carry."""
+    if len(state) != len(ChainState._fields):
+        raise ValueError(f"expected the fields {ChainState._fields}, got "
+                         f"{len(state)} arrays")
+    return ChainState(*(torch.from_numpy(np.array(x)).to(device=device,
+                                                         dtype=dt)
+                        for x, dt in zip(state, CHAIN_DTYPES)))
+
+
+def chain_state_to_numpy(state: ChainState) -> ChainState:
+    """The ``ChainState`` with numpy fields (int8, float32, int32)."""
+    return ChainState(*(x.detach().cpu().numpy() for x in state))
 
 
 def coloring_from_numpy(colors, perm, offsets, num_spins: int) -> Coloring:

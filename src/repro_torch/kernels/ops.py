@@ -9,13 +9,15 @@ sweep launch per chunk: the kernel draws the chunk's ``Salt.SWEEP``
 uniforms itself from the base key's two words (computed on the CPU once
 per solve), and reads its temperatures as a row slice of the solve's
 (num_steps, R) table, computed on the CPU and copied to the card once.
+The loop is :class:`FusedRunner`'s: the monolithic solve runs every chunk
+of it, the resilient supervisor the same chunks with snapshots between.
 
 ``colored_anneal`` is the graph-colored solve (``flip_mode="colored"``):
 the same init and chunk loop on the color-sorted problem of a
 :class:`ColoredPlan`, one keyed ``colored_sweep`` launch per chunk (the
 kernel draws its accept uniforms; the temperatures and the class schedule
 are row slices of tables made once per solve), results mapped back to the
-original vertex order.
+original vertex order; its loop is :class:`ColoredRunner`'s.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from ..core.bitplane import BitPlanes, pack_spins
 from ..core.coupling import (KERNEL_COUPLING_MODES, PLANE_FORMATS,
                              CouplingStore)
 from ..core.pwl import pwl_table as _pwl_table
-from ..core.solver import SolverConfig, SolveResult
+from ..core.solver import (ChunkRunner, SolverConfig,  # noqa: F401
+                           SolveResult, anneal_chunk_plan, chunk_list)
 from ..device import resolve_device
 from ..graphs.coloring import Coloring, greedy_coloring
 from . import bitplane_field as _bitplane_field
@@ -138,21 +141,6 @@ def keyed_sweep_chunk(couplings: Union[torch.Tensor, BitPlanes], state,
     return _merge(state, out, with_rows_fetched)
 
 
-def anneal_chunk_plan(config: SolverConfig, chunk_steps: int):
-    """(chunk_len, num_chunks, rem_steps): with tracing on, chunks are
-    exactly ``trace_every`` steps; otherwise ``chunk_steps`` with a remainder
-    sweep, so the total is ``num_steps``."""
-    if config.trace_every:
-        chunk_len = config.trace_every
-        num_chunks = max(config.num_steps // chunk_len, 1)
-        rem_steps = 0
-    else:
-        chunk_len = max(min(chunk_steps, config.num_steps), 1)
-        num_chunks = config.num_steps // chunk_len
-        rem_steps = config.num_steps - num_chunks * chunk_len
-    return chunk_len, num_chunks, rem_steps
-
-
 def anneal_gather(store: CouplingStore, gather: str, n: int) -> str:
     """Resolve ``gather`` as the JAX package does: plane tiers take the row
     fetch ("onehot" flows through so the sweep raises its dense-only
@@ -240,6 +228,81 @@ def _store_for(problem: ising.IsingProblem, config: SolverConfig, coupling,
     return store.require(KERNEL_COUPLING_MODES, "fused_anneal")
 
 
+def fused_operands(problem: ising.IsingProblem, config: SolverConfig,
+                   device: torch.device, *,
+                   coupling: Union[str, BitPlanes, None] = None,
+                   num_planes: Optional[int] = None,
+                   store: Optional[CouplingStore] = None):
+    """``(problem, store)`` on ``device``: the store :func:`fused_anneal`
+    runs on (built, or a checked prebuilt one) and the problem it solves. A
+    dense store holds the problem's own J, so the card keeps one copy."""
+    store = _store_for(problem, config, coupling, num_planes, store)
+    problem = problem.to(device)
+    store = (dataclasses.replace(store, dense=problem.couplings)
+             if store.dense is not None else store.to(device))
+    return problem, store
+
+
+class FusedRunner(ChunkRunner):
+    """The fused solve as a chunk plan (:class:`~repro_torch.core.solver.
+    ChunkRunner`): the store, the replica init and the solve's temperature
+    table are made once, and chunk k is one :func:`anneal_chunk_step`. The
+    state is the sweep's 6-tuple ``(u, s, e, best_e, best_s, num_flips)``
+    plus the (R,) rows-fetched count, so a resumed run reports the whole
+    run's rows. The arguments are :func:`fused_anneal`'s."""
+
+    backend = "fused"
+
+    def __init__(self, problem: ising.IsingProblem, seed,
+                 config: SolverConfig, *, chunk_steps: int = 256,
+                 block_r: int = 8, gather: str = "dynamic",
+                 coupling: Union[str, BitPlanes, None] = None,
+                 num_planes: Optional[int] = None,
+                 store: Optional[CouplingStore] = None, device=None):
+        if config.flip_mode != "single":
+            raise ValueError(
+                f"fused_anneal runs single-flip sweeps (flip_mode="
+                f"{config.flip_mode!r}); colored block updates are served "
+                "by colored_anneal / the 'colored' backend")
+        self.device = resolve_device(device)
+        self.problem, self.store = fused_operands(
+            problem, config, self.device, coupling=coupling,
+            num_planes=num_planes, store=store)
+        self.fmt = self.store.fmt
+        self._plan(config, chunk_steps)
+        self.gather = anneal_gather(self.store, gather,
+                                    self.problem.num_spins)
+        self.block_r = block_r
+        self.base = rng.fold_in(rng.key(0), int(seed))  # on the CPU
+        self.words = rng.words(self.base)
+        self.pwl = solver_pwl_table(config, device=self.device)
+        self.temps = anneal_temps(config, self.chunk_len, self.chunks,
+                                  self.device)
+
+    def init(self):
+        state = fused_init_state(self.problem, self.base, self.num_replicas,
+                                 planes=self.store.planes)
+        return state + (torch.zeros(self.num_replicas, dtype=torch.int32,
+                                    device=self.device),)
+
+    def run_chunk(self, state, k: int):
+        out, rf = anneal_chunk_step(
+            self.store, state[:6], self.words, k, self.temps[self._rows(k)],
+            config=self.config, gather=self.gather, block_r=self.block_r,
+            pwl_table=self.pwl, with_rows_fetched=True)
+        return out + (state[6] + rf,)
+
+    def best_energy(self, state) -> float:
+        return float(state[3].min()) + float(self.problem.offset)
+
+    def trace_row(self, state):
+        return state[3]
+
+    def finalize(self, state, rows) -> SolveResult:
+        return _result(state[:6], state[6], self._trace(rows),
+                       self.problem.offset, self.config)
+
+
 def fused_anneal(problem: ising.IsingProblem, seed, config: SolverConfig, *,
                  chunk_steps: int = 256, block_r: int = 8,
                  gather: str = "dynamic",
@@ -260,58 +323,21 @@ def fused_anneal(problem: ising.IsingProblem, seed, config: SolverConfig, *,
     encoded in O(nnz) and no (N, N) array is made. ``block_r`` is the
     replica group of the streamed tier's unique-row count. ``device`` as in
     :func:`repro_torch.device.resolve_device`; the problem and store are
-    moved there.
+    moved there. Runs every chunk of :class:`FusedRunner`.
     """
-    if config.flip_mode != "single":
-        raise ValueError(
-            f"fused_anneal runs single-flip sweeps (flip_mode="
-            f"{config.flip_mode!r}); colored block updates are served by "
-            "colored_anneal / the 'colored' backend")
-    dev = resolve_device(device)
-    store = _store_for(problem, config, coupling, num_planes, store)
-    problem = problem.to(dev)
-    # A dense store holds the problem's own J: keep one copy on the card.
-    store = (dataclasses.replace(store, dense=problem.couplings)
-             if store.dense is not None else store.to(dev))
-    n = problem.num_spins
-    r = config.num_replicas
-    gather = anneal_gather(store, gather, n)
-    base = rng.fold_in(rng.key(0), int(seed))   # on the CPU: no device read
-    state = fused_init_state(problem, base, r, planes=store.planes)
-    pwl = solver_pwl_table(config, device=dev)
-    chunk_len, chunks = chunk_list(config, chunk_steps)
-    temps = anneal_temps(config, chunk_len, chunks, dev)
-    words = rng.words(base)
-    rows = torch.zeros(r, dtype=torch.int32, device=dev)
-    trace = []
-    for c, clen in chunks:
-        state, rf = anneal_chunk_step(
-            store, state, words, c,
-            temps[c * chunk_len:c * chunk_len + clen], config=config,
-            gather=gather, block_r=block_r, pwl_table=pwl,
-            with_rows_fetched=True)
-        rows = rows + rf
-        if config.trace_every:  # traced plans have no remainder chunk
-            trace.append(state[3])
-    return _result(state, rows, trace, problem.offset, config)
-
-
-def chunk_list(config: SolverConfig, chunk_steps: int):
-    """``(chunk_len, [(c, clen), ...])``: the chunks of
-    :func:`anneal_chunk_plan`, the remainder chunk last."""
-    chunk_len, num_chunks, rem_steps = anneal_chunk_plan(config, chunk_steps)
-    chunks = [(c, chunk_len) for c in range(num_chunks)]
-    if rem_steps:
-        chunks.append((num_chunks, rem_steps))
-    return chunk_len, chunks
+    return FusedRunner(problem, seed, config, chunk_steps=chunk_steps,
+                       block_r=block_r, gather=gather, coupling=coupling,
+                       num_planes=num_planes, store=store,
+                       device=device).drive()
 
 
 def _result(state, rows: torch.Tensor, trace: list, offset: float,
             config: SolverConfig) -> SolveResult:
     """The ``SolveResult`` of a chunk loop's final state and best-energy
-    trace (one entry per chunk when tracing)."""
+    trace (one entry per chunk when tracing; a run stopped before its first
+    chunk has a (0, R) trace)."""
     _, _, e, be, bs, nf = state
-    if config.trace_every:
+    if config.trace_every and trace:
         trace_energy = (torch.stack(trace) + offset).to(torch.float32)
     else:
         trace_energy = torch.zeros((0, config.num_replicas),
@@ -418,6 +444,18 @@ def colored_class_schedule(wstarts: torch.Tensor, offsets: torch.Tensor,
                        dim=1).to(torch.int32).contiguous()
 
 
+def colored_tables(plan: ColoredPlan, config: SolverConfig, chunk_len: int,
+                   chunks, device):
+    """The colored solve's (steps, R) temperatures and (steps, 3) class
+    schedule, made once per solve; chunk c takes rows ``[c·chunk_len,
+    +clen)`` of both (``plan`` on ``device``)."""
+    temps = anneal_temps(config, chunk_len, chunks, device)
+    sched = colored_class_schedule(
+        plan.wstarts, plan.offsets, plan.sizes,
+        torch.arange(temps.shape[0], device=plan.wstarts.device))
+    return temps, sched
+
+
 def colored_sweep_chunk(couplings, state, base_words, chunk: int,
                         temps: torch.Tensor, sched: torch.Tensor, *,
                         window: int, pwl_table: Optional[torch.Tensor] = None,
@@ -459,6 +497,80 @@ def unpermute_spins(plan: ColoredPlan, spins: torch.Tensor) -> torch.Tensor:
     return spins[..., inv.to(spins.device)]
 
 
+class ColoredRunner(ChunkRunner):
+    """The colored solve as a chunk plan: the plan on the device, the
+    replica init and the solve's temperature and class-schedule tables are
+    made once, and chunk k is one :func:`colored_chunk_step`. The state
+    lives in the plan's color-sorted spin order (the permutation is a pure
+    function of the problem, so a resumed run rebuilds the same layout),
+    with the rows-fetched count as its seventh element; ``finalize`` maps
+    the best spins back to vertex order. The arguments are
+    :func:`colored_anneal`'s."""
+
+    backend = "colored"
+
+    def __init__(self, problem: ising.IsingProblem, seed,
+                 config: SolverConfig, *, chunk_steps: int = 256,
+                 block_r: int = 8, coupling: Optional[str] = None,
+                 num_planes: Optional[int] = None,
+                 plan: Optional[ColoredPlan] = None, device=None):
+        if config.flip_mode != "colored":
+            raise ValueError(
+                f"colored_anneal serves flip_mode='colored' configs, got "
+                f"{config.flip_mode!r} — use fused_anneal / solve()")
+        self.device = resolve_device(device)
+        if plan is None:
+            plan = colored_plan(
+                problem, coupling if coupling is not None
+                else config.coupling_format, num_planes=num_planes)
+        elif coupling is not None:
+            raise ValueError("pass a prebuilt plan= or a coupling= "
+                             "override, not both")
+        elif plan.coloring.num_spins != problem.num_spins:
+            raise ValueError(f"prebuilt ColoredPlan is for N="
+                             f"{plan.coloring.num_spins} but the problem "
+                             f"has N={problem.num_spins}")
+        self.problem = problem
+        self.plan = plan.to(self.device)
+        self.fmt = self.plan.store.fmt
+        self._plan(config, chunk_steps)
+        self.block_r = fit_block(config.num_replicas, block_r)
+        self.base = rng.fold_in(rng.key(0), int(seed))  # on the CPU
+        self.words = rng.words(self.base)
+        self.pwl = solver_pwl_table(config, device=self.device)
+        # The solve's (steps, R) temperatures and (steps, 3) class
+        # schedule, made once; each chunk takes a row slice of both.
+        self.temps, self.sched = colored_tables(
+            self.plan, config, self.chunk_len, self.chunks, self.device)
+
+    def init(self):
+        state = fused_init_state(self.plan.problem, self.base,
+                                 self.num_replicas,
+                                 planes=self.plan.store.planes)
+        return state + (torch.zeros(self.num_replicas, dtype=torch.int32,
+                                    device=self.device),)
+
+    def run_chunk(self, state, k: int):
+        rows = self._rows(k)
+        out, rf = colored_chunk_step(
+            self.plan, state[:6], self.words, k, self.temps[rows],
+            self.sched[rows], block_r=self.block_r, pwl_table=self.pwl,
+            with_rows_fetched=True)
+        return out + (state[6] + rf,)
+
+    def best_energy(self, state) -> float:
+        return float(state[3].min()) + float(self.problem.offset)
+
+    def trace_row(self, state):
+        return state[3]
+
+    def finalize(self, state, rows) -> SolveResult:
+        result = _result(state[:6], state[6], self._trace(rows),
+                         self.plan.problem.offset, self.config)
+        return result._replace(best_spins=unpermute_spins(
+            self.plan, result.best_spins))
+
+
 def colored_anneal(problem: ising.IsingProblem, seed, config: SolverConfig,
                    *, chunk_steps: int = 256, block_r: int = 8,
                    coupling: Optional[str] = None,
@@ -481,49 +593,10 @@ def colored_anneal(problem: ising.IsingProblem, seed, config: SolverConfig,
     overrides ``config.coupling_format`` when no plan is passed. ``block_r``
     is the replica group of ``rows_fetched`` (at most 8 on the card).
     Results are reported in the original vertex order. ``device`` as in
-    :func:`repro_torch.device.resolve_device`.
+    :func:`repro_torch.device.resolve_device`. Runs every chunk of
+    :class:`ColoredRunner`.
     """
-    if config.flip_mode != "colored":
-        raise ValueError(
-            f"colored_anneal serves flip_mode='colored' configs, got "
-            f"{config.flip_mode!r} — use fused_anneal / solve()")
-    dev = resolve_device(device)
-    if plan is None:
-        plan = colored_plan(
-            problem, coupling if coupling is not None
-            else config.coupling_format, num_planes=num_planes)
-    elif coupling is not None:
-        raise ValueError("pass a prebuilt plan= or a coupling= override, "
-                         "not both")
-    elif plan.coloring.num_spins != problem.num_spins:
-        raise ValueError(f"prebuilt ColoredPlan is for N="
-                         f"{plan.coloring.num_spins} but the problem has "
-                         f"N={problem.num_spins}")
-    plan = plan.to(dev)
-    r = config.num_replicas
-    base = rng.fold_in(rng.key(0), int(seed))   # on the CPU: no device read
-    state = fused_init_state(plan.problem, base, r, planes=plan.store.planes)
-    pwl = solver_pwl_table(config, device=dev)
-    chunk_len, chunks = chunk_list(config, chunk_steps)
-    # The solve's (steps, R) temperatures and (steps, 3) class schedule, made
-    # once; each chunk takes a row slice of both.
-    temps = anneal_temps(config, chunk_len, chunks, dev)
-    sched = colored_class_schedule(
-        plan.wstarts, plan.offsets, plan.sizes,
-        torch.arange(temps.shape[0], device=plan.wstarts.device))
-    words = rng.words(base)
-    block_r = fit_block(r, block_r)
-    rows = torch.zeros(r, dtype=torch.int32, device=dev)
-    trace = []
-    for c, clen in chunks:
-        at = c * chunk_len
-        state, rf = colored_chunk_step(
-            plan, state, words, c, temps[at:at + clen],
-            sched[at:at + clen], block_r=block_r, pwl_table=pwl,
-            with_rows_fetched=True)
-        rows = rows + rf
-        if config.trace_every:
-            trace.append(state[3])
-    result = _result(state, rows, trace, plan.problem.offset, config)
-    return result._replace(best_spins=unpermute_spins(plan,
-                                                      result.best_spins))
+    return ColoredRunner(problem, seed, config, chunk_steps=chunk_steps,
+                         block_r=block_r, coupling=coupling,
+                         num_planes=num_planes, plan=plan,
+                         device=device).drive()

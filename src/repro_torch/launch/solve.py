@@ -6,12 +6,26 @@
     PYTHONPATH=src python -m repro_torch.launch.solve --instance sparse16384 \
         --flip-mode colored --coupling-format bitplane_hbm --steps 704
 
-Runs the fused engine (``--flip-mode single``) or the graph-colored one
-(``--flip-mode colored``: one color class per step) and prints the best cut
-and the time per step; the colored run also prints the coloring, flips per
-step and rows fetched. ``sparse<N>`` is the dense-J-free G(N, 8N) ±1 edge
-list, solved on a plane tier. The JAX CLI's other flags (engines, Gset
-files, resilience, TTS) wait for their slices of the port.
+Runs the fused engine (``--engine fused``, the default), the reference
+engine (``--engine scan``: plain PyTorch, no kernel) or the graph-colored
+one (``--flip-mode colored``: one color class per step), and prints the
+best cut and the time per step; the colored run also prints the coloring,
+flips per step and rows fetched. ``sparse<N>`` is the dense-J-free
+G(N, 8N) ±1 edge list, solved on a plane tier.
+
+Long solves run under the resilient supervisor (snapshots, budgets,
+bitwise resume; ``core.resilience.run_resilient``): any flag of the
+resilience group routes there, and colored solves always do. A supervised
+run prints its store or plan build apart (``build_seconds``); its us/step
+is the steps alone.
+
+    PYTHONPATH=src python -m repro_torch.launch.solve --instance k2000 \
+        --run-dir runs/k2000 --deadline-seconds 3600
+    # after a crash or a preemption, the same command resumes where it
+    # stopped
+
+The JAX CLI's other flags (Gset files, TTS, meshes) wait for their slices
+of the port.
 """
 from __future__ import annotations
 
@@ -24,11 +38,12 @@ import torch
 
 from ..configs.snowball import default_solver
 from ..core.coupling import COUPLING_FORMATS
+from ..core.resilience import BudgetConfig, run_resilient
+from ..core.solver import solve
 from ..device import resolve_device
 from ..graphs import (MaxCutInstance, complete_bipolar, erdos_renyi,
                       maxcut_edges_to_ising, maxcut_to_ising,
                       sparse_bipolar_edges)
-from ..kernels.ops import colored_anneal, colored_plan, fused_anneal
 
 
 def build_instance(name: str, seed: int):
@@ -57,13 +72,34 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20000)
     ap.add_argument("--replicas", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", choices=("scan", "fused"), default="fused",
+                    help="scan = the reference engine (plain PyTorch, one "
+                    "flip per step, no kernel); fused = the sweep kernel")
     ap.add_argument("--coupling-format", choices=COUPLING_FORMATS,
                     default="auto", help="the J store (auto: by N and J)")
     ap.add_argument("--flip-mode", choices=("single", "colored"),
                     default="single",
-                    help="single-spin sweeps, or one color class per step")
+                    help="single-spin sweeps, or one color class per step "
+                    "(always supervised)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    res = ap.add_argument_group(
+        "resilience", "crash-safe supervised solve (any of these flags "
+        "routes the run through repro_torch.core.resilience.run_resilient)")
+    res.add_argument("--run-dir", default=None,
+                     help="snapshot directory; rerunning with the same "
+                     "arguments resumes bitwise from the last intact "
+                     "snapshot")
+    res.add_argument("--no-resume", action="store_true",
+                     help="ignore snapshots already in --run-dir")
+    res.add_argument("--deadline-seconds", type=float, default=None,
+                     help="wall-clock budget, checked between chunks")
+    res.add_argument("--target-energy", type=float, default=None,
+                     help="stop once the ensemble best reaches this energy")
+    res.add_argument("--max-steps", type=int, default=None,
+                     help="step budget (may stop before --steps)")
+    res.add_argument("--chunk-steps", type=int, default=256,
+                     help="snapshot and budget granularity")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -83,32 +119,69 @@ def main(argv=None):
                        num_replicas=args.replicas),
         coupling_format=args.coupling_format, flip_mode=args.flip_mode)
     colored = args.flip_mode == "colored"
-    if colored:
-        t0 = time.perf_counter()
-        plan = colored_plan(problem, args.coupling_format)
-        plan_seconds = time.perf_counter() - t0
+    resilient = (colored or args.run_dir is not None
+                 or args.deadline_seconds is not None
+                 or args.target_energy is not None
+                 or args.max_steps is not None)
+    backend = ("colored" if colored
+               else "reference" if args.engine == "scan" else "fused")
+    built = []   # the supervisor's runner builds: (seconds, runner)
+
+    def on_event(kind, info):
+        if kind == "build":
+            built.append((info["seconds"], info["runner"]))
+
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    if colored:
-        result = colored_anneal(problem, args.seed, cfg, plan=plan,
-                                device=dev)
+    if resilient:
+        rr = run_resilient(
+            problem, args.seed, cfg, run_dir=args.run_dir, backend=backend,
+            budget=BudgetConfig(deadline_seconds=args.deadline_seconds,
+                                max_steps=args.max_steps,
+                                target_energy=args.target_energy),
+            chunk_steps=args.chunk_steps, resume=not args.no_resume,
+            on_event=on_event, device=dev)
+        result = rr.result
+        steps_done = rr.steps_done
+        # Steps run in this process: a resumed run skips the restored ones.
+        runner = built[-1][1]
+        steps_run = steps_done - sum(runner.unit_len(k) for k in range(
+            rr.resumed_from_chunk or 0))
     else:
-        result = fused_anneal(problem, args.seed, cfg, device=dev)
+        result = solve(problem, args.seed, cfg, backend, device=dev)
+        steps_done = steps_run = args.steps
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
+    # A supervised run's store or plan build is timed apart from its steps.
+    build_seconds = sum(sec for sec, _ in built)
+    run_seconds = wall - build_seconds
     cuts = (total - result.best_energy.cpu().numpy()) / 2.0
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    per_step = run_seconds / max(steps_run, 1)
     print(f"{label} device={name}")
-    print(f"mode={args.mode} coupling_format={args.coupling_format} "
-          f"steps={args.steps} replicas={args.replicas} "
-          f"wall={wall:.3f}s us/step={wall / args.steps * 1e6:.2f} "
-          f"(host clock around one solve: includes CUDA start-up and the "
-          f"first call's kernel build or load)")
+    build = (f" build_seconds={build_seconds:.3f} (host; not in us/step)"
+             if resilient else "")
+    print(f"mode={args.mode} engine={args.engine} "
+          f"coupling_format={args.coupling_format} steps={args.steps} "
+          f"replicas={args.replicas} wall={wall:.3f}s "
+          f"us/step={per_step * 1e6:.2f}{build} (host clock around one "
+          f"solve: includes CUDA start-up and the first call's kernel "
+          f"build or load)")
+    if resilient:
+        resumed = ("" if rr.resumed_from_chunk is None
+                   else f" resumed_from_chunk={rr.resumed_from_chunk}")
+        downgraded = ("" if not rr.downgrades else
+                      " tier_downgrades=" + ",".join(
+                          f"{a}->{b}@{c}" for a, b, c in rr.downgrades))
+        print(f"stop_reason={rr.stop_reason} steps_done={rr.steps_done}/"
+              f"{args.steps} chunks={rr.chunks_done}/{rr.total_chunks}"
+              f"{resumed}{downgraded}")
     print(f"best cut = {cuts.max():.0f}  (per-replica: "
           f"{np.sort(cuts)[::-1][:8]})")
     if colored:
+        plan = runner.plan
         col = plan.coloring
         flips = float(result.num_flips.sum())
         rows = float(result.rows_fetched.sum())
@@ -116,12 +189,15 @@ def main(argv=None):
               f"color_classes={col.num_classes} "
               f"max_class={col.max_class_size} "
               f"mean_class={col.num_spins / col.num_classes:.1f} "
-              f"window={plan.window} plan_seconds={plan_seconds:.3f} (host)")
-        print(f"flips/step={flips / args.steps:.1f} (ensemble, "
-              f"{args.replicas} replicas) flips/s={flips / wall:.4e} "
+              f"window={plan.window} plan_seconds={build_seconds:.3f} "
+              f"(host: coloring, permutation, encode)")
+        # A resumed run's flips include the restored steps'.
+        rate = (f"{flips / run_seconds:.4e}" if steps_run == steps_done
+                else "n/a (resumed)")
+        print(f"flips/step={flips / max(steps_done, 1):.1f} (ensemble, "
+              f"{args.replicas} replicas) flips/s={rate} "
               f"rows_fetched={rows:.0f} "
-              f"({rows / args.steps:.2f} rows/step)")
-
+              f"({rows / max(steps_done, 1):.2f} rows/step)")
 
 if __name__ == "__main__":
     main()

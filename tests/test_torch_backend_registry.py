@@ -1,0 +1,203 @@
+"""The port's backend registry (``repro_torch.core.backend``): the port of
+``tests/test_backend_registry.py`` over its three registered paths.
+
+Every registered path is a ``Backend`` and holds the driver contract
+through the registry alone, on the CPU:
+
+* **runner / monolithic parity**: the chunked runner driven to the end
+  equals ``Backend.run`` bitwise, every ``SolveResult`` field
+  (``rows_fetched`` included: the fused and colored runners carry it in
+  their state);
+* **resume parity**: a mid-run state handed to a freshly built runner
+  continues to the same result bitwise (no RNG state lives in a runner).
+
+The parity tests parametrize over ``backend_names()``, so a path that
+registers joins them. The JAX registry's "tempering", "sharded",
+"sharded_2d" and "distributed" are later slices and raise, naming their
+ROADMAP items.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import ising, schedules
+from repro_torch.core.backend import (BACKENDS, Backend, backend_names,
+                                      capability_rows, fallback_enabled,
+                                      get_backend, resolve_backend)
+from repro_torch.core.resilience import STOP_COMPLETED, run_resilient
+from repro_torch.core.solver import SolverConfig, solve
+
+N = 64
+STEPS = 120
+TRACE = 20
+REPLICAS = 4
+FIELDS = ("best_energy", "best_spins", "final_energy", "num_flips",
+          "trace_energy", "rows_fetched")
+
+#: Every execution path the port ships.
+EXPECTED = ("colored", "fused", "reference")
+LATER = ("tempering", "sharded", "sharded_2d", "distributed")
+
+
+def _problem():
+    g = np.random.default_rng(0)
+    J = np.clip(np.rint(g.normal(size=(N, N)) * 1.5), -3, 3)
+    J = np.triu(J, 1)
+    J = J + J.T
+    h = g.normal(size=(N,)).astype(np.float32)
+    return ising.IsingProblem.create(J, h, offset=1.5)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return _problem()
+
+
+def _scfg(**kw):
+    return SolverConfig(num_steps=STEPS,
+                        schedule=schedules.linear(3.0, 0.1, STEPS),
+                        mode="rwa", num_replicas=REPLICAS, trace_every=TRACE,
+                        **kw)
+
+
+def _setup(name):
+    return _scfg(flip_mode="colored") if name == "colored" else _scfg()
+
+
+def _assert_same(mono, got):
+    for field in FIELDS:
+        a, b = getattr(mono, field), getattr(got, field)
+        if a is None or b is None:
+            assert a is None and b is None, field
+            continue
+        assert a.dtype == b.dtype and torch.equal(a, b), field
+
+
+def _drive(runner, *, state=None, rows=None, start=0, stop=None):
+    if state is None:
+        state = runner.init()
+    rows = list(rows or [])
+    stop = runner.total_units if stop is None else stop
+    for k in range(start, stop):
+        state = runner.run_chunk(state, k)
+        if runner.collect_trace:
+            rows.append(runner.trace_row(state))
+    return state, rows
+
+
+class TestRoster:
+    def test_every_execution_path_is_registered(self):
+        assert backend_names() == EXPECTED
+        for name in backend_names():
+            assert isinstance(get_backend(name), Backend)
+            assert get_backend(name).name == name
+            assert BACKENDS[name] is get_backend(name)
+
+    def test_unknown_backend_error_lists_the_registry(self):
+        with pytest.raises(ValueError, match="registered backends are"):
+            get_backend("nope")
+        for name in backend_names():
+            with pytest.raises(ValueError, match=name):
+                get_backend("nope")
+
+    @pytest.mark.parametrize("name", LATER)
+    def test_later_backends_raise_naming_their_item(self, name, problem):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+            get_backend(name)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            solve(problem, 0, _scfg(), backend=name, device="cpu")
+
+    def test_capability_table_covers_every_backend(self):
+        rows = capability_rows()
+        assert [r[0] for r in rows] == list(backend_names())
+        caps = {n: get_backend(n).capabilities for n in backend_names()}
+        assert caps["reference"].fixed_fmt == "dense"
+        assert not caps["reference"].edge_list
+        assert not caps["reference"].auto
+        assert not caps["reference"].tier_fallback
+        assert caps["fused"].edge_list and caps["fused"].tier_fallback
+        assert caps["fused"].supports_store
+        assert caps["colored"].edge_list and caps["colored"].tier_fallback
+        assert not caps["colored"].supports_store
+        for c in caps.values():
+            assert c.supports_resume, "every registered path must resume"
+            assert not c.needs_mesh
+
+    def test_auto_resolves_from_config(self):
+        assert resolve_backend(_scfg()) == "fused"
+        assert resolve_backend(_scfg(flip_mode="colored")) == "colored"
+        assert resolve_backend(_scfg(), "reference") == "reference"
+        with pytest.raises(TypeError, match="unrecognized config"):
+            resolve_backend(object())
+        with pytest.raises(ValueError, match="unknown backend"):
+            resolve_backend(_scfg(), "nope")
+
+    def test_config_type_mismatch_is_rejected(self):
+        for name in backend_names():
+            with pytest.raises(TypeError, match="SolverConfig"):
+                get_backend(name).check_config({"num_steps": 1})
+
+    def test_tier_fallback_needs_auto_and_the_capability(self):
+        assert fallback_enabled(_scfg(), "fused")
+        assert not fallback_enabled(_scfg(coupling_format="dense"), "fused")
+        assert not fallback_enabled(_scfg(), "reference")
+
+    def test_solve_dispatches_through_the_registry(self, problem):
+        cfg = _scfg()
+        _assert_same(solve(problem, 7, cfg, "auto", device="cpu"),
+                     solve(problem, 7, cfg, device="cpu"))
+        colored = _scfg(flip_mode="colored")
+        _assert_same(solve(problem, 7, colored, "auto", device="cpu"),
+                     solve(problem, 7, colored, "colored", device="cpu"))
+        with pytest.raises(ValueError, match="single-flip"):
+            get_backend("reference").run(problem, 7, colored, device="cpu")
+        with pytest.raises(ValueError, match="color-sorted"):
+            get_backend("colored").run(problem, 7, colored, device="cpu",
+                                       store=object())
+        with pytest.raises(ValueError, match="dense J"):
+            get_backend("reference").run(problem, 7, cfg, device="cpu",
+                                         store=object())
+
+
+@pytest.mark.parametrize("name", backend_names())
+class TestRegistryParity:
+    def test_chunked_runner_matches_monolithic(self, problem, name):
+        backend = get_backend(name)
+        cfg = _setup(name)
+        mono = backend.run(problem, 7, cfg, device="cpu")
+        runner = backend.runner(problem, 7, cfg, device="cpu")
+        state, rows = _drive(runner)
+        _assert_same(mono, runner.finalize(state, rows))
+
+    def test_untraced_runner_matches_monolithic(self, problem, name):
+        """Untraced: the runner's plan is its ``chunk_steps`` with a
+        remainder chunk; the monolithic solve's default plan is 256 steps,
+        so the runner takes the same."""
+        backend = get_backend(name)
+        cfg = dataclasses.replace(_setup(name), num_steps=600, trace_every=0)
+        mono = backend.run(problem, 3, cfg, device="cpu")
+        runner = backend.runner(problem, 3, cfg, device="cpu")
+        assert runner.total_units == 3
+        _assert_same(mono, runner.finalize(*_drive(runner)))
+
+    def test_fresh_runner_resumes_bit_identically(self, problem, name):
+        backend = get_backend(name)
+        cfg = _setup(name)
+        runner = backend.runner(problem, 7, cfg, device="cpu")
+        assert runner.total_units >= 2, "parity needs a real chunk split"
+        split = runner.total_units // 2
+        state, rows = _drive(runner, stop=split)
+        resumed = backend.runner(problem, 7, cfg, device="cpu")
+        state, rows = _drive(resumed, state=state, rows=rows, start=split)
+        _assert_same(backend.run(problem, 7, cfg, device="cpu"),
+                     resumed.finalize(state, rows))
+
+
+def test_resilient_supervisor_accepts_every_registered_backend(problem):
+    for name in backend_names():
+        res = run_resilient(problem, 7, _setup(name), backend=name,
+                            device="cpu")
+        assert res.stop_reason == STOP_COMPLETED, name
+        assert bool(torch.isfinite(res.result.best_energy).all())

@@ -5,7 +5,7 @@ entry points with no device raise when there is no card (they never fall
 back to the CPU); unported backends and tiers raise naming their ROADMAP
 item, and the fused path refuses a colored config, as do the LM archs that
 need blocks the port lacks; the CLI runs end to end on the CPU when asked,
-single-flip and colored.
+single-flip, colored and supervised.
 """
 import pkgutil
 import subprocess
@@ -81,8 +81,7 @@ def test_entry_points_raise_without_a_card():
 def test_unported_backends_and_options_raise():
     problem = maxcut_to_ising(complete_bipolar(16, seed=0))
     cfg = default_solver(16, 8, mode="rsa")
-    for backend in ("reference", "tempering", "sharded", "sharded_2d",
-                    "distributed", "auto"):
+    for backend in ("tempering", "sharded", "sharded_2d", "distributed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             solve(problem, 0, cfg, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
@@ -126,6 +125,12 @@ def test_colored_cli_runs_on_the_cpu_when_asked():
     assert out.returncode == 0, out.stderr
     assert "color_classes=" in out.stdout and "flips/step=" in out.stdout
     assert "best cut =" in out.stdout and "rows_fetched=" in out.stdout
+    # The plan's stats come from the supervised run's own plan, and its
+    # build time is printed apart from the steps'.
+    assert "coupling_format=bitplane color_classes=" in out.stdout
+    assert "window=" in out.stdout and "plan_seconds=" in out.stdout
+    assert "build_seconds=" in out.stdout
+    assert "stop_reason=completed" in out.stdout
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
