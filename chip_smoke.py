@@ -33,6 +33,20 @@ results:
   launches per chunk (6), the three tiers' colored trajectories bitwise
   equal, the card's small colored solves and a sparse N=32768 one equal
   to the CPU's;
+* parallel tempering (``[tempering]``): kernel A with a distinct
+  temperature column per replica (a ladder, a random table) against its
+  plain version on every tier at 1 block and 8, T = 1, 10, 256; K2000
+  ``solve_tempering(TemperingConfig(20000, 0.05, sqrt(2000), 8 rungs, a
+  swap every 10 steps, backend="fused"))``, RSA + PWL, bitwise the CPU's
+  over a 2,000-step prefix round by round, then in full with its launches
+  per round, and under ``run_resilient`` after a crash; sparse N=16384
+  ``bitplane_hbm`` RWA tempering with its invariants;
+* time to solution (``[tts]``): K2000 at Table III's 33,000 cut, RSA and
+  RWA over 4 seeds x R=8 at 2,000, 5,000 and 20,000 steps beside
+  tempering at 20,000: P_a, t_a and TTS(0.99);
+* the workloads (``[workloads]``): the CLI on the card on a torus, a small
+  world and two Gset files, and ``greedy_descent`` on the TTS runs' best
+  spins against the CPU's;
 * the LM serving path: qwen2-7b at full width and depth in bf16 with
   weights made on the card from a seed, ``forward(cfg, params,
   tokens=(4, 4096))`` through the flash-attention kernel's tensor-core
@@ -105,6 +119,11 @@ POPC_PER_CLOCK_SM = 16
 #: 20 rounds of add, rotate and xor, five key injections of three adds, the
 #: two initial adds, the xor of the two words, the conversion and the scale.
 THREEFRY_OPS = 80
+#: CUDA API calls that put work on the device from the host (a CUDA-graph
+#: replay is one), counted in a profile beside device events.
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
 
 #: Kernel A's ms per 256-step launch in its earlier design (one block per
 #: replica, uniforms drawn on the host; PERF.md §6 rows 1, 1b, 1c, on an H100
@@ -212,10 +231,12 @@ SINGLE_FLIP_RATE: dict = {}
 MAIN_PATHS: dict = {}
 
 
-def check(cond, msg: str) -> None:
+def check(cond, msg: str, quiet: bool = False) -> None:
+    """Raise on a failed check; print a passed one unless ``quiet``."""
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
-    print(f"  ok: {msg}")
+    if not quiet:
+        print(f"  ok: {msg}")
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -428,6 +449,8 @@ def profile_device(run, top: int = 8, tag: str = "[profile]"):
     return {"wall": wall, "busy": busy, "rows": [(us / 1e6, c, k)
                                                  for us, c, k in rows],
             "events": sum(count for _, count, _ in rows),
+            "host_calls": sum(ev.count for ev in prof.key_averages()
+                              if ev.key in HOST_LAUNCH_CALLS),
             "sweep_s": sum(us for us, _, key in rows
                            if "sweep_kernel" in key) / 1e6}
 
@@ -2327,6 +2350,494 @@ def stat_phase() -> None:
           f"chi2 {x2:.2f} (df {df}, gate {2 * crit:.2f}); {wall:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# Parallel tempering, time to solution and the workloads (slice 10).
+
+#: Steps of the tempering main paths, of their card-against-CPU prefix, and
+#: the ladder: 8 rungs from sqrt(N) down to 0.05, a swap every 10 steps.
+TEMPER_STEPS = 20000
+TEMPER_PREFIX = 2000
+TEMPER_EVERY = 10
+TEMPER_T_MIN = 0.05
+#: Swap rounds between snapshots in the supervised tempering check.
+TEMPER_CKPT_EVERY = 100
+#: A swap whose uniform lies within this many ulp of its probability may
+#: go either way between the CPU's exp and the card's.
+TIE_ULPS = 4
+#: Kernel A with a distinct temperature column per replica: the chunk
+#: lengths (one step, a tempering round, a main-path chunk) and widths.
+LADDER_TS = (1, 10, 256)
+LADDER_WIDTHS = (1, 8)
+#: Time to solution on K2000 (paper Table III's target cut): seeds of
+#: ``solve_many`` (R=8 each, so 32 runs) and the step budgets.
+TTS_SEEDS = 4
+TTS_BUDGETS = (2000, 5000, 20000)
+#: The CLI's dense workloads on the card: torus<side> and sw<N>.
+TORUS_SIDE = 64
+SW_N = 2000
+WORK_ROOT = Path(__file__).resolve().parent / "build" / "workloads"
+#: Launches of this slice's main paths, by the ``kernels`` row they add to.
+EXTRA_LAUNCHES: dict = {}
+#: The K2000 TTS runs' best spins and energies (RWA, the longest budget),
+#: refined by ``greedy_descent`` in ``[workloads]``.
+TTS_BEST: dict = {}
+
+
+def tempering_config(n: int, steps: int, mode: str, fmt: str = "auto"):
+    from repro_torch.core.tempering import TemperingConfig
+
+    return TemperingConfig(num_steps=steps, t_min=TEMPER_T_MIN,
+                           t_max=math.sqrt(n), num_replicas=R,
+                           swap_every=TEMPER_EVERY, mode=mode,
+                           backend="fused", coupling_format=fmt)
+
+
+def sweep_row(fmt: str, mode: str) -> str:
+    """The ``kernels`` row of kernel A on tier ``fmt``."""
+    return f"mcmc_sweep[{mode}]" if fmt == "dense" else \
+        f"mcmc_sweep[{fmt},{mode}]"
+
+
+def add_launches(counts: dict, fmt: str, mode: str) -> None:
+    """Add a main path's launch counts to the rows of its kernels."""
+    init = "local_field_init" if fmt == "dense" else "bitplane_field_init"
+    for row, kernel in ((sweep_row(fmt, mode), "mcmc_sweep"),
+                        (init, init)):
+        EXTRA_LAUNCHES[row] = EXTRA_LAUNCHES.get(row, 0) + counts[kernel]
+
+
+def ladder_kernel_checks() -> None:
+    """[kernels] kernel A with a distinct temperature column per replica
+    (the ladder, and a random table) against its plain version, RSA + PWL,
+    at 1 block and at a cluster of 8, on every tier, T = 1, 10 and 256,
+    reading the uniforms and drawing them itself."""
+    print("[kernels] mcmc_sweep with a temperature column per replica "
+          f"(a ladder, a random table) against its plain version: RSA + "
+          f"PWL, R={R}, T in {LADDER_TS}, widths {LADDER_WIDTHS}")
+    tbl = ops.solver_pwl_table(default_solver(N, 1, mode="rsa"),
+                               device="cuda")
+    segs = tbl.shape[0] - 1
+    k2 = maxcut_to_ising(complete_bipolar(N, seed=SEED), device="cuda")
+    k4 = maxcut_to_ising(complete_bipolar(K_PLANE_N, seed=K_PLANE_N))
+    edges = sparse_bipolar_edges(SPARSE_N, SPARSE_EDGES, seed=SPARSE_N)
+    tiers = (("dense", k2.couplings, k2.fields),
+             ("bitplane", CouplingStore.build(k4.couplings, "bitplane")
+              .to("cuda").planes, torch.zeros(K_PLANE_N, device="cuda")),
+             ("bitplane_hbm", CouplingStore.build(edges, "bitplane_hbm")
+              .to("cuda").planes, torch.zeros(SPARSE_N, device="cuda")))
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    words = rng.words(rng.fold_in(rng.key(0), SEED))
+    names = ("u", "s", "e", "best_e", "best_s", "num_flips", "rows_fetched")
+    worst, runs = 0.0, 0
+    for fmt, operand, h in tiers:
+        n = h.shape[0]
+        fits = sweep.widths(n, common.default_lane(n), segs, False)
+        for t in LADDER_TS:
+            ones = torch.ones(t)
+            if fmt == "dense":
+                u0, s0, e0, unif, _ = sweep_inputs(k2, R, t, ones, SEED + t)
+            else:
+                u0, s0, e0, unif, _ = plane_inputs(operand, h, R, t, ones,
+                                                   SEED + t)
+            ladder = torch.from_numpy(np.geomspace(
+                math.sqrt(n), TEMPER_T_MIN, R).astype(np.float32)).cuda()
+            tables = {"ladder": ladder[None].expand(t, R).contiguous(),
+                      "random": 0.05 + 2.0 * math.sqrt(n) * torch.rand(
+                          (t, R), generator=gen, device="cuda")}
+            drawn = rng.uniform01(rng.stream(rng.from_words(*words),
+                                             rng.Salt.SWEEP, t),
+                                  (t, R, 4)).cuda()
+            for tname, temps in tables.items():
+                for uni, kw in ((unif, {"uniforms": unif}),
+                                (drawn, {"base_words": words, "chunk": t})):
+                    want = ref.mcmc_sweep(operand, u0, s0, e0, uni, temps,
+                                          tbl, mode="rsa", coupling=fmt)
+                    for width in LADDER_WIDTHS:
+                        if width not in fits:
+                            print(f"[kernels]   {fmt} N={n}: width {width} "
+                                  f"does not fit (fits {fits}); skipped")
+                            continue
+                        got = sweep.mcmc_sweep_at_width(
+                            width, operand, u0, s0, e0, temps, tbl,
+                            mode="rsa", coupling=fmt, **kw)
+                        label = (f"{fmt} T={t} {tname} width {width} "
+                                 f"{'keyed' if 'chunk' in kw else 'read'}")
+                        for name, a, b in zip(names, got, want):
+                            check(torch.equal(a, b), f"{label}: {name} "
+                                  "bit-equal to plain", quiet=True)
+                        worst = max(worst, max_abs_err(got, want))
+                        runs += 1
+    print(f"[kernels] per-replica temperature columns: {runs} launches "
+          f"bitwise their plain version (max |err| {worst})")
+
+
+class SwapMargins:
+    """Records every active swap decision of the CPU's tempering runs: the
+    gap between its uniform and its probability in ulps of the probability,
+    by round (a spy on ``tempering.swap_permutation``; the card's calls
+    pass through untouched, with no read back)."""
+
+    def __init__(self):
+        from repro_torch.core import tempering
+
+        self.module = tempering
+        self.inner = tempering.swap_permutation
+        self.rounds = []
+
+    def __enter__(self):
+        inner, rounds = self.inner, self.rounds
+        inactive = self.module.INACTIVE_UNIFORM
+
+        def spy(energy, uniforms, dbeta):
+            if energy.device.type == "cpu":
+                even = uniforms.clone()
+                even[1] = inactive
+                perm0, _ = inner(energy, even, dbeta)
+                gaps = []
+                for k, e in ((0, energy), (1, energy[perm0])):
+                    p = torch.clamp(torch.exp(torch.clamp(
+                        dbeta * (e[:-1] - e[1:]), -80.0, 80.0)), max=1.0)
+                    u = uniforms[k]
+                    pn = p.numpy().astype(np.float32)
+                    with np.errstate(over="ignore"):
+                        gap = np.abs(u.numpy() - pn) / np.spacing(pn)
+                    gaps += gap[(u <= 1.0).numpy()].tolist()
+                rounds.append(gaps)
+            return inner(energy, uniforms, dbeta)
+
+        self.module.swap_permutation = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.swap_permutation = self.inner
+
+
+def launches_per_round(problem, cfg, store=None) -> tuple:
+    """``(device events, host launch calls)`` per tempering round: those of
+    a 600-round solve less those of a 200-round one, over 400 (the set-up's
+    cancel). Device events are the kernels, copies and fills the device
+    ran (a CUDA graph's nodes each count); host launch calls are the
+    runtime calls of :data:`HOST_LAUNCH_CALLS` (a graph replay is one)."""
+    from repro_torch.core.tempering import solve_tempering
+
+    events, calls = [], []
+    for rounds in (200, 600):
+        c = dataclasses.replace(cfg, num_steps=rounds * cfg.swap_every)
+        prof = profile_device(lambda c=c: solve_tempering(
+            problem, SEED, c, store=store), top=0,
+            tag="[tempering]   launches:")
+        if prof is None:
+            raise RuntimeError("the profiler saw no device events")
+        events.append(prof["events"])
+        calls.append(prof["host_calls"])
+    return ((events[1] - events[0]) / 400, (calls[1] - calls[0]) / 400)
+
+
+def tempering_phase() -> None:
+    """[tempering]: the tempering main paths on the card — K2000 dense RSA
+    (bitwise the CPU's over a 2,000-step prefix, then 20,000 steps;
+    supervised, crashed and resumed) and sparse N=16384 ``bitplane_hbm``
+    RWA — with their launches per round."""
+    import shutil
+
+    from repro_torch.core.resilience import run_resilient
+    from repro_torch.core.tempering import (TemperingRunner,
+                                            solve_tempering,
+                                            tempering_round_count)
+
+    print(f"[tempering] {nvidia_smi()}")
+    t0 = time.perf_counter()
+    ladder_kernel_checks()
+    print(f"[tempering] the column checks took {time.perf_counter() - t0:.1f} s")
+    inst = complete_bipolar(N, seed=SEED)
+    problem = maxcut_to_ising(inst, device="cuda")
+    cfg = tempering_config(N, TEMPER_STEPS, "rsa")
+    rounds = tempering_round_count(cfg)
+    print(f"[tempering] K2000 dense: {cfg}")
+
+    pre = dataclasses.replace(cfg, num_steps=TEMPER_PREFIX)
+    card_run = TemperingRunner(problem, SEED, pre)
+    cpu_run = TemperingRunner(problem, SEED, pre, device="cpu")
+    split = None
+    t0 = time.perf_counter()
+    with SwapMargins() as margins:
+        cs, hs = card_run.init(), cpu_run.init()
+        for k in range(card_run.total_units):
+            cs, hs = card_run.run_chunk(cs, k), cpu_run.run_chunk(hs, k)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(cs, hs)):
+                split = k
+                break
+    gaps = [g for r in margins.rounds for g in r]
+    near = sum(g <= TIE_ULPS for g in gaps)
+    if split is None:
+        check(same_result(card_run.finalize(cs, []),
+                          cpu_run.finalize(hs, [])),
+              f"K2000 tempering, {TEMPER_PREFIX} steps ({len(gaps)} swap "
+              "decisions): the card == the CPU bitwise, round by round "
+              "(every state tensor), and best energies, best spins, "
+              "num_flips, swap_acceptance")
+    else:
+        check(min(margins.rounds[split]) <= TIE_ULPS,
+              f"K2000 tempering: the card splits from the CPU at round "
+              f"{split}, where a swap lies within {TIE_ULPS} ulp "
+              f"(smallest {min(margins.rounds[split]):.1f})")
+    print(f"[tempering] prefix: {len(gaps)} swap decisions, {near} within "
+          f"{TIE_ULPS} ulp of their probability, smallest gap "
+          f"{min(gaps):.1f} ulp; split at round {split} (lockstep "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    reset_all_counts()
+    res, wall = timed(lambda: solve_tempering(problem, SEED, cfg))
+    counts = read_all_counts()
+    print(f"[tempering] K2000 launches: {counts}")
+    check(counts["mcmc_sweep"] == rounds and counts["local_field_init"] == 1,
+          f"K2000 tempering: kernel A once a round ({rounds}), kernel B "
+          "once")
+    add_launches(counts, "dense", "rsa")
+    check(torch.equal(res.best_energy, ising.energy(problem,
+                                                    res.best_spins)),
+          "K2000 tempering: best_energy == energy(best_spins) exactly")
+    acc = float(res.swap_acceptance)
+    check(0.0 < acc < 1.0, f"K2000 tempering: swap acceptance {acc:.4f} in "
+          "(0, 1)")
+    cuts = cut_from_energy(inst, res.best_energy.cpu().numpy())
+    fused = MAIN_PATHS.get(("dense", "rsa"), {}).get("us_step", math.nan)
+    # The host clock spreads on a shared host: two more solves, and the
+    # supervised loop between them.
+    walls = [wall] + [timed(lambda: solve_tempering(problem, SEED, cfg))[1]
+                      for _ in range(2)]
+    us = float(np.median(walls)) / TEMPER_STEPS * 1e6
+    prof = profile_device(lambda: solve_tempering(problem, SEED, cfg), top=4,
+                          tag="[tempering] K2000 profile:")
+    per_round, host_round = launches_per_round(problem, cfg)
+    check(host_round <= 3, f"K2000 tempering: {host_round:.2f} host launch "
+          "calls a round (the sweep, the uniform row, the graph replay)")
+    kernel_us = (math.nan if prof is None
+                 else prof["sweep_s"] / TEMPER_STEPS * 1e6)
+    print(f"[tempering] K2000 dense rsa: {us:.3f} us/step (host clock, "
+          f"median of {[round(w / TEMPER_STEPS * 1e6, 3) for w in walls]}; "
+          f"the fused solve {fused:.3f}, {us / fused:.2f}x), kernel A's own "
+          f"{kernel_us:.3f} us/step, {per_round:.2f} device events and "
+          f"{host_round:.2f} host launch calls per round (the merge and "
+          f"swap replayed as one CUDA graph), swap acceptance {acc:.4f}, "
+          f"best cut {cuts.max():.0f} "
+          f"(per rung {np.round(cuts).astype(int).tolist()}); "
+          f"{nvidia_smi()}")
+
+    print(f"[tempering] run_resilient(backend='tempering') at K2000 against "
+          f"solve_tempering, a snapshot every {TEMPER_CKPT_EVERY} rounds")
+    bare, bare_s = timed(lambda: run_resilient(problem, SEED, cfg,
+                                               backend="tempering"))
+    _, mono_s = timed(lambda: solve_tempering(problem, SEED, cfg))
+    check(bare.stop_reason == "completed" and same_result(res, bare.result),
+          "supervised tempering == solve_tempering bitwise")
+    run_dir = RUN_ROOT / "tempering"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    mid = rounds // 2
+    try:
+        run_resilient(problem, SEED, cfg, str(run_dir), backend="tempering",
+                      checkpoint_every=TEMPER_CKPT_EVERY,
+                      on_event=crash_after(mid))
+        raise RuntimeError("the simulated crash did not happen")
+    except SimulatedCrash:
+        pass
+    again, again_s = timed(lambda: run_resilient(
+        problem, SEED, cfg, str(run_dir), backend="tempering",
+        checkpoint_every=TEMPER_CKPT_EVERY))
+    check(again.resumed_from_chunk == mid and same_result(res, again.result),
+          f"tempering crashed after round {mid}, resumed from it == "
+          f"solve_tempering bitwise (swap_acceptance too)")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print(f"[tempering] supervised: {bare_s / TEMPER_STEPS * 1e6:.3f} us/step "
+          f"without snapshots, solve_tempering right after it "
+          f"{mono_s / TEMPER_STEPS * 1e6:.3f}; the resumed half "
+          f"{again_s:.3f} s")
+
+    edges = sparse_bipolar_edges(SPARSE_N, SPARSE_EDGES, seed=SPARSE_N)
+    sp = ising.IsingProblem.create_sparse(edges, device="cuda")
+    scfg = tempering_config(SPARSE_N, TEMPER_STEPS, "rwa", "bitplane_hbm")
+    store = CouplingStore.build(edges, "bitplane_hbm")
+    print(f"[tempering] sparse N={SPARSE_N} (nnz {edges.nnz}): {scfg}")
+    reset_all_counts()
+    sres, swall = timed(lambda: solve_tempering(sp, SEED, scfg, store=store))
+    counts = read_all_counts()
+    check(counts["mcmc_sweep"] == rounds
+          and counts["bitplane_field_init"] == 1,
+          f"sparse tempering: kernel A once a round ({rounds}), kernel C "
+          "once")
+    add_launches(counts, "bitplane_hbm", "rwa")
+    exact = edge_energy(edges, sp.fields, sres.best_spins)
+    check(torch.equal(sres.best_energy.to(torch.float64), exact),
+          "sparse tempering: best_energy == energy(best_spins) exactly "
+          "(from the edge list, in float64)")
+    sacc = float(sres.swap_acceptance)
+    check(0.0 < sacc < 1.0, f"sparse tempering: swap acceptance {sacc:.4f} "
+          "in (0, 1)")
+    sper_round, shost_round = launches_per_round(sp, scfg, store)
+    cut = (-float(edges.weights.sum()) - sres.best_energy.min().item()) / 2
+    print(f"[tempering] sparse N={SPARSE_N} bitplane_hbm rwa: "
+          f"{swall / TEMPER_STEPS * 1e6:.3f} us/step (host clock, store "
+          f"prebuilt; the fused solve "
+          f"{MAIN_PATHS.get(('bitplane_hbm', 'rwa'), {}).get('us_step', math.nan):.3f}), "
+          f"{sper_round:.2f} device events and {shost_round:.2f} host "
+          f"launch calls per round, swap acceptance "
+          f"{sacc:.4f}, best energy {sres.best_energy.min().item():.0f} "
+          f"(cut {cut:.0f}, weights -J); {nvidia_smi()}")
+
+
+def tts_phase() -> None:
+    """[tts]: time to solution on K2000 at Table III's 33,000 cut — RSA and
+    RWA over 4 seeds x R=8 at three budgets, and parallel tempering at the
+    longest — with the JAX CLI's convention (each replica a run taking
+    wall / runs)."""
+    from repro_torch.core import tts
+    from repro_torch.core.solver import solve_many
+    from repro_torch.core.tempering import (solve_tempering,
+                                            tempering_round_count)
+
+    inst = complete_bipolar(N, seed=SEED)
+    problem = maxcut_to_ising(inst, device="cuda")
+    target = K2000.target_cut
+    runs_n = TTS_SEEDS * R
+    print(f"[tts] K2000 (complete_bipolar(2000, seed=0)), target cut "
+          f"{target:.0f}: {TTS_SEEDS} seeds x R={R} = {runs_n} runs per "
+          f"budget, t_a = wall / {runs_n}; {nvidia_smi()}")
+    rows = []
+    for mode in ("rsa", "rwa"):
+        for steps in TTS_BUDGETS:
+            cfg = default_solver(N, steps, mode=mode)
+            reset_all_counts()
+            runs, wall = timed(lambda: solve_many(problem,
+                                                  range(TTS_SEEDS), cfg))
+            counts = read_all_counts()
+            check(counts["mcmc_sweep"] == TTS_SEEDS * math.ceil(steps / T)
+                  and counts["local_field_init"] == TTS_SEEDS,
+                  f"tts {mode} {steps}: kernels A and B launched "
+                  f"({counts})")
+            add_launches(counts, "dense", mode)
+            check(torch.equal(runs.best_energy,
+                              ising.energy(problem, runs.best_spins)),
+                  f"tts {mode} {steps}: best_energy == energy(best_spins)")
+            cuts = cut_from_energy(inst, runs.best_energy.cpu().numpy()
+                                   .reshape(-1))
+            rows.append((f"{mode} {steps}", cuts, wall))
+            if mode == "rwa" and steps == TTS_BUDGETS[-1]:
+                TTS_BEST.update(spins=runs.best_spins,
+                                energy=runs.best_energy)
+    tcfg = tempering_config(N, TTS_BUDGETS[-1], "rsa")
+    reset_all_counts()
+    temp, wall = timed(lambda: [solve_tempering(problem, s, tcfg)
+                                for s in range(TTS_SEEDS)])
+    counts = read_all_counts()
+    check(counts["mcmc_sweep"] == TTS_SEEDS * tempering_round_count(tcfg),
+          f"tts tempering: kernel A once a round ({counts})")
+    add_launches(counts, "dense", "rsa")
+    be = torch.stack([t.best_energy for t in temp]).cpu().numpy()
+    rows.append((f"tempering {TTS_BUDGETS[-1]}", cut_from_energy(
+        inst, be.reshape(-1)), wall))
+    best = None
+    for label, cuts, wall in rows:
+        t_a = wall / runs_n * 1e3
+        est = tts.estimate(-cuts, threshold=-target, time_per_run=t_a)
+        print(f"[tts] {label:16s}: P_a={est.success_probability:.4f} "
+              f"({est.num_successes}/{est.num_runs}), t_a={t_a:.4f} ms, "
+              f"TTS(0.99)={est.tts:.4f} ms, best cut {cuts.max():.0f}, "
+              f"mean {cuts.mean():.1f}")
+        if best is None or est.tts < best[1]:
+            best = (label, est.tts)
+    print(f"[tts] best TTS(0.99) at cut {target:.0f}: {best[1]:.4f} ms "
+          f"({best[0]}); {nvidia_smi()}")
+
+
+def gset_text(weights: np.ndarray) -> str:
+    """A symmetric weight matrix in Gset syntax (1-indexed upper triangle)."""
+    i, j = np.nonzero(np.triu(weights, 1))
+    lines = [f"{weights.shape[0]} {i.size}"]
+    lines += [f"{a + 1} {b + 1} {weights[a, b]:g}" for a, b in zip(i, j)]
+    return "\n".join(lines) + "\n"
+
+
+def workloads_phase() -> None:
+    """[workloads]: the CLI on the card on torus<side>, sw<N> and two Gset
+    files (the embedded sample and a G6-sized Erdős–Rényi), each with its
+    best cut and launches; then greedy_descent on the card on the K2000
+    TTS runs' best spins against the CPU's."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.core.coupling import BITPLANE_L2_MAX_N
+    from repro_torch.core.refine import greedy_descent
+    from repro_torch.graphs import GSET_SAMPLE, erdos_renyi, parse_gset
+    from repro_torch.launch import solve as cli
+
+    print(f"[workloads] {nvidia_smi()}")
+    shutil.rmtree(WORK_ROOT, ignore_errors=True)
+    WORK_ROOT.mkdir(parents=True)
+    sample = WORK_ROOT / "G_sample"
+    sample.write_text(GSET_SAMPLE)
+    g6 = WORK_ROOT / "G6_mini"
+    g6_inst = erdos_renyi(200, 4800, seed=6, name="G6-mini")
+    g6.write_text(gset_text(g6_inst.weights))
+    s_inst = parse_gset(str(sample))
+    e_star, _, _ = ising.brute_force_ground_state(maxcut_to_ising(s_inst))
+    s_best = float(cut_from_energy(s_inst, e_star))
+
+    def run(args, n, mode="rwa"):
+        buf = io.StringIO()
+        reset_all_counts()
+        with contextlib.redirect_stdout(buf):
+            cli.main(args)
+        counts = read_all_counts()
+        out = buf.getvalue()
+        for line in out.splitlines():
+            print(f"[workloads]   {line}")
+        fmt = ("dense" if counts["local_field_init"] else "bitplane"
+               if n <= BITPLANE_L2_MAX_N else "bitplane_hbm")
+        check(counts["mcmc_sweep"] > 0, f"{args}: kernel A launched "
+              f"({counts})")
+        add_launches(counts, fmt, mode)
+        return float(re.search(r"best cut = (\S+)", out).group(1)), out
+
+    steps = str(STEPS)
+    cut, _ = run(["--instance", f"torus{TORUS_SIDE}", "--steps", steps],
+                 TORUS_SIDE ** 2)
+    check(0 < cut <= 2 * TORUS_SIDE ** 2, f"torus{TORUS_SIDE}: best cut "
+          f"{cut:.0f} in (0, |E|]")
+    cut, _ = run(["--instance", f"sw{SW_N}", "--steps", steps], SW_N)
+    check(cut > 0, f"sw{SW_N}: best cut {cut:.0f} positive")
+    cut, out = run(["--gset", str(sample), "--steps", "2000",
+                    "--tts-threshold", f"{s_best:g}"], 10)
+    check(cut == s_best and "P_a=1.00" in out,
+          f"Gset sample (N=10): best cut {cut:.0f} == the brute-force "
+          f"optimum {s_best:.0f}, P_a = 1 at it")
+    cut, _ = run(["--gset", str(g6), "--steps", "5000"], 200)
+    cut2, out = run(["--gset", str(g6), "--steps", "5000",
+                     "--tts-threshold", f"{0.97 * cut:.0f}"], 200)
+    check(cut2 == cut and "TTS(0.99) @ cut≥" in out,
+          f"G6-mini through --gset: best cut {cut:.0f} on both runs, the "
+          "TTS line printed")
+    shutil.rmtree(WORK_ROOT, ignore_errors=True)
+
+    inst = complete_bipolar(N, seed=SEED)
+    problem = maxcut_to_ising(inst, device="cuda")
+    spins, energy = TTS_BEST["spins"], TTS_BEST["energy"]
+    (ref_s, ref_e), wall = timed(lambda: greedy_descent(problem, spins))
+    cpu_s, cpu_e = greedy_descent(problem.to("cpu"), spins.cpu())
+    check(torch.equal(ref_s.cpu(), cpu_s) and torch.equal(ref_e.cpu(), cpu_e),
+          "greedy_descent on the card == the CPU's, bitwise (spins and "
+          "energies)")
+    check(bool((ref_e <= energy).all()), "greedy_descent never lowers a cut")
+    before = cut_from_energy(inst, energy.cpu().numpy().reshape(-1))
+    after = cut_from_energy(inst, ref_e.cpu().numpy().reshape(-1))
+    print(f"[workloads] greedy_descent on the {before.size} K2000 RWA "
+          f"{TTS_BUDGETS[-1]}-step runs' best spins: {int((after > before).sum())} "
+          f"improved, best cut {before.max():.0f} -> {after.max():.0f}, mean "
+          f"{before.mean():.1f} -> {after.mean():.1f}, {wall:.3f} s on the "
+          "card")
+
+
+
 def reset_flash_counts() -> None:
     fa.tc_counter.reset()
     fa.f32_counter.reset()
@@ -2686,10 +3197,19 @@ def main() -> None:
     rows += colored_slice()
     for name, phase in (("engine", engine_phase),
                         ("resilient", resilient_phase),
-                        ("stat", stat_phase)):
+                        ("stat", stat_phase),
+                        ("tempering", tempering_phase),
+                        ("tts", tts_phase),
+                        ("workloads", workloads_phase)):
         t0 = time.perf_counter()
         phase()
         print(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
+    # Kernel A's and the inits' rows count the launches of this slice's
+    # main paths too (tempering, TTS, the CLI's workloads).
+    for row in rows:
+        row["launches"] += EXTRA_LAUNCHES.pop(row["name"], 0)
+    check(not EXTRA_LAUNCHES, f"every main path's launches land on a "
+          f"kernels row (left: {EXTRA_LAUNCHES})")
     rows += lm_slice()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -159,7 +159,8 @@ def read_manifest(directory: str, step: int) -> dict:
 
 def _restore_leaf(val: np.ndarray, leaf):
     if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(val)).to(
+        # np.array keeps a 0-d leaf 0-d (ascontiguousarray makes it (1,)).
+        return torch.from_numpy(np.array(val, order="C")).to(
             device=leaf.device, dtype=leaf.dtype)
     return np.asarray(val, dtype=getattr(leaf, "dtype", None))
 

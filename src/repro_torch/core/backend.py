@@ -9,11 +9,12 @@ Port of ``repro.core.backend``.
 * :data:`BACKENDS` and :func:`register`: the registry. ``solve``, the
   supervisor and the registry tests enumerate it.
 
-The port registers three paths: "reference" (the plain PyTorch engine of
+The port registers four paths: "reference" (the plain PyTorch engine of
 ``core.mcmc``), "fused" (the sweep kernel over the dense, ``bitplane`` and
-``bitplane_hbm`` tiers) and "colored" (the colored sweep kernel). The JAX
-package's "tempering", "sharded", "sharded_2d" and "distributed" are later
-slices: :func:`get_backend` raises for each, naming its ROADMAP item.
+``bitplane_hbm`` tiers), "colored" (the colored sweep kernel) and
+"tempering" (parallel tempering on the sweep kernel, a ``TemperingConfig``).
+The JAX package's "sharded", "sharded_2d" and "distributed" are a later
+slice: :func:`get_backend` raises for each, naming its ROADMAP item.
 
 Chunk-runner protocol (what ``runner()`` returns): ``init() -> state``,
 ``run_chunk(state, k) -> state``, ``unit_len(k)``, ``best_energy(state)
@@ -24,8 +25,9 @@ device that round-trips through a snapshot losslessly, and every chunk's
 random numbers are a pure function of (seed, chunk index), with no carried
 RNG state: a fresh runner continues a restored state bitwise. The runners
 are the monolithic solves' own loops (``ops.FusedRunner``,
-``ops.ColoredRunner``, ``solver.ReferenceRunner``; ``runner.drive()`` is
-the monolithic solve), so a run chunk by chunk equals it bitwise.
+``ops.ColoredRunner``, ``solver.ReferenceRunner``,
+``tempering.TemperingRunner``; ``runner.drive()`` is the monolithic solve),
+so a run chunk by chunk equals it bitwise.
 """
 from __future__ import annotations
 
@@ -37,13 +39,13 @@ from . import ising
 from .coupling import KERNEL_COUPLING_MODES, CouplingStore, resolve_format
 from .solver import (ReferenceRunner, SolverConfig, _run,  # noqa: F401
                      require_dense)
+from .tempering import TemperingConfig, TemperingRunner, solve_tempering
 from ..kernels import ops
 from ..kernels.ops import ColoredRunner, FusedRunner  # noqa: F401
 
 #: Backends of the JAX registry that the port has not yet, and the ROADMAP
 #: item that ports each.
 _LATER_BACKENDS = {
-    "tempering": "queue 1 item 9 (tempering)",
     "sharded": "queue 1 item 12 (multi-GPU)",
     "sharded_2d": "queue 1 item 12 (multi-GPU)",
     "distributed": "queue 1 item 12 (multi-GPU)",
@@ -146,7 +148,8 @@ def get_backend(name: str) -> Backend:
 def resolve_backend(config, backend: str = "auto") -> str:
     """``backend="auto"``: the registered path whose config class and mode
     match ``config`` ("fused" for single-flip, "colored" for colored
-    configs). An explicit name is checked against the registry."""
+    configs, "tempering" for a ``TemperingConfig``). An explicit name is
+    checked against the registry."""
     if backend != "auto":
         get_backend(backend)
         return backend
@@ -312,6 +315,35 @@ class ColoredBackend(Backend):
                              plan=plan, device=device)
 
 
+class TemperingBackend(Backend):
+    name = "tempering"
+    capabilities = Capabilities(
+        edge_list=True, needs_mesh=False, supports_store=True,
+        supports_resume=True, tier_fallback=True, fixed_fmt=None,
+        summary="fused parallel tempering (swap rounds over a temperature "
+                "ladder) on the sweep kernel")
+
+    def config_cls(self):
+        return TemperingConfig
+
+    def prepare(self, problem, config, *, fmt=None, store=None):
+        return _resolve_store(problem, config, fmt=fmt, store=store,
+                              caller=f"backend {self.name!r}")
+
+    def run(self, problem, seed, config, *, store=None, device=None):
+        self.check_config(config)
+        return solve_tempering(problem, seed, config, store=store,
+                               device=device)
+
+    def runner(self, problem, seed, config, *, chunk_steps=256, fmt=None,
+               store=None, device=None):
+        self.check_config(config)
+        store = self.prepare(problem, config, fmt=fmt, store=store)
+        return TemperingRunner(problem, seed, config, store=store,
+                               device=device)
+
+
 register(ReferenceBackend())
 register(FusedBackend())
 register(ColoredBackend())
+register(TemperingBackend())

@@ -2,7 +2,8 @@
 coupling-tier ladder. Port of ``repro.core.resilience``.
 
 :func:`run_resilient` drives any registered backend's chunk runner
-(``core.backend``: reference, fused, colored) one chunk at a time:
+(``core.backend``: reference, fused, colored, tempering) one chunk at a
+time:
 
 * **Checkpoint/resume, bitwise.** Every chunk's random numbers are a pure
   function of (seed, chunk index), so a restarted run rebuilds the chunk
@@ -262,7 +263,8 @@ def run_resilient(problem: ising.IsingProblem, seed, config,
     the tier ladder: bitwise the monolithic solve it wraps.
 
     ``backend`` names a ``core.backend.BACKENDS`` entry, or "auto"
-    ("fused" for single-flip configs, "colored" for colored ones).
+    ("fused" for single-flip configs, "colored" for colored ones,
+    "tempering" for a ``TemperingConfig``, whose units are swap rounds).
     ``run_dir=None`` disables snapshots (budgets and interrupts still
     work); with a directory, a snapshot is written every
     ``checkpoint_every`` chunks and at the last (the newest ``keep``

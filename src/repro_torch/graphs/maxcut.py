@@ -53,6 +53,16 @@ def maxcut_edges_to_ising(weight_edges: EdgeList) -> IsingProblem:
     return IsingProblem.create_sparse(weight_edges.negated())
 
 
+def cut_value(instance: MaxCutInstance, spins):
+    """Cut weight of the bipartition induced by ±1 spins (one row gives a
+    float, a batch an array)."""
+    s = np.asarray(spins, np.float32)
+    w = np.asarray(instance.weights, np.float32)
+    if s.ndim == 1:
+        return float(np.sum(np.triu(w, 1) * (1.0 - np.outer(s, s))) / 2.0)
+    return np.array([cut_value(instance, row) for row in s])
+
+
 def cut_from_energy(instance: MaxCutInstance, ising_energy) -> np.ndarray:
     """cut = (Σw − H)/2 for H from the J=−w encoding."""
     return (instance.total_weight - np.asarray(ising_energy)) / 2.0

@@ -1,5 +1,6 @@
 """Carry the JAX package's problems, planes, configs, fused state, chain
-state, colored plans, and LM configs and parameters into the port.
+state, tempering configs and state, colored plans, and LM configs and
+parameters into the port.
 
 Everything crosses as numpy arrays and plain Python values, so this module
 imports neither ``jax`` nor ``repro``: a test converts with ``np.asarray``
@@ -16,6 +17,7 @@ from .core.ising import EdgeList, IsingProblem
 from .core.mcmc import ChainState
 from .core.schedules import Schedule
 from .core.solver import SolverConfig
+from .core.tempering import TemperingConfig
 from .graphs.coloring import Coloring
 from .kernels.ops import ColoredPlan
 from .models.config import ModelConfig
@@ -77,6 +79,27 @@ def state_from_numpy(state, device=None):
 def state_to_numpy(state):
     """The fused 6-tuple as numpy arrays (float32 and int32)."""
     return tuple(x.detach().cpu().numpy() for x in state)
+
+
+def tempering_config_from_dict(d: dict) -> TemperingConfig:
+    """A ``TemperingConfig`` from ``dataclasses.asdict`` of the JAX one."""
+    return TemperingConfig(**d)
+
+
+def tempering_state_from_numpy(carry, device=None):
+    """The port's 8-tuple ``(u, s, e, best_e, best_s, num_flips, accepted,
+    attempted)`` from the JAX tempering runner's carry ``((u, s, e, best_e,
+    best_s, num_flips), acc, tot)`` with numpy leaves."""
+    state, acc, tot = carry
+    counts = tuple(torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                                device=device) for x in (acc, tot))
+    return state_from_numpy(state, device) + counts
+
+
+def tempering_state_to_numpy(state):
+    """The JAX runner's carry ``((u, s, e, best_e, best_s, num_flips), acc,
+    tot)`` as numpy arrays from the port's 8-tuple."""
+    return state_to_numpy(state[:6]), *state_to_numpy(state[6:])
 
 
 #: dtypes of a reference-engine ``ChainState``, field by field.

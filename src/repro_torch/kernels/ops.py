@@ -202,15 +202,15 @@ def anneal_chunk_step(store: CouplingStore, state, base_words, c: int,
         with_rows_fetched=with_rows_fetched)
 
 
-def _store_for(problem: ising.IsingProblem, config: SolverConfig, coupling,
-               num_planes: Optional[int],
-               store: Optional[CouplingStore]) -> CouplingStore:
-    """The store ``fused_anneal`` runs on, with its contract checks."""
+def _store_for(problem: ising.IsingProblem, config, coupling,
+               num_planes: Optional[int], store: Optional[CouplingStore],
+               caller: str) -> CouplingStore:
+    """The store ``caller`` runs on, with its contract checks."""
     if store is not None:
         if coupling is not None:
             raise ValueError("pass a prebuilt store= or a coupling= override, "
                              "not both")
-        store.require_num_spins(problem.num_spins, "fused_anneal")
+        store.require_num_spins(problem.num_spins, caller)
         if store.dense is not None and store.dense is not problem.couplings:
             raise ValueError(
                 "prebuilt dense CouplingStore does not hold this problem's "
@@ -225,18 +225,20 @@ def _store_for(problem: ising.IsingProblem, config: SolverConfig, coupling,
             problem.coupling_source,
             coupling if coupling is not None else config.coupling_format,
             num_planes=num_planes)
-    return store.require(KERNEL_COUPLING_MODES, "fused_anneal")
+    return store.require(KERNEL_COUPLING_MODES, caller)
 
 
-def fused_operands(problem: ising.IsingProblem, config: SolverConfig,
+def fused_operands(problem: ising.IsingProblem, config,
                    device: torch.device, *,
                    coupling: Union[str, BitPlanes, None] = None,
                    num_planes: Optional[int] = None,
-                   store: Optional[CouplingStore] = None):
-    """``(problem, store)`` on ``device``: the store :func:`fused_anneal`
-    runs on (built, or a checked prebuilt one) and the problem it solves. A
-    dense store holds the problem's own J, so the card keeps one copy."""
-    store = _store_for(problem, config, coupling, num_planes, store)
+                   store: Optional[CouplingStore] = None,
+                   caller: str = "fused_anneal"):
+    """``(problem, store)`` on ``device``: the store ``caller`` runs on
+    (built from ``config.coupling_format``, or a checked prebuilt one) and
+    the problem it solves. A dense store holds the problem's own J, so the
+    card keeps one copy."""
+    store = _store_for(problem, config, coupling, num_planes, store, caller)
     problem = problem.to(device)
     store = (dataclasses.replace(store, dense=problem.couplings)
              if store.dense is not None else store.to(device))

@@ -331,15 +331,19 @@ def mcmc_sweep_keyed(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
                      mode: str = "rsa", uniformized: bool = False,
                      gather: str = "dynamic", coupling: str = "dense",
                      block_r: int = 8, lane: Optional[int] = None,
-                     coalesce: bool = True):
+                     coalesce: bool = True, out=None):
     """:func:`mcmc_sweep` on the uniforms of ``rng.uniform01(rng.stream(
     base, Salt.SWEEP, chunk), (T, R, 4))``, where ``base_words`` are the two
     words of the base key (Python ints) and T = ``temps.shape[0]``. On the
     card the kernel draws them itself (no uniforms tensor, no host RNG);
-    on the CPU the plain version runs on the drawn tensor."""
+    on the CPU the plain version runs on the drawn tensor. ``out`` (the
+    card only) is the seven output tensors for the kernel to write in
+    place of new ones, so a CUDA graph can read them at fixed addresses."""
     lane, coalesce = _check_call(couplings, fields0, mode, gather, coupling,
                                  lane, coalesce)
     if fields0.device.type == "cpu":
+        if out is not None:
+            raise ValueError("out= serves the card's launch only")
         base = rng.from_words(*base_words)
         uniforms = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, chunk),
                                  (temps.shape[0], fields0.shape[0], 4))
@@ -351,7 +355,7 @@ def mcmc_sweep_keyed(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
     return _launch(couplings, fields0, spins0, energy0, temps, pwl_table,
                    uniforms=None, key=(base_words, chunk), mode=mode,
                    uniformized=uniformized, block_r=block_r, lane=lane,
-                   coalesce=coalesce, width=None)
+                   coalesce=coalesce, width=None, out=out)
 
 
 def mcmc_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
@@ -407,9 +411,10 @@ def sweep_uniforms(base_words: Sequence[int], chunk: int, t: int, r: int,
 
 def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
             uniforms, key, mode, uniformized, block_r, lane, coalesce,
-            width):
+            width, out=None):
     """Checks the operands and launches ``snowball_sweep`` (reading
-    ``uniforms``, or drawing from ``key = (base_words, chunk)``)."""
+    ``uniforms``, or drawing from ``key = (base_words, chunk)``), writing
+    new output tensors or the seven given in ``out``."""
     r, n = fields0.shape
     t = temps.shape[0]
     rwa = mode == "rwa"
@@ -449,13 +454,18 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
         raise ValueError(f"cluster width {width} does not fit N={n} (lane "
                          f"{lane}): the widths that do are "
                          f"{widths(n, lane, segs, rwa)}")
-    u = torch.empty((r, n), dtype=torch.float32, device=dev)
-    s = torch.empty((r, n), dtype=torch.float32, device=dev)
-    bs = torch.empty((r, n), dtype=torch.float32, device=dev)
-    e = torch.empty((r,), dtype=torch.float32, device=dev)
-    be = torch.empty((r,), dtype=torch.float32, device=dev)
-    nf = torch.empty((r,), dtype=torch.int32, device=dev)
-    rf = torch.empty((r,), dtype=torch.int32, device=dev)
+    shapes = ((r, n), (r, n), (r,), (r,), (r, n), (r,), (r,))
+    if out is None:
+        out = tuple(torch.empty(shape, dtype=torch.float32 if i < 5
+                                else torch.int32, device=dev)
+                    for i, shape in enumerate(shapes))
+    else:
+        named = tuple(zip(("out.u", "out.s", "out.e", "out.best_e",
+                           "out.best_s", "out.num_flips",
+                           "out.rows_fetched"), out, shapes))
+        check_operands(dev, named[:5])
+        check_operands(dev, named[5:], dtype=torch.int32)
+    u, s, e, be, bs, nf, rf = out
     if coalesce:
         group = common.fit_block(r, block_r)
         site_log = torch.empty((max(t, 1), r), dtype=torch.int32, device=dev)

@@ -5,13 +5,19 @@
         --coupling-format bitplane_hbm --steps 65536
     PYTHONPATH=src python -m repro_torch.launch.solve --instance sparse16384 \
         --flip-mode colored --coupling-format bitplane_hbm --steps 704
+    PYTHONPATH=src python -m repro_torch.launch.solve --gset path/to/G6 \
+        --mode rsa --tts-threshold 11000
 
 Runs the fused engine (``--engine fused``, the default), the reference
 engine (``--engine scan``: plain PyTorch, no kernel) or the graph-colored
 one (``--flip-mode colored``: one color class per step), and prints the
 best cut and the time per step; the colored run also prints the coloring,
-flips per step and rows fetched. ``sparse<N>`` is the dense-J-free
-G(N, 8N) ±1 edge list, solved on a plane tier.
+flips per step and rows fetched. ``sw<N>`` is the Watts–Strogatz small
+world (degree 12), ``torus<side>`` the side × side periodic grid,
+``sparse<N>`` the dense-J-free G(N, 8N) ±1 edge list, solved on a plane
+tier, and ``--gset`` reads a Gset-format file. ``--tts-threshold`` prints
+TTS(0.99) at that cut with the JAX CLI's convention: every replica is a
+run, each taking ``wall / replicas``.
 
 Long solves run under the resilient supervisor (snapshots, budgets,
 bitwise resume; ``core.resilience.run_resilient``): any flag of the
@@ -24,8 +30,7 @@ is the steps alone.
     # after a crash or a preemption, the same command resumes where it
     # stopped
 
-The JAX CLI's other flags (Gset files, TTS, meshes) wait for their slices
-of the port.
+The JAX CLI's ``--mesh-shape`` waits for the multi-GPU slice of the port.
 """
 from __future__ import annotations
 
@@ -39,16 +44,19 @@ import torch
 from ..configs.snowball import default_solver
 from ..core.coupling import COUPLING_FORMATS
 from ..core.resilience import BudgetConfig, run_resilient
+from ..core import tts
 from ..core.solver import solve
 from ..device import resolve_device
 from ..graphs import (MaxCutInstance, complete_bipolar, erdos_renyi,
-                      maxcut_edges_to_ising, maxcut_to_ising,
-                      sparse_bipolar_edges)
+                      maxcut_edges_to_ising, maxcut_to_ising, parse_gset,
+                      small_world, sparse_bipolar_edges, torus_grid)
 
 
-def build_instance(name: str, seed: int):
-    """A dense ``MaxCutInstance``, or for ``sparse<N>`` an ``EdgeList`` of
-    weights."""
+def build_instance(name: str, seed: int, gset=None):
+    """A dense ``MaxCutInstance`` (the Gset file ``gset`` when given), or
+    for ``sparse<N>`` an ``EdgeList`` of weights."""
+    if gset:
+        return parse_gset(gset, name=gset)
     name = name.lower()
     if name.startswith("sparse") and name[6:].isdigit():
         n = int(name[6:])
@@ -58,16 +66,24 @@ def build_instance(name: str, seed: int):
     if name.startswith("er") and name[2:].isdigit():
         n = int(name[2:])
         return erdos_renyi(n, n * 24, seed=seed)
+    if name.startswith("sw") and name[2:].isdigit():
+        return small_world(int(name[2:]), 12, seed=seed)
+    if name.startswith("torus") and name[5:].isdigit():
+        side = int(name[5:])
+        return torus_grid(side, side, seed=seed)
     raise SystemExit(f"unknown instance {name!r}: expected k<N> (complete "
-                     "bipolar), er<N> (Erdős–Rényi, 24·N edges) or "
-                     "sparse<N> (edge list, 8·N edges), e.g. k2000, er500 "
-                     "or sparse16384")
+                     "bipolar), er<N> (Erdős–Rényi, 24·N edges), sw<N> "
+                     "(small-world, degree 12), torus<side> (side×side "
+                     "grid) or sparse<N> (edge list, 8·N edges), e.g. "
+                     "k2000, er500, sw1000, torus32 or sparse16384 — or "
+                     "pass a Gset-format file via --gset instead")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--instance", default="k2000",
-                    help="k<N>|er<N>|sparse<N>")
+                    help="k<N>|er<N>|sw<N>|torus<side>|sparse<N>")
+    ap.add_argument("--gset", default=None, help="path to a Gset-format file")
     ap.add_argument("--mode", choices=("rsa", "rwa"), default="rwa")
     ap.add_argument("--steps", type=int, default=20000)
     ap.add_argument("--replicas", type=int, default=8)
@@ -83,6 +99,8 @@ def main(argv=None):
                     "(always supervised)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--tts-threshold", type=float, default=None,
+                    help="cut value for TTS(0.99) estimation")
     res = ap.add_argument_group(
         "resilience", "crash-safe supervised solve (any of these flags "
         "routes the run through repro_torch.core.resilience.run_resilient)")
@@ -103,7 +121,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    inst = build_instance(args.instance, args.seed)
+    inst = build_instance(args.instance, args.seed, args.gset)
     if isinstance(inst, MaxCutInstance):
         problem = maxcut_to_ising(inst, device=dev)
         label = (f"instance={inst.name} |V|={inst.num_vertices} "
@@ -198,6 +216,11 @@ def main(argv=None):
               f"{args.replicas} replicas) flips/s={rate} "
               f"rows_fetched={rows:.0f} "
               f"({rows / max(steps_done, 1):.2f} rows/step)")
+    if args.tts_threshold:
+        r = tts.estimate(-cuts, threshold=-args.tts_threshold,
+                         time_per_run=wall / args.replicas * 1e3)
+        print(f"TTS(0.99) @ cut≥{args.tts_threshold:.0f}: {r.tts:.2f} ms "
+              f"(P_a={r.success_probability:.2f})")
 
 if __name__ == "__main__":
     main()

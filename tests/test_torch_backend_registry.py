@@ -1,5 +1,5 @@
 """The port's backend registry (``repro_torch.core.backend``): the port of
-``tests/test_backend_registry.py`` over its three registered paths.
+``tests/test_backend_registry.py`` over its four registered paths.
 
 Every registered path is a ``Backend`` and holds the driver contract
 through the registry alone, on the CPU:
@@ -12,9 +12,9 @@ through the registry alone, on the CPU:
   continues to the same result bitwise (no RNG state lives in a runner).
 
 The parity tests parametrize over ``backend_names()``, so a path that
-registers joins them. The JAX registry's "tempering", "sharded",
-"sharded_2d" and "distributed" are later slices and raise, naming their
-ROADMAP items.
+registers joins them ("tempering" with a ``TemperingConfig``, its units
+swap rounds). The JAX registry's "sharded", "sharded_2d" and
+"distributed" are a later slice and raise, naming their ROADMAP item.
 """
 import dataclasses
 
@@ -28,17 +28,16 @@ from repro_torch.core.backend import (BACKENDS, Backend, backend_names,
                                       get_backend, resolve_backend)
 from repro_torch.core.resilience import STOP_COMPLETED, run_resilient
 from repro_torch.core.solver import SolverConfig, solve
+from repro_torch.core.tempering import TemperingConfig
 
 N = 64
 STEPS = 120
 TRACE = 20
 REPLICAS = 4
-FIELDS = ("best_energy", "best_spins", "final_energy", "num_flips",
-          "trace_energy", "rows_fetched")
 
 #: Every execution path the port ships.
-EXPECTED = ("colored", "fused", "reference")
-LATER = ("tempering", "sharded", "sharded_2d", "distributed")
+EXPECTED = ("colored", "fused", "reference", "tempering")
+LATER = ("sharded", "sharded_2d", "distributed")
 
 
 def _problem():
@@ -62,12 +61,29 @@ def _scfg(**kw):
                         **kw)
 
 
+def _tcfg(**kw):
+    return TemperingConfig(num_steps=STEPS, t_min=0.1, t_max=3.0,
+                           num_replicas=REPLICAS, swap_every=TRACE,
+                           mode="rwa", backend="fused", **kw)
+
+
 def _setup(name):
+    if name == "tempering":
+        return _tcfg()
     return _scfg(flip_mode="colored") if name == "colored" else _scfg()
 
 
+def _untraced(name):
+    """A 600-step config whose plan is three units: 256-step chunks with a
+    remainder, or three 200-step swap rounds."""
+    if name == "tempering":
+        return dataclasses.replace(_tcfg(), num_steps=600, swap_every=200)
+    return dataclasses.replace(_setup(name), num_steps=600, trace_every=0)
+
+
 def _assert_same(mono, got):
-    for field in FIELDS:
+    assert type(mono) is type(got)
+    for field in mono._fields:
         a, b = getattr(mono, field), getattr(got, field)
         if a is None or b is None:
             assert a is None and b is None, field
@@ -121,6 +137,9 @@ class TestRoster:
         assert caps["fused"].supports_store
         assert caps["colored"].edge_list and caps["colored"].tier_fallback
         assert not caps["colored"].supports_store
+        assert caps["tempering"].edge_list and caps["tempering"].tier_fallback
+        assert caps["tempering"].supports_store
+        assert caps["tempering"].fixed_fmt is None
         for c in caps.values():
             assert c.supports_resume, "every registered path must resume"
             assert not c.needs_mesh
@@ -128,6 +147,7 @@ class TestRoster:
     def test_auto_resolves_from_config(self):
         assert resolve_backend(_scfg()) == "fused"
         assert resolve_backend(_scfg(flip_mode="colored")) == "colored"
+        assert resolve_backend(_tcfg()) == "tempering"
         assert resolve_backend(_scfg(), "reference") == "reference"
         with pytest.raises(TypeError, match="unrecognized config"):
             resolve_backend(object())
@@ -136,10 +156,36 @@ class TestRoster:
 
     def test_config_type_mismatch_is_rejected(self):
         for name in backend_names():
-            with pytest.raises(TypeError, match="SolverConfig"):
+            cls = get_backend(name).config_cls().__name__
+            with pytest.raises(TypeError, match=cls):
                 get_backend(name).check_config({"num_steps": 1})
+        with pytest.raises(TypeError, match="TemperingConfig"):
+            get_backend("tempering").check_config(_scfg())
+        with pytest.raises(TypeError, match="SolverConfig"):
+            get_backend("fused").check_config(_tcfg())
+
+    def test_tempering_is_registered_and_resolves_from_its_config(
+            self, problem):
+        """"tempering" left the later slices: registered, the "auto" path
+        of a ``TemperingConfig`` (alone: no ``SolverConfig`` reaches it),
+        and it refuses colored flips on every entry."""
+        assert isinstance(get_backend("tempering"), Backend)
+        assert resolve_backend(_tcfg()) == "tempering"
+        assert resolve_backend(_tcfg(), "tempering") == "tempering"
+        assert resolve_backend(_scfg()) != "tempering"
+        colored = _tcfg(flip_mode="colored")
+        with pytest.raises(ValueError, match="single-flip"):
+            get_backend("tempering").run(problem, 0, colored, device="cpu")
+        with pytest.raises(ValueError, match="single-flip"):
+            get_backend("tempering").runner(problem, 0, colored,
+                                            device="cpu")
+        with pytest.raises(ValueError, match="single-flip"):
+            run_resilient(problem, 0, colored, device="cpu")
 
     def test_tier_fallback_needs_auto_and_the_capability(self):
+        assert fallback_enabled(_tcfg(), "tempering")
+        assert not fallback_enabled(_tcfg(coupling_format="dense"),
+                                    "tempering")
         assert fallback_enabled(_scfg(), "fused")
         assert not fallback_enabled(_scfg(coupling_format="dense"), "fused")
         assert not fallback_enabled(_scfg(), "reference")
@@ -176,7 +222,7 @@ class TestRegistryParity:
         remainder chunk; the monolithic solve's default plan is 256 steps,
         so the runner takes the same."""
         backend = get_backend(name)
-        cfg = dataclasses.replace(_setup(name), num_steps=600, trace_every=0)
+        cfg = _untraced(name)
         mono = backend.run(problem, 3, cfg, device="cpu")
         runner = backend.runner(problem, 3, cfg, device="cpu")
         assert runner.total_units == 3

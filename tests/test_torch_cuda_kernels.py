@@ -4,7 +4,9 @@ and reading variants at every cluster width, the coalesced row count, N
 past one block's shared memory) and the colored sweep (the keyed and
 reading variants and every cluster width against the plain version, a
 shorter last slice, rows_fetched at every group size, N past one block's
-shared memory), the two field inits (the popcount init also on random
+shared memory), tempering on the card against the CPU (kernel A with a
+temperature column per replica, the round's merge and swap as a CUDA
+graph), the two field inits (the popcount init also on random
 overlapping plane words, W past the earlier design's shared-memory ceiling
 and misaligned words), and the flash-attention forward with the LM serving
 path around it.
@@ -619,6 +621,38 @@ def _qkv(shape_q, shape_kv, dtype, dev, seed=0):
 #: JAX's own flash-against-chunked bound); bf16: one bf16 ulp of |out| ≤ 2
 #: (2^-7), where the two f32 results round apart (2e-2, JAX's bf16 bound).
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("fmt,mode", [("dense", "rsa"), ("bitplane", "rsa"),
+                                      ("bitplane_hbm", "rwa")])
+def test_tempering_on_card_equals_cpu(cuda_device, fmt, mode):
+    """Tempering on the card (kernel A with the ladder as its per-replica
+    table, the merge and swap replayed as a CUDA graph) equals the CPU's
+    op-by-op run bitwise, also when a fresh runner continues a state the
+    first one returned mid-run (RWA: the plain roulette may split at a
+    near tie; these inputs have none)."""
+    from repro_torch.core.tempering import (TemperingConfig,
+                                            TemperingRunner,
+                                            solve_tempering)
+
+    problem = maxcut_to_ising(complete_bipolar(96, seed=3))
+    cfg = TemperingConfig(num_steps=600, t_min=0.05, t_max=9.8,
+                          num_replicas=8, swap_every=10, mode=mode,
+                          backend="fused", coupling_format=fmt)
+    cpu = solve_tempering(problem, 5, cfg, device="cpu")
+    card = solve_tempering(problem, 5, cfg, device=cuda_device)
+    for name, want, got in zip(cpu._fields, cpu, card):
+        assert torch.equal(got.cpu(), want), name
+    first = TemperingRunner(problem, 5, cfg, device=cuda_device)
+    state = first.init()
+    for k in range(30):
+        state = first.run_chunk(state, k)
+    second = TemperingRunner(problem, 5, cfg, device=cuda_device)
+    for k in range(30, second.total_units):
+        state = second.run_chunk(state, k)
+    for name, want, got in zip(cpu._fields, cpu,
+                               second.finalize(state, [])):
+        assert torch.equal(got.cpu(), want), f"resumed {name}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -81,7 +81,7 @@ def test_entry_points_raise_without_a_card():
 def test_unported_backends_and_options_raise():
     problem = maxcut_to_ising(complete_bipolar(16, seed=0))
     cfg = default_solver(16, 8, mode="rsa")
-    for backend in ("tempering", "sharded", "sharded_2d", "distributed"):
+    for backend in ("sharded", "sharded_2d", "distributed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             solve(problem, 0, cfg, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
@@ -110,7 +110,7 @@ def test_cli_runs_on_the_cpu_when_asked():
     assert "best cut =" in out.stdout and "us/step=" in out.stdout
     bad = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.solve", "--instance",
-         "torus8", "--device", "cpu"], capture_output=True, text=True,
+         "grid8", "--device", "cpu"], capture_output=True, text=True,
         timeout=120, env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert bad.returncode != 0 and "unknown instance" in bad.stderr
 
