@@ -47,13 +47,31 @@ results:
 * the workloads (``[workloads]``): the CLI on the card on a torus, a small
   world and two Gset files, and ``greedy_descent`` on the TTS runs' best
   spins against the CPU's;
+* the solver service (``[serve]``): a 15-request burst through
+  ``SolverService(device="cuda")`` (8 seed-free K2000 RWA tenants stacked
+  into one 64-replica launch, 4 seed-pinned ones on the "vmap" lane, 2 on
+  the sparse N=16384 edge list, one colored), with batching and without,
+  kernels A, B and C against their plain versions on the operands the
+  drain gave them (N=2048 with its zero rows, R=64, 8 and 16; kernel A
+  step by step with RWA near ties masked), its lanes held bitwise
+  against solo solves, every span's energy exact on
+  the unpadded instance, a repeat tenant on the store cache (no encode,
+  no J copied to the card), a met target answered with no launch, a
+  budgeted request, and the anchor burst on the card bitwise the CPU's;
 * the LM serving path: qwen2-7b at full width and depth in bf16 with
   weights made on the card from a seed, ``forward(cfg, params,
   tokens=(4, 4096))`` through the flash-attention kernel's tensor-core
   entry (28 launches, none of the f32 entry), held against the chunked
   path (bf16 layer by layer, and f32), then ``decode_step`` one token at a
   time from ``init_decode_cache``, with both entries against their plain
-  version and the bf16 one beside ``scaled_dot_product_attention``.
+  version and the bf16 one beside ``scaled_dot_product_attention``;
+* the MoE, Mamba and RWKV families (``[lm-families]``): granite-moe-1b-a400m
+  and rwkv6-1.6b at full width and depth, a 4 x 4,096 prefill each and
+  decode (rwkv6's decode against its forward in f32 compute and in bf16;
+  granite's flash path against the chunked one, its MoE losses
+  and loads, kernel E at D=64 against its plain version and SDPA), jamba's
+  smoke model on the card against the CPU, and one Mamba block at jamba's
+  full width (a 1,024-token prefill, decode, the card against the CPU).
 
 Prints the card, the build, every check and each phase's seconds, a
 ``{"kernels": [...]}`` line with times and bounds, and as the last line
@@ -2838,6 +2856,492 @@ def workloads_phase() -> None:
 
 
 
+#: The [serve] burst: 8 seed-free K2000 RWA tenants at R=8 stacking into one
+#: 64-replica launch, 4 seed-pinned ones (the "vmap" lane), 2 seed-free
+#: tenants on the sparse N=16384 edge list on bitplane_hbm (a bucket: no
+#: padding) and one colored request on it; K2000 pads to 2,048 spins.
+SERVE_STACKED, SERVE_PINNED, SERVE_SPARSE = 8, 4, 2
+SERVE_STEPS = 5000
+SERVE_SPARSE_STEPS = 16384
+#: The anchor burst (RSA + PWL, a linear schedule, integer J and h) at a
+#: small N, drained on the card and on the CPU.
+SERVE_ANCHOR_N, SERVE_ANCHOR_STEPS = 48, 96
+
+
+def capture_kernel_calls(run):
+    """``(run(), calls)``: ``run()`` with kernel A's keyed entry and
+    kernels B's and C's wrappers wrapped, so that the first call at each
+    shape is recorded (its tensors cloned before the launch). The launches
+    and their counts are those of the unwrapped run."""
+    calls = {}
+    keys = {(sweep, "mcmc_sweep_keyed"):
+            lambda c, u, *a, **kw: (kw.get("coupling", "dense"),
+                                    tuple(u.shape)),
+            (local_field, "local_field_init"):
+            lambda s, j, h: (tuple(s.shape),),
+            (bitplane_field, "bitplane_field_init"):
+            lambda pos, neg, w: (tuple(pos.shape), tuple(w.shape))}
+    real = {k: getattr(*k) for k in keys}
+
+    def recorder(k):
+        def wrapped(*args, **kw):
+            key = (k[1],) + keys[k](*args, **kw)
+            if key not in calls:
+                calls[key] = (tuple(a.clone() if torch.is_tensor(a) else a
+                                    for a in args), dict(kw))
+            return real[k](*args, **kw)
+        return wrapped
+
+    for k in keys:
+        setattr(*k, recorder(k))
+    try:
+        out = run()
+    finally:
+        for k, fn in real.items():
+            setattr(*k, fn)
+    return out, calls
+
+
+def stepwise_sweep_check(label: str, args, kw) -> tuple:
+    """Kernel A on one chunk's operands as the main path gave them
+    (``args`` of ``mcmc_sweep_keyed``): the keyed kernel bitwise the reading
+    kernel fed the chunk's plain draw; then, step by step from the
+    kernel's own trajectory, one-step launches against the plain version
+    (RWA near ties masked per replica, and per replica group for the
+    coalesced rows count); the T one-step launches compose to the chunk's
+    launch. Returns (the chunk's outputs, near ties, max_abs_err)."""
+    couplings, u0, s0, e0, words, chunk, temps, tbl = args
+    t, r = temps.shape
+    rwa, uni = kw["mode"] == "rwa", kw.get("uniformized", False)
+    plain_kw = {k: v for k, v in kw.items() if k != "gather"}
+    unif = rng.uniform01(rng.stream(rng.from_words(*words), rng.Salt.SWEEP,
+                                    chunk), (t, r, 4)).to("cuda")
+    keyed = sweep.mcmc_sweep_keyed(*args, **kw)
+    read = sweep.mcmc_sweep(couplings, u0, s0, e0, unif, temps, tbl, **kw)
+    check(all(torch.equal(x, y) for x, y in zip(keyed, read)),
+          f"{label}: the keyed kernel bitwise the reading kernel fed the "
+          f"chunk's plain draw (chunk {chunk}, T={t}), all seven outputs")
+    br = common.fit_block(r, kw.get("block_r", 8))
+    u, s, e = u0, s0, e0
+    nf = torch.zeros_like(read[5])
+    rf = torch.zeros_like(read[6])
+    bad = torch.zeros(r, dtype=torch.bool, device="cuda")
+    ties = torch.zeros((), dtype=torch.int64, device="cuda")
+    err = torch.zeros((), dtype=torch.float64, device="cuda")
+    for i in range(t):
+        step = (unif[i:i + 1], temps[i:i + 1], tbl)
+        a = sweep.mcmc_sweep(couplings, u, s, e, *step, **kw)
+        b = ref.mcmc_sweep(couplings, u, s, e, *step, **plain_kw)
+        keep = torch.ones(r, dtype=torch.bool, device="cuda")
+        if rwa:
+            p_all = common.flip_probability(2.0 * s * u, temps[i][:, None],
+                                            tbl)
+            keep = ~roulette_near_tie(p_all, unif[i, :, 2], unif[i, :, 3],
+                                      uni)
+        group = keep.reshape(-1, br).all(1).repeat_interleave(br)
+        for j, (x, y) in enumerate(zip(a, b)):
+            mask = group if j == 6 else keep
+            diff = (x.to(torch.float64) - y.to(torch.float64)).abs()
+            diff = diff.reshape(r, -1).amax(1) * mask
+            bad |= diff > 0
+            err = torch.maximum(err, diff.max())
+        ties += r - keep.sum()
+        u, s, e = a[:3]
+        nf += a[5]
+        rf += a[6]
+    ties, err = int(ties), float(err)
+    check(not bool(bad.any()), f"{label}: {t} one-step launches from the "
+          f"kernel's trajectory bitwise the plain version, all seven "
+          f"outputs ({ties} near ties of {t * r} replica steps masked)")
+    check(torch.equal(u, read[0]) and torch.equal(s, read[1])
+          and torch.equal(e, read[2]) and torch.equal(nf, read[5])
+          and torch.equal(rf, read[6]),
+          f"{label}: the {t} one-step launches compose to the chunk's "
+          "(u, s, e, num_flips, rows_fetched)")
+    return read, ties, err
+
+
+def serve_kernel_checks(reqs, dense, sparse, padded) -> None:
+    """Kernels A, B and C held against their plain versions on the
+    operands the service's batched drain gave them: the first chunk of the
+    stacked K2000 launch (N=2048, the padded zero rows included, R=64) and
+    of a vmap lane (R=8), the stacked sparse launch (bitplane_hbm, R=16),
+    and every init of the drain."""
+    from repro_torch.serve import SolverService
+
+    svc = SolverService(device="cuda")
+    for r in reqs:
+        svc.submit(r)
+    reset_all_counts()
+    _, calls = capture_kernel_calls(svc.drain)
+    serve_launches(read_all_counts(), math.ceil(SERVE_SPARSE_STEPS / T))
+    n_pad = padded.num_spins
+    want = {("mcmc_sweep_keyed", "dense", (SERVE_STACKED * R, n_pad)),
+            ("mcmc_sweep_keyed", "dense", (R, n_pad)),
+            ("mcmc_sweep_keyed", "bitplane_hbm", (SERVE_SPARSE * R,
+                                                 SPARSE_N))}
+    check(want <= set(calls), f"the drain's kernel A shapes captured: "
+          f"{sorted(k for k in calls if k[0] == 'mcmc_sweep_keyed')}")
+    print(f"[kernels] [serve] kernels A, B and C against their plain "
+          f"versions on the batched drain's own operands (first chunk, "
+          f"T={T}; {nvidia_smi()})")
+    for key in sorted(calls, key=str):
+        (args, kw), name = calls[key], key[0]
+        if name == "local_field_init":
+            s0, j, h = args
+            check(torch.equal(j, padded.couplings)
+                  and torch.equal(h, padded.fields)
+                  and not bool(j[N:].any()) and not bool(j[:, N:].any()),
+                  f"the R={s0.shape[0]} init reads the padded K2000 (rows "
+                  f"and columns {N}..{n_pad - 1} zero)")
+            got = local_field.local_field_init(s0, j, h)
+            check(torch.equal(got, ref.local_field_init(s0, j, h)),
+                  f"local_field_init (R={s0.shape[0]}, N={n_pad}) bit-equal "
+                  "to plain")
+        elif name == "bitplane_field_init":
+            pos, neg, w = args
+            got = bitplane_field.bitplane_field_init(pos, neg, w)
+            check(torch.equal(got, ref.bitplane_field_init(pos, neg, w)),
+                  f"bitplane_field_init (B={pos.shape[0]}, N={pos.shape[1]}"
+                  f", W={pos.shape[2]}, R={w.shape[0]}) bit-equal to plain")
+        else:
+            fmt, (r, n) = key[1], key[2]
+            label = f"{fmt} {kw['mode']} R={r} N={n}"
+            out, ties, err = stepwise_sweep_check(label, args, kw)
+            if fmt == "dense":
+                check(torch.equal(args[0], padded.couplings),
+                      f"{label}: the sweep reads the padded K2000")
+                invariants(padded, out, T, f"{label} chunk")
+            else:
+                plane_invariants(args[0], sparse.fields, out,
+                                 f"{label} chunk")
+            print(f"[kernels] [serve] {label}: max_abs_err {err} on the "
+                  f"unmasked steps, {ties} near ties")
+
+
+def serve_launches(counts: dict, sparse_sweeps: int) -> None:
+    """Add a [serve] run's launches to the kernels rows: kernel A's K2000
+    (dense RWA) and sparse (bitplane_hbm RWA, ``sparse_sweeps`` of them)
+    launches, the two inits and the colored sweep."""
+    for row, n in (("mcmc_sweep[rwa]", counts["mcmc_sweep"] - sparse_sweeps),
+                   ("mcmc_sweep[bitplane_hbm,rwa]", sparse_sweeps),
+                   ("local_field_init", counts["local_field_init"]),
+                   ("bitplane_field_init", counts["bitplane_field_init"]),
+                   ("colored_sweep[bitplane_hbm]", counts["colored_sweep"])):
+        EXTRA_LAUNCHES[row] = EXTRA_LAUNCHES.get(row, 0) + n
+
+
+def serve_burst(dense, sparse, stacked_cfg, sparse_cfg, colored_cfg):
+    """The burst's requests, in submission order, and each one's label."""
+    from repro_torch.serve import SolveRequest
+
+    reqs = [SolveRequest(dense, stacked_cfg)
+            for _ in range(SERVE_STACKED)]
+    reqs += [SolveRequest(dense, stacked_cfg, seed=100 + i)
+             for i in range(SERVE_PINNED)]
+    reqs += [SolveRequest(sparse, sparse_cfg) for _ in range(SERVE_SPARSE)]
+    reqs.append(SolveRequest(sparse, colored_cfg, seed=7,
+                             backend="colored"))
+    labels = (["stack"] * SERVE_STACKED + ["vmap"] * SERVE_PINNED
+              + ["stack"] * SERVE_SPARSE + ["single"])
+    return reqs, labels
+
+
+def drain_burst(service, reqs):
+    """Submit the burst and drain it: ``(tickets, results, submit seconds
+    per request, drain wall, kernel launches)``."""
+    t_sub = []
+    tickets = []
+    for r in reqs:
+        t0 = time.perf_counter()
+        tickets.append(service.submit(r))
+        t_sub.append(time.perf_counter() - t0)
+    reset_all_counts()
+    out, wall = timed(service.drain)
+    return tickets, out, t_sub, wall, read_all_counts()
+
+
+def serve_anchor_check() -> None:
+    """The same kinds of lanes on the anchor at a small N (RSA + PWL,
+    linear schedule, integer J and h, N=48 padded to 64): the card's drain
+    bitwise the CPU's, ticket by ticket, with equal stats."""
+    from repro_torch.core.resilience import BudgetConfig
+    from repro_torch.serve import SolveRequest, SolverService
+
+    n, steps = SERVE_ANCHOR_N, SERVE_ANCHOR_STEPS
+
+    def problem(seed):
+        g = np.random.default_rng(seed)
+        J = np.triu(np.rint(g.normal(size=(n, n)) * 1.5), 1)
+        return ising.IsingProblem.create(J + J.T, np.rint(g.normal(size=n)),
+                                         offset=-2.0)
+
+    cfg = SolverConfig(num_steps=steps, schedule=linear(6.0, 0.05, steps),
+                       mode="rsa", num_replicas=2, trace_every=16)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        a = problem(21)
+        reqs = [SolveRequest(a, cfg), SolveRequest(a, cfg),
+                SolveRequest(a, dataclasses.replace(cfg, num_replicas=3)),
+                SolveRequest(a, cfg, seed=5), SolveRequest(problem(21), cfg,
+                                                           seed=6),
+                SolveRequest(problem(22), cfg, seed=7),
+                SolveRequest(a, cfg, seed=8,
+                             budget=BudgetConfig(max_steps=48))]
+        svc = SolverService(device=dev)
+        tickets = [svc.submit(r) for r in reqs]
+        out = svc.drain()
+        best = min(float(out[t].result.best_energy.min()) for t in tickets)
+        tickets.append(svc.submit(SolveRequest(
+            a, cfg, budget=BudgetConfig(target_energy=best + 1.0))))
+        out.update(svc.drain())
+        runs.append((tickets, out, svc.stats))
+    (tc, card, sc), (tp, cpu, sp) = runs
+    kinds = [card[t].batched for t in tc]
+    check(tc == tp and kinds == ["stack"] * 3 + ["vmap"] * 2
+          + ["single", "budgeted", "cached"] and sc == sp,
+          f"anchor burst (N={n} -> 64): the same tickets, lanes {kinds} and "
+          f"stats on the card and the CPU")
+    for t in tc:
+        c, p = card[t], cpu[t]
+        same = ((c.batched, c.store_hit, c.warm_hit, c.stop_reason)
+                == (p.batched, p.store_hit, p.warm_hit, p.stop_reason)
+                and same_result(c.result, p.result,
+                                ("best_energy", "best_spins", "num_flips",
+                                 "final_energy", "trace_energy")))
+        check(same, f"anchor ticket {t} ({c.batched}): the card's result "
+              "bitwise the CPU's", quiet=True)
+    print(f"  ok: every anchor ticket's best/final energy, best spins, "
+          f"flips and trace bitwise the CPU's ({len(tc)} tickets)")
+
+
+def serve_phase() -> None:
+    """[serve]: one burst through ``SolverService(device="cuda")`` with
+    batching and with ``ServeConfig(batching=False)``: its lanes held
+    against solo solves, exact energies on the unpadded instances, a repeat
+    tenant on the store cache, a met target answered without a launch, a
+    budgeted request; the anchor burst on the card against the CPU; and
+    kernels A, B and C against their plain versions on the drain's own
+    operands."""
+    from repro_torch.core import coupling
+    from repro_torch.core.resilience import BudgetConfig
+    from repro_torch.serve import (ServeConfig, SolverService,
+                                   bucket_replicas, bucket_spins,
+                                   coupling_digest, pad_problem,
+                                   problem_digest)
+
+    inst = complete_bipolar(N, seed=SEED)
+    dense = maxcut_to_ising(inst, device="cuda")
+    edges = sparse_bipolar_edges(SPARSE_N, SPARSE_EDGES, seed=SPARSE_N)
+    sparse = ising.IsingProblem.create_sparse(edges, device="cuda")
+    stacked_cfg = default_solver(N, SERVE_STEPS, mode="rwa")
+    sparse_cfg = dataclasses.replace(
+        default_solver(SPARSE_N, SERVE_SPARSE_STEPS, mode="rwa"),
+        coupling_format="bitplane_hbm")
+    colored_cfg = dataclasses.replace(
+        default_solver(SPARSE_N, 704, mode="rsa"), flip_mode="colored",
+        coupling_format="bitplane_hbm")
+    reqs, labels = serve_burst(dense, sparse, stacked_cfg, sparse_cfg,
+                               colored_cfg)
+    n_pad = bucket_spins(N)
+    print(f"[serve] burst of {len(reqs)} requests: {SERVE_STACKED} seed-free "
+          f"K2000 RWA (R={R}, {SERVE_STEPS} steps; N={N} pads to {n_pad}), "
+          f"{SERVE_PINNED} seed-pinned, {SERVE_SPARSE} seed-free sparse "
+          f"N={SPARSE_N} bitplane_hbm RWA ({SERVE_SPARSE_STEPS} steps), one "
+          f"colored (704 steps); {nvidia_smi()}")
+
+    chunks = math.ceil(SERVE_STEPS / T)
+    sparse_chunks = math.ceil(SERVE_SPARSE_STEPS / T)
+    colored_chunks = math.ceil(704 / T)
+    want = {True: {"mcmc_sweep": (1 + SERVE_PINNED) * chunks + sparse_chunks,
+                   "local_field_init": 1 + SERVE_PINNED,
+                   "bitplane_field_init": 2, "colored_sweep": colored_chunks},
+            False: {"mcmc_sweep": (SERVE_STACKED + SERVE_PINNED) * chunks
+                    + SERVE_SPARSE * sparse_chunks,
+                    "local_field_init": SERVE_STACKED + SERVE_PINNED,
+                    "bitplane_field_init": SERVE_SPARSE + 1,
+                    "colored_sweep": colored_chunks}}
+    # In turns (batched, unbatched, unbatched, batched), each drain on a
+    # new service with cold caches; the checks below read the first of each.
+    runs, walls = {}, {True: [], False: []}
+    for batching in (True, False, False, True):
+        svc = SolverService(ServeConfig(batching=batching), device="cuda")
+        tickets, out, t_sub, wall, counts = drain_burst(svc, reqs)
+        runs.setdefault(batching, (svc, tickets, out, t_sub, wall, counts))
+        walls[batching].append(wall)
+        print(f"[serve] batching={batching}: {len(reqs) / wall:.3f} "
+              f"requests/s, drain wall {wall:.4f} s, submit "
+              f"{sum(t_sub) / len(t_sub) * 1e3:.3f} ms a request (mean; "
+              f"max {max(t_sub) * 1e3:.3f}), launches per drain: kernel A "
+              f"{counts['mcmc_sweep']}, B {counts['local_field_init']}, C "
+              f"{counts['bitplane_field_init']}, D "
+              f"{counts['colored_sweep']}; service launches "
+              f"{svc.stats['launches']}; store cache {svc.stores.hits} hits "
+              f"/ {svc.stores.misses} misses")
+        kinds = [out[t].batched for t in tickets]
+        check(counts == want[batching]
+              and kinds == (labels if batching else ["single"] * len(reqs))
+              and svc.stats["launches"] == (4 if batching else len(reqs)),
+              f"batching={batching}: lanes {kinds}, launches {counts} (one "
+              "stacked K2000 launch, one solve a vmap lane, one stacked "
+              "sparse launch and the colored solve when batched; one solve "
+              "a request when not)", quiet=len(walls[batching]) > 1)
+        serve_launches(counts, (1 if batching else SERVE_SPARSE)
+                       * sparse_chunks)
+    svc, tickets, out, t_sub, wall, counts = runs[True]
+    print(f"[serve] drain wall in turns: batched {walls[True][0]:.4f} / "
+          f"{walls[True][1]:.4f} s, unbatched {walls[False][0]:.4f} / "
+          f"{walls[False][1]:.4f} s; requests/s batched "
+          f"{2 * len(reqs) / sum(walls[True]):.3f}, unbatched "
+          f"{2 * len(reqs) / sum(walls[False]):.3f}; kernel A launches "
+          f"{want[True]['mcmc_sweep']} / {want[False]['mcmc_sweep']}")
+
+    padded = pad_problem(dense, n_pad)
+    serve_kernel_checks(reqs, dense, sparse, padded)
+
+    # The lanes against solo solves on the card.
+    for i in range(SERVE_STACKED, SERVE_STACKED + SERVE_PINNED):
+        t = tickets[i]
+        solo = solve(padded, reqs[i].seed, stacked_cfg)
+        got = out[t].result
+        check(same_result(got, solo._replace(
+            best_spins=solo.best_spins[:, :N]),
+            ("best_energy", "best_spins", "final_energy", "num_flips",
+             "trace_energy", "rows_fetched")),
+            f"vmap lane seed {reqs[i].seed}: bitwise solve(pad_problem("
+            f"K2000, {n_pad}), seed) on the card", quiet=i > SERVE_STACKED)
+    width = bucket_replicas(SERVE_STACKED * R)
+    stack_solo = solve(padded, tickets[0],
+                       dataclasses.replace(stacked_cfg, num_replicas=width))
+    for i in range(SERVE_STACKED):
+        span = slice(i * R, (i + 1) * R)
+        got = out[tickets[i]].result
+        check(torch.equal(got.best_energy, stack_solo.best_energy[span])
+              and torch.equal(got.best_spins,
+                              stack_solo.best_spins[span, :N])
+              and torch.equal(got.num_flips, stack_solo.num_flips[span])
+              and torch.equal(got.final_energy,
+                              stack_solo.final_energy[span]),
+              f"stacked span {i}: bitwise the solo solve at ticket "
+              f"{tickets[0]}, R={width}, sliced", quiet=i > 0)
+        check(torch.equal(got.best_energy,
+                          ising.energy(dense, got.best_spins)),
+              f"span {i}: best_energy == energy of its spins on the "
+              "unpadded K2000", quiet=i > 0)
+    print(f"  ok: all {SERVE_STACKED} K2000 spans bitwise the solo launch "
+          "and exact on the unpadded instance")
+    sp_solo = solve(sparse, tickets[SERVE_STACKED + SERVE_PINNED],
+                    dataclasses.replace(sparse_cfg,
+                                        num_replicas=bucket_replicas(
+                                            SERVE_SPARSE * R)))
+    for i in range(SERVE_SPARSE):
+        t = tickets[SERVE_STACKED + SERVE_PINNED + i]
+        got = out[t].result
+        span = slice(i * R, (i + 1) * R)
+        e = edge_energy(edges, sparse.fields, got.best_spins)
+        check(torch.equal(got.best_spins, sp_solo.best_spins[span])
+              and torch.equal(got.best_energy.double(), e),
+              f"sparse span {i}: bitwise the solo launch, best_energy == "
+              "the edge-list energy of its spins exactly")
+    col = out[tickets[-1]]
+    e = edge_energy(edges, sparse.fields, col.result.best_spins)
+    check(torch.equal(col.result.best_energy.double(), e)
+          and not col.store_hit,
+          f"colored request: single, best cut "
+          f"{-float(col.result.best_energy.min()):.0f} (weights -J), "
+          "best_energy == the edge-list energy of its spins")
+    for batching in (True, False):
+        s_out = runs[batching][2]
+        cuts = [cut_from_energy(inst, s_out[t].result.best_energy.cpu()
+                                .numpy()).max() for t in tickets[:12]]
+        print(f"[serve] batching={batching}: K2000 best cut "
+              f"{max(cuts):.0f} over the 12 tenants")
+
+    # Submit's cost, the digests' share (medians of 5).
+    def median_s(fn):
+        return sorted(timed(fn)[1] for _ in range(5))[2]
+
+    t_dig = median_s(lambda: problem_digest(padded))
+    t_cdig = median_s(lambda: coupling_digest(padded))
+    t_pad = median_s(lambda: pad_problem(dense, n_pad))
+    t_k = sorted(t_sub[:SERVE_STACKED + SERVE_PINNED])[
+        (SERVE_STACKED + SERVE_PINNED) // 2]
+    print(f"[serve] submit of a K2000 request, median of 12: "
+          f"{t_k * 1e3:.3f} ms; pad_problem {t_pad * 1e3:.3f} ms, "
+          f"problem_digest (the padded J, 16 MB, to the host and sha256) "
+          f"{t_dig * 1e3:.3f} ms = {t_dig / t_k:.1%} of it; coupling_digest "
+          f"at each store lookup of a plan {t_cdig * 1e3:.3f} ms")
+
+    # The repeat tenant: content-equal fresh arrays on the host.
+    encodes = {"n": 0}
+    real = coupling.encode_planes
+
+    def counting(*a, **k):
+        encodes["n"] += 1
+        return real(*a, **k)
+
+    coupling.encode_planes = counting
+    try:
+        moved = svc.stores.bytes_to_device
+        fresh = maxcut_to_ising(complete_bipolar(N, seed=SEED))   # CPU
+        reset_all_counts()
+        rep = svc.solve(fresh, stacked_cfg, seed=42)
+        sp_rep = svc.solve(ising.IsingProblem.create_sparse(
+            sparse_bipolar_edges(SPARSE_N, SPARSE_EDGES, seed=SPARSE_N)),
+            sparse_cfg, seed=43)
+        serve_launches(read_all_counts(), sparse_chunks)
+    finally:
+        coupling.encode_planes = real
+    check(rep.store_hit and sp_rep.store_hit and encodes["n"] == 0
+          and svc.stores.bytes_to_device == moved,
+          f"repeat tenants (K2000 and sparse, fresh host arrays): store "
+          f"hits, {encodes['n']} encodes, no store bytes moved to the card")
+    check(torch.equal(rep.result.best_energy,
+                      ising.energy(dense, rep.result.best_spins.cuda())),
+          "repeat tenant: best_energy == energy of its spins")
+
+    # A met target: no launch at all.
+    best = min(float(out[t].result.best_energy.min()) for t in tickets[:12])
+    before = svc.stats["launches"]
+    reset_all_counts()
+    hit = svc.solve(dense, stacked_cfg,
+                    budget=BudgetConfig(target_energy=best + 10.0))
+    c = read_all_counts()
+    check(hit.stop_reason == "cached_target" and hit.warm_hit
+          and not any(c.values()) and svc.stats["launches"] == before,
+          f"a target the burst met ({best + 10.0:.0f}) is answered from the "
+          f"warm cache: no kernel launched ({c})")
+    check(torch.equal(hit.result.best_energy,
+                      ising.energy(dense, hit.result.best_spins))
+          and hit.result.best_spins.dtype == torch.int8
+          and hit.result.best_spins.is_cuda,
+          "the cached answer: int8 spins on the card scoring its energy")
+
+    # A budgeted request.
+    reset_all_counts()
+    bud = svc.solve(dense, stacked_cfg, seed=44,
+                    budget=BudgetConfig(max_steps=SERVE_STEPS // 2))
+    c = read_all_counts()
+    check(bud.batched == "budgeted" and bud.stop_reason == "max_steps"
+          and c["mcmc_sweep"] == math.ceil(SERVE_STEPS // 2 / T),
+          f"budgeted request stops with max_steps after "
+          f"{c['mcmc_sweep']} chunks")
+    serve_launches(c, 0)
+    print(f"[serve] caches: store {svc.stores.hits} hits / "
+          f"{svc.stores.misses} misses, warm {svc.warm.hits} hits / "
+          f"{svc.warm.misses} misses; stats {svc.stats}")
+
+    print("[profile] torch.profiler over the batched burst's drain (a new "
+          "service, the same requests)")
+    prof_svc = SolverService(device="cuda")
+    for r in reqs:
+        prof_svc.submit(r)
+    reset_all_counts()
+    profile_device(prof_svc.drain)
+    serve_launches(read_all_counts(), sparse_chunks)
+    serve_anchor_check()
+
+
 def reset_flash_counts() -> None:
     fa.tc_counter.reset()
     fa.f32_counter.reset()
@@ -2897,9 +3401,10 @@ def layer_errors(cfg, params, tokens) -> list:
     with torch.no_grad():
         for g in range(cfg.num_groups):
             gp = lm_model._index(params["groups"], g)["b0"]
-            xf = lm_model._apply_block(cfg, "attn:mlp", gp, xf, pos, None, None)
+            xf = lm_model._apply_block(cfg, "attn:mlp", gp, xf, pos, None,
+                                       None)[0]
             xc = lm_model._apply_block(chunked, "attn:mlp", gp, xc, pos, None,
-                                       None)
+                                       None)[0]
             errs.append(rel_err(xf, xc))
     return errs
 
@@ -3154,6 +3659,307 @@ def lm_slice() -> list:
         "bound_by": e["bound"][1], "library_ms": e["library_ms"]}]
 
 
+#: [lm-families]: granite-moe and rwkv6 at full width and depth, a 4 x 4,096
+#: prefill each (the qwen2-7b run's shape); jamba at its smoke config and
+#: one Mamba block at its full width.
+MOE_ARCH, RWKV_ARCH, HYBRID_ARCH = ("granite-moe-1b-a400m", "rwkv6-1.6b",
+                                    "jamba-1.5-large-398b")
+#: The Mamba block at jamba's width: a prefill, the cached prefix it
+#: decodes from (a multiple of the 256-step scan chunk) and the CPU check's
+#: input length.
+MAMBA_SEQ, MAMBA_PREFIX, MAMBA_CPU_SEQ = 1024, 768, 64
+
+
+def timed_steps(step, count: int) -> tuple:
+    """``(outputs, host-clock seconds of each)`` of ``count`` calls of
+    ``step(i)``, each synchronised."""
+    outs, times = [], []
+    for i in range(count):
+        out, t = timed(lambda: step(i))
+        outs.append(out)
+        times.append(t)
+    return outs, times
+
+
+def tree_to(tree: dict, device) -> dict:
+    """A parameter dict with every leaf on ``device``."""
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def bf16_model(arch: str):
+    """``(cfg, params)``: ``arch`` at full width and depth with bf16
+    weights made on the card from a seed, its attention on the kernel."""
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16",
+                              remat="none", attn_impl="flash")
+    params = init_params(model_specs(cfg),
+                         torch.Generator("cuda").manual_seed(SEED))
+    print(f"[lm-families] {arch}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, pattern {cfg.block_pattern}, "
+          f"{cfg.param_count()} parameters ({2 * cfg.param_count()} bytes in "
+          f"bf16), device memory {torch.cuda.memory_allocated()} bytes")
+    return cfg, params
+
+
+def moe_family() -> tuple:
+    """granite-moe: the 4 x 4,096 prefill through kernel E at D=64, its MoE
+    losses and loads, the chunked path, one-token decode, and E at this
+    shape against its plain version and SDPA. Returns (flash launches,
+    prefill tokens/s)."""
+    from repro_torch.models import moe
+
+    cfg, params = bf16_model(MOE_ARCH)
+    tok = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).to("cuda")
+    forward(cfg, params, tokens=tok[:1, :512])   # warm-up
+    reset_flash_counts()
+    out, wall = timed(lambda: forward(cfg, params, tokens=tok))
+    launches = fa.tc_counter.count
+    e, k = cfg.num_experts, cfg.experts_per_token
+    c = moe._capacity(cfg, LM_SEQ)
+    print(f"[lm-families] {MOE_ARCH} prefill ({LM_BATCH}, {LM_SEQ}): "
+          f"{wall * 1e3:.3f} ms, {LM_BATCH * LM_SEQ / wall:.1f} tokens/s; "
+          f"flash_attention launches {launches}; aux_loss "
+          f"{float(out.aux_loss):.6f}; expert capacity {c} of {LM_SEQ} "
+          f"tokens x {k} / {e} experts")
+    check(launches == cfg.num_layers and fa.f32_counter.count == 0,
+          f"kernel E's tensor-core entry once a layer ({launches})")
+    check(float(out.aux_loss) > 0 and out.expert_load.shape == (1, e)
+          and bool(torch.allclose(out.expert_load.sum(-1),
+                                  torch.ones(1, device="cuda"), atol=1e-5)),
+          f"aux_loss > 0, expert_load (1, {e}) sums to 1 per MoE block "
+          f"(max load {float(out.expert_load.max()):.4f})")
+    check(bool(torch.isfinite(out.logits).all()), "granite logits finite")
+    q0, k0, v0 = capture_first_attention(lambda: profile_device(
+        lambda: forward(cfg, params, tokens=tok), top=6,
+        tag="[lm-families] granite prefill:"))
+    chunked = forward(dataclasses.replace(cfg, attn_impl="chunked"), params,
+                      tokens=tok).logits
+    err, bnd = rel_err(out.logits, chunked), depth_bound(cfg.num_layers)
+    del chunked
+    check(err <= bnd, f"granite flash against chunked logits {err:.6f} "
+          f"within {bnd:.4f} = {BF16_PATH_BOUND} x sqrt({cfg.num_layers}/2)")
+    del out
+
+    # One-token decode drops no (token, expert) pair (C = 1 a token), so
+    # it is held against a forward whose capacity keeps every pair (C = S),
+    # with the chunked attention (decode's own cast points).
+    nodrop = dataclasses.replace(cfg, capacity_factor=e / k,
+                                 attn_impl="chunked")
+    prompt = tok[:, :DECODE_PROMPT]
+    ref_logits = forward(nodrop, params, tokens=prompt).logits
+    cache = init_decode_cache(cfg, LM_BATCH, DECODE_PROMPT + DECODE_NEW)
+    reset_flash_counts()
+    nxt = [None]
+
+    def step(t):
+        toks = prompt[:, t:t + 1] if t < DECODE_PROMPT else nxt[0]
+        lg, _ = decode_step(cfg, params, cache, t, tokens=toks)
+        nxt[0] = lg[:, -1].argmax(dim=-1, keepdim=True)
+        return lg[:, 0]
+
+    outs, times = timed_steps(step, DECODE_PROMPT + DECODE_NEW)
+    derr = rel_err(torch.stack(outs[:DECODE_PROMPT], dim=1), ref_logits)
+    greedy_ms = sum(times[DECODE_PROMPT:]) / DECODE_NEW * 1e3
+    print(f"[lm-families] {MOE_ARCH} decode at batch {LM_BATCH}: "
+          f"{sum(times[1:DECODE_PROMPT]) / (DECODE_PROMPT - 1) * 1e3:.3f} ms "
+          f"per prompt step, {greedy_ms:.3f} ms per greedy step; decode "
+          f"against the forward {derr:.6f}")
+    check(flash_launches() == 0 and derr <= BF16_PATH_BOUND,
+          f"granite decode logits within {BF16_PATH_BOUND} of the no-drop "
+          f"forward's (got {derr:.6f}); decode launches no kernel E")
+    profile_device(lambda: decode_step(cfg, params, cache,
+                                       DECODE_PROMPT + DECODE_NEW - 1,
+                                       tokens=nxt[0]), top=0,
+                   tag="[lm-families] granite decode step:")
+    del params, cache, ref_logits, outs
+    torch.cuda.empty_cache()
+
+    b, hq, s, d = q0.shape
+    sc = d ** -0.5
+    got = fa.flash_attention(q0, k0, v0, True, sc, s, s)
+    want = ref.flash_attention(q0, k0, v0, True, sc)
+    ferr = max_abs_err([got], [want])
+    check(torch.allclose(got.float(), want.float(), rtol=FLASH_TOL[q0.dtype],
+                         atol=FLASH_TOL[q0.dtype]),
+          f"kernel E at granite's layer-0 q, k, v {tuple(q0.shape)}/"
+          f"{tuple(k0.shape)}: max_abs_err {ferr:.3e} against its plain "
+          "version")
+    flops = attention_flops(b, hq, s, d)
+    t_k = cuda_ms(lambda: fa.flash_attention(q0, k0, v0, True, sc, s, s), 5)
+    t_p = cuda_ms(lambda: ref.flash_attention(q0, k0, v0, True, sc), 2)
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q0, k0, v0, is_causal=True, scale=sc, enable_gqa=True), 10)
+    bnd_ms, by = bound(q0.element_size() * (2 * q0.numel() + 2 * k0.numel()),
+                       flops, BF16_FLOP_PER_S)
+    print(f"[timing] flash_attention {tuple(q0.shape)}/{tuple(k0.shape)} "
+          f"bf16 causal (granite): {t_k:.4f} ms ({bnd_ms / t_k:.1%} of the "
+          f"bound), plain {t_p:.4f} ms, scaled_dot_product_attention "
+          f"{t_l:.4f} ms (kernel / SDPA {t_k / t_l:.2f}), bound "
+          f"{bnd_ms:.4f} ms ({by})")
+    return launches, LM_BATCH * LM_SEQ / wall
+
+
+def rwkv_family() -> None:
+    """rwkv6: the 4 x 4,096 prefill (the chunked wkv), the same prefix into
+    a decode cache and 16 decode steps (the scan) against the forward over
+    the prefix and those tokens, in bf16 and (request 0) in f32 compute."""
+    cfg, params = bf16_model(RWKV_ARCH)
+    tok = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ + DECODE_NEW))).to("cuda")
+    forward(cfg, params, tokens=tok[:1, :64])    # warm-up
+    out, wall = timed(lambda: forward(cfg, params, tokens=tok[:, :LM_SEQ]))
+    check(bool(torch.isfinite(out.logits).all())
+          and float(out.aux_loss) == 0.0 and out.expert_load is None,
+          "rwkv6 prefill logits finite, no MoE losses")
+    del out
+    print(f"[lm-families] {RWKV_ARCH} prefill ({LM_BATCH}, {LM_SEQ}): "
+          f"{wall * 1e3:.3f} ms, {LM_BATCH * LM_SEQ / wall:.1f} tokens/s")
+    profile_device(lambda: forward(cfg, params, tokens=tok[:, :LM_SEQ]),
+                   top=6, tag="[lm-families] rwkv6 prefill:")
+    full = forward(cfg, params, tokens=tok).logits[:, LM_SEQ:].clone()
+    cache = init_decode_cache(cfg, LM_BATCH, 1)
+    _, t_pre = timed(lambda: decode_step(cfg, params, cache, 0,
+                                         tokens=tok[:, :LM_SEQ]))
+    outs, times = timed_steps(lambda i: decode_step(
+        cfg, params, cache, LM_SEQ + i,
+        tokens=tok[:, LM_SEQ + i:LM_SEQ + i + 1])[0][:, 0], DECODE_NEW)
+    derr = rel_err(torch.stack(outs, dim=1), full)
+    print(f"[lm-families] {RWKV_ARCH}: the {LM_SEQ}-token prefix into the "
+          f"cache {t_pre * 1e3:.3f} ms, then {sum(times) / DECODE_NEW * 1e3:.3f}"
+          f" ms per decode step (batch {LM_BATCH}); decode against the "
+          f"forward {derr:.6f}")
+    # In f32 compute the scan and the chunked wkv differ only by the order
+    # of their f32 sums, so request 0's decode is held tight there; in bf16
+    # each of the 24 layers adds its own rounding of the two paths' GEMM
+    # shapes to the residual stream, hence the depth bound.
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    full32 = forward(f32, params, tokens=tok[:1]).logits[:, LM_SEQ:].clone()
+    cache32 = init_decode_cache(f32, 1, 1)
+    decode_step(f32, params, cache32, 0, tokens=tok[:1, :LM_SEQ])
+    outs32 = [decode_step(f32, params, cache32, LM_SEQ + i,
+                          tokens=tok[:1, LM_SEQ + i:LM_SEQ + i + 1])[0][:, 0]
+              for i in range(DECODE_NEW)]
+    e32 = rel_err(torch.stack(outs32, dim=1), full32)
+    del full32, cache32, outs32
+    bnd = depth_bound(cfg.num_layers)
+    print(f"[lm-families] {RWKV_ARCH} decode against the forward, request 0 "
+          f"in f32 compute: {e32:.3e}")
+    check(e32 <= F32_PATH_BOUND, f"rwkv6 decode (scan) within "
+          f"{F32_PATH_BOUND} of the forward's logits (chunked wkv) in f32 "
+          f"compute ({e32:.3e})")
+    check(derr <= bnd, f"rwkv6 decode (scan) within {bnd:.4f} = "
+          f"{BF16_PATH_BOUND} x sqrt({cfg.num_layers}/2) of the forward's "
+          f"logits (chunked wkv) in bf16 ({derr:.6f})")
+    profile_device(lambda: decode_step(cfg, params, cache,
+                                       LM_SEQ + DECODE_NEW,
+                                       tokens=tok[:, -1:]), top=0,
+                   tag="[lm-families] rwkv6 decode step:")
+    del params, cache, full
+    torch.cuda.empty_cache()
+
+
+def hybrid_family() -> int:
+    """jamba: its smoke model on the card against the CPU (forward and
+    decode), and one Mamba block at its full width. Returns the smoke
+    forward's flash launches."""
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH, smoke=True),
+                              attn_impl="flash")
+    cpu_p = init_params(model_specs(cfg), torch.Generator().manual_seed(SEED),
+                        device="cpu")
+    card_p = tree_to(cpu_p, "cuda")
+    tok = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 32)))
+    reset_flash_counts()
+    card = forward(cfg, card_p, tokens=tok.cuda())
+    launches = flash_launches()
+    cpu = forward(cfg, cpu_p, tokens=tok)
+    bnd = depth_bound(cfg.num_layers)
+    err = rel_err(card.logits.cpu(), cpu.logits)
+    check(err <= bnd and launches == cfg.num_groups and abs(
+        float(card.aux_loss) - float(cpu.aux_loss)) <= 1e-4,
+          f"jamba smoke forward: the card within {bnd:.4f} of the CPU "
+          f"({err:.6f}), aux_loss {float(card.aux_loss):.6f} / "
+          f"{float(cpu.aux_loss):.6f}, kernel E {launches} launches")
+    caches = [init_decode_cache(cfg, 2, 16, device=d) for d in ("cuda", "cpu")]
+    dec = [[], []]
+    for t in range(16):
+        for i, (p, dev) in enumerate(((card_p, "cuda"), (cpu_p, "cpu"))):
+            lg, _ = decode_step(cfg, p, caches[i], t,
+                                tokens=tok[:, t:t + 1].to(dev))
+            dec[i].append(lg[:, 0].cpu())
+    derr = rel_err(torch.stack(dec[0], 1), torch.stack(dec[1], 1))
+    ferr = rel_err(torch.stack(dec[0], 1), card.logits[:, :16].cpu())
+    check(derr <= bnd and ferr <= BF16_PATH_BOUND,
+          f"jamba smoke decode: the card within {bnd:.4f} of the CPU "
+          f"({derr:.6f}), within {BF16_PATH_BOUND} of its forward "
+          f"({ferr:.6f})")
+
+    full = dataclasses.replace(get_config(HYBRID_ARCH),
+                               param_dtype="bfloat16")
+    p = init_params(lm_model._mamba_specs(full),
+                    torch.Generator("cuda").manual_seed(SEED))
+    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+    x = torch.randn((1, MAMBA_SEQ, full.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    (y, _), wall = timed(lambda: ssm.mamba_block(full, p, x))
+    cache = ssm.init_cache(full, 1, device="cuda")
+    _, cache = ssm.mamba_block(full, p, x[:, :MAMBA_PREFIX], cache=cache)
+    state = [cache]
+
+    def step(i):
+        t = MAMBA_PREFIX + i
+        out, state[0] = ssm.mamba_block(full, p, x[:, t:t + 1],
+                                        cache=state[0])
+        return out[:, 0]
+
+    outs, times = timed_steps(step, DECODE_NEW)
+    derr = rel_err(torch.stack(outs, 1),
+                   y[:, MAMBA_PREFIX:MAMBA_PREFIX + DECODE_NEW])
+    print(f"[lm-families] {HYBRID_ARCH} mamba_block at full width (d "
+          f"{full.d_model}, d_inner {full.d_inner}, state "
+          f"{full.ssm_state_dim}, conv {full.ssm_conv_width}, dt_rank "
+          f"{full.resolved_dt_rank}, scan chunk {full.ssm_chunk}): prefill "
+          f"(1, {MAMBA_SEQ}) {wall * 1e3:.3f} ms, "
+          f"{sum(times) / DECODE_NEW * 1e3:.3f} ms per decode step; decode "
+          f"from a {MAMBA_PREFIX}-token cached prefix against the prefill "
+          f"{derr:.6f}")
+    check(bool(torch.isfinite(y).all()) and derr <= BF16_PATH_BOUND,
+          f"mamba_block prefill finite; decode within {BF16_PATH_BOUND} of "
+          "the prefill")
+    profile_device(lambda: ssm.mamba_block(full, p, x), top=4,
+                   tag="[lm-families] mamba_block prefill:")
+    xs = x[:, :MAMBA_CPU_SEQ]
+    card_y, _ = ssm.mamba_block(full, p, xs)
+    cpu_y, _ = ssm.mamba_block(full, {k: v.cpu() for k, v in p.items()},
+                               xs.cpu())
+    cerr = rel_err(card_y.cpu(), cpu_y)
+    check(cerr <= BF16_PATH_BOUND, f"mamba_block at full width, "
+          f"{MAMBA_CPU_SEQ} tokens: the card within {BF16_PATH_BOUND} of "
+          f"the CPU ({cerr:.6f})")
+    del p, x, y, cache, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_families_phase() -> int:
+    """[lm-families]: the MoE, RWKV and hybrid families on the card.
+    Returns kernel E's launches on their main paths."""
+    phase_t = time.perf_counter()
+    print(f"[lm-families] {nvidia_smi()}")
+    launches, _ = moe_family()
+    print(f"[phase] lm-families moe {time.perf_counter() - phase_t:.1f} s")
+    t0 = time.perf_counter()
+    rwkv_family()
+    print(f"[phase] lm-families rwkv {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches += hybrid_family()
+    print(f"[phase] lm-families hybrid {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -3200,17 +4006,23 @@ def main() -> None:
                         ("stat", stat_phase),
                         ("tempering", tempering_phase),
                         ("tts", tts_phase),
-                        ("workloads", workloads_phase)):
+                        ("workloads", workloads_phase),
+                        ("serve", serve_phase)):
         t0 = time.perf_counter()
         phase()
         print(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
-    # Kernel A's and the inits' rows count the launches of this slice's
-    # main paths too (tempering, TTS, the CLI's workloads).
+    # Kernel A's, C's, D's and the inits' rows count the launches of the
+    # later slices' main paths too (tempering, TTS, the CLI's workloads,
+    # the service's drains).
     for row in rows:
         row["launches"] += EXTRA_LAUNCHES.pop(row["name"], 0)
     check(not EXTRA_LAUNCHES, f"every main path's launches land on a "
           f"kernels row (left: {EXTRA_LAUNCHES})")
     rows += lm_slice()
+    t0 = time.perf_counter()
+    # Kernel E's row counts the MoE and hybrid families' launches too.
+    rows[-1]["launches"] += lm_families_phase()
+    print(f"[phase] lm-families {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

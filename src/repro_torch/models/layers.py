@@ -47,13 +47,19 @@ def _const(x: torch.Tensor, value: float) -> torch.Tensor:
     return torch.tensor(value, dtype=x.dtype, device=x.device)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` op by op: XLA expands the logistic as
+    1 / (1 + exp(-x)), each result rounded to x's dtype."""
+    one = _const(x, 1.0)
+    return x * (one / (one + torch.exp(-x)))
+
+
 def activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Op by op as ``jax.nn``'s, each result rounded to x's dtype (in bf16
     the rounding after every op is part of the function)."""
     c = functools.partial(_const, x)
     if cfg.activation == "silu":
-        # XLA expands the logistic as 1 / (1 + exp(-x)).
-        return x * (c(1.0) / (c(1.0) + torch.exp(-x)))
+        return silu(x)
     if cfg.activation == "gelu":
         # jax.nn.gelu's default: the tanh approximation.
         inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))

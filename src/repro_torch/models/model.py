@@ -1,5 +1,6 @@
-"""LM assembly for the dense ``attn:mlp`` architectures: the serving path
-(port of ``repro.models.model``).
+"""LM assembly for every architecture of the repo, forward and decode (port
+of ``repro.models.model``): dense ``attn:mlp``, MoE, the Mamba hybrid and
+RWKV.
 
 Layers are grouped by ``cfg.block_pattern`` (one group = one pass over the
 pattern) and stacked, the group dim first; where the JAX package scans the
@@ -12,12 +13,13 @@ the port yet, so ``cfg.remat`` has nothing to do here.
 
 Public API:
     model_specs(cfg)                  -> ParamSpec tree
-    forward(cfg, params, tokens=...)  -> ForwardOut(logits, aux)
+    forward(cfg, params, tokens=...)  -> ForwardOut(logits, aux_loss, load)
     init_decode_cache(cfg, batch, L)  -> cache dict
     decode_step(cfg, params, cache, pos, tokens=...) -> (logits, cache)
 
-MoE, Mamba, RWKV and channel-mix blocks are not ported yet: their specs and
-blocks raise ``NotImplementedError`` naming ROADMAP queue 1 item 14.
+The decode cache is written in place: the attention blocks' keys and
+values at ``pos``, the Mamba blocks' conv window and SSM state, the RWKV
+blocks' wkv state and token shifts (the JAX function returns a new cache).
 """
 from __future__ import annotations
 
@@ -27,18 +29,15 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
-from . import layers
+from . import layers, moe, rwkv, ssm
 from .config import ModelConfig
 from .params import ParamSpec, stack_specs, torch_dtype, tree_paths
-
-UNPORTED = ("{} blocks are not ported yet (ROADMAP queue 1 item 14: the "
-            "port serves the dense attn:mlp family)")
 
 
 class ForwardOut(NamedTuple):
     logits: torch.Tensor          # (B, S, V)
-    aux_loss: torch.Tensor        # scalar: 0 (no MoE blocks in the port yet)
-    expert_load: Optional[torch.Tensor] = None
+    aux_loss: torch.Tensor        # scalar: MoE load-balance + z losses (0 if dense)
+    expert_load: Optional[torch.Tensor] = None  # (MoE blocks in the pattern, E)
 
 
 # ---------------------------------------------------------------------------
@@ -81,16 +80,83 @@ def _mlp_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-_MIXER_SPECS = {"attn": _attn_specs}
-_FFN_SPECS = {"mlp": _mlp_specs}
+def _moe_specs(cfg: ModelConfig) -> dict:
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.resolved_moe_d_ff
+    pd = cfg.param_dtype
+    o_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
+    s = {
+        "norm": ParamSpec((d,), (None,), "zeros", pd),
+        "router": ParamSpec((d, e), ("embed_w", "experts"), "normal", pd),
+        "wi": ParamSpec((e, d, f), ("experts", "embed_w", None), "normal", pd),
+        "wo": ParamSpec((e, f, d), ("experts", None, "embed_w"), f"scaled:{o_scale}", pd),
+    }
+    if cfg.norm == "layernorm":
+        s["norm_b"] = ParamSpec((d,), (None,), "zeros", pd)
+    if cfg.gated_mlp:
+        s["wg"] = ParamSpec((e, d, f), ("experts", "embed_w", None), "normal", pd)
+    return s
 
 
-def _split(entry: str) -> tuple[str, str]:
-    mixer, _, ffn = entry.partition(":")
-    for part, ported in ((mixer, _MIXER_SPECS), (ffn, _FFN_SPECS)):
-        if part not in ported:
-            raise NotImplementedError(UNPORTED.format(part))
-    return mixer, ffn
+def _mamba_specs(cfg: ModelConfig) -> dict:
+    d, di, n, w = cfg.d_model, cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_conv_width
+    r = cfg.resolved_dt_rank
+    pd = cfg.param_dtype
+    return {
+        "norm": ParamSpec((d,), (None,), "zeros", pd),
+        "in_proj": ParamSpec((d, 2 * di), ("embed_w", "ssm_inner"), "normal", pd),
+        "conv_w": ParamSpec((di, w), ("ssm_inner", "conv"), "uniform_fan", pd),
+        "conv_b": ParamSpec((di,), ("ssm_inner",), "zeros", pd),
+        "x_proj": ParamSpec((di, r + 2 * n), ("ssm_inner", None), "normal", pd),
+        "dt_proj": ParamSpec((r, di), ("dt_rank", "ssm_inner"), "uniform_fan", pd),
+        "dt_bias": ParamSpec((di,), ("ssm_inner",), "mamba_dt_bias", pd),
+        "a_log": ParamSpec((di, n), ("ssm_inner", "ssm_state"), "mamba_a_log", pd),
+        "d_skip": ParamSpec((di,), ("ssm_inner",), "ones", pd),
+        "out_proj": ParamSpec((di, d), ("ssm_inner", "embed_w"),
+                              f"scaled:{0.02 / math.sqrt(2 * cfg.num_layers)}", pd),
+    }
+
+
+def _rwkv_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    pd = cfg.param_dtype
+    rank = 32
+    return {
+        "norm": ParamSpec((d,), (None,), "zeros", pd),
+        "mix_base": ParamSpec((rwkv.N_MIX, d), (None, "embed_w"), "const:0.5", pd),
+        "mix_lora_a": ParamSpec((d, rank), ("embed_w", "lora"), "normal", pd),
+        "mix_lora_b": ParamSpec((rank, rwkv.N_MIX, d), ("lora", None, "embed_w"), "zeros", pd),
+        "wr": ParamSpec((d, d), ("embed_w", "rwkv_heads"), "normal", pd),
+        "wk": ParamSpec((d, d), ("embed_w", "rwkv_heads"), "normal", pd),
+        "wv": ParamSpec((d, d), ("embed_w", "rwkv_heads"), "normal", pd),
+        "wg": ParamSpec((d, d), ("embed_w", "rwkv_heads"), "normal", pd),
+        "decay_base": ParamSpec((d,), ("embed_w",), "const:-4.0", pd),
+        "decay_lora_a": ParamSpec((d, 2 * rank), ("embed_w", "lora"), "normal", pd),
+        "decay_lora_b": ParamSpec((2 * rank, d), ("lora", "embed_w"), "zeros", pd),
+        "bonus": ParamSpec((h, hd), ("rwkv_heads", None), "normal", pd),
+        "ln_x": ParamSpec((d,), ("embed_w",), "zeros", pd),
+        "wo": ParamSpec((d, d), ("rwkv_heads", "embed_w"),
+                        f"scaled:{0.02 / math.sqrt(2 * cfg.num_layers)}", pd),
+    }
+
+
+def _cmix_specs(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    pd = cfg.param_dtype
+    return {
+        "norm": ParamSpec((d,), (None,), "zeros", pd),
+        "mu_k": ParamSpec((d,), ("embed_w",), "const:0.5", pd),
+        "mu_r": ParamSpec((d,), ("embed_w",), "const:0.5", pd),
+        "wk": ParamSpec((d, f), ("embed_w", "ffn"), "normal", pd),
+        "wv": ParamSpec((f, d), ("ffn", "embed_w"),
+                        f"scaled:{0.02 / math.sqrt(2 * cfg.num_layers)}", pd),
+        "wr": ParamSpec((d, d), ("embed_w", "rwkv_heads"), "normal", pd),
+    }
+
+
+_MIXER_SPECS = {"attn": _attn_specs, "mamba": _mamba_specs, "rwkv": _rwkv_specs}
+_FFN_SPECS = {"mlp": _mlp_specs, "moe": _moe_specs, "cmix": _cmix_specs}
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -103,7 +169,7 @@ def model_specs(cfg: ModelConfig) -> dict:
         tree["frontend_in"] = ParamSpec((d, d), ("embed_w", None), "normal", pd)
     groups: dict = {}
     for i, entry in enumerate(cfg.block_pattern):
-        mixer, ffn = _split(entry)
+        mixer, _, ffn = entry.partition(":")
         block = {"mixer": _MIXER_SPECS[mixer](cfg), "ffn": _FFN_SPECS[ffn](cfg)}
         groups[f"b{i}"] = stack_specs(block, cfg.num_groups)
     tree["groups"] = groups
@@ -173,14 +239,54 @@ def _attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return out.flatten(2) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _write(cache: dict, new) -> None:
+    """Copy a block's new decode state (a NamedTuple) into its cache
+    slices, field by field, in place."""
+    for name, value in new._asdict().items():
+        cache[name].copy_(value)
+
+
 def _apply_block(cfg: ModelConfig, entry: str, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cache: Optional[dict], pos):
-    """One pattern entry: mixer + ffn, residual around each."""
-    _split(entry)
-    x = x + _attn_apply(cfg, p["mixer"], x, positions,
+    """One pattern entry: mixer + ffn, residual around each. Returns ``(x,
+    aux, load)``: the block's weighted MoE losses (0 for other FFNs) and
+    its expert load (None for other FFNs). A decode cache (this group's
+    slices of the block's entries) is written in place."""
+    mixer, _, ffn = entry.partition(":")
+    if mixer == "attn":
+        h = _attn_apply(cfg, p["mixer"], x, positions,
                         cache["attn"] if cache else None, pos)
+    elif mixer == "mamba":
+        mc = ssm.MambaCache(**cache["mamba"]) if cache else None
+        h, new = ssm.mamba_block(cfg, p["mixer"], _pre_norm(cfg, p["mixer"], x),
+                                 cache=mc)
+        if new is not None:
+            _write(cache["mamba"], new)
+    else:  # rwkv time-mix
+        rc = rwkv.RwkvCache(**cache["rwkv"]) if cache else None
+        h, new = rwkv.time_mix(cfg, p["mixer"], _pre_norm(cfg, p["mixer"], x),
+                               cache=rc)
+        if new is not None:
+            _write(cache["rwkv"], new)   # channel-mix reads the new state
+    x = x + h
+
     fp = p["ffn"]
-    return x + layers.mlp(cfg, fp, _pre_norm(cfg, fp, x))
+    xn = _pre_norm(cfg, fp, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    load = None
+    if ffn == "mlp":
+        h = layers.mlp(cfg, fp, xn)
+    elif ffn == "moe":
+        h, moe_aux = moe.moe_ffn(cfg, fp, xn)
+        aux = (moe_aux.load_balance_loss * cfg.router_aux_weight
+               + moe_aux.router_z_loss * 1e-3)
+        load = moe_aux.expert_load
+    else:  # rwkv channel mix
+        rc = rwkv.RwkvCache(**cache["rwkv"]) if cache else None
+        h, new = rwkv.channel_mix(cfg, fp, xn, cache=rc)
+        if new is not None:
+            _write(cache["rwkv"], new)
+    return x + h, aux, load
 
 
 # ---------------------------------------------------------------------------
@@ -208,14 +314,27 @@ def _index(tree, g: int):
 def _run_groups(cfg: ModelConfig, params: dict, x: torch.Tensor, positions,
                 cache: Optional[dict], pos):
     """A loop over the layer groups (the JAX package's ``lax.scan``); a
-    cache, if any, is indexed alongside and written in place."""
+    cache, if any, is indexed alongside and written in place. Returns ``(x,
+    aux, load)``: the MoE losses summed over every block, and the expert
+    load of each MoE block of the pattern averaged over the groups (None
+    without MoE blocks)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    loads = []
     for g in range(cfg.num_groups):
         gp = _index(params["groups"], g)
         gc = _index(cache, g) if cache is not None else None
+        group_loads = []
         for i, entry in enumerate(cfg.block_pattern):
             bc = gc[f"b{i}"] if gc is not None else None
-            x = _apply_block(cfg, entry, gp[f"b{i}"], x, positions, bc, pos)
-    return x
+            x, a, load = _apply_block(cfg, entry, gp[f"b{i}"], x, positions,
+                                      bc, pos)
+            aux = aux + a
+            if load is not None:
+                group_loads.append(load)
+        if group_loads:
+            loads.append(torch.stack(group_loads))
+    load = torch.stack(loads).mean(dim=0) if loads else None
+    return x, aux, load
 
 
 def _ref_shape(tokens, embeddings):
@@ -232,25 +351,39 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None,
     if positions is None:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
     x = _embed_input(cfg, params, tokens, embeddings)
-    x = _run_groups(cfg, params, x, positions, None, None)
-    return ForwardOut(logits=_logits(cfg, params, x),
-                      aux_loss=torch.zeros((), device=dev))
+    x, aux, load = _run_groups(cfg, params, x, positions, None, None)
+    return ForwardOut(logits=_logits(cfg, params, x), aux_loss=aux,
+                      expert_load=load)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device: DeviceLike = None) -> dict:
-    """KV cache stacked over groups, zeros in the compute dtype, on
-    ``device`` (default: the card)."""
+    """Decode cache stacked over groups, on ``device`` (default: the card):
+    per attention block the keys and values (B, Hkv, max_len, D) in the
+    compute dtype, per Mamba block its conv window and f32 SSM state, per
+    RWKV block its f32 wkv state and token shifts; zeros."""
     dev = resolve_device(device)
+    g = cfg.num_groups
     hd = cfg.resolved_head_dim
     dtype = torch_dtype(cfg.compute_dtype)
+
+    def stack(state) -> dict:
+        return {k: v.expand((g,) + v.shape).contiguous()
+                for k, v in state._asdict().items()}
+
     cache: dict = {}
     for i, entry in enumerate(cfg.block_pattern):
-        _split(entry)
-        shape = (cfg.num_groups, batch, cfg.num_kv_heads, max_len, hd)
-        cache[f"b{i}"] = {"attn": {
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+        mixer, _, ffn = entry.partition(":")
+        blk: dict = {}
+        if mixer == "attn":
+            shape = (g, batch, cfg.num_kv_heads, max_len, hd)
+            blk["attn"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                           "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        elif mixer == "mamba":
+            blk["mamba"] = stack(ssm.init_cache(cfg, batch, dev))
+        if mixer == "rwkv" or ffn == "cmix":
+            blk["rwkv"] = stack(rwkv.init_cache(cfg, batch, dev))
+        cache[f"b{i}"] = blk
     return cache
 
 
@@ -262,14 +395,15 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, pos: int,
     attend to each other both ways, as in the reference (a caveat there, not
     causal chunked prefill).
 
-    Writes this step's keys and values into ``cache`` in place (the JAX
-    function returns a new cache) and returns ``(logits (B, S, V), cache)``.
+    Writes this step's keys and values, and the Mamba and RWKV blocks' new
+    states, into ``cache`` in place (the JAX function returns a new cache)
+    and returns ``(logits (B, S, V), cache)``.
     """
     b, s, dev = _ref_shape(tokens, embeddings)
     pos = int(pos)
     positions = pos + torch.arange(s, device=dev)[None].expand(b, s)
     x = _embed_input(cfg, params, tokens, embeddings)
-    x = _run_groups(cfg, params, x, positions, cache, pos)
+    x = _run_groups(cfg, params, x, positions, cache, pos)[0]
     return _logits(cfg, params, x), cache
 
 

@@ -29,8 +29,8 @@ SLICED_INIT_ELEMENTS = 1 << 26
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"       # normal | zeros | ones | scaled:<f> | const:<v>
-                               # (uniform_fan and mamba_* wait for Mamba blocks)
+    init: str = "normal"       # normal | zeros | ones | scaled:<f> | const:<v> |
+                               # mamba_a_log | mamba_dt_bias | uniform_fan
     dtype: str = "float32"
 
     def __post_init__(self):
@@ -56,19 +56,38 @@ def _materialize(spec: ParamSpec, gen: torch.Generator,
         return torch.ones(spec.shape, dtype=dtype, device=device)
     if kind == "const":
         return torch.full(spec.shape, float(arg), dtype=dtype, device=device)
-    if kind in ("uniform_fan", "mamba_a_log", "mamba_dt_bias"):
-        raise NotImplementedError(
-            f"init {spec.init!r} belongs to Mamba blocks, which the port "
-            "does not have yet (ROADMAP queue 1 item 14)")
-    if kind not in ("normal", "scaled"):
+    if kind == "mamba_a_log":
+        # A = -exp(A_log); A_log = log(1..N) broadcast over the channels.
+        a = torch.log(torch.arange(1, spec.shape[-1] + 1, dtype=torch.float32,
+                                   device=device))
+        return a.expand(spec.shape).to(dtype)
+    if kind == "normal" or kind == "scaled":
+        std = 0.02 if kind == "normal" else float(arg)
+
+        def draw(shape):
+            return torch.randn(shape, generator=gen, device=device) * std
+    elif kind == "uniform_fan":
+        # The JAX package's fan_in is the leading dim (of a stacked leaf,
+        # the number of layer groups).
+        bound = 1.0 / math.sqrt(max(spec.shape[0] if spec.shape else 1, 1))
+
+        def draw(shape):
+            u = torch.rand(shape, generator=gen, device=device)
+            return u * (2 * bound) - bound
+    elif kind == "mamba_dt_bias":
+        # softplus^-1(dt) for dt ~ logU[1e-3, 1e-1].
+        def draw(shape):
+            u = torch.rand(shape, generator=gen, device=device)
+            dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                           + math.log(1e-3))
+            return dt + torch.log(-torch.expm1(-dt))
+    else:
         raise ValueError(f"unknown init {spec.init!r}")
-    std = 0.02 if kind == "normal" else float(arg)
     if len(spec.shape) < 2 or math.prod(spec.shape) < SLICED_INIT_ELEMENTS:
-        return (torch.randn(spec.shape, generator=gen, device=device)
-                * std).to(dtype)
+        return draw(spec.shape).to(dtype)
     out = torch.empty(spec.shape, dtype=dtype, device=device)
     for i in range(spec.shape[0]):
-        out[i] = torch.randn(spec.shape[1:], generator=gen, device=device) * std
+        out[i] = draw(spec.shape[1:])
     return out
 
 

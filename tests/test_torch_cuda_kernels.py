@@ -752,3 +752,49 @@ def test_lm_serving_path_on_card(cuda_device):
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
+                                  "rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_family_smoke_models_on_card_equal_cpu(cuda_device, arch):
+    """The MoE, RWKV and hybrid smoke models on the card: logits, MoE
+    losses and loads against the CPU's, and decode against the forward."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              attn_impl="flash")
+    params = init_params(lm_model.model_specs(cfg),
+                         torch.Generator(device=cuda_device).manual_seed(0),
+                         device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                         device=cuda_device)
+    card = lm_model.forward(cfg, params, tokens=toks)
+    cpu = lm_model.forward(cfg, _to_cpu(params), tokens=toks.cpu())
+    flash = card.logits.float()
+    scale = float(flash.abs().max())
+    assert float((flash.cpu() - cpu.logits.float()).abs().max()) / scale < 0.03
+    assert abs(float(card.aux_loss) - float(cpu.aux_loss)) < 1e-4
+    if cfg.num_experts:
+        torch.testing.assert_close(card.expert_load.cpu(), cpu.expert_load)
+    cache = lm_model.init_decode_cache(cfg, 2, 16, device=cuda_device)
+    outs = []
+    for t in range(16):
+        lg, cache = lm_model.decode_step(cfg, params, cache, t,
+                                         tokens=toks[:, t:t + 1])
+        outs.append(lg[:, 0].float())
+    assert float((flash - torch.stack(outs, dim=1)).abs().max()) / scale < 0.03
+
+
+def test_store_cache_moves_a_cpu_store_to_the_card_once(cuda_device):
+    """The service's store cache: a CPU problem's store is moved to the
+    card once; a hit hands back the same device tensors and moves
+    nothing."""
+    from repro_torch.serve import LRUStoreCache
+
+    problem = maxcut_to_ising(complete_bipolar(64, seed=1))      # CPU
+    cache = LRUStoreCache(capacity=2, device=cuda_device)
+    store, hit = cache.get_or_build(problem, "bitplane")
+    assert not hit and store.planes.pos.is_cuda
+    assert cache.bytes_to_device == store.nbytes
+    again, hit = cache.get_or_build(
+        maxcut_to_ising(complete_bipolar(64, seed=1)), "bitplane")
+    assert hit and again is store and cache.bytes_to_device == store.nbytes

@@ -3,8 +3,8 @@
 Every module of ``repro_torch`` imports without JAX or the JAX package;
 entry points with no device raise when there is no card (they never fall
 back to the CPU); unported backends and tiers raise naming their ROADMAP
-item, and the fused path refuses a colored config, as do the LM archs that
-need blocks the port lacks; the CLI runs end to end on the CPU when asked,
+item, and the fused path refuses a colored config; every LM arch resolves
+and runs its smoke forward; the CLI runs end to end on the CPU when asked,
 single-flip, colored and supervised.
 """
 import pkgutil
@@ -39,7 +39,13 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("repro_torch.models.model", "repro_torch.models.layers",
                  "repro_torch.models.params", "repro_torch.models.config",
                  "repro_torch.kernels.flash_attention",
-                 "repro_torch.configs.qwen2_7b"):
+                 "repro_torch.configs.qwen2_7b",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
+                 "repro_torch.models.rwkv", "repro_torch.serve",
+                 "repro_torch.serve.batching", "repro_torch.serve.cache",
+                 "repro_torch.serve.service",
+                 "repro_torch.examples.serve_solver",
+                 "repro_torch.configs.jamba_15_large"):
         assert name in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -163,11 +169,24 @@ def test_cut_matches_energy_on_a_cpu_solve():
     assert torch.equal(res.best_energy, ising.energy(problem, res.best_spins))
 
 
-def test_unported_archs_raise_naming_their_roadmap_item():
-    from repro_torch.configs import ARCH_IDS, UNPORTED, get_config
-    assert len(ARCH_IDS) == 6 and len(UNPORTED) == 4
-    for arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-            get_config(arch)
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m",
+                                  "rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_unported_archs_raise_naming_their_roadmap_item(arch):
+    """The four MoE, Mamba and RWKV architectures, which raised naming
+    ROADMAP queue 1 item 14 until that item was ported, now resolve and
+    run their smoke forward on the CPU; an unknown id still raises."""
+    from repro_torch import models
+    from repro_torch.configs import ARCH_IDS, get_config
+    assert len(ARCH_IDS) == 10 and arch in ARCH_IDS
+    cfg = get_config(arch, smoke=True)
+    assert get_config(arch).name == arch
+    params = models.init_params(models.model_specs(cfg),
+                                torch.Generator().manual_seed(1),
+                                device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 16),
+                         generator=torch.Generator().manual_seed(2))
+    out = models.forward(cfg, params, tokens=toks)
+    assert out.logits.shape == (1, 16, cfg.vocab_size)
+    assert bool(torch.isfinite(out.logits.float()).all())
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")

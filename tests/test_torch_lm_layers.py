@@ -30,6 +30,10 @@ from repro_torch.models import params as tparams
 BF16_ULP = 2.0 ** -7
 ARCHS = ("qwen2-7b", "starcoder2-7b", "stablelm-12b", "nemotron-4-340b",
          "llava-next-34b", "hubert-xlarge")
+#: The MoE, Mamba and RWKV architectures (their blocks' tests are in
+#: tests/test_torch_lm_families.py).
+FAMILY_ARCHS = ("phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "rwkv6-1.6b",
+                "jamba-1.5-large-398b")
 
 
 def _cfg(arch, **kw):
@@ -177,7 +181,7 @@ def test_chunked_attention_bf16_returns_k_dtype():
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_configs_equal_field_by_field(arch):
     for smoke in (False, True):
         want = dataclasses.asdict(jconfigs.get_config(arch, smoke=smoke))
@@ -199,8 +203,7 @@ def test_qwen2_serving_config_size():
 
 
 def test_arch_ids_and_shapes_match():
-    assert set(tconfigs.ARCH_IDS) | set(tconfigs.UNPORTED) == \
-        set(jconfigs.ARCH_IDS)
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
     for arch in ARCHS:
@@ -215,7 +218,7 @@ def _spec_leaves(tree):
             for path, s in jparams.tree_paths(tree)}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_model_specs_trees_equal(arch, smoke):
     """Same keys, shapes, axes, init kinds and dtypes, full and smoke."""
