@@ -71,7 +71,19 @@ results:
   granite's flash path against the chunked one, its MoE losses
   and loads, kernel E at D=64 against its plain version and SDPA), jamba's
   smoke model on the card against the CPU, and one Mamba block at jamba's
-  full width (a 1,024-token prefill, decode, the card against the CPU).
+  full width (a 1,024-token prefill, decode, the card against the CPU);
+* training (``[train]``): granite-moe-1b-a400m at full width and depth
+  (its f32 parameters, bf16 compute, remat "dots", attention on kernel E)
+  through ``train_loop`` on 8 x 4,096 in 4 microbatches with f32 AdamW
+  moments, four steps: s/step, tokens/s, peak memory, kernel E's launches
+  (192 a step: the forward and its recompute), the step split by CUDA
+  events (E, the recompute backward, the optimizer) and one microbatch
+  profiled; kernel E's autograd Function against autograd through
+  ``chunked_attention`` (bitwise) beside SDPA's backward; the data
+  pipeline and one smoke train step on the card against the CPU; remat
+  "none", "full" and "dots" bitwise at 2 layers; a crash and resume
+  bitwise a clean run at 4 layers with int8 and bf16 moments; and
+  ``repro_torch.examples.train_lm --preset 100m`` for 40 steps.
 
 Prints the card, the build, every check and each phase's seconds, a
 ``{"kernels": [...]}`` line with times and bounds, and as the last line
@@ -119,6 +131,13 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 init_decode_cache, init_params, model_specs)
 from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.checkpoint import latest_step  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLMData  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.train import (TrainLoopConfig, init_train_state,  # noqa: E402
+                               make_train_step, train_loop)
+from repro_torch.train.step import value_and_grad as train_value_and_grad  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 rate outside the
 #: tensor cores. The bounds below use them.
@@ -3960,6 +3979,397 @@ def lm_families_phase() -> int:
     return launches
 
 
+#: [train]: granite-moe-1b-a400m trained at full width and depth, its
+#: config's own f32 parameters, bf16 compute and remat="dots", attention
+#: on kernel E: the train_4k shape's batch of 256 sequences of 4,096 cut to
+#: 8 in 4 microbatches of 2, four steps. The resume check runs the full
+#: width at 4 layers (a full-depth snapshot is ~17 GB on disk), the remat
+#: check at 2 (the full depth without remat does not fit).
+TRAIN_ARCH = MOE_ARCH
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 8, 4096, 4, 4
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+RESUME_LAYERS, REMAT_LAYERS = 4, 2
+#: Snapshots of the resume check (under build/, which git ignores).
+TRAIN_RUNS = Path(__file__).resolve().parent / "build" / "train_runs"
+#: Kernel names of the cuBLAS/CUTLASS GEMMs in a profile.
+GEMM_KERNELS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
+
+
+def train_config(depth: int = 0):
+    """granite-moe at its full width, attention on kernel E; ``depth``
+    layers (0: the config's 24)."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), attn_impl="flash")
+    return dataclasses.replace(cfg, num_layers=depth) if depth else cfg
+
+
+def tree_leaves(tree) -> dict:
+    """Path → tensor of a train state (QTensor codes and scales included)."""
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+
+    return {k: v for k, v in _flatten_with_paths(tree).items()
+            if isinstance(v, torch.Tensor)}
+
+
+def same_state(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return la.keys() == lb.keys() and all(
+        la[k].dtype == lb[k].dtype and torch.equal(la[k], lb[k]) for k in la)
+
+
+def flash_backward_check() -> dict:
+    """Kernel E's autograd Function against plain autograd through
+    ``chunked_attention`` at granite's per-microbatch shape, bf16: dq, dk
+    and dv bitwise, the forward within the E-against-plain bound; the
+    recompute backward's ms beside SDPA's backward at the same shape."""
+    cfg = train_config()
+    b, s, d = TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    scale = d ** -0.5
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    q, k, v, grad = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                      (b, hkv, s, d), (b, hq, s, d)))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*ins, True, scale, cfg.seq_chunk_q,
+                             cfg.seq_chunk_kv)
+    got = torch.autograd.grad(out, ins, grad, retain_graph=True)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(layers.chunked_attention(
+        *plain, causal=True, q_chunk=cfg.seq_chunk_q,
+        kv_chunk=cfg.seq_chunk_kv, scale=scale), plain, grad)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.dtype == torch.bfloat16 and torch.equal(g, w),
+              f"{name} of kernel E's Function bitwise autograd through "
+              f"chunked_attention at {tuple(q.shape)}/{tuple(k.shape)}")
+    plain_out = ref.flash_attention(q, k, v, True, scale)
+    tol = FLASH_TOL[torch.bfloat16]
+    err = max_abs_err([out], [plain_out])
+    check(torch.allclose(out.float(), plain_out.float(), rtol=tol, atol=tol),
+          f"the Function's forward against the plain version: max_abs_err "
+          f"{err:.3e} within {tol} (bf16)")
+    del want, plain
+    sdpa_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(
+        *sdpa_in, is_causal=True, scale=scale, enable_gqa=True)
+    e = {"ms": cuda_ms(lambda: torch.autograd.grad(out, ins, grad,
+                                                   retain_graph=True), 2),
+         "sdpa_ms": cuda_ms(lambda: torch.autograd.grad(
+             sdpa_out, sdpa_in, grad, retain_graph=True), 5)}
+    # Backward: the 5 matmuls of FA-2 over the kept pairs (2.5x the
+    # forward's flops), at the bf16 rate.
+    flops = 2.5 * attention_flops(b, hq, s, d)
+    e["bound"] = bound(q.element_size() * (4 * q.numel() + 4 * k.numel()),
+                       flops, BF16_FLOP_PER_S)
+    print(f"[train] flash backward {tuple(q.shape)}/{tuple(k.shape)} bf16 "
+          f"causal: the recompute through chunked_attention (f32 einsums, "
+          f"TF32 off) {e['ms']:.3f} ms, scaled_dot_product_attention's "
+          f"backward {e['sdpa_ms']:.3f} ms (recompute / SDPA "
+          f"{e['ms'] / e['sdpa_ms']:.1f}), bound {e['bound'][0]:.4f} ms "
+          f"({e['bound'][1]}: {flops:.4e} flop at "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16)")
+    return e
+
+
+def train_card_against_cpu() -> None:
+    """granite's smoke config: the data pipeline's batches on the card
+    bitwise the CPU's (also at the full vocabulary), and one microbatched
+    train step on the card against the CPU from the same parameters and
+    batch."""
+    smoke = dataclasses.replace(get_config(TRAIN_ARCH, smoke=True),
+                                attn_impl="flash")
+    for cfg, dc in ((smoke, DataConfig(seed=SEED, global_batch=4,
+                                       seq_len=64)),
+                    (train_config(), DataConfig(seed=SEED, global_batch=2,
+                                                seq_len=512))):
+        card = SyntheticLMData(cfg, dc, "cuda").batch(5)
+        cpu = SyntheticLMData(cfg, dc, "cpu").batch(5)
+        check(all(torch.equal(card[k].cpu(), cpu[k]) for k in cpu),
+              f"the data pipeline's batch (vocab {cfg.vocab_size}, "
+              f"{dc.global_batch} x {dc.seq_len}) on the card bitwise the "
+              "CPU's")
+    params = init_params(model_specs(smoke),
+                         torch.Generator("cuda").manual_seed(SEED))
+    cpu_params = tree_to(params, "cpu")
+    batch = SyntheticLMData(smoke, DataConfig(seed=SEED, global_batch=4,
+                                              seq_len=64), "cuda").batch(0)
+    opt = AdamWConfig(learning_rate=1e-3)
+    step = make_train_step(smoke, opt, num_microbatches=2)
+    card, mc = step(init_train_state(smoke, params, opt), batch)
+    cpu, mh = step(init_train_state(smoke, cpu_params, opt),
+                   {k: v.cpu() for k, v in batch.items()})
+    dl = abs(float(mc["loss"]) - float(mh["loss"])) / float(mh["loss"])
+    dg = abs(float(mc["grad_norm"]) - float(mh["grad_norm"])) / float(
+        mh["grad_norm"])
+    dp = [(a.cpu() - b).abs() for a, b in zip(tree_leaves(card.params).values(),
+                                              tree_leaves(cpu.params).values())]
+    dmax = max(float(x.max()) for x in dp)
+    dmean = float(sum(x.sum() for x in dp) / sum(x.numel() for x in dp))
+    print(f"[train] smoke step, card against CPU: loss {float(mc['loss']):.6f}"
+          f" / {float(mh['loss']):.6f} (rel {dl:.3e}), grad norm "
+          f"{float(mc['grad_norm']):.6f} / {float(mh['grad_norm']):.6f} (rel "
+          f"{dg:.3e}), parameters max |diff| {dmax:.3e} = {dmax / 1e-3:.3f} "
+          f"lr, mean {dmean:.3e}")
+    check(dl <= BF16_PATH_BOUND and dg <= BF16_PATH_BOUND,
+          f"loss and grad norm within {BF16_PATH_BOUND} relative (bf16)")
+    # The first Adam step moves each element by lr·(sign(g) + wd·p): a
+    # gradient of opposite sign in bf16 moves it by up to 2·lr.
+    check(dmax <= 2.5e-3 and dmean <= 1e-5, "updated parameters within "
+          "2.5 lr of each other, mean |diff| within 0.01 lr")
+
+
+def remat_check() -> None:
+    """Gradients with remat "none", "full" and "dots" bitwise equal on the
+    card, at the full width and 2 layers, one microbatch's batch."""
+    cfg = train_config(REMAT_LAYERS)
+    params = init_params(model_specs(cfg),
+                         torch.Generator("cuda").manual_seed(SEED))
+    batch = SyntheticLMData(cfg, DataConfig(
+        seed=SEED, global_batch=TRAIN_BATCH // TRAIN_MB, seq_len=TRAIN_SEQ),
+        "cuda").batch(0)
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        reset_flash_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = train_value_and_grad(
+            dataclasses.replace(cfg, remat=remat), params, batch)
+        runs[remat] = (loss, grads)
+        print(f"[train] remat={remat}: loss {float(loss):.6f}, kernel E "
+              f"launches {fa.tc_counter.count}, peak device memory "
+              f"{torch.cuda.max_memory_allocated()} bytes")
+    for remat in ("full", "dots"):
+        check(torch.equal(runs[remat][0], runs["none"][0])
+              and same_state(runs[remat][1], runs["none"][1]),
+              f"remat={remat}: loss and every gradient bitwise remat=none's "
+              f"({REMAT_LAYERS} layers, full width)")
+
+
+def resume_check() -> None:
+    """A crash after a checkpoint, then ``resume=True``: the final
+    TrainState bitwise an uninterrupted run's, with int8 and bf16 moments,
+    at the full width and 4 layers."""
+    import shutil
+
+    cfg = train_config(RESUME_LAYERS)
+    dc = DataConfig(seed=SEED, global_batch=2, seq_len=1024)
+
+    class Crash(RuntimeError):
+        pass
+
+    def crash(step):
+        if step == 2:
+            raise Crash()
+
+    quiet = dict(log_fn=lambda s: None, device="cuda")
+    for state_dtype in ("int8", "bfloat16"):
+        ckpt = TRAIN_RUNS / state_dtype
+        shutil.rmtree(ckpt, ignore_errors=True)
+        loop = TrainLoopConfig(steps=3, checkpoint_every=2,
+                               checkpoint_dir=str(ckpt), base_lr=TRAIN_LR,
+                               warmup_steps=1, state_dtype=state_dtype,
+                               async_checkpoint=True, log_every=1)
+        t0 = time.perf_counter()
+        try:
+            train_loop(cfg, dc, loop, failure_hook=crash, **quiet)
+            check(False, "the failure hook crashed the run")
+        except Crash:
+            pass
+        check(latest_step(str(ckpt)) == 2, "the last snapshot before the "
+              "crash is step 2")
+        resumed, _ = train_loop(cfg, dc, loop, resume=True, **quiet)
+        clean, _ = train_loop(cfg, dc, dataclasses.replace(
+            loop, checkpoint_dir=None), **quiet)
+        size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        check(int(resumed.step) == 3 and same_state(resumed, clean),
+              f"{state_dtype} moments: crash at step 2, resume: the final "
+              f"TrainState bitwise a clean run's ({RESUME_LAYERS} layers, "
+              f"{size} bytes of snapshots, "
+              f"{time.perf_counter() - t0:.1f} s)")
+        del resumed, clean
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def split_train_step(step_fn, state, batch) -> dict:
+    """One more train step with CUDA events around each of kernel E's
+    launches, each recompute backward (the Function's backward: the
+    einsums and elementwise work of ``chunked_attention`` and its
+    autograd) and the optimizer update. Returns their device spans and
+    the step's host-clock wall, in seconds."""
+    from repro_torch.train import step as train_step
+
+    spans = {"flash": [], "recompute": [], "optimizer": []}
+
+    def spanned(name, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    orig = (fa._launch, fa._Flash.backward, train_step.adamw_update)
+    fa._launch = spanned("flash", orig[0])
+    fa._Flash.backward = staticmethod(spanned("recompute", orig[1]))
+    train_step.adamw_update = spanned("optimizer", orig[2])
+    try:
+        _, wall = timed(lambda: step_fn(state, batch))
+    finally:
+        fa._launch = orig[0]
+        fa._Flash.backward = staticmethod(orig[1])
+        train_step.adamw_update = orig[2]
+    out = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3
+           for k, v in spans.items()}
+    out.update(wall=wall, calls={k: len(v) for k, v in spans.items()})
+    return out
+
+
+def profile_microbatch(cfg, params, batch) -> None:
+    """One microbatch's forward and backward (``value_and_grad`` on 2 x
+    4,096) under torch.profiler, device activity only: the busy share and
+    the device time by kernel, the cuBLAS GEMMs summed by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: train_value_and_grad(cfg, params, batch))
+
+    def dev(ev):
+        return getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0)) / 1e6
+
+    rows = sorted(((dev(ev), ev.count, ev.key) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(s for s, _, _ in rows)
+    if busy <= 0:
+        print("[train] microbatch profile: device time not measured")
+        return
+    gemm = sum(s for s, _, k in rows
+               if any(g in k.lower() for g in GEMM_KERNELS))
+    flash = sum(s for s, _, k in rows if "flash" in k)
+    print(f"[train] one microbatch's forward and backward (profiled): wall "
+          f"{wall:.4f} s, device busy {busy:.4f} s = {busy / wall:.1%}, "
+          f"kernel E {flash:.4f} s, cuBLAS GEMMs {gemm:.4f} s (bf16 "
+          "projections and experts, and the recompute's f32 einsums), "
+          f"{sum(c for _, c, _ in rows)} device events")
+    for s, count, key in rows[:10]:
+        print(f"[train]   {s * 1e3:10.3f} ms  x{count:<7d} {key[:90]}")
+
+
+def train_throughput() -> int:
+    """The main path: ``train_loop`` on granite at full width and depth,
+    8 x 4,096 in 4 microbatches, f32 states, ``TRAIN_STEPS`` steps, the
+    launch counts zeroed just before and read just after; then the data
+    draw timed alone and one more step profiled. Returns kernel E's
+    launches."""
+    cfg = train_config()
+    print(f"[train] {TRAIN_ARCH}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_count()} parameters in {cfg.param_dtype}, compute "
+          f"{cfg.compute_dtype}, remat {cfg.remat!r}; batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} in {TRAIN_MB} microbatches, f32 AdamW moments")
+    dc = DataConfig(seed=SEED, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    loop = TrainLoopConfig(steps=TRAIN_STEPS, num_microbatches=TRAIN_MB,
+                           log_every=1, seed=SEED, base_lr=TRAIN_LR,
+                           warmup_steps=TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    reset_flash_counts()
+    (state, history), wall = timed(lambda: train_loop(
+        cfg, dc, loop, device="cuda", log_fn=print))
+    launches, launches_f32 = fa.tc_counter.count, fa.f32_counter.count
+    others = read_all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    walls = [h["wall_s"] for h in history]
+    steps_s = [walls[0]] + [b - a for a, b in zip(walls, walls[1:])]
+    for h, s in zip(history, steps_s):
+        print(f"[train] step {h['step']}: {s:.3f} s ({tokens / s:.1f} "
+              f"tokens/s), loss {h['loss']:.6f}, ce {h['ce']:.6f}, aux "
+              f"{h['aux']:.6f}, grad norm {h['grad_norm']:.6f}, lr "
+              f"{h['lr']:.6e}")
+    steady = sum(steps_s[1:]) / max(len(steps_s) - 1, 1)
+    print(f"[main] train_loop({TRAIN_ARCH}) {TRAIN_STEPS} steps: {wall:.3f} "
+          f"s with set-up, {steady:.4f} s a step after the first "
+          f"({tokens / steady:.1f} tokens/s), peak device memory {peak} "
+          f"bytes, kernel E launches bf16={launches} f32={launches_f32} "
+          f"(others {others})")
+    per_step = 2 * cfg.num_layers * TRAIN_MB
+    check(launches == per_step * TRAIN_STEPS and launches_f32 == 0,
+          f"kernel E's bf16 entry launched {per_step} times a step (forward "
+          "and recompute, every layer and microbatch), the f32 entry never")
+    check(not any(others.values()), "no Ising kernel launched")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in history), "loss and grad norm finite every step")
+    data = SyntheticLMData(cfg, dc, "cuda")
+    _, data_s = timed(lambda: data.batch(TRAIN_STEPS))
+    print(f"[train] the data draw alone (8 x 4,097 x {cfg.vocab_size} "
+          f"Gumbel-max): {data_s:.3f} s a step")
+    step_fn = make_train_step(cfg, AdamWConfig(learning_rate=TRAIN_LR),
+                              num_microbatches=TRAIN_MB)
+    batch = data.batch(TRAIN_STEPS)
+    split = split_train_step(step_fn, state, batch)
+    rest = split["wall"] - split["flash"] - split["recompute"] - split[
+        "optimizer"]
+    print(f"[train] one more step with CUDA events: {split['wall']:.4f} s; "
+          f"kernel E {split['flash']:.4f} s ({split['calls']['flash']} "
+          f"launches), the recompute backward {split['recompute']:.4f} s "
+          f"({split['calls']['recompute']} calls), the optimizer "
+          f"{split['optimizer']:.4f} s, the rest (projections, experts, "
+          f"norms, routing, the loss) {rest:.4f} s; the data draw "
+          f"{data_s:.3f} s beside it")
+    mb = {k: v[:TRAIN_BATCH // TRAIN_MB] for k, v in batch.items()}
+    profile_microbatch(cfg, state.params, mb)
+    print(f"[summary] train {TRAIN_ARCH} {TRAIN_BATCH}x{TRAIN_SEQ}: "
+          f"{steady:.4f} s/step, {tokens / steady:.1f} tokens/s, peak "
+          f"{peak} bytes; a step: the recompute backward "
+          f"{split['recompute']:.3f} s, kernel E {split['flash']:.3f} s, "
+          f"the optimizer {split['optimizer']:.3f} s, the rest {rest:.3f} s;"
+          f" data draw {data_s:.3f} s")
+    del state, batch, data, mb
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_example() -> None:
+    """``repro_torch.examples.train_lm --preset 100m`` on the card for 40
+    steps: the loss falls."""
+    from repro_torch.examples import train_lm
+
+    (history), wall = timed(lambda: train_lm.main(
+        ["--preset", "100m", "--steps", "40", "--batch", "8", "--seq", "256",
+         "--log-every", "10", "--device", "cuda"]))
+    check(history[-1]["loss"] < history[0]["loss"],
+          f"train_lm --preset 100m: loss {history[0]['loss']:.4f} -> "
+          f"{history[-1]['loss']:.4f} in 40 steps ({wall:.1f} s)")
+
+
+def train_phase() -> int:
+    """[train]: the training path on the card. Returns kernel E's launches
+    on its main path."""
+    print(f"[train] {nvidia_smi()}")
+    t0 = time.perf_counter()
+    flash_backward_check()
+    print(f"[phase] train flash-backward {time.perf_counter() - t0:.1f} s")
+    for name, part in (("card-cpu", train_card_against_cpu),
+                       ("remat", remat_check), ("resume", resume_check)):
+        t0 = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        print(f"[phase] train {name} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = train_throughput()
+    print(f"[phase] train main {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dense_example()
+    print(f"[phase] train dense-example {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -4023,6 +4433,10 @@ def main() -> None:
     # Kernel E's row counts the MoE and hybrid families' launches too.
     rows[-1]["launches"] += lm_families_phase()
     print(f"[phase] lm-families {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # ... and the train step's: its forward and its recompute.
+    rows[-1]["launches"] += train_phase()
+    print(f"[phase] train {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -12,8 +12,12 @@
 * **Layout.** A tree of dicts, tuples, lists and named tuples whose leaves
   are tensors, numpy arrays or Python scalars. Arrays are saved as numpy
   values keyed by their path (``state/fields``, ``state/0``, ``trace``);
-  scalars go into the manifest. :func:`restore` rebuilds each tensor on the
-  template leaf's device with its dtype.
+  scalars go into the manifest. numpy has no bfloat16: a bf16 tensor is
+  saved as its 16-bit patterns (int16) and listed under the manifest's
+  ``"bfloat16"`` key. :func:`restore` rebuilds each tensor on the template
+  leaf's device with its dtype, bitwise. A named tuple such as the
+  optimizer's ``QTensor`` is an inner node: its arrays are leaves and its
+  ints scalars.
 * **Async.** ``CheckpointManager(async_save=True)`` writes on a thread; the
   copy of every tensor to the host happens first, on the caller's thread,
   and finishes before the write starts.
@@ -91,13 +95,24 @@ def _unflatten(like, values: dict, prefix: str = ""):
 
 
 def _to_host(leaf):
-    """A numpy copy of a tensor or array leaf (a blocking device-to-host
-    copy for a tensor on the card); scalars pass through."""
+    """A host copy of a leaf: a CPU tensor of a tensor (a blocking
+    device-to-host copy for one on the card), a numpy copy of an array;
+    scalars pass through."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        return leaf.detach().to("cpu", copy=True)
     if isinstance(leaf, _SCALARS):
         return leaf
     return np.array(leaf)
+
+
+def _to_numpy(leaf) -> tuple[np.ndarray, bool]:
+    """``(array, is_bf16)``: a bf16 tensor as its int16 bit patterns."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().copy(), True
+        return t.numpy().copy(), False
+    return np.array(leaf), False
 
 
 def save(directory: str, step: int, tree, extra: Optional[dict] = None) -> str:
@@ -108,12 +123,14 @@ def save(directory: str, step: int, tree, extra: Optional[dict] = None) -> str:
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays, scalars = {}, {}
+    arrays, scalars, bf16 = {}, {}, []
     for key, leaf in _flatten_with_paths(tree).items():
         if isinstance(leaf, _SCALARS):
             scalars[key] = leaf
         else:
-            arrays[key] = _to_host(leaf)
+            arrays[key], is_bf16 = _to_numpy(leaf)
+            if is_bf16:
+                bf16.append(key)
     arrays_path = os.path.join(tmp, "arrays.npz")
     np.savez(arrays_path, **arrays)
     with open(arrays_path, "rb") as fh:
@@ -121,6 +138,8 @@ def save(directory: str, step: int, tree, extra: Optional[dict] = None) -> str:
     manifest = {"step": step, "scalars": scalars, "extra": extra or {},
                 "num_arrays": len(arrays),
                 "arrays_sha256": _sha256_file(arrays_path)}
+    if bf16:
+        manifest["bfloat16"] = bf16
     with open(os.path.join(tmp, "manifest.json"), "w") as fh:
         json.dump(manifest, fh)
         fh.flush()
@@ -157,11 +176,13 @@ def read_manifest(directory: str, step: int) -> dict:
             f"unreadable manifest for snapshot step_{step}: {e}") from e
 
 
-def _restore_leaf(val: np.ndarray, leaf):
+def _restore_leaf(val: np.ndarray, leaf, bf16: bool = False):
     if isinstance(leaf, torch.Tensor):
         # np.array keeps a 0-d leaf 0-d (ascontiguousarray makes it (1,)).
-        return torch.from_numpy(np.array(val, order="C")).to(
-            device=leaf.device, dtype=leaf.dtype)
+        t = torch.from_numpy(np.array(val, order="C"))
+        if bf16:
+            t = t.view(torch.bfloat16)
+        return t.to(device=leaf.device, dtype=leaf.dtype)
     return np.asarray(val, dtype=getattr(leaf, "dtype", None))
 
 
@@ -196,9 +217,10 @@ def restore(directory: str, step: int, like):
         raise SnapshotCorruptError(
             f"unreadable arrays.npz for snapshot step_{step}: {e}") from e
     values = {}
+    bf16 = set(manifest.get("bfloat16", ()))
     for key, leaf in _flatten_with_paths(like).items():
         if key in arrays:
-            values[key] = _restore_leaf(arrays[key], leaf)
+            values[key] = _restore_leaf(arrays[key], leaf, key in bf16)
         elif key in manifest.get("scalars", {}):
             values[key] = manifest["scalars"][key]
         else:

@@ -9,6 +9,7 @@ two 32-bit words; leading axes batch independent keys.
 """
 from __future__ import annotations
 
+import math
 from enum import IntEnum
 
 import torch
@@ -170,3 +171,220 @@ def bernoulli_half(key: torch.Tensor, shape) -> torch.Tensor:
     mant = (bits(key, shape) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp(floats, min=0.0) < 0.5
+
+
+# ---------------------------------------------------------------------------
+# Distributions of jax.random (the data pipeline's draws)
+# ---------------------------------------------------------------------------
+
+#: Elements of one slice of a large draw: the counters are an iota over the
+#: shape, so a draw made a row slice at a time equals the whole draw.
+DRAW_SLICE = 1 << 26
+
+_F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def _s32(x: int) -> int:
+    """A uint32 value as the int32 with the same bits."""
+    x &= MASK32
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _rotl_i32(x: torch.Tensor, d: int) -> torch.Tensor:
+    # >> is arithmetic on int32: keep the d bits that wrap around.
+    return (x << d).bitwise_or_((x >> (32 - d)).bitwise_and_((1 << d) - 1))
+
+
+def _threefry_i32(k1: int, k2: int, x1: torch.Tensor,
+                  x2: torch.Tensor) -> torch.Tensor:
+    """:func:`threefry2x32` on int32 tensors holding uint32 bits (adds wrap
+    modulo 2**32), for one key given as two ints; returns ``o1 ^ o2``.
+    Half the bytes of the int64 form and no masking: the big draws use
+    it. ``x1`` and ``x2`` are overwritten."""
+    ks = (k1 & MASK32, k2 & MASK32, (k1 ^ k2 ^ _KS_PARITY) & MASK32)
+    x1.add_(_s32(ks[0]))
+    x2.add_(_s32(ks[1]))
+    for i in range(5):
+        for rot in _ROTATIONS[i % 2]:
+            x1.add_(x2)
+            x2 = _rotl_i32(x2, rot).bitwise_xor_(x1)
+        x1.add_(_s32(ks[(i + 1) % 3]))
+        x2.add_(_s32(ks[(i + 2) % 3] + i + 1))
+    return x1.bitwise_xor_(x2)
+
+
+def counter_bits(key: torch.Tensor, start: int, count: int,
+                 device=None) -> torch.Tensor:
+    """The 32-bit draws of flat counters ``start .. start + count`` under
+    one key (JAX's partitionable threefry: counter i hashes the words
+    ``(i >> 32, i & 0xFFFFFFFF)``), as int32 holding the uint32 bits, on
+    ``device`` (default: the key's). ``bits(key, shape).flatten()[start:
+    start + count]`` with the same bits."""
+    device = key.device if device is None else device
+    k1, k2 = words(key)
+    idx = torch.arange(start, start + count, dtype=torch.int64,
+                       device=device)
+    lo = idx & MASK32
+    lo = torch.where(lo >= 1 << 31, lo - (1 << 32), lo).to(torch.int32)
+    hi = (idx >> 32).to(torch.int32)
+    return _threefry_i32(k1, k2, hi, lo)
+
+
+def _mantissa_floats(b: torch.Tensor) -> torch.Tensor:
+    """JAX's f32 uniform in [0, 1) from 32 random bits: the top 23 as the
+    mantissa of a float in [1, 2), minus 1 (exact: ``(b >> 9) · 2⁻²³``)."""
+    return ((b >> 9) & 0x7FFFFF).to(torch.float32) * (2.0 ** -23)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a·b + c`` with one rounding, as the reference's compiled code
+    contracts it: the product of two f32 values is exact in f64 and the
+    sum is rounded once to f64 and once to f32 (no input of this module's
+    draws rounds differently; the tests check every one)."""
+    return (a.double() * torch.as_tensor(b, dtype=torch.float64)
+            + torch.as_tensor(c, dtype=torch.float64)).float()
+
+
+#: The Cephes coefficients of the reference's f32 log.
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 natural log of positive finite x, bitwise the JAX reference's
+    on the CPU (XLA's Cephes polynomial, whose multiply-adds LLVM fuses):
+    the data pipeline's Zipf logits and Gumbel noise go through it, so a
+    batch's tokens equal JAX's. ``torch.log`` differs by an ulp on ~14 %
+    of inputs, enough to move an argmax."""
+    c = [torch.tensor(p, dtype=torch.float32, device=x.device)
+         for p in _LOG_P]
+    x = torch.clamp(x.float(), min=_F32_TINY)
+    xb = x.view(torch.int32)
+    e = ((xb >> 23) - 127).float() + 1.0
+    m = ((xb & -2139095041) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    small = m < 0.707106781186547524
+    e = e - small.float()
+    m = (m - 1.0) + torch.where(small, m, 0.0)
+    x2 = m * m
+    x3 = x2 * m
+    y = _fma(m, c[0], c[1])
+    y1 = _fma(m, c[3], c[4])
+    y2 = _fma(m, c[6], c[7])
+    y = _fma(y, m, c[2])
+    y1 = _fma(y1, m, c[5])
+    y2 = _fma(y2, m, c[8])
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    y = _fma(y, x3, torch.tensor(_LOG_Q1, dtype=torch.float32,
+                                 device=x.device) * e)
+    m = m - 0.5 * x2
+    m = m + y
+    return m + torch.tensor(_LOG_Q2, dtype=torch.float32, device=x.device) * e
+
+
+_GUMBEL_TABLES: dict = {}
+
+
+def gumbel_table(device) -> torch.Tensor:
+    """Gumbel noise of each of the 2²³ uniforms JAX's low-mode sampler can
+    draw: entry k is ``-log(-log(u))`` with ``u = k·2⁻²³`` (k ≥ 1) or the
+    smallest normal f32 (k = 0), in the reference's arithmetic. 32 MiB
+    per device, made once."""
+    device = torch.device(device)
+    if device not in _GUMBEL_TABLES:
+        k = torch.arange(1 << 23, dtype=torch.float32, device=device)
+        u = torch.clamp(k * (2.0 ** -23), min=_F32_TINY)
+        _GUMBEL_TABLES[device] = -log_f32(-log_f32(u))
+    return _GUMBEL_TABLES[device]
+
+
+def _draw_shape(shape) -> tuple:
+    shape = tuple(int(d) for d in shape)
+    count = 1
+    for d in shape:
+        count *= d
+    return shape, count
+
+
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
+            maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
+    mantissa floats scaled as ``max(minval, f·(maxval − minval) +
+    minval)`` in f32, the multiply-add fused as the reference's."""
+    shape, count = _draw_shape(shape)
+    f = _mantissa_floats(counter_bits(key, 0, count, device))
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=f.device) - lo
+    return torch.maximum(lo, _fma(f, span, lo)).reshape(shape)
+
+
+def gumbel(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in the default "low"
+    mode: ``-log(-log(u))`` with ``u`` uniform in [tiny, 1), read from
+    :func:`gumbel_table`."""
+    shape, count = _draw_shape(shape)
+    b = counter_bits(key, 0, count, device)
+    return gumbel_table(b.device)[((b >> 9) & 0x7FFFFF).long()].reshape(shape)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                shape=None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1, shape=shape)`` for
+    one distribution (1-D ``logits`` of V categories): the Gumbel-max
+    ``argmax(gumbel(key, shape + (V,)) + logits)``, the first maximum on
+    ties, as int64 on the logits' device. The (…, V) noise is drawn
+    :data:`DRAW_SLICE` elements at a time, whole rows each."""
+    if logits.dim() != 1:
+        raise ValueError("categorical takes one distribution: 1-D logits")
+    shape, rows = _draw_shape(() if shape is None else shape)
+    v = logits.shape[0]
+    table = gumbel_table(logits.device)
+    per = max(1, DRAW_SLICE // v)
+    out = torch.empty(rows, dtype=torch.int64, device=logits.device)
+    for r0 in range(0, rows, per):
+        n = min(per, rows - r0)
+        b = counter_bits(key, r0 * v, n * v, logits.device)
+        g = table[((b >> 9) & 0x7FFFFF).long()].view(n, v)
+        out[r0:r0 + n] = torch.argmax(g + logits, dim=-1)
+    return out.reshape(shape)
+
+
+def normal(key: torch.Tensor, shape=(), dtype=torch.float32,
+           device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` for float32 or bfloat16:
+    ``√2 · erfinv(u)`` with ``u`` uniform in (−1, 1) drawn in ``dtype``
+    (for bf16 the low 8 bits of each draw, the top 7 of them as the
+    mantissa, since JAX draws 8 bits for a float of 7 mantissa bits),
+    each step rounded to ``dtype``. bf16 draws are bitwise JAX's; an f32
+    draw differs by ~1e-5 relative near the tails, since ``torch.erfinv``
+    is not the reference's polynomial."""
+    shape, count = _draw_shape(shape)
+    b = counter_bits(key, 0, count, device)
+    if dtype == torch.bfloat16:
+        f = ((b & 0xFF) >> 1).to(torch.float32) * (2.0 ** -7)
+    elif dtype == torch.float32:
+        f = _mantissa_floats(b)
+    else:
+        raise ValueError(f"normal draws float32 or bfloat16, not {dtype}")
+    one = torch.tensor(1.0, dtype=dtype)
+    lo = torch.nextafter(-one, torch.zeros((), dtype=dtype)).to(f.device)
+    span = one.to(f.device) - lo
+    if dtype == torch.bfloat16:
+        u = f.to(dtype) * span + lo     # each op rounded to bf16
+    else:
+        u = _fma(f, span, lo)
+    u = torch.maximum(lo, u)
+    sqrt2 = torch.tensor(math.sqrt(2), dtype=dtype, device=f.device)
+    return (sqrt2 * torch.erfinv(u.float()).to(dtype)).reshape(shape)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape=(),
+              device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: an f32 uniform below
+    ``float32(p)``."""
+    shape, count = _draw_shape(shape)
+    f = _mantissa_floats(counter_bits(key, 0, count, device))
+    return (f < torch.tensor(p, dtype=torch.float32,
+                             device=f.device)).reshape(shape)

@@ -1,6 +1,6 @@
 """Carry the JAX package's problems, planes, configs, fused state, chain
-state, tempering configs and state, colored plans, and LM configs and
-parameters into the port.
+state, tempering configs and state, colored plans, LM configs and
+parameters, and optimizer and train states into the port.
 
 Everything crosses as numpy arrays and plain Python values, so this module
 imports neither ``jax`` nor ``repro``: a test converts with ``np.asarray``
@@ -21,6 +21,8 @@ from .core.tempering import TemperingConfig
 from .graphs.coloring import Coloring
 from .kernels.ops import ColoredPlan
 from .models.config import ModelConfig
+from .optim import AdamWState, QTensor
+from .train import TrainState
 
 #: dtypes of the fused state ``(u, s, e, best_e, best_s, num_flips)``.
 STATE_DTYPES = (torch.float32,) * 5 + (torch.int32,)
@@ -148,7 +150,6 @@ def colored_plan_from_numpy(colors, perm, offsets, problem: IsingProblem,
     return plan
 
 
-
 def _tensor_from_numpy(x, device, dtype) -> torch.Tensor:
     """One leaf. numpy has no bfloat16: a JAX bf16 array comes out of
     ``np.asarray`` as an ``ml_dtypes`` array that ``torch.from_numpy``
@@ -176,3 +177,68 @@ def model_config_from_dict(d: dict) -> ModelConfig:
     d = dict(d)
     d["block_pattern"] = tuple(d.get("block_pattern", ("attn:mlp",)))
     return ModelConfig(**d)
+
+
+def _moment_from_numpy(x, device):
+    """A moment leaf: a tensor, or a ``QTensor`` from anything with
+    ``codes``, ``scales`` and ``orig_last`` (the JAX ``QTensor`` with numpy
+    fields)."""
+    if hasattr(x, "codes"):
+        return QTensor(codes=_tensor_from_numpy(x.codes, device, None),
+                       scales=_tensor_from_numpy(x.scales, device, None),
+                       orig_last=int(x.orig_last))
+    return _tensor_from_numpy(x, device, None)
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def adamw_state_from_numpy(state, device=None) -> AdamWState:
+    """The port's ``AdamWState`` from the JAX one with numpy leaves
+    (``jax.tree.map(np.asarray, state)``; its ``QTensor`` moments keep
+    their fields): each leaf in its own dtype, bf16 included."""
+    step, m, v = state
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        m=_tree_map(m, lambda x: _moment_from_numpy(x, device)),
+        v=_tree_map(v, lambda x: _moment_from_numpy(x, device)))
+
+
+def train_state_from_numpy(state, device=None) -> TrainState:
+    """The port's ``TrainState`` from the JAX one with numpy leaves."""
+    params, opt_state, step = state
+    return TrainState(params=lm_params_from_numpy(params, device),
+                      opt_state=adamw_state_from_numpy(opt_state, device),
+                      step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32, device=device))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as float32 (exact; numpy has no bf16)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _moment_to_numpy(x):
+    if isinstance(x, QTensor):
+        return QTensor(codes=_numpy(x.codes), scales=_numpy(x.scales),
+                       orig_last=x.orig_last)
+    return _numpy(x)
+
+
+def adamw_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The ``AdamWState`` with numpy leaves (bf16 moments as float32)."""
+    return AdamWState(step=_numpy(state.step),
+                      m=_tree_map(state.m, _moment_to_numpy),
+                      v=_tree_map(state.v, _moment_to_numpy))
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """The ``TrainState`` with numpy leaves (bf16 as float32)."""
+    return TrainState(params=_tree_map(state.params, _numpy),
+                      opt_state=adamw_state_to_numpy(state.opt_state),
+                      step=_numpy(state.step))

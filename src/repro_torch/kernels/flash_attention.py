@@ -5,9 +5,15 @@ A CPU tensor goes to the plain version (``ref.flash_attention``). A CUDA
 tensor launches ``csrc/flash_attention.cu`` or raises: bfloat16 inputs its
 tensor-core entry (``flash_attention_forward_bf16``, counted by
 ``tc_counter``), float32 inputs its CUDA-core entry
-(``flash_attention_forward_f32``, counted by ``f32_counter``). The backward
-(the JAX package recomputes it through ``chunked_attention``) waits for the
-training slice.
+(``flash_attention_forward_f32``, counted by ``f32_counter``).
+
+:func:`flash_attention` is differentiable: an autograd Function whose
+backward recomputes the attention through ``layers.chunked_attention``
+from the saved q, k and v and differentiates that, as the JAX package's
+``_flash_bwd`` does, so its gradients are bitwise those of autograd
+through the chunked path. Under activation checkpointing the forward runs
+again in the recompute, so a training step launches the kernel twice a
+layer and microbatch.
 """
 from __future__ import annotations
 
@@ -69,11 +75,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_q, block_k = min(block_q, sq), min(block_k, skv)
     if sq % block_q or skv % block_k:
         raise ValueError(f"seq ({sq},{skv}) not divisible by ({block_q},{block_k})")
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
+    return _Flash.apply(q, k, v, bool(causal), float(scale), block_q, block_k)
+
+
+def _forward(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """The plain version on the CPU, the kernel on the card."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal, scale)
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -91,6 +102,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         return _launch(q, k, v, causal, scale, stream)
+
+
+class _Flash(torch.autograd.Function):
+    """Forward: :func:`_forward`. Backward: autograd through
+    ``chunked_attention(q, k, v, causal, q_chunk=block_q,
+    kv_chunk=block_k, scale)`` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, scale, block_q, block_k)
+        return _forward(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # Imported here: the models package calls into this module.
+        from ..models.layers import chunked_attention
+
+        causal, scale, block_q, block_k = ctx.args
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = chunked_attention(*inputs, causal=causal, q_chunk=block_q,
+                                    kv_chunk=block_k, scale=scale)
+        dq, dk, dv = torch.autograd.grad(out, inputs, grad)
+        return dq, dk, dv, None, None, None, None
 
 
 def _launch(q, k, v, causal: bool, scale: float, stream: int) -> torch.Tensor:

@@ -8,8 +8,18 @@ groups, the port loops over them. Every block = pre-norm mixer + pre-norm
 FFN with residuals. Parameters are a dict of tensors with the JAX tree's
 keys and layouts (``wq`` (d, h, k), ``wo`` (h, k, d), ...), so a JAX tree
 carries across as it is (``interop.lm_params_from_numpy``); :class:`LM`
-holds such a dict for callers that want a module. There is no backward in
-the port yet, so ``cfg.remat`` has nothing to do here.
+holds such a dict for callers that want a module.
+
+:func:`forward` is differentiable in the parameters (the train step takes
+its gradients); parameters that do not require grad build no graph, so
+serving keeps its memory. With a graph, each layer group is checkpointed
+as ``cfg.remat`` says, as the JAX package wraps its scanned group:
+``"full"`` recomputes the whole group in the backward, ``"dots"`` saves
+the outputs of the dots without batch dims (``aten.mm``/``addmm``: the
+projections and the router) and recomputes the rest, kernel E's forward
+included (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).
+The recompute runs the same ops on the same inputs, so the gradients are
+bitwise those without remat.
 
 Public API:
     model_specs(cfg)                  -> ParamSpec tree
@@ -27,6 +37,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 from . import layers, moe, rwkv, ssm
@@ -311,18 +323,58 @@ def _index(tree, g: int):
             for k, v in tree.items()}
 
 
+def _split_groups(tree: dict, n: int) -> list:
+    """The per-group dicts of a stacked tree: one ``torch.unbind`` per
+    leaf, whose backward stacks the groups' gradients once (a ``select``
+    per group would write a zero tensor of the whole leaf per group)."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = (_split_groups(v, n) if isinstance(v, dict)
+                 else torch.unbind(v, 0))
+        for g in range(n):
+            out[g][k] = parts[g]
+    return out
+
+
+#: Ops whose outputs ``remat="dots"`` saves: dots without batch dims.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat_wrap(cfg: ModelConfig, fn):
+    """``fn`` checkpointed as ``cfg.remat`` says (non-reentrant)."""
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_dots_context)
+    if cfg.remat != "none":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return fn
+
+
+def _requires_grad(tree: dict) -> bool:
+    return any(v.requires_grad for _, v in tree_paths(tree))
+
+
 def _run_groups(cfg: ModelConfig, params: dict, x: torch.Tensor, positions,
                 cache: Optional[dict], pos):
     """A loop over the layer groups (the JAX package's ``lax.scan``); a
     cache, if any, is indexed alongside and written in place. Returns ``(x,
     aux, load)``: the MoE losses summed over every block, and the expert
     load of each MoE block of the pattern averaged over the groups (None
-    without MoE blocks)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    loads = []
-    for g in range(cfg.num_groups):
-        gp = _index(params["groups"], g)
-        gc = _index(cache, g) if cache is not None else None
+    without MoE blocks). Under autograd each group is checkpointed as
+    ``cfg.remat`` says."""
+
+    def group_fn(x, aux, gp, gc):
         group_loads = []
         for i, entry in enumerate(cfg.block_pattern):
             bc = gc[f"b{i}"] if gc is not None else None
@@ -331,8 +383,18 @@ def _run_groups(cfg: ModelConfig, params: dict, x: torch.Tensor, positions,
             aux = aux + a
             if load is not None:
                 group_loads.append(load)
-        if group_loads:
-            loads.append(torch.stack(group_loads))
+        return x, aux, torch.stack(group_loads) if group_loads else None
+
+    grad = (cache is None and torch.is_grad_enabled()
+            and _requires_grad(params["groups"]))
+    run = _remat_wrap(cfg, group_fn) if grad else group_fn
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    loads = []
+    for g, gp in enumerate(_split_groups(params["groups"], cfg.num_groups)):
+        gc = _index(cache, g) if cache is not None else None
+        x, aux, load = run(x, aux, gp, gc)
+        if load is not None:
+            loads.append(load)
     load = torch.stack(loads).mean(dim=0) if loads else None
     return x, aux, load
 
@@ -342,11 +404,12 @@ def _ref_shape(tokens, embeddings):
     return ref.shape[0], ref.shape[1], ref.device
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None,
             positions=None) -> ForwardOut:
-    """Full-sequence forward (prefill / scoring). No cache. ``tokens``
-    (B, S) int or ``embeddings`` (B, S, d_model) on the parameters' device."""
+    """Full-sequence forward (train / prefill / scoring). No cache.
+    ``tokens`` (B, S) int or ``embeddings`` (B, S, d_model) on the
+    parameters' device. Differentiable in the parameters that require
+    grad."""
     b, s, dev = _ref_shape(tokens, embeddings)
     if positions is None:
         positions = torch.arange(s, device=dev)[None].expand(b, s)

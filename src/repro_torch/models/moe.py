@@ -72,18 +72,22 @@ def moe_ffn(cfg: ModelConfig, p: dict,
             x: torch.Tensor) -> tuple[torch.Tensor, MoEAux]:
     """x: (B, S, d) -> ((B, S, d), MoEAux)."""
     b, s, d = x.shape
-    e = cfg.num_experts
+    e, k = cfg.num_experts, cfg.experts_per_token
     c = _capacity(cfg, s)
     r = route(cfg, p, x)
 
     # Flat (B·E·C) slot of every kept pair; each slot holds one token.
+    # The copies go through index_select / index_copy on unique rows (a
+    # pair's token row from the (B·S·k, d) expansion, whose backward sums
+    # the k rows of a token), so the backward needs no accumulating
+    # scatter: it is deterministic and cheap on the card.
     batch = torch.arange(b, device=x.device)[:, None, None]
     flat = (batch * e + r.experts) * c + r.slot
-    flat = torch.where(r.keep, flat, 0)
-    tok = torch.arange(b * s, device=x.device).reshape(b, s, 1)
-    tok = tok.expand_as(flat)
+    flat = torch.where(r.keep, flat, 0).reshape(-1)
+    kept = r.keep.reshape(-1).nonzero().squeeze(1)
+    xk = x[:, :, None, :].expand(b, s, k, d).reshape(b * s * k, d)
     xin = torch.zeros((b * e * c, d), dtype=x.dtype, device=x.device)
-    xin[flat[r.keep]] = x.reshape(b * s, d)[tok[r.keep]]
+    xin = xin.index_copy(0, flat[kept], xk.index_select(0, kept))
     xin = xin.reshape(b, e, c, d)
 
     h = torch.einsum("becd,edf->becf", xin, p["wi"].to(x.dtype))
@@ -92,8 +96,10 @@ def moe_ffn(cfg: ModelConfig, p: dict,
         h = h * torch.einsum("becd,edf->becf", xin, p["wg"].to(x.dtype))
     out_e = torch.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))
 
+    # A dropped pair reads slot 0 with gate 0: its gradient there is 0.
     gates = torch.where(r.keep, r.gates, 0.0).to(x.dtype).float()
-    picked = out_e.reshape(b * e * c, d)[flat].float()   # (B, S, k, d)
+    picked = out_e.reshape(b * e * c, d).index_select(0, flat)
+    picked = picked.reshape(b, s, k, d).float()
     out = (picked * gates[..., None]).sum(dim=2).to(x.dtype)
 
     top1 = torch.nn.functional.one_hot(r.experts[..., 0], e).float()

@@ -1,0 +1,198 @@
+"""AdamW with optional 8-bit (block-quantized) moments (port of
+``repro.optim.adamw``).
+
+The 8-bit mode stores m and v as int8 codes with an f32 absmax scale per
+256-element block of the **last** axis (Dettmers-style), cutting the
+optimizer's memory 4× against f32. Gradient clipping is global-norm; weight
+decay is decoupled (AdamW) and applies to leaves with two or more dims.
+
+Parameters, gradients and moments are dicts of tensors with the same keys;
+at each parameter's position the moments hold a tensor (f32 or bf16) or a
+:class:`QTensor`. A 0-d parameter's moments have shape (1,), as in the JAX
+package. Where JAX donates its state, :func:`adamw_update` writes the new
+parameters and moments into the old tensors in place (under
+``torch.no_grad()``) and returns them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..models.params import tree_paths
+
+QBLOCK = 256  # elements per quantization block (last axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    learning_rate: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip_norm: float = 1.0
+    state_dtype: str = "float32"     # float32 | bfloat16 | int8
+
+
+class QTensor(NamedTuple):
+    """Last-axis blockwise-quantized tensor. A named tuple, so the
+    checkpoint's tree walk saves its codes and scales as arrays and
+    ``orig_last`` as a scalar."""
+
+    codes: torch.Tensor   # int8, lead_dims + (padded_last,)
+    scales: torch.Tensor  # f32, lead_dims + (num_blocks,)
+    orig_last: int        # unpadded last-dim size
+
+
+def _quantize(x: torch.Tensor) -> QTensor:
+    lead = tuple(x.shape[:-1])
+    last = x.shape[-1] if x.dim() else 1
+    xf = x.float().reshape(lead + (last,))
+    nb = -(-last // QBLOCK)
+    pad = nb * QBLOCK - last
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, pad))
+    blocks = xf.reshape(lead + (nb, QBLOCK))
+    scales = blocks.abs().amax(dim=-1) / 127.0
+    safe = torch.where(scales > 0, scales, 1.0)
+    # torch.round rounds half to even, as jnp.round does.
+    codes = torch.clamp(torch.round(blocks / safe[..., None]), -127,
+                        127).to(torch.int8)
+    return QTensor(codes=codes.reshape(lead + (nb * QBLOCK,)), scales=scales,
+                   orig_last=last)
+
+
+def _dequantize(q: QTensor, shape) -> torch.Tensor:
+    lead = tuple(q.codes.shape[:-1])
+    nb = q.scales.shape[-1]
+    blocks = q.codes.float().reshape(lead + (nb, QBLOCK))
+    out = (blocks * q.scales[..., None]).reshape(lead + (nb * QBLOCK,))
+    return out[..., :q.orig_last].reshape(shape)
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # int32, 0-d
+    m: dict             # congruent with params; tensors or QTensors
+    v: dict
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _encode(x: torch.Tensor, dtype: str):
+    if dtype == "int8":
+        return _quantize(x)
+    return x.to(_DTYPES[dtype])
+
+
+def _decode(x, shape, dtype: str) -> torch.Tensor:
+    if dtype == "int8":
+        return _dequantize(x, shape)
+    return x.float()
+
+
+def _store(old, new) -> None:
+    """Write ``new`` (a tensor or QTensor) into ``old`` in place."""
+    if isinstance(old, QTensor):
+        old.codes.copy_(new.codes)
+        old.scales.copy_(new.scales)
+    else:
+        old.copy_(new)
+
+
+def _at(tree: dict, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _map_params(params: dict, fn) -> dict:
+    """``fn(p)`` at every parameter position, as a dict of the params'
+    keys."""
+    return {k: _map_params(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in params.items()}
+
+
+def _shape(p: torch.Tensor) -> tuple:
+    return tuple(p.shape) if p.dim() else (1,)
+
+
+def adamw_init(params: dict, config: AdamWConfig) -> AdamWState:
+    """Zero moments at every parameter's position (shape (1,) for a 0-d
+    one), in ``config.state_dtype``, on the parameters' devices."""
+    def zero_like(p):
+        return _encode(torch.zeros(_shape(p), dtype=torch.float32,
+                                   device=p.device), config.state_dtype)
+
+    leaves = [p for _, p in tree_paths(params)]
+    dev = leaves[0].device if leaves else None
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      m=_map_params(params, zero_like),
+                      v=_map_params(params, zero_like))
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum, leaf by leaf in key order, of each leaf's sum of
+    squares in f32."""
+    total = None
+    for _, g in tree_paths(tree):
+        s = g.float().square().sum()
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update(params: dict, grads: dict, state: AdamWState,
+                 config: AdamWConfig, lr=None):
+    """One AdamW step. Returns ``(params, state, metrics)``: the same
+    parameter and moment tensors, updated in place, a new step count, and
+    ``{"grad_norm", "clip_factor"}``."""
+    lr = config.learning_rate if lr is None else lr
+    gnorm = global_norm(grads)
+    clip = torch.clamp(config.grad_clip_norm / torch.clamp(gnorm, min=1e-9),
+                       max=1.0)
+    step = state.step + 1
+    b1, b2 = config.beta1, config.beta2
+    stepf = step.float()
+    one = torch.ones((), dtype=torch.float32, device=stepf.device)
+    bc1 = 1.0 - torch.pow(one * b1, stepf)
+    bc2 = 1.0 - torch.pow(one * b2, stepf)
+    dtype = config.state_dtype
+    for path, p in tree_paths(params):
+        g = _at(grads, path)
+        m, v = _at(state.m, path), _at(state.v, path)
+        shape = _shape(p)
+        g32 = g.float().reshape(shape) * clip
+        m32 = b1 * _decode(m, shape, dtype) + (1 - b1) * g32
+        v32 = b2 * _decode(v, shape, dtype) + (1 - b2) * g32 * g32
+        update = (m32 / bc1) / (torch.sqrt(v32 / bc2) + config.eps)
+        if p.dim() >= 2:  # decoupled weight decay on matrices only
+            update = update + config.weight_decay * p.float()
+        new_p = p.float().reshape(shape) - lr * update
+        p.copy_(new_p.reshape(p.shape))
+        _store(m, _encode(m32, dtype))
+        _store(v, _encode(v32, dtype))
+    metrics = {"grad_norm": gnorm, "clip_factor": clip}
+    return params, AdamWState(step=step, m=state.m, v=state.v), metrics
+
+
+def state_bytes(state: AdamWState) -> int:
+    """The optimizer state's bytes: every tensor, QTensor codes and scales
+    included (``orig_last`` is not an array)."""
+    total = 0
+
+    def walk(node):
+        nonlocal total
+        if isinstance(node, torch.Tensor):
+            total += node.numel() * node.element_size()
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, tuple):
+            for v in node:
+                walk(v)
+
+    walk(state)
+    return total

@@ -798,3 +798,75 @@ def test_store_cache_moves_a_cpu_store_to_the_card_once(cuda_device):
     again, hit = cache.get_or_build(
         maxcut_to_ising(complete_bipolar(64, seed=1)), "bitplane")
     assert hit and again is store and cache.bytes_to_device == store.nbytes
+
+
+def test_flash_function_backward_on_card(cuda_device):
+    """Kernel E's autograd Function on the card: the bf16 entry launches
+    once in the forward, and dq, dk, dv are bitwise autograd's through
+    ``chunked_attention`` (the backward is that recompute)."""
+    q, k, v = _qkv((2, 4, 256, 64), (2, 2, 256, 64), torch.bfloat16,
+                   cuda_device)
+    grad = torch.randn_like(q)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    before = fa.tc_counter.count
+    out = fa.flash_attention(qs, ks, vs, True, 0.125, 64, 128)
+    assert fa.tc_counter.count == before + 1
+    got = torch.autograd.grad(out, (qs, ks, vs), grad)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(lm_model.layers.chunked_attention(
+        *plain, causal=True, q_chunk=64, kv_chunk=128, scale=0.125),
+        plain, grad)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_data_pipeline_on_card_equals_cpu(cuda_device):
+    """The synthetic batch and the Gumbel table made on the card are
+    bitwise the CPU's."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+
+    assert torch.equal(rng.gumbel_table(cuda_device).cpu(),
+                       rng.gumbel_table("cpu"))
+    for arch in ("granite-moe-1b-a400m", "hubert-xlarge"):
+        cfg = get_config(arch, smoke=True)
+        dc = DataConfig(seed=5, global_batch=4, seq_len=64)
+        card = SyntheticLMData(cfg, dc, cuda_device).batch(3)
+        cpu = SyntheticLMData(cfg, dc, "cpu").batch(3)
+        for key in cpu:
+            assert card[key].is_cuda and torch.equal(card[key].cpu(), cpu[key])
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """granite-moe's smoke config, one microbatched train step on the card
+    (kernel E's bf16 entry) against the CPU from the same parameters and
+    batch: the loss within 0.03 relative, and the remat modes' gradients
+    bitwise equal on the card."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import step as tstep
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True),
+                              attn_impl="flash")
+    params = init_params(lm_model.model_specs(cfg),
+                         torch.Generator(device=cuda_device).manual_seed(0),
+                         device=cuda_device)
+    cpu_params = _to_cpu(params)
+    dc = DataConfig(seed=1, global_batch=4, seq_len=64)
+    batch = SyntheticLMData(cfg, dc, cuda_device).batch(0)
+    opt = AdamWConfig(learning_rate=1e-3)
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        c = dataclasses.replace(cfg, remat=remat)
+        _, _, grads = tstep.value_and_grad(c, params, batch)
+        runs[remat] = [g for _, g in lm_model.tree_paths(grads)]
+    for remat in ("full", "dots"):
+        assert all(torch.equal(a, b) for a, b in zip(runs[remat],
+                                                     runs["none"]))
+    step = tstep.make_train_step(cfg, opt, num_microbatches=2)
+    before = fa.tc_counter.count
+    card, mc = step(tstep.init_train_state(cfg, params, opt), batch)
+    assert fa.tc_counter.count - before == 2 * cfg.num_layers
+    cpu, mh = step(tstep.init_train_state(cfg, cpu_params, opt),
+                   {k: v.cpu() for k, v in batch.items()})
+    assert abs(float(mc["loss"]) - float(mh["loss"])) < 0.03 * float(mh["loss"])
+    assert torch.isfinite(mc["grad_norm"])

@@ -45,7 +45,14 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.serve.batching", "repro_torch.serve.cache",
                  "repro_torch.serve.service",
                  "repro_torch.examples.serve_solver",
-                 "repro_torch.configs.jamba_15_large"):
+                 "repro_torch.configs.jamba_15_large",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.optim.schedule", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.train",
+                 "repro_torch.train.step", "repro_torch.train.loop",
+                 "repro_torch.launch.train",
+                 "repro_torch.examples.train_lm",
+                 "repro_torch.examples.expert_placement"):
         assert name in mods
     code = textwrap.dedent(f"""
         import importlib, sys
