@@ -58,6 +58,19 @@ results:
   the unpadded instance, a repeat tenant on the store cache (no encode,
   no J copied to the card), a met target answered with no launch, a
   budgeted request, and the anchor burst on the card bitwise the CPU's;
+* the multi-GPU solver on the one card (``[dist]``): a world of 1 on NCCL
+  in this process and a world of 2 ranks sharing the card on gloo (NCCL
+  refuses two ranks on one GPU), the sparse N=16384 anchor from its edges
+  (RSA + PWL, R=8): ``solve_sharded`` on a (spins=1) and a (1, 1) mesh,
+  2,048 steps, bitwise the fused ``bitplane_hbm`` solve with kernel C's
+  launches counted; RWA against kernel A step by step over 256 steps, each
+  split pick a near tie; ``run_resilient(backend="sharded")`` through a
+  crash; ``solve_distributed`` on K2000 (2 replicas a rank, an exchange
+  every 4 chunks, 20,000 steps) with kernels A and B counted and the
+  RSA prefix bitwise the CPU's world of 1; the world of 2 (512 sharded
+  steps, the 2,000-step distributed prefix) bitwise the world of 1 and the
+  CPU's world of 2, each rank's plane bytes half the store's; µs/step and
+  collectives per step;
 * the LM serving path: qwen2-7b at full width and depth in bf16 with
   weights made on the card from a seed, ``forward(cfg, params,
   tokens=(4, 4096))`` through the flash-attention kernel's tensor-core
@@ -98,6 +111,7 @@ import functools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2932,10 +2946,11 @@ def stepwise_sweep_check(label: str, args, kw) -> tuple:
     couplings, u0, s0, e0, words, chunk, temps, tbl = args
     t, r = temps.shape
     rwa, uni = kw["mode"] == "rwa", kw.get("uniformized", False)
-    plain_kw = {k: v for k, v in kw.items() if k != "gather"}
-    unif = rng.uniform01(rng.stream(rng.from_words(*words), rng.Salt.SWEEP,
-                                    chunk), (t, r, 4)).to("cuda")
     keyed = sweep.mcmc_sweep_keyed(*args, **kw)
+    kw = {k: v for k, v in kw.items() if k != "fold"}
+    plain_kw = {k: v for k, v in kw.items() if k != "gather"}
+    unif = rng.uniform01(ref.sweep_chunk_key(words, chunk, None),
+                         (t, r, 4)).to("cuda")
     read = sweep.mcmc_sweep(couplings, u0, s0, e0, unif, temps, tbl, **kw)
     check(all(torch.equal(x, y) for x, y in zip(keyed, read)),
           f"{label}: the keyed kernel bitwise the reading kernel fed the "
@@ -3359,6 +3374,282 @@ def serve_phase() -> None:
     profile_device(prof_svc.drain)
     serve_launches(read_all_counts(), sparse_chunks)
     serve_anchor_check()
+
+
+# --------------------------------------------------------------------------
+# [dist]: the multi-GPU solver on the one card: a world of 1 on NCCL in this
+# process, and a world of 2 ranks sharing the card on gloo.
+
+DIST_STEPS = 2048          # the sharded anchor at world 1
+DIST_W2_STEPS = 512        # the sharded solve at world 2
+DIST_LOCK_STEPS = 256      # RWA's prefix, held step by step
+DIST_K_PREFIX = 2000       # the distributed RSA prefix held to the CPU
+DIST_PER_RANK = 2          # replicas a rank of solve_distributed
+DIST_EXCHANGE = 4          # chunks between elitist exchanges
+DIST_RUN_ROOT = Path(__file__).resolve().parent / "build" / "dist_runs"
+
+
+def dist_sparse(device="cuda"):
+    """The sparse N=16384 anchor, ingested from its edge list."""
+    edges = sparse_bipolar_edges(SPARSE_N, SPARSE_EDGES, seed=SPARSE_N)
+    return edges, ising.IsingProblem.create_sparse(edges, device=device)
+
+
+def dist_k_config(mode: str, steps: int):
+    from repro_torch.distributed import DistSolverConfig
+
+    return DistSolverConfig(base=default_solver(N, steps, mode=mode),
+                            replicas_per_device=DIST_PER_RANK,
+                            exchange_every=DIST_EXCHANGE, backend="fused")
+
+
+def on_host(res):
+    return type(res)(*(None if x is None else x.cpu() for x in res))
+
+
+def dist_cpu_rank():
+    """A rank of the CPU's run of the K2000 distributed RSA prefix: the
+    reference the card's worlds are held to."""
+    from repro_torch.distributed import build_mesh, solve_distributed
+
+    mesh = build_mesh(None, "cpu")
+    prob = maxcut_to_ising(complete_bipolar(N, seed=SEED), device="cpu")
+    return solve_distributed(prob, SEED, dist_k_config("rsa",
+                                                       DIST_K_PREFIX),
+                             mesh, device="cpu")
+
+
+def dist_world2_rank() -> dict:
+    """A rank of the world of 2 sharing the card (gloo): the sparse
+    sharded solve and the K2000 distributed RSA prefix, with this rank's
+    launches, collectives and plane slab."""
+    from repro_torch.distributed import build_mesh, solve_distributed
+    from repro_torch.distributed import mesh as M
+    from repro_torch.distributed.solver_sharded import ShardedRunner
+
+    mesh = build_mesh("2", "cuda")
+    _, prob = dist_sparse()
+    cfg = default_solver(SPARSE_N, DIST_W2_STEPS, mode="rsa")
+    reset_all_counts()
+    M.COLLECTIVES.reset()
+    runner = ShardedRunner(prob, SEED, cfg, mesh)
+    res, wall = timed(runner.drive)
+    out = {"sharded": on_host(res), "sharded_s": wall,
+           "counts": read_all_counts(), "collectives": M.COLLECTIVES.total,
+           "plane_bytes": runner.planes.nbytes,
+           "slab": tuple(runner.planes.pos.shape)}
+    kprob = maxcut_to_ising(complete_bipolar(N, seed=SEED), device="cuda")
+    reset_all_counts()
+    M.COLLECTIVES.reset()
+    res, wall = timed(lambda: solve_distributed(
+        kprob, SEED, dist_k_config("rsa", DIST_K_PREFIX), mesh))
+    out.update(dist=on_host(res), dist_s=wall, dist_counts=read_all_counts(),
+               dist_collectives=M.COLLECTIVES.total)
+    return out
+
+
+def dist_rwa_lockstep(edges, prob, mesh) -> None:
+    """The sharded RWA step (plain PyTorch, block sums by ``torch.sum``)
+    against kernel A (warp sums) step by step along the sharded
+    trajectory, on the same state and uniforms: where they pick different
+    sites the step must be a near tie (``parity.roulette_near_tie``),
+    elsewhere the next states are equal bitwise. These kernel A launches
+    compare and are not counted."""
+    from repro_torch.distributed import solver_sharded as ss
+
+    cfg = default_solver(SPARSE_N, DIST_LOCK_STEPS, mode="rwa")
+    runner = ss.ShardedRunner(prob, SEED, cfg, mesh)
+    store = CouplingStore.build(edges, "bitplane_hbm").to("cuda")
+    u, s, e = runner.init()[:3]
+    unif = sweep.sweep_uniforms(runner.words, 0, DIST_LOCK_STEPS, R, "cuda")
+    splits = ties = 0
+    unequal = []
+    for t in range(DIST_LOCK_STEPS):
+        ut, tt = unif[t:t + 1], runner.temps[t:t + 1]
+        k = sweep.mcmc_sweep(store.planes, u, s, e, ut, tt, runner.pwl,
+                             mode="rwa", coupling="bitplane_hbm")
+        sh = ss.sharded_sweep(runner.planes, u, s, e, ut, tt, runner.pwl,
+                              runner.layout, mode="rwa", uniformized=False)
+        differ = (k[1] != sh[1]).any(dim=1).cpu()
+        if differ.any():
+            p_all = common.flip_probability(2.0 * s * u, tt[0][:, None],
+                                            runner.pwl)
+            tie = roulette_near_tie(p_all.cpu(), ut[0, :, 2].cpu(),
+                                    ut[0, :, 3].cpu(), False)
+            splits += int(differ.sum())
+            ties += int((differ & tie).sum())
+        agree = ~differ
+        if not all(torch.equal(a.cpu()[agree], b.cpu()[agree])
+                   for a, b in zip(k[:6], sh[:6])):
+            unequal.append(t)
+        u, s, e = sh[:3]
+    check(not unequal, f"sharded RWA against kernel A, {DIST_LOCK_STEPS} "
+          f"steps x {R} replicas from the same states: the next state is "
+          f"equal bitwise wherever the picks agree (steps {unequal[:8]} not)")
+    check(splits == ties, f"sharded RWA against kernel A: {splits} "
+          f"split picks, {ties} of them near ties (all must be)")
+
+
+def dist_world1(edges, prob) -> dict:
+    """The world of 1 on NCCL: returns the 512-step sharded solve the world
+    of 2 is held to."""
+    from repro_torch.core.resilience import run_resilient
+    from repro_torch.distributed import (build_mesh, solve_distributed,
+                                         solve_sharded)
+    from repro_torch.distributed import mesh as M
+    from repro_torch.distributed.world import run_world
+
+    mesh1, mesh11 = build_mesh("1", "cuda"), build_mesh("1x1", "cuda")
+    cfg = default_solver(SPARSE_N, DIST_STEPS, mode="rsa")
+    fused, fused_s = timed(lambda: solve(prob, SEED, dataclasses.replace(
+        cfg, coupling_format="bitplane_hbm")))
+    print(f"[dist] sparse N={SPARSE_N} from its edges, RSA + PWL, R={R}, "
+          f"{DIST_STEPS} steps: the fused bitplane_hbm solve "
+          f"{fused_s / DIST_STEPS * 1e6:.3f} us/step (host clock)")
+    sharded = {}
+    for name, mesh in (("bitplane_sharded", mesh1),
+                       ("bitplane_sharded_2d", mesh11)):
+        reset_all_counts()
+        M.COLLECTIVES.reset()
+        res, sec = timed(lambda: solve_sharded(prob, SEED, cfg, mesh))
+        counts = read_all_counts()
+        coll = M.COLLECTIVES.total
+        sharded[name] = res
+        check(same_result(fused, res), f"{name} on mesh {M.mesh_desc(mesh)}"
+              f" == the fused bitplane_hbm solve, bitwise, every field "
+              "(rows_fetched too)")
+        check(counts["bitplane_field_init"] == 1 and counts["mcmc_sweep"] == 0,
+              f"{name}: kernel C inits the rank's slab once; the step is "
+              f"plain PyTorch ({counts})")
+        EXTRA_LAUNCHES["bitplane_field_init"] = (
+            EXTRA_LAUNCHES.get("bitplane_field_init", 0)
+            + counts["bitplane_field_init"])
+        print(f"[dist] {name} {M.mesh_desc(mesh)}: "
+              f"{sec / DIST_STEPS * 1e6:.3f} us/step (host clock, the init "
+              f"included), {coll / DIST_STEPS:.3f} collectives/step, "
+              f"rows_fetched {int(res.rows_fetched.sum())} "
+              f"({int(res.rows_fetched.sum()) / DIST_STEPS:.3f}/step); "
+              f"launches {counts}")
+    dist_rwa_lockstep(edges, prob, mesh1)
+
+    # run_resilient through a crash at a snapshot, resumed.
+    shutil.rmtree(DIST_RUN_ROOT, ignore_errors=True)
+    run_dir = str(DIST_RUN_ROOT / "sharded")
+    try:
+        run_resilient(prob, SEED, cfg, run_dir, backend="sharded",
+                      mesh=mesh1, on_event=crash_after(4))
+        check(False, "the injected crash stops the supervised run")
+    except SimulatedCrash:
+        pass
+    rr = run_resilient(prob, SEED, cfg, run_dir, backend="sharded",
+                       mesh=mesh1)
+    check(rr.resumed_from_chunk == 4 and rr.stop_reason == "completed"
+          and same_result(sharded["bitplane_sharded"], rr.result),
+          "run_resilient(backend='sharded') crashed at chunk 4 and resumed "
+          "== solve_sharded, bitwise, every field")
+    shutil.rmtree(DIST_RUN_ROOT, ignore_errors=True)
+
+    # solve_distributed on K2000, 2 replicas a rank.
+    inst = complete_bipolar(N, seed=SEED)
+    kprob = maxcut_to_ising(inst, device="cuda")
+    for mode in ("rsa", "rwa"):
+        dcfg = dist_k_config(mode, STEPS)
+        chunks = STEPS // 64
+        reset_all_counts()
+        M.COLLECTIVES.reset()
+        res, sec = timed(lambda: solve_distributed(kprob, SEED, dcfg, mesh1))
+        counts = read_all_counts()
+        exchanges = chunks // DIST_EXCHANGE
+        check(torch.equal(res.best_energy,
+                          ising.energy(kprob, res.best_spins)
+                          + kprob.offset),
+              f"distributed {mode}: best_energy == energy(best_spins) "
+              "exactly")
+        check(counts["mcmc_sweep"] == chunks
+              and counts["local_field_init"] == 1 + exchanges,
+              f"distributed {mode}: kernel A once a chunk ({chunks}), kernel "
+              f"B at the init and once an exchange ({1 + exchanges}): "
+              f"{counts}")
+        add_launches(counts, "dense", mode)
+        fused_us = MAIN_PATHS[("dense", mode)]["us_step"]
+        us = sec / (chunks * 64) * 1e6
+        cut = cut_from_energy(inst, res.best_energy.cpu().numpy()).max()
+        print(f"[dist] solve_distributed K2000 {mode}, {DIST_PER_RANK} "
+              f"replicas a rank, exchange every {DIST_EXCHANGE} chunks, "
+              f"{chunks * 64} steps on (spins=1): {us:.3f} us/step (host "
+              f"clock; the fused K2000 solve {fused_us:.3f}, "
+              f"{us / fused_us - 1:+.1%}), best cut {cut:.0f}, "
+              f"{M.COLLECTIVES.total / chunks:.2f} collectives a chunk; "
+              f"launches {counts}")
+    card = solve_distributed(kprob, SEED, dist_k_config("rsa",
+                                                        DIST_K_PREFIX), mesh1)
+    cpu = run_world("chip_smoke:dist_cpu_rank", 1, timeout=600)[0]
+    check(same_result(card, cpu), f"distributed RSA, {DIST_K_PREFIX} steps, "
+          "world of 1: the card == the CPU's run, bitwise")
+    w512 = solve_sharded(prob, SEED, default_solver(
+        SPARSE_N, DIST_W2_STEPS, mode="rsa"), mesh1)
+    return {"sharded": w512}
+
+
+def dist_phase() -> None:
+    """[dist]: the multi-GPU solver on one card (see ``dist_world1`` and
+    ``dist_world2_rank``)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_world
+    from repro_torch.distributed.world import run_world
+
+    edges, prob = dist_sparse()
+    print("[dist] world of 1: NCCL on the card, in this process")
+    init_world("nccl", rank=0, world_size=1, device_type="cuda")
+    try:
+        w1 = dist_world1(edges, prob)
+    finally:
+        dist.destroy_process_group()
+
+    print("[dist] world of 2: two ranks share the card on gloo (NCCL "
+          "refuses two ranks on one GPU); gloo takes the CUDA tensors of "
+          "all_reduce and broadcast through pinned host memory itself, the "
+          "port issues no all_gather")
+    ranks, sec = timed(lambda: run_world(
+        "chip_smoke:dist_world2_rank", 2, backend="gloo",
+        device_type="cuda", timeout=900, threads=4))
+    cpu = run_world("chip_smoke:dist_cpu_rank", 2, timeout=600)
+    per_shard = CouplingStore.build(
+        edges, "bitplane_sharded").plane_bytes_per_shard(2)
+    for rank, out in enumerate(ranks):
+        check(same_result(w1["sharded"], out["sharded"]),
+              f"rank {rank}: the sharded solve on (spins=2), "
+              f"{DIST_W2_STEPS} steps == the world of 1's, bitwise, every "
+              "field")
+        check(same_result(cpu[0], out["dist"]),
+              f"rank {rank}: distributed RSA on (spins=2), {DIST_K_PREFIX} "
+              "steps == the CPU's world of 2, bitwise")
+        check(out["plane_bytes"] == per_shard
+              and out["slab"][1] == SPARSE_N // 2,
+              f"rank {rank} holds its slab {out['slab']} alone: "
+              f"{out['plane_bytes']} plane bytes == plane_bytes_per_shard(2)"
+              f" {per_shard}")
+        counts, dcounts = out["counts"], out["dist_counts"]
+        check(counts["bitplane_field_init"] == 1
+              and dcounts["mcmc_sweep"] == DIST_K_PREFIX // 64
+              and dcounts["local_field_init"] > 0,
+              f"rank {rank}: kernel C inits the slab, kernels A and B run "
+              f"the distributed solve ({counts}, {dcounts})")
+        EXTRA_LAUNCHES["bitplane_field_init"] = (
+            EXTRA_LAUNCHES.get("bitplane_field_init", 0)
+            + counts["bitplane_field_init"])
+        add_launches(dcounts, "dense", "rsa")
+        print(f"[dist] rank {rank} of (spins=2): sharded "
+              f"{out['sharded_s'] / DIST_W2_STEPS * 1e6:.3f} us/step, "
+              f"{out['collectives'] / DIST_W2_STEPS:.3f} collectives/step, "
+              f"plane bytes {out['plane_bytes']} (the whole store's "
+              f"{2 * per_shard}); distributed "
+              f"{out['dist_s'] / DIST_K_PREFIX * 1e6:.3f} us/step, "
+              f"{out['dist_collectives'] / (DIST_K_PREFIX // 64):.2f} "
+              f"collectives a chunk; launches {counts} / {dcounts}")
+    print(f"[dist] world of 2: {sec:.1f} s for both processes, their "
+          f"start-up included; {nvidia_smi()}")
 
 
 def reset_flash_counts() -> None:
@@ -4417,7 +4708,8 @@ def main() -> None:
                         ("tempering", tempering_phase),
                         ("tts", tts_phase),
                         ("workloads", workloads_phase),
-                        ("serve", serve_phase)):
+                        ("serve", serve_phase),
+                        ("dist", dist_phase)):
         t0 = time.perf_counter()
         phase()
         print(f"[phase] {name} {time.perf_counter() - t0:.1f} s")

@@ -9,12 +9,14 @@ Port of ``repro.core.backend``.
 * :data:`BACKENDS` and :func:`register`: the registry. ``solve``, the
   supervisor and the registry tests enumerate it.
 
-The port registers four paths: "reference" (the plain PyTorch engine of
-``core.mcmc``), "fused" (the sweep kernel over the dense, ``bitplane`` and
-``bitplane_hbm`` tiers), "colored" (the colored sweep kernel) and
-"tempering" (parallel tempering on the sweep kernel, a ``TemperingConfig``).
-The JAX package's "sharded", "sharded_2d" and "distributed" are a later
-slice: :func:`get_backend` raises for each, naming its ROADMAP item.
+The port registers the JAX package's seven paths: "reference" (the plain
+PyTorch engine of ``core.mcmc``), "fused" (the sweep kernel over the
+dense, ``bitplane`` and ``bitplane_hbm`` tiers), "colored" (the colored
+sweep kernel), "tempering" (parallel tempering on the sweep kernel, a
+``TemperingConfig``), and on a ``DeviceMesh`` (``needs_mesh``; SPMD, every
+rank calls alike): "sharded" and "sharded_2d" (the row-sharded plane tiers
+of ``distributed.solver_sharded``) and "distributed" (replica-parallel
+``distributed.solver_dist``, a ``DistSolverConfig``).
 
 Chunk-runner protocol (what ``runner()`` returns): ``init() -> state``,
 ``run_chunk(state, k) -> state``, ``unit_len(k)``, ``best_energy(state)
@@ -36,20 +38,13 @@ import dataclasses
 from typing import Optional
 
 from . import ising
-from .coupling import KERNEL_COUPLING_MODES, CouplingStore, resolve_format
+from .coupling import (KERNEL_COUPLING_MODES, SHARDED_FORMATS, CouplingStore,
+                       resolve_format)
 from .solver import (ReferenceRunner, SolverConfig, _run,  # noqa: F401
                      require_dense)
 from .tempering import TemperingConfig, TemperingRunner, solve_tempering
 from ..kernels import ops
 from ..kernels.ops import ColoredRunner, FusedRunner  # noqa: F401
-
-#: Backends of the JAX registry that the port has not yet, and the ROADMAP
-#: item that ports each.
-_LATER_BACKENDS = {
-    "sharded": "queue 1 item 12 (multi-GPU)",
-    "sharded_2d": "queue 1 item 12 (multi-GPU)",
-    "distributed": "queue 1 item 12 (multi-GPU)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +52,7 @@ class Capabilities:
     """What an execution path can serve.
 
     ``edge_list``       dense-J-free (``EdgeList``) problems.
-    ``needs_mesh``      needs several devices (none of the port's paths).
+    ``needs_mesh``      runs on a ``DeviceMesh`` (sharded, distributed).
     ``supports_store``  accepts a prebuilt ``CouplingStore``.
     ``supports_resume`` drivable chunk by chunk with bitwise resume.
     ``tier_fallback``   rides the coupling-tier ladder (``coupling_format=
@@ -100,20 +95,20 @@ class Backend(abc.ABC):
         single-flip and colored paths)."""
         return isinstance(config, self.config_cls())
 
-    def prepare(self, problem: ising.IsingProblem, config, *,
+    def prepare(self, problem: ising.IsingProblem, config, *, mesh=None,
                 fmt: Optional[str] = None, store=None):
         """Resolve the tier and build the stored operands (``fmt`` is the
         tier ladder's override). None for a path with no separable store."""
         return None
 
     @abc.abstractmethod
-    def run(self, problem: ising.IsingProblem, seed, config, *, store=None,
-            device=None):
+    def run(self, problem: ising.IsingProblem, seed, config, *, mesh=None,
+            store=None, device=None):
         """The monolithic solve."""
 
     @abc.abstractmethod
     def runner(self, problem: ising.IsingProblem, seed, config, *,
-               chunk_steps: int = 256, fmt: Optional[str] = None,
+               mesh=None, chunk_steps: int = 256, fmt: Optional[str] = None,
                store=None, device=None):
         """The chunk-granular driver, bitwise equal to ``run`` under any
         chunk boundary (the plan of ``chunk_steps``)."""
@@ -136,20 +131,18 @@ def backend_names() -> tuple:
 def get_backend(name: str) -> Backend:
     if name in BACKENDS:
         return BACKENDS[name]
-    if name in _LATER_BACKENDS:
-        raise NotImplementedError(
-            f"backend={name!r} is not ported yet (ROADMAP "
-            f"{_LATER_BACKENDS[name]})")
     raise ValueError(
         f"unknown backend {name!r}: registered backends are "
         f"{backend_names()}; 'auto' resolves one from the config type")
 
 
-def resolve_backend(config, backend: str = "auto") -> str:
+def resolve_backend(config, backend: str = "auto", mesh=None) -> str:
     """``backend="auto"``: the registered path whose config class and mode
-    match ``config`` ("fused" for single-flip, "colored" for colored
-    configs, "tempering" for a ``TemperingConfig``). An explicit name is
-    checked against the registry."""
+    match ``config``, the one that runs on a mesh when ``mesh`` is given
+    ("fused", or "sharded" with a mesh, for single-flip; "colored" for
+    colored configs; "tempering" for a ``TemperingConfig``;
+    "distributed" for a ``DistSolverConfig``). An explicit name is checked
+    against the registry."""
     if backend != "auto":
         get_backend(backend)
         return backend
@@ -157,7 +150,8 @@ def resolve_backend(config, backend: str = "auto") -> str:
              if b.capabilities.auto and b.matches_config(config)]
     if not cands:
         raise TypeError(f"unrecognized config type {type(config).__name__}")
-    return min(cands, key=lambda b: b.capabilities.needs_mesh).name
+    return min(cands, key=lambda b: b.capabilities.needs_mesh
+               != (mesh is not None)).name
 
 
 def current_fmt(problem: ising.IsingProblem, config, backend: str,
@@ -232,12 +226,13 @@ class ReferenceBackend(Backend):
                 "backend='reference' always reads the dense J")
         require_dense(problem)
 
-    def run(self, problem, seed, config, *, store=None, device=None):
+    def run(self, problem, seed, config, *, mesh=None, store=None,
+            device=None):
         self._check(problem, config, store)
         return _run(problem, seed, config, device)
 
-    def runner(self, problem, seed, config, *, chunk_steps=256, fmt=None,
-               store=None, device=None):
+    def runner(self, problem, seed, config, *, mesh=None, chunk_steps=256,
+               fmt=None, store=None, device=None):
         self._check(problem, config, store)
         return ReferenceRunner(problem, seed, config, chunk_steps, device)
 
@@ -254,19 +249,30 @@ class FusedBackend(Backend):
         return (isinstance(config, SolverConfig)
                 and config.flip_mode == "single")
 
-    def prepare(self, problem, config, *, fmt=None, store=None):
+    def prepare(self, problem, config, *, mesh=None, fmt=None, store=None):
         return _resolve_store(problem, config, fmt=fmt, store=store,
                               caller=f"backend {self.name!r}")
 
-    def run(self, problem, seed, config, *, store=None, device=None):
+    def run(self, problem, seed, config, *, mesh=None, store=None,
+            device=None):
         self.check_config(config)
         return ops.fused_anneal(problem, seed, config, store=store,
                                 device=device)
 
-    def runner(self, problem, seed, config, *, chunk_steps=256, fmt=None,
-               store=None, device=None):
+    def runner(self, problem, seed, config, *, mesh=None, chunk_steps=256,
+               fmt=None, store=None, device=None):
         self.check_config(config)
         _require_single_flip(config, self.name)
+        if fmt in SHARDED_FORMATS:
+            # The ladder's last rung moves a fused solve onto the sharded
+            # driver: the same trajectory, by contract.
+            if mesh is None:
+                raise ValueError(f"the {fmt} tier needs a mesh")
+            target = ("sharded_2d" if fmt == "bitplane_sharded_2d"
+                      else "sharded")
+            return get_backend(target).runner(
+                problem, seed, config, mesh=mesh, chunk_steps=chunk_steps,
+                device=device)
         store = self.prepare(problem, config, fmt=fmt, store=store)
         return FusedRunner(problem, seed, config, chunk_steps=chunk_steps,
                            store=store, device=device)
@@ -297,19 +303,24 @@ class ColoredBackend(Backend):
                 "order; a prebuilt CouplingStore (original order) cannot be "
                 "reused — memoize the ops.colored_plan instead")
 
-    def prepare(self, problem, config, *, fmt=None, store=None):
+    def prepare(self, problem, config, *, mesh=None, fmt=None, store=None):
         self._check(config, store)
         return ops.colored_plan(problem, fmt if fmt is not None
                                 else config.coupling_format)
 
-    def run(self, problem, seed, config, *, store=None, device=None):
+    def run(self, problem, seed, config, *, mesh=None, store=None,
+            device=None):
         self.check_config(config)
         self._check(config, store)
         return ops.colored_anneal(problem, seed, config, device=device)
 
-    def runner(self, problem, seed, config, *, chunk_steps=256, fmt=None,
-               store=None, device=None):
+    def runner(self, problem, seed, config, *, mesh=None, chunk_steps=256,
+               fmt=None, store=None, device=None):
         self.check_config(config)
+        if fmt in SHARDED_FORMATS:
+            raise ValueError(
+                "the colored path has no spin-sharded tier — the tier "
+                "ladder ends at bitplane_hbm for backend='colored'")
         plan = self.prepare(problem, config, fmt=fmt, store=store)
         return ColoredRunner(problem, seed, config, chunk_steps=chunk_steps,
                              plan=plan, device=device)
@@ -326,24 +337,136 @@ class TemperingBackend(Backend):
     def config_cls(self):
         return TemperingConfig
 
-    def prepare(self, problem, config, *, fmt=None, store=None):
+    def prepare(self, problem, config, *, mesh=None, fmt=None, store=None):
         return _resolve_store(problem, config, fmt=fmt, store=store,
                               caller=f"backend {self.name!r}")
 
-    def run(self, problem, seed, config, *, store=None, device=None):
+    def run(self, problem, seed, config, *, mesh=None, store=None,
+            device=None):
         self.check_config(config)
         return solve_tempering(problem, seed, config, store=store,
                                device=device)
 
-    def runner(self, problem, seed, config, *, chunk_steps=256, fmt=None,
-               store=None, device=None):
+    def runner(self, problem, seed, config, *, mesh=None, chunk_steps=256,
+               fmt=None, store=None, device=None):
         self.check_config(config)
         store = self.prepare(problem, config, fmt=fmt, store=store)
         return TemperingRunner(problem, seed, config, store=store,
                                device=device)
 
 
+def _require_mesh(mesh, what: str) -> None:
+    if mesh is None:
+        raise ValueError(f"{what} needs a mesh (a DeviceMesh; SPMD: every "
+                         "rank calls alike)")
+
+
+class ShardedBackend(Backend):
+    name = "sharded"
+    capabilities = Capabilities(
+        edge_list=True, needs_mesh=True, supports_store=False,
+        supports_resume=True, tier_fallback=False,
+        fixed_fmt="bitplane_sharded",
+        summary="spin-row-sharded planes over the mesh's ranks (capacity "
+                "scales with their memory together); plain PyTorch step, "
+                "inits on csrc/bitplane_field.cu")
+
+    def matches_config(self, config) -> bool:
+        return (isinstance(config, SolverConfig)
+                and config.flip_mode == "single")
+
+    def _check_mesh(self, mesh) -> None:
+        _require_mesh(mesh, f"backend={self.name!r}")
+
+    def prepare(self, problem, config, *, mesh=None, fmt=None, store=None):
+        from ..distributed import solver_sharded as _ss
+        self._check_mesh(mesh)
+        return _ss.resolve_sharded_planes(problem, config, mesh)
+
+    def run(self, problem, seed, config, *, mesh=None, store=None,
+            device=None):
+        from ..distributed import solver_sharded as _ss
+        self.check_config(config)
+        _require_single_flip(config, self.name)
+        self._check_mesh(mesh)
+        if store is not None:
+            raise ValueError(
+                f"backend={self.name!r} builds per-rank plane slabs from the "
+                "problem; a prebuilt CouplingStore serves the fused backend "
+                "only")
+        return _ss.solve_sharded(problem, seed, config, mesh, device=device)
+
+    def runner(self, problem, seed, config, *, mesh=None, chunk_steps=256,
+               fmt=None, store=None, device=None):
+        from ..distributed import solver_sharded as _ss
+        self.check_config(config)
+        _require_single_flip(config, self.name)
+        self._check_mesh(mesh)
+        return _ss.ShardedRunner(problem, seed, config, mesh,
+                                 chunk_steps=chunk_steps, device=device,
+                                 backend=self.name)
+
+
+class Sharded2DBackend(ShardedBackend):
+    """The (replica groups × spin rows) form of the sharded path: the same
+    driver on a mesh of at least two dims. Not picked by "auto" (a
+    ``SolverConfig`` with a mesh resolves to "sharded", whose driver takes
+    such meshes too); name it, or let the tier ladder reach it."""
+
+    name = "sharded_2d"
+    capabilities = Capabilities(
+        edge_list=True, needs_mesh=True, supports_store=False,
+        supports_resume=True, tier_fallback=False,
+        fixed_fmt="bitplane_sharded_2d", auto=False,
+        summary="(groups, rows) mesh: planes row-sharded within each "
+                "replica group, replicated across groups")
+
+    def _check_mesh(self, mesh) -> None:
+        _require_mesh(mesh, "backend='sharded_2d' (a (groups, rows) mesh)")
+        if mesh.ndim < 2:
+            raise ValueError(
+                f"backend='sharded_2d' needs a mesh with >= 2 axes (leading "
+                f"= replica groups, last = spin rows); got the 1-axis mesh "
+                f"{tuple(mesh.mesh_dim_names)} — use backend='sharded' for "
+                f"1-D row sharding")
+
+
+class DistributedBackend(Backend):
+    name = "distributed"
+    capabilities = Capabilities(
+        edge_list=True, needs_mesh=True, supports_store=False,
+        supports_resume=True, tier_fallback=False, fixed_fmt=None,
+        summary="replica-parallel solve with elitist exchange on the "
+                "mesh's ranks (J whole on every rank; kernel A with a "
+                "device fold per rank)")
+
+    def config_cls(self):
+        from ..distributed.solver_dist import DistSolverConfig
+        return DistSolverConfig
+
+    def run(self, problem, seed, config, *, mesh=None, store=None,
+            device=None):
+        from ..distributed.solver_dist import solve_distributed
+        self.check_config(config)
+        _require_mesh(mesh, "backend='distributed'")
+        if store is not None:
+            raise ValueError(
+                "backend='distributed' builds its store on every rank; a "
+                "prebuilt CouplingStore serves the fused backend only")
+        return solve_distributed(problem, seed, config, mesh, device=device)
+
+    def runner(self, problem, seed, config, *, mesh=None, chunk_steps=256,
+               fmt=None, store=None, device=None):
+        from ..distributed.solver_dist import DistRunner
+        self.check_config(config)
+        _require_mesh(mesh, "backend='distributed'")
+        return DistRunner(problem, seed, config, mesh, device=device)
+
+
 register(ReferenceBackend())
 register(FusedBackend())
 register(ColoredBackend())
 register(TemperingBackend())
+register(ShardedBackend())
+register(Sharded2DBackend())
+register(DistributedBackend())

@@ -116,11 +116,15 @@ def _pack_bits(bits: np.ndarray, num_words: int | None = None) -> np.ndarray:
     return (words * shifts).sum(axis=-1).astype(np.uint32)
 
 
-def encode_couplings(J, num_planes: int, align_words: int = 1) -> BitPlanes:
+def encode_couplings(J, num_planes: int, align_words: int = 1,
+                     row_range: "tuple[int, int] | None" = None
+                     ) -> BitPlanes:
     """Sign-magnitude bit-plane encoding of a symmetric integer matrix
     (Eq. 13). Raises when |J_ij| ≥ 2**num_planes, on non-integer, non-finite
     or asymmetric J; warns on a nonzero diagonal. ``align_words`` rounds W
-    up to a multiple with zero words (decoders truncate to N)."""
+    up to a multiple with zero words (decoders truncate to N). With
+    ``row_range=(lo, hi)`` only rows [lo, hi) are packed: (B, hi-lo, W)
+    planes of the N-spin problem (one rank's slab of the sharded tier)."""
     if isinstance(J, torch.Tensor):
         J = J.detach().cpu().numpy()
     J = np.asarray(J)
@@ -157,6 +161,11 @@ def encode_couplings(J, num_planes: int, align_words: int = 1) -> BitPlanes:
     n = Ji.shape[0]
     w = -(-n // WORD_BITS)
     num_words = -(-w // align_words) * align_words
+    if row_range is not None:
+        lo, hi = row_range
+        if not 0 <= lo <= hi <= n:
+            raise ValueError(f"row_range {row_range} out of bounds for N={n}")
+        Ji = Ji[lo:hi]
     mag = np.abs(Ji)
     sign_pos = Ji > 0
     sign_neg = Ji < 0

@@ -10,7 +10,9 @@ Tiers of the fused sweep, and what each is on one H100:
                      :data:`STREAM_ALIGN_WORDS`; the sweep counts each step's
                      unique rows per replica group (``coalesce``).
 * ``bitplane_sharded`` / ``bitplane_sharded_2d`` — the planes row-sharded
-  over several GPUs: not ported yet (ROADMAP queue 1 item 12).
+  over the ranks of a mesh (within each replica group of a 2-D mesh),
+  served by :mod:`repro_torch.distributed.solver_sharded`, never by the
+  single-device sweep; "auto" never resolves to them.
 
 On the TPU the tiers are VMEM budgets (``DENSE_COUPLING_MAX_N = 2000``,
 ``BITPLANE_VMEM_MAX_N = 8000``). On the H100 the store lives in global
@@ -120,11 +122,16 @@ KERNEL_PLANE_MODES = tuple(
 COALESCABLE_FORMATS = tuple(s.name for s in FORMATS.values() if s.coalescable)
 
 
+SHARDED_FORMATS = tuple(s.name for s in FORMATS.values()
+                        if not s.kernel_mode)
+
+
 def _check_served(fmt: str, n: int) -> str:
-    if not FORMATS[fmt].kernel_mode:
-        raise NotImplementedError(
-            f"coupling_format={fmt!r} is not ported yet (ROADMAP queue 1 "
-            "item 12: multi-GPU, the row-sharded plane tiers)")
+    """``fmt`` if N fits it: the single-device tiers stop at the sweep's
+    shared-memory ceiling; the sharded tiers keep their state in global
+    memory and have none."""
+    if fmt in SHARDED_FORMATS:
+        return fmt
     if n > SWEEP_STATE_MAX_N:
         raise ValueError(
             f"N={n} is past the port's ceiling of {SWEEP_STATE_MAX_N} spins "
@@ -152,8 +159,10 @@ def resolve_format(fmt: Optional[str], couplings, n: int) -> str:
     integral, N is past :data:`DENSE_COUPLING_MAX_N` and the planes are
     smaller (2·B < 32 bits), and streams past :data:`BITPLANE_L2_MAX_N`. An
     :class:`EdgeList` never resolves to dense: "auto" picks a plane tier and
-    an explicit "dense" raises. The sharded tiers raise (not ported yet), as
-    does any N past the sweep's shared-memory ceiling.
+    an explicit "dense" raises. "auto" never resolves to a sharded tier
+    (they need a mesh: only their driver or an explicit knob picks them).
+    A single-device tier raises for any N past the sweep's shared-memory
+    ceiling.
     """
     if fmt not in (None, "auto") and fmt not in FORMATS:
         raise ValueError(
@@ -273,6 +282,22 @@ class CouplingStore:
             return self.planes.nbytes
         return int(self.dense.numel()) * int(self.dense.element_size())
 
+    def plane_bytes_per_shard(self, num_shards: int) -> int:
+        """Plane bytes of one rank when the rows are sharded over
+        ``num_shards`` ranks (the sharded tier's memory accounting)."""
+        if not self.spec.packed:
+            raise ValueError(f"{self.fmt!r} store has no planes to shard")
+        if self.num_spins % num_shards:
+            raise ValueError(f"N={self.num_spins} rows cannot shard evenly "
+                             f"over {num_shards} devices")
+        return self.planes.nbytes // num_shards
+
+    def plane_bytes_per_device(self, mesh_shape: Sequence[int]) -> int:
+        """Plane bytes of one rank of a ``(groups..., rows)`` mesh shape:
+        the rows shard over the last dim only and the planes are
+        replicated across the replica groups."""
+        return self.plane_bytes_per_shard(int(tuple(mesh_shape)[-1]))
+
     def to(self, device) -> "CouplingStore":
         if self.spec.packed:
             return dataclasses.replace(self, planes=self.planes.to(device))
@@ -289,9 +314,12 @@ class CouplingStore:
     def require(self, supported: Sequence[str], driver: str) -> "CouplingStore":
         """Raise if this store's tier is served by another path."""
         if self.fmt not in tuple(supported):
+            hint = (" — the row-sharded store is served by the spin-parallel "
+                    "driver repro_torch.distributed.solver_sharded."
+                    "solve_sharded" if self.fmt in SHARDED_FORMATS else "")
             raise ValueError(
                 f"coupling_format={self.fmt!r} is not supported by {driver} "
-                f"(supported: {tuple(supported)})")
+                f"(supported: {tuple(supported)}){hint}")
         return self
 
 

@@ -20,12 +20,21 @@ time:
   same way.
 * **Tier ladder.** With ``coupling_format="auto"``, an allocation failure
   while building a store or running a chunk retries on the next device
-  tier (dense → ``bitplane`` → ``bitplane_hbm``) from the last snapshot.
+  tier (dense → ``bitplane`` → ``bitplane_hbm``, then with a ``mesh`` the
+  row-sharded ``bitplane_sharded`` / ``bitplane_sharded_2d``) from the last
+  snapshot.
   The tiers run bitwise the same trajectory, so the result is unchanged;
   every downgrade is recorded on the result and in later snapshots. The
   ladder never moves to the CPU or to a plain version, acts on allocation
   failures only (a kernel build or launch error propagates), and drops
   every reference to the failed tier before it rebuilds.
+
+* **Meshes.** With ``mesh=`` (a ``DeviceMesh``; SPMD: every rank calls
+  alike) the runner's state is each rank's part. The mesh's rank 0 writes
+  each snapshot, once per run directory, of the state put together on
+  every rank; every rank resumes its part of the same snapshot, after a
+  barrier, and the ranks take each stop decision together. The mesh is
+  part of the run signature: a snapshot resumes under the same mesh.
 
 Fault injection for tests rides on :func:`inject_faults`, a hook fired at
 the supervisor's seams ("store_build", "chunk_start", "checkpoint_saved").
@@ -124,17 +133,26 @@ def is_allocation_failure(exc: BaseException) -> bool:
     return bool(_ALLOC_MESSAGE.search(str(exc).lower()))
 
 
-def next_tier(fmt: str, problem: ising.IsingProblem) -> Optional[str]:
+def next_tier(fmt: str, problem: ising.IsingProblem,
+              mesh=None) -> Optional[str]:
     """The device tier to retry at after ``fmt`` failed to allocate, or None
     where the ladder ends: dense → bitplane (integral J only) →
-    bitplane_hbm. The port has no multi-GPU tier yet (ROADMAP queue 1 item
-    12), so ``bitplane_hbm`` is the last rung."""
+    bitplane_hbm → with a mesh whose rows split N in whole roulette lanes,
+    bitplane_sharded (bitplane_sharded_2d on a mesh of replica groups)."""
     if fmt == "dense":
         if problem.couplings is not None and not _integral(problem.couplings):
             return None             # a fractional J has no plane tier
         return "bitplane"
     if fmt == "bitplane":
         return "bitplane_hbm"
+    if fmt == "bitplane_hbm" and mesh is not None:
+        from ..kernels.common import default_lane
+        num_rows = int(mesh.shape[-1])
+        n = problem.num_spins
+        if n % num_rows or (n // num_rows) % default_lane(n):
+            return None             # an unshardable problem: the ladder ends
+        return ("bitplane_sharded_2d" if mesh.ndim > 1
+                else "bitplane_sharded")
     return None
 
 
@@ -159,18 +177,22 @@ def problem_fingerprint(problem: ising.IsingProblem) -> str:
 
 
 def run_signature(problem: ising.IsingProblem, seed, config, *, backend: str,
-                  chunk_steps: int, fingerprint: Optional[str] = None) -> str:
+                  chunk_steps: int, fingerprint: Optional[str] = None,
+                  mesh=None) -> str:
     """Hash of what the chunk plan and the random streams depend on. The
     config is a frozen dataclass of plain values (its ``Schedule`` too), so
     its repr is the same in every process. ``fingerprint`` passes in the
     problem's :func:`problem_fingerprint` where the caller has it (a dense
-    J is copied to the host and hashed for it)."""
+    J is copied to the host and hashed for it). A mesh enters by its dims'
+    names and sizes."""
     if fingerprint is None:
         fingerprint = problem_fingerprint(problem)
+    mesh_desc = (None if mesh is None else tuple(
+        zip(mesh.mesh_dim_names, (int(d) for d in mesh.shape))))
     parts = "|".join([
         f"seed={int(seed)}", f"backend={backend}",
         f"chunk_steps={int(chunk_steps)}", f"config={config!r}",
-        f"problem={fingerprint}",
+        f"mesh={mesh_desc!r}", f"problem={fingerprint}",
     ])
     return hashlib.sha256(parts.encode()).hexdigest()
 
@@ -187,7 +209,13 @@ def _save_snapshot(mgr: ckpt.CheckpointManager, runner, state, rows,
                    chunks_done: int, steps_done: int, signature: str,
                    fingerprint: str, downgrades):
     """Write the state at a chunk boundary. ``mgr.save`` copies every
-    tensor to the host (a blocking copy from the card) before it writes."""
+    tensor to the host (a blocking copy from the card) before it writes.
+    A runner on a mesh puts its state together on every rank (collectives)
+    and only the mesh's rank 0 writes it."""
+    if hasattr(runner, "snapshot_state"):
+        state = runner.snapshot_state(state)
+        if not runner.writes_snapshots:
+            return
     trace = (np.stack(rows).astype(np.float32) if rows
              else _trace_template(runner, 0))
     mgr.save(chunks_done, {"state": state, "trace": trace},
@@ -230,13 +258,28 @@ def _try_resume(run_dir: str, runner, signature: str, fingerprint: str,
         rows = list(np.asarray(tree["trace"]))
         downgrades = [tuple(d) for d in extra.get("downgrades", [])]
         emit("resume", {"chunk": step, "fmt": extra.get("fmt")})
-        return (tree["state"], rows, int(extra.get("chunks_done", step)),
+        state = tree["state"]
+        if hasattr(runner, "local_state"):
+            state = runner.local_state(state)
+        return (state, rows, int(extra.get("chunks_done", step)),
                 int(extra.get("steps_done", 0)), downgrades)
     return None, [], 0, 0, []
 
 
 def _check_budget(budget: BudgetConfig, runner, state, steps_done: int,
                   t_start: float) -> Optional[str]:
+    reason = _own_budget(budget, runner, state, steps_done, t_start)
+    if hasattr(runner, "agree"):
+        # The ranks of a mesh stop together: a deadline can pass on one
+        # rank's clock before another's.
+        code = runner.agree(0 if reason is None
+                            else 1 + STOP_REASONS.index(reason))
+        reason = None if code == 0 else STOP_REASONS[code - 1]
+    return reason
+
+
+def _own_budget(budget: BudgetConfig, runner, state, steps_done: int,
+                t_start: float) -> Optional[str]:
     if budget.target_energy is not None:
         if runner.best_energy(state) <= budget.target_energy:
             return STOP_TARGET
@@ -258,13 +301,17 @@ def run_resilient(problem: ising.IsingProblem, seed, config,
                   keep: int = 3, resume: bool = True,
                   on_event: Optional[Callable] = None,
                   store: Optional[CouplingStore] = None,
-                  device=None) -> ResilientResult:
+                  device=None, mesh=None) -> ResilientResult:
     """Run a registered backend chunk by chunk with snapshots, budgets and
     the tier ladder: bitwise the monolithic solve it wraps.
 
     ``backend`` names a ``core.backend.BACKENDS`` entry, or "auto"
-    ("fused" for single-flip configs, "colored" for colored ones,
-    "tempering" for a ``TemperingConfig``, whose units are swap rounds).
+    ("fused" for single-flip configs, or "sharded" with a ``mesh``;
+    "colored" for colored ones; "tempering" for a ``TemperingConfig``,
+    whose units are swap rounds; "distributed" for a ``DistSolverConfig``).
+    ``mesh`` (a ``DeviceMesh``) runs the mesh paths SPMD: every rank calls
+    alike with the same ``run_dir``; the mesh's rank 0 writes the
+    snapshots.
     ``run_dir=None`` disables snapshots (budgets and interrupts still
     work); with a directory, a snapshot is written every
     ``checkpoint_every`` chunks and at the last (the newest ``keep``
@@ -278,7 +325,7 @@ def run_resilient(problem: ising.IsingProblem, seed, config,
     :func:`repro_torch.device.resolve_device`.
     """
     t_start = time.monotonic()
-    backend = resolve_backend(config, backend)
+    backend = resolve_backend(config, backend, mesh)
     budget = budget or BudgetConfig()
     emit = on_event or (lambda kind, info: None)
     # Snapshots are written on a thread while the next chunks run; the
@@ -291,7 +338,7 @@ def run_resilient(problem: ising.IsingProblem, seed, config,
         fingerprint = problem_fingerprint(problem)
         signature = run_signature(problem, seed, config, backend=backend,
                                   chunk_steps=chunk_steps,
-                                  fingerprint=fingerprint)
+                                  fingerprint=fingerprint, mesh=mesh)
     downgrades: list = []
     fmt: Optional[str] = None
     resumed_from: Optional[int] = None
@@ -302,7 +349,7 @@ def run_resilient(problem: ising.IsingProblem, seed, config,
                 and is_allocation_failure(exc)):
             raise exc
         cur = _current_fmt(problem, config, backend, fmt)
-        nxt = next_tier(cur, problem)
+        nxt = next_tier(cur, problem, mesh)
         if nxt is None:
             raise exc
         downgrades.append((cur, nxt, at_chunk))
@@ -322,8 +369,9 @@ def run_resilient(problem: ising.IsingProblem, seed, config,
                        backend=backend)
                 t0 = time.perf_counter()
                 built = get_backend(backend).runner(
-                    problem, seed, config, chunk_steps=chunk_steps, fmt=fmt,
-                    store=store, device=device)
+                    problem, seed, config, mesh=mesh,
+                    chunk_steps=chunk_steps, fmt=fmt, store=store,
+                    device=device)
                 emit("build", {"fmt": built.fmt, "chunk": at_chunk,
                                "seconds": time.perf_counter() - t0,
                                "runner": built})
@@ -339,6 +387,10 @@ def run_resilient(problem: ising.IsingProblem, seed, config,
             try:
                 if mgr is not None:
                     mgr.wait()     # a pending write lands before a resume
+                if mgr is not None and hasattr(runner, "agree"):
+                    # Rank 0's writes of an earlier run have landed before
+                    # any rank reads the directory.
+                    runner.agree(0)
                 if mgr is not None and resume:
                     state, rows, k, steps_done, prior = _try_resume(
                         run_dir, runner, signature, fingerprint, emit)

@@ -123,10 +123,15 @@ __device__ __forceinline__ uint2 fold_in(uint2 key, unsigned data) {
   return threefry2x32(key.x, key.y, 0u, data);
 }
 
-// The key of a sweep chunk: stream(base, Salt.SWEEP = 7, chunk).
+// The key of a sweep chunk: stream(base, Salt.SWEEP = 7, chunk), or with
+// a device fold (fold >= 0) stream(base, SWEEP, fold, chunk), the key of
+// one rank's replicas in the replica-parallel solve.
 __device__ __forceinline__ uint2 sweep_chunk_key(unsigned base0,
-                                                 unsigned base1, int chunk) {
-  return fold_in(fold_in(make_uint2(base0, base1), 7u), (unsigned)chunk);
+                                                 unsigned base1, int chunk,
+                                                 int fold = -1) {
+  uint2 key = fold_in(make_uint2(base0, base1), 7u);
+  if (fold >= 0) key = fold_in(key, (unsigned)fold);
+  return fold_in(key, (unsigned)chunk);
 }
 
 // Element `count` of rng.uniform01(key, shape): the bits o1 ^ o2 of the

@@ -123,6 +123,7 @@ struct SweepParams {
   const float* unif;   // (T, R, 4), the read variant; nullptr: DRAW
   unsigned key0, key1; // DRAW: the two words of the solve's base key
   int chunk;           // DRAW: the chunk index of stream(base, SWEEP, chunk)
+  int fold;            // DRAW: a device fold before the chunk, or -1
   const float* temps;  // (T, R)
   const float* pwl;    // icpt[segs], slope[segs], z_lo, z_hi, inv_step
   int segs;
@@ -286,7 +287,7 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(const SweepParams p) {
     pwl.z_hi = p.pwl[2 * p.segs + 1];
     pwl.inv_step = p.pwl[2 * p.segs + 2];
   }
-  const uint2 key = DRAW ? sweep_chunk_key(p.key0, p.key1, p.chunk)
+  const uint2 key = DRAW ? sweep_chunk_key(p.key0, p.key1, p.chunk, p.fold)
                          : make_uint2(0u, 0u);
   float e = p.e0[r], be = e;  // every thread of every rank keeps the same
   int nf = 0;
@@ -509,8 +510,8 @@ int dispatch(const SweepParams& p, int rwa, int uniformized, size_t smem,
 }
 
 __global__ void uniforms_kernel(unsigned key0, unsigned key1, int chunk,
-                                int count, float* out) {
-  const uint2 key = sweep_chunk_key(key0, key1, chunk);
+                                int fold, int count, float* out) {
+  const uint2 key = sweep_chunk_key(key0, key1, chunk, fold);
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
        i += gridDim.x * blockDim.x)
     out[i] = uniform_at(key, (unsigned)i);
@@ -535,7 +536,8 @@ size_t snowball_sweep_smem_bytes(int N, int lane, int segs, int rwa,
 // T steps for R replicas. The couplings are a dense (N, N) f32 J (pos ==
 // neg == nullptr) or (B, N, W) uint32 pos/neg planes (J == nullptr).
 // unif != nullptr reads the (T, R, 4) uniforms; unif == nullptr draws them
-// from stream(base, SWEEP, chunk), base = (key0, key1). pwl_in packs the
+// from stream(base, SWEEP, chunk), base = (key0, key1), or from
+// stream(base, SWEEP, fold, chunk) where fold >= 0. pwl_in packs the
 // PWL table as icpt[segs], slope[segs], z_lo, z_hi, inv_step; pwl_in ==
 // nullptr selects the exact sigmoid. width blocks (a cluster, 1..8, with
 // N/width a multiple of lane) run each replica. site_log != nullptr counts
@@ -546,7 +548,7 @@ size_t snowball_sweep_smem_bytes(int N, int lane, int segs, int rwa,
 int snowball_sweep(const float* J, const unsigned* pos, const unsigned* neg,
                    int B, int W, const float* u0, const float* s0,
                    const float* e0, const float* unif, unsigned key0,
-                   unsigned key1, int chunk, const float* temps,
+                   unsigned key1, int chunk, int fold, const float* temps,
                    const float* pwl_in, int segs, float* u_out, float* s_out,
                    float* e_out, float* be_out, float* bs_out, int* nf_out,
                    int* rf_out, int* site_log, int* group_done, int group,
@@ -564,7 +566,7 @@ int snowball_sweep(const float* J, const unsigned* pos, const unsigned* neg,
   const size_t smem =
       snowball_sweep_smem_bytes(N, lane, pwl_in ? segs : 0, rwa, width);
   SweepParams p{Store{J, pos, neg, B, W}, u0, s0, e0, unif, key0, key1,
-                chunk, temps, pwl_in, pwl_in ? segs : 0, u_out, s_out,
+                chunk, fold, temps, pwl_in, pwl_in ? segs : 0, u_out, s_out,
                 e_out, be_out, bs_out, nf_out, rf_out, site_log, group_done,
                 group, R, N, T, lane, width};
   const int uni = uniformized && rwa;
@@ -577,16 +579,18 @@ int snowball_sweep(const float* J, const unsigned* pos, const unsigned* neg,
               : dispatch<kDense, false>(p, rwa, uni, smem, st);
 }
 
-// Writes the (T, R, 4) uniforms of stream(base, SWEEP, chunk) that the DRAW
-// sweep draws, with the same device function, into out.
-int snowball_sweep_uniforms(unsigned key0, unsigned key1, int chunk, int T,
-                            int R, float* out, void* stream) {
+// Writes the (T, R, 4) uniforms of stream(base, SWEEP, chunk) (with a
+// device fold >= 0, stream(base, SWEEP, fold, chunk)) that the DRAW sweep
+// draws, with the same device function, into out.
+int snowball_sweep_uniforms(unsigned key0, unsigned key1, int chunk,
+                            int fold, int T, int R, float* out,
+                            void* stream) {
   if (T < 0 || R <= 0) return (int)cudaErrorInvalidValue;
   const int count = T * R * kSlots;
   if (count == 0) return 0;
   const int blocks = min((count + kThreads - 1) / kThreads, 1024);
   uniforms_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      key0, key1, chunk, count, out);
+      key0, key1, chunk, fold, count, out);
   return (int)cudaGetLastError();
 }
 

@@ -122,11 +122,13 @@ def keyed_sweep_chunk(couplings: Union[torch.Tensor, BitPlanes], state,
                       pwl_table: Optional[torch.Tensor] = None,
                       gather: str = "dynamic", block_r: int = 8,
                       coupling: Optional[str] = None, coalesce: bool = True,
-                      with_rows_fetched: bool = False):
+                      with_rows_fetched: bool = False,
+                      fold: Optional[int] = None):
     """One sweep chunk plus the best-so-far merge: the JAX
     ``fused_sweep_chunk`` on the uniforms of ``stream(base, Salt.SWEEP,
-    chunk)``, which the card's sweep draws itself from the base key's two
-    words (``base_words``, Python ints); T = ``temps.shape[0]``.
+    chunk)`` (``stream(base, SWEEP, fold, chunk)`` with a device ``fold``),
+    which the card's sweep draws itself from the base key's two words
+    (``base_words``, Python ints); T = ``temps.shape[0]``.
     ``couplings`` is the dense J or a ``BitPlanes``; ``coupling`` names the
     tier (None: "bitplane" for planes, else "dense"). ``state`` is the
     6-tuple ``(u, s, e, best_e, best_s, num_flips)``; returns it updated,
@@ -137,7 +139,7 @@ def keyed_sweep_chunk(couplings: Union[torch.Tensor, BitPlanes], state,
     out = _sweep.mcmc_sweep_keyed(
         couplings, u, s, e, base_words, chunk, temps, pwl_table, mode=mode,
         uniformized=uniformized, gather=gather, coupling=coupling,
-        block_r=block_r, coalesce=coalesce)
+        block_r=block_r, coalesce=coalesce, fold=fold)
     return _merge(state, out, with_rows_fetched)
 
 

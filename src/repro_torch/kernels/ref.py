@@ -127,18 +127,29 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
     return u, s, e, be, bs, nf, rf
 
 
-def sweep_uniforms(base_words, chunk: int, num_steps: int,
-                   r: int) -> torch.Tensor:
+def sweep_chunk_key(base_words, chunk: int,
+                    fold: Optional[int] = None) -> torch.Tensor:
+    """The key of a keyed sweep chunk from the base key's two words:
+    ``stream(base, SWEEP, chunk)``, or with a device ``fold``
+    ``stream(base, SWEEP, fold, chunk)``."""
+    base = rng.from_words(*base_words)
+    if fold is None:
+        return rng.stream(base, rng.Salt.SWEEP, chunk)
+    return rng.stream(base, rng.Salt.SWEEP, fold, chunk)
+
+
+def sweep_uniforms(base_words, chunk: int, num_steps: int, r: int,
+                   fold: Optional[int] = None) -> torch.Tensor:
     """The (T, R, 4) uniforms the card's keyed sweep draws, computed as its
-    blocks stage them: the chunk key ``fold_in(fold_in(base, SWEEP),
-    chunk)`` from the base key's two words, then, window by window of
+    blocks stage them: the chunk key :func:`sweep_chunk_key` from the base
+    key's two words (and a device ``fold``), then, window by window of
     ``common.SWEEP_WINDOW`` steps, thread ``tid`` of replica r's block
     takes slot ``tid % 4`` of step ``t0 + tid // 4``: the bits ``o1 ^ o2``
     of threefry2x32(chunk_key, (0, (t·R + r)·4 + slot)), rounded to f32
     and scaled by 2⁻³². The plain version of ``snowball_sweep_uniforms``;
-    equal to ``rng.uniform01(rng.stream(base, SWEEP, chunk), (T, R, 4))``."""
-    key = rng.fold_in(rng.fold_in(rng.from_words(*base_words),
-                                  rng.Salt.SWEEP), chunk)
+    equal to ``rng.uniform01(sweep_chunk_key(base_words, chunk, fold),
+    (T, R, 4))``."""
+    key = sweep_chunk_key(base_words, chunk, fold)
     out = torch.empty((num_steps, r, 4), dtype=torch.float32)
     tid = torch.arange(4 * common.SWEEP_WINDOW, dtype=torch.int64)
     reps = torch.arange(r, dtype=torch.int64)

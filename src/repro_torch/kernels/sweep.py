@@ -235,11 +235,11 @@ def _fns():
     lib = _build.load("sweep")
     p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn = lib.snowball_sweep
-    fn.argtypes = ([p] * 3 + [i] * 2 + [p] * 4 + [w] * 2 + [i] + [p] * 2
-                   + [i] + [p] * 9 + [i] * 8 + [p])
+    fn.argtypes = ([p] * 3 + [i] * 2 + [p] * 4 + [w] * 2 + [i] * 2
+                   + [p] * 2 + [i] + [p] * 9 + [i] * 8 + [p])
     fn.restype = ctypes.c_int
     draw = lib.snowball_sweep_uniforms
-    draw.argtypes = [w, w, i, i, i, p, p]
+    draw.argtypes = [w, w, i, i, i, i, p, p]
     draw.restype = ctypes.c_int
     return fn, draw
 
@@ -331,29 +331,35 @@ def mcmc_sweep_keyed(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
                      mode: str = "rsa", uniformized: bool = False,
                      gather: str = "dynamic", coupling: str = "dense",
                      block_r: int = 8, lane: Optional[int] = None,
-                     coalesce: bool = True, out=None):
+                     coalesce: bool = True, out=None,
+                     fold: Optional[int] = None):
     """:func:`mcmc_sweep` on the uniforms of ``rng.uniform01(rng.stream(
     base, Salt.SWEEP, chunk), (T, R, 4))``, where ``base_words`` are the two
-    words of the base key (Python ints) and T = ``temps.shape[0]``. On the
-    card the kernel draws them itself (no uniforms tensor, no host RNG);
-    on the CPU the plain version runs on the drawn tensor. ``out`` (the
-    card only) is the seven output tensors for the kernel to write in
-    place of new ones, so a CUDA graph can read them at fixed addresses."""
+    words of the base key (Python ints) and T = ``temps.shape[0]``; with a
+    device ``fold`` (an int ≥ 0) on those of ``stream(base, SWEEP, fold,
+    chunk)``, the stream of one rank's replicas in the replica-parallel
+    solve. On the card the kernel draws them itself (no uniforms tensor,
+    no host RNG); on the CPU the plain version runs on the drawn tensor.
+    ``out`` (the card only) is the seven output tensors for the kernel to
+    write in place of new ones, so a CUDA graph can read them at fixed
+    addresses."""
     lane, coalesce = _check_call(couplings, fields0, mode, gather, coupling,
                                  lane, coalesce)
+    if fold is not None and fold < 0:
+        raise ValueError(f"a device fold is an index >= 0, got {fold}")
     if fields0.device.type == "cpu":
         if out is not None:
             raise ValueError("out= serves the card's launch only")
-        base = rng.from_words(*base_words)
-        uniforms = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, chunk),
-                                 (temps.shape[0], fields0.shape[0], 4))
+        uniforms = rng.uniform01(
+            ref.sweep_chunk_key(base_words, chunk, fold),
+            (temps.shape[0], fields0.shape[0], 4))
         return ref.mcmc_sweep(couplings, fields0, spins0, energy0, uniforms,
                               temps, pwl_table, mode=mode,
                               uniformized=uniformized, lane=lane,
                               coupling=coupling, block_r=block_r,
                               coalesce=coalesce)
     return _launch(couplings, fields0, spins0, energy0, temps, pwl_table,
-                   uniforms=None, key=(base_words, chunk), mode=mode,
+                   uniforms=None, key=(base_words, chunk, fold), mode=mode,
                    uniformized=uniformized, block_r=block_r, lane=lane,
                    coalesce=coalesce, width=None, out=out)
 
@@ -379,7 +385,7 @@ def mcmc_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
                          "only")
     if (uniforms is None) == (base_words is None):
         raise ValueError("pass uniforms or base_words, not both")
-    key = None if base_words is None else (base_words, chunk)
+    key = None if base_words is None else (base_words, chunk, None)
     return _launch(couplings, fields0, spins0, energy0, temps, pwl_table,
                    uniforms=uniforms, key=key, mode=mode,
                    uniformized=uniformized, block_r=block_r, lane=lane,
@@ -387,22 +393,23 @@ def mcmc_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
 
 
 def sweep_uniforms(base_words: Sequence[int], chunk: int, t: int, r: int,
-                   device=None) -> torch.Tensor:
-    """The (T, R, 4) uniforms the keyed sweep draws for ``chunk``: on the
-    card by the kernel's own device function (``snowball_sweep_uniforms``),
-    on the CPU by its plain version (``ref.sweep_uniforms``). The solve
-    never calls it; the checks hold the in-kernel draw against
-    ``rng.uniform01`` with it."""
+                   device=None, fold: Optional[int] = None) -> torch.Tensor:
+    """The (T, R, 4) uniforms the keyed sweep draws for ``chunk`` (and a
+    device ``fold``): on the card by the kernel's own device function
+    (``snowball_sweep_uniforms``), on the CPU by its plain version
+    (``ref.sweep_uniforms``). The solve never calls it; the checks hold the
+    in-kernel draw against ``rng.uniform01`` with it."""
     device = torch.device("cpu") if device is None else torch.device(device)
     if device.type == "cpu":
-        return ref.sweep_uniforms(base_words, chunk, t, r)
+        return ref.sweep_uniforms(base_words, chunk, t, r, fold=fold)
     if t * r * 4 >= 2 ** 31:
         raise ValueError(f"T·R·4 = {t * r * 4} uniforms exceed one launch")
     out = torch.empty((t, r, 4), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _fns()[1](base_words[0], base_words[1], chunk, t, r,
-                       out.data_ptr(), stream)
+        rc = _fns()[1](base_words[0], base_words[1], chunk,
+                       -1 if fold is None else fold, t, r, out.data_ptr(),
+                       stream)
     if rc != 0:
         raise RuntimeError(f"sweep_uniforms launch failed: CUDA error {rc}")
     uniforms_counter.count += 1
@@ -413,8 +420,8 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
             uniforms, key, mode, uniformized, block_r, lane, coalesce,
             width, out=None):
     """Checks the operands and launches ``snowball_sweep`` (reading
-    ``uniforms``, or drawing from ``key = (base_words, chunk)``), writing
-    new output tensors or the seven given in ``out``."""
+    ``uniforms``, or drawing from ``key = (base_words, chunk, fold)``),
+    writing new output tensors or the seven given in ``out``."""
     r, n = fields0.shape
     t = temps.shape[0]
     rwa = mode == "rwa"
@@ -441,10 +448,11 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
         raise ValueError(f"T·R·4 = {t * r * 4} uniform counters exceed the "
                          "32-bit count of one threefry draw")
     if key is None:
-        draw = (uniforms.data_ptr(), 0, 0, 0)
+        draw = (uniforms.data_ptr(), 0, 0, 0, -1)
     else:
-        (w0, w1), chunk = key
-        draw = (None, int(w0), int(w1), int(chunk))
+        (w0, w1), chunk, fold = key
+        draw = (None, int(w0), int(w1), int(chunk),
+                -1 if fold is None else int(fold))
     pwl_args = _pwl_args(pwl_table)
     segs = pwl_args[1]
     if width is None:

@@ -30,7 +30,16 @@ is the steps alone.
     # after a crash or a preemption, the same command resumes where it
     # stopped
 
-The JAX CLI's ``--mesh-shape`` waits for the multi-GPU slice of the port.
+``--engine sharded`` row-shards the planes over a mesh of ranks (always
+supervised): one process per rank under ``torch.distributed.run``, NCCL on
+the card and gloo on the CPU, ``--mesh-shape 4`` for 1-D row sharding or
+``2x2`` for 2 replica groups × 2 row shards (``bitplane_sharded_2d``);
+rank 0 prints, with the mesh, the collectives per step and each rank's
+plane bytes.
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.solve --engine sharded --mesh-shape 2x2 \
+        --instance sparse1024 --device cpu
 """
 from __future__ import annotations
 
@@ -88,9 +97,17 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20000)
     ap.add_argument("--replicas", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--engine", choices=("scan", "fused"), default="fused",
+    ap.add_argument("--engine", choices=("scan", "fused", "sharded"),
+                    default="fused",
                     help="scan = the reference engine (plain PyTorch, one "
-                    "flip per step, no kernel); fused = the sweep kernel")
+                    "flip per step, no kernel); fused = the sweep kernel; "
+                    "sharded = spin-row-sharded planes over a mesh of ranks "
+                    "(see --mesh-shape; always supervised)")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="the mesh of --engine sharded: '4' shards spin rows "
+                    "over 4 ranks; '2x2' runs 2 replica groups × 2 row "
+                    "shards (bitplane_sharded_2d); default: every rank on "
+                    "one dim")
     ap.add_argument("--coupling-format", choices=COUPLING_FORMATS,
                     default="auto", help="the J store (auto: by N and J)")
     ap.add_argument("--flip-mode", choices=("single", "colored"),
@@ -121,6 +138,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    sharded = args.engine == "sharded"
+    if sharded and args.flip_mode == "colored":
+        raise SystemExit("--engine sharded is single-flip only; drop "
+                         "--flip-mode colored")
+    mesh = None
+    if sharded:
+        from ..distributed.mesh import build_mesh, init_world
+        init_world(device_type=dev.type)
+        mesh = build_mesh(args.mesh_shape, dev.type)
+        dev = resolve_device(args.device)   # a CUDA rank's own card
     inst = build_instance(args.instance, args.seed, args.gset)
     if isinstance(inst, MaxCutInstance):
         problem = maxcut_to_ising(inst, device=dev)
@@ -137,11 +164,12 @@ def main(argv=None):
                        num_replicas=args.replicas),
         coupling_format=args.coupling_format, flip_mode=args.flip_mode)
     colored = args.flip_mode == "colored"
-    resilient = (colored or args.run_dir is not None
+    resilient = (colored or sharded or args.run_dir is not None
                  or args.deadline_seconds is not None
                  or args.target_energy is not None
                  or args.max_steps is not None)
     backend = ("colored" if colored
+               else ("sharded_2d" if mesh.ndim > 1 else "sharded") if sharded
                else "reference" if args.engine == "scan" else "fused")
     built = []   # the supervisor's runner builds: (seconds, runner)
 
@@ -151,6 +179,9 @@ def main(argv=None):
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    if sharded:
+        from ..distributed.mesh import COLLECTIVES
+        COLLECTIVES.reset()
     t0 = time.perf_counter()
     if resilient:
         rr = run_resilient(
@@ -159,7 +190,7 @@ def main(argv=None):
                                 max_steps=args.max_steps,
                                 target_energy=args.target_energy),
             chunk_steps=args.chunk_steps, resume=not args.no_resume,
-            on_event=on_event, device=dev)
+            on_event=on_event, device=dev, mesh=mesh)
         result = rr.result
         steps_done = rr.steps_done
         # Steps run in this process: a resumed run skips the restored ones.
@@ -172,6 +203,13 @@ def main(argv=None):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
+    if sharded:
+        import torch.distributed as dist
+        collectives = COLLECTIVES.total
+        lead = dist.get_rank() == 0
+        if not lead:
+            dist.destroy_process_group()
+            return
     # A supervised run's store or plan build is timed apart from its steps.
     build_seconds = sum(sec for sec, _ in built)
     run_seconds = wall - build_seconds
@@ -198,6 +236,20 @@ def main(argv=None):
               f"{resumed}{downgraded}")
     print(f"best cut = {cuts.max():.0f}  (per-replica: "
           f"{np.sort(cuts)[::-1][:8]})")
+    if sharded:
+        from ..distributed.mesh import mesh_desc
+        planes = runner.planes
+        rows = float(result.rows_fetched.sum())
+        print(f"engine=sharded backend={backend} mesh={mesh_desc(mesh)} "
+              f"backend_pg={dist.get_backend()} plane_bytes_per_rank="
+              f"{planes.nbytes} (B={planes.num_planes}, "
+              f"{planes.pos.shape[1]} of N={problem.num_spins} rows, "
+              f"W={planes.num_words})")
+        print(f"collectives/step={collectives / max(steps_run, 1):.2f} "
+              f"(rank 0, the init's and the result's included) "
+              f"rows_fetched={rows:.0f} ({rows / max(steps_done, 1):.2f} "
+              f"rows/step vs {args.replicas}/step uncoalesced)")
+        dist.destroy_process_group()
     if colored:
         plan = runner.plan
         col = plan.coloring

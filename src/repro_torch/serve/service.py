@@ -7,7 +7,7 @@ every registered execution path is servable:
 * **Admission** (:meth:`SolverService.submit`): a bounded pending queue,
   instance-size and step-budget caps, and capability checks against the
   registry (an edge-list problem aimed at a path without edge-list support
-  is refused at submit, as is a path the port does not have yet).
+  is refused at submit, as is a mesh path on a service without a mesh).
   Per-request :class:`~repro_torch.core.resilience.BudgetConfig` budgets
   run under ``run_resilient`` and return the best-so-far with its
   ``stop_reason``.
@@ -25,9 +25,12 @@ every registered execution path is servable:
   rest launch singly. ``ServeConfig(batching=False)`` launches once per
   request.
 
-The service runs on one device (``device=``, default the card); the JAX
-package's ``mesh=`` waits for the multi-GPU port. The API is synchronous:
-``submit`` then ``drain``, or the one-shot ``solve``.
+The service runs on one device (``device=``, default the card), or with
+``mesh=`` (a ``DeviceMesh`` of that device type) also serves the mesh paths
+("sharded", "sharded_2d", "distributed") SPMD: every rank constructs the
+service and submits the same requests in the same order, and every rank's
+drain returns the same results. The API is synchronous: ``submit`` then
+``drain``, or the one-shot ``solve``.
 """
 from __future__ import annotations
 
@@ -45,9 +48,6 @@ from ..core.solver import SolveResult, SolverConfig, solve_many
 from ..device import DeviceLike, resolve_device
 from .batching import bucket_spins, pad_problem, plan_batches
 from .cache import LRUStoreCache, WarmStartCache, problem_digest
-
-#: The ROADMAP item that ports the multi-GPU paths (``mesh=``, "sharded").
-MULTI_GPU_ITEM = "ROADMAP queue 1 item 12 (multi-GPU)"
 
 
 class AdmissionError(RuntimeError):
@@ -112,12 +112,12 @@ class SolverService:
 
     def __init__(self, config: ServeConfig = ServeConfig(), *,
                  device: DeviceLike = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"SolverService(mesh=...) is not ported yet ({MULTI_GPU_ITEM}"
-                "); the port serves one device, SolverService(device=...)")
         self.config = config
         self.device = resolve_device(device)
+        if mesh is not None:
+            from ..distributed.mesh import check_mesh_device
+            check_mesh_device(mesh, self.device)
+        self.mesh = mesh
         self.stores = LRUStoreCache(config.store_cache_entries, self.device)
         self.warm = WarmStartCache(config.warm_cache_entries)
         self._pending: list = []
@@ -144,12 +144,10 @@ class SolverService:
             self._reject(f"num_steps={request.config.num_steps} over the "
                          f"service cap {cfg.max_steps}; lower it or pass a "
                          f"BudgetConfig(max_steps=...) under the cap")
-        try:
-            backend = get_backend(request.backend)  # unknown name raises
-        except NotImplementedError as e:
-            self._reject(f"backend {request.backend!r} needs a mesh, which "
-                         f"the port does not serve yet: {e}")
-        caps = backend.capabilities
+        caps = get_backend(request.backend).capabilities  # unknown raises
+        if caps.needs_mesh and self.mesh is None:
+            self._reject(f"backend {request.backend!r} needs a mesh; "
+                         "construct SolverService(mesh=...)")
         if request.problem.couplings is None and not caps.edge_list:
             self._reject(f"backend {request.backend!r} cannot serve "
                          "edge-list (dense-J-free) problems")
@@ -258,7 +256,7 @@ class SolverService:
     def _run_budgeted(self, a: _Admitted, out: dict):
         store, hit = self._store_for(a)
         rr = run_resilient(a.problem, self._effective_seed(a), a.config,
-                           backend=a.request.backend,
+                           backend=a.request.backend, mesh=self.mesh,
                            budget=a.request.budget, store=store,
                            device=self.device)
         self.stats["launches"] += 1
@@ -270,8 +268,8 @@ class SolverService:
     def _run_single(self, a: _Admitted, out: dict):
         store, hit = self._store_for(a)
         result = get_backend(a.request.backend).run(
-            a.problem, self._effective_seed(a), a.config, store=store,
-            device=self.device)
+            a.problem, self._effective_seed(a), a.config, mesh=self.mesh,
+            store=store, device=self.device)
         self.stats["launches"] += 1
         self.stats["single_requests"] += 1
         self._finish(a, result, _best_on_host(result), out, kind="single",
@@ -300,8 +298,8 @@ class SolverService:
         if plan.kind != "stack":
             raise ValueError(f"unknown plan kind {plan.kind!r}")
         result = get_backend(first.request.backend).run(
-            first.problem, first.id, plan.config, store=store,
-            device=self.device)
+            first.problem, first.id, plan.config, mesh=self.mesh,
+            store=store, device=self.device)
         energies, spins = _best_on_host(result)        # one read per plan
         for a, (off, r) in zip(plan.requests, plan.spans):
             span = slice(off, off + r)

@@ -93,12 +93,12 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
     leading dim must divide into ``num_microbatches`` slices; their
     gradients are summed in f32 and scaled by 1/M, their losses averaged,
     and the last slice's ``ce``, ``aux`` and ``tokens`` reported, as the
-    JAX step's scan does. The sharding arguments belong to the multi-GPU
-    work (ROADMAP queue 1 item 12) and raise."""
+    JAX step's scan does. The sharding arguments belong to the LM
+    sharding work (ROADMAP queue 1 item 23) and raise."""
     if param_shardings is not None or gathered_shardings is not None:
         raise NotImplementedError(
             "param_shardings / gathered_shardings: sharded training is "
-            "ROADMAP queue 1 item 12 (multi-GPU), not ported yet")
+            "ROADMAP queue 1 item 23 (the LM sharding), not ported yet")
     m = num_microbatches
 
     def grads_and_metrics(params, batch):

@@ -1,5 +1,5 @@
 """The port's backend registry (``repro_torch.core.backend``): the port of
-``tests/test_backend_registry.py`` over its four registered paths.
+``tests/test_backend_registry.py`` over its seven registered paths.
 
 Every registered path is a ``Backend`` and holds the driver contract
 through the registry alone, on the CPU:
@@ -13,14 +13,17 @@ through the registry alone, on the CPU:
 
 The parity tests parametrize over ``backend_names()``, so a path that
 registers joins them ("tempering" with a ``TemperingConfig``, its units
-swap rounds). The JAX registry's "sharded", "sharded_2d" and
-"distributed" are a later slice and raise, naming their ROADMAP item.
+swap rounds; "distributed" with a ``DistSolverConfig``). The mesh paths
+("sharded", "sharded_2d", "distributed") run on a gloo world of 1 in this
+process: a (spins=1) mesh, and a degenerate (groups=1, rows=1) mesh that
+still runs the 2-D code path; without a mesh they raise.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import ising, schedules
 from repro_torch.core.backend import (BACKENDS, Backend, backend_names,
@@ -29,6 +32,8 @@ from repro_torch.core.backend import (BACKENDS, Backend, backend_names,
 from repro_torch.core.resilience import STOP_COMPLETED, run_resilient
 from repro_torch.core.solver import SolverConfig, solve
 from repro_torch.core.tempering import TemperingConfig
+from repro_torch.distributed import DistSolverConfig
+from repro_torch.distributed import mesh as M
 
 N = 64
 STEPS = 120
@@ -36,7 +41,9 @@ TRACE = 20
 REPLICAS = 4
 
 #: Every execution path the port ships.
-EXPECTED = ("colored", "fused", "reference", "tempering")
+EXPECTED = ("colored", "distributed", "fused", "reference", "sharded",
+            "sharded_2d", "tempering")
+#: The paths that run on a mesh.
 LATER = ("sharded", "sharded_2d", "distributed")
 
 
@@ -52,6 +59,24 @@ def _problem():
 @pytest.fixture(scope="module")
 def problem():
     return _problem()
+
+
+@pytest.fixture(scope="module")
+def meshes():
+    """A gloo world of 1 in this process and its two meshes."""
+    M.init_world("gloo", rank=0, world_size=1, device_type="cpu")
+    try:
+        yield {"1d": M.build_mesh("1", "cpu"),
+               "2d": M.build_mesh("1x1", "cpu")}
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(meshes, name):
+    """The mesh backend ``name`` runs on (None off the mesh paths)."""
+    if name == "sharded_2d":
+        return meshes["2d"]
+    return meshes["1d"] if name in LATER else None
 
 
 def _scfg(**kw):
@@ -70,14 +95,21 @@ def _tcfg(**kw):
 def _setup(name):
     if name == "tempering":
         return _tcfg()
+    if name == "distributed":
+        return DistSolverConfig(base=_scfg(), exchange_every=2,
+                                backend="fused")
     return _scfg(flip_mode="colored") if name == "colored" else _scfg()
 
 
 def _untraced(name):
     """A 600-step config whose plan is three units: 256-step chunks with a
-    remainder, or three 200-step swap rounds."""
+    remainder, or three 200-step swap rounds (the distributed solve's plan
+    is 64-step chunks, nine of them)."""
     if name == "tempering":
         return dataclasses.replace(_tcfg(), num_steps=600, swap_every=200)
+    if name == "distributed":
+        return dataclasses.replace(_setup(name), base=dataclasses.replace(
+            _scfg(), num_steps=600, trace_every=0))
     return dataclasses.replace(_setup(name), num_steps=600, trace_every=0)
 
 
@@ -120,10 +152,17 @@ class TestRoster:
 
     @pytest.mark.parametrize("name", LATER)
     def test_later_backends_raise_naming_their_item(self, name, problem):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-            get_backend(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solve(problem, 0, _scfg(), backend=name, device="cpu")
+        """The mesh paths resolve; without a mesh every entry raises,
+        naming what it needs."""
+        backend = get_backend(name)
+        assert backend.name == name and backend.capabilities.needs_mesh
+        cfg = _setup(name)
+        with pytest.raises(ValueError, match="needs a .*mesh"):
+            solve(problem, 0, cfg, backend=name, device="cpu")
+        with pytest.raises(ValueError, match="needs a .*mesh"):
+            backend.runner(problem, 0, cfg, device="cpu")
+        with pytest.raises(ValueError, match="needs a .*mesh"):
+            run_resilient(problem, 0, cfg, backend=name, device="cpu")
 
     def test_capability_table_covers_every_backend(self):
         rows = capability_rows()
@@ -140,11 +179,24 @@ class TestRoster:
         assert caps["tempering"].edge_list and caps["tempering"].tier_fallback
         assert caps["tempering"].supports_store
         assert caps["tempering"].fixed_fmt is None
-        for c in caps.values():
+        for name, c in caps.items():
             assert c.supports_resume, "every registered path must resume"
-            assert not c.needs_mesh
+            assert c.needs_mesh == (name in LATER)
+        assert caps["sharded"].fixed_fmt == "bitplane_sharded"
+        assert caps["sharded_2d"].fixed_fmt == "bitplane_sharded_2d"
+        assert not caps["sharded_2d"].auto
+        for name in LATER:
+            assert caps[name].edge_list and not caps[name].tier_fallback
+            assert not caps[name].supports_store
 
-    def test_auto_resolves_from_config(self):
+    def test_auto_resolves_from_config(self, meshes):
+        assert resolve_backend(_scfg(), mesh=meshes["1d"]) == "sharded"
+        # A 2-D mesh still resolves to "sharded" (its driver takes
+        # multi-dim meshes); "sharded_2d" is named explicitly.
+        assert resolve_backend(_scfg(), mesh=meshes["2d"]) == "sharded"
+        assert resolve_backend(_setup("distributed"),
+                               mesh=meshes["1d"]) == "distributed"
+        assert resolve_backend(_setup("distributed")) == "distributed"
         assert resolve_backend(_scfg()) == "fused"
         assert resolve_backend(_scfg(flip_mode="colored")) == "colored"
         assert resolve_backend(_tcfg()) == "tempering"
@@ -209,41 +261,44 @@ class TestRoster:
 
 @pytest.mark.parametrize("name", backend_names())
 class TestRegistryParity:
-    def test_chunked_runner_matches_monolithic(self, problem, name):
+    def test_chunked_runner_matches_monolithic(self, problem, meshes, name):
         backend = get_backend(name)
-        cfg = _setup(name)
-        mono = backend.run(problem, 7, cfg, device="cpu")
-        runner = backend.runner(problem, 7, cfg, device="cpu")
+        cfg, mesh = _setup(name), _mesh(meshes, name)
+        mono = backend.run(problem, 7, cfg, mesh=mesh, device="cpu")
+        runner = backend.runner(problem, 7, cfg, mesh=mesh, device="cpu")
         state, rows = _drive(runner)
         _assert_same(mono, runner.finalize(state, rows))
 
-    def test_untraced_runner_matches_monolithic(self, problem, name):
+    def test_untraced_runner_matches_monolithic(self, problem, meshes, name):
         """Untraced: the runner's plan is its ``chunk_steps`` with a
         remainder chunk; the monolithic solve's default plan is 256 steps,
         so the runner takes the same."""
         backend = get_backend(name)
-        cfg = _untraced(name)
-        mono = backend.run(problem, 3, cfg, device="cpu")
-        runner = backend.runner(problem, 3, cfg, device="cpu")
-        assert runner.total_units == 3
+        cfg, mesh = _untraced(name), _mesh(meshes, name)
+        mono = backend.run(problem, 3, cfg, mesh=mesh, device="cpu")
+        runner = backend.runner(problem, 3, cfg, mesh=mesh, device="cpu")
+        assert runner.total_units == (600 // 64 if name == "distributed"
+                                      else 3)
         _assert_same(mono, runner.finalize(*_drive(runner)))
 
-    def test_fresh_runner_resumes_bit_identically(self, problem, name):
+    def test_fresh_runner_resumes_bit_identically(self, problem, meshes,
+                                                  name):
         backend = get_backend(name)
-        cfg = _setup(name)
-        runner = backend.runner(problem, 7, cfg, device="cpu")
+        cfg, mesh = _setup(name), _mesh(meshes, name)
+        runner = backend.runner(problem, 7, cfg, mesh=mesh, device="cpu")
         assert runner.total_units >= 2, "parity needs a real chunk split"
         split = runner.total_units // 2
         state, rows = _drive(runner, stop=split)
-        resumed = backend.runner(problem, 7, cfg, device="cpu")
+        resumed = backend.runner(problem, 7, cfg, mesh=mesh, device="cpu")
         state, rows = _drive(resumed, state=state, rows=rows, start=split)
-        _assert_same(backend.run(problem, 7, cfg, device="cpu"),
+        _assert_same(backend.run(problem, 7, cfg, mesh=mesh, device="cpu"),
                      resumed.finalize(state, rows))
 
 
-def test_resilient_supervisor_accepts_every_registered_backend(problem):
+def test_resilient_supervisor_accepts_every_registered_backend(problem,
+                                                                 meshes):
     for name in backend_names():
         res = run_resilient(problem, 7, _setup(name), backend=name,
-                            device="cpu")
+                            mesh=_mesh(meshes, name), device="cpu")
         assert res.stop_reason == STOP_COMPLETED, name
         assert bool(torch.isfinite(res.result.best_energy).all())

@@ -220,7 +220,11 @@ def test_problem_validation_and_unported_paths_raise():
     for fmt in ("bitplane", "bitplane_hbm"):
         assert tcoupling.resolve_format(fmt, J, 4) == fmt
     for fmt in ("bitplane_sharded", "bitplane_sharded_2d"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcoupling.resolve_format(fmt, J, 4)
+        # Served by the sharded driver; the single-device sweep refuses
+        # them, naming it.
+        assert tcoupling.resolve_format(fmt, J, 4) == fmt
+        with pytest.raises(ValueError, match="solve_sharded"):
+            tcoupling.CouplingStore.build(J, fmt).require(
+                tcoupling.KERNEL_COUPLING_MODES, "fused_anneal")
     with pytest.raises(ValueError):
         tcoupling.resolve_format("sparse", J, 4)

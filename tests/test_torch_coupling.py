@@ -5,8 +5,11 @@
   the port's L2-derived ones: both modules are given the same thresholds
   for the comparison).
 * Edge lists never resolve to dense and never build an (N, N) array; the
-  sharded tiers and N past the sweep's shared-memory ceiling raise, naming
-  their ROADMAP item; plane tiers reject ``gather="onehot"``.
+  sharded tiers resolve (served by the sharded driver, past the sweep's
+  shared-memory ceiling too, with the JAX package's per-rank byte
+  accounting) and the single-device drivers refuse them, naming
+  ``solve_sharded``; N past the ceiling raises on the single-device tiers;
+  plane tiers reject ``gather="onehot"``.
 * ``CouplingStore`` and ``fused_anneal``'s store contract: a prebuilt store
   and a ``coupling=`` override are mutually exclusive, a dense store must
   hold the problem's own couplings tensor, N must match.
@@ -99,10 +102,30 @@ def test_resolve_format_decision_structure_equals_the_reference(
 
 
 def test_unserved_tiers_and_past_the_ceiling_raise():
-    J = _int_j(8, 1, 0)
+    J = _int_j(64, 2, 0)
+    jstore = jcoupling.CouplingStore.build(J, "bitplane_sharded")
     for fmt in ("bitplane_sharded", "bitplane_sharded_2d"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            tcoupling.resolve_format(fmt, J, 8)
+        assert tcoupling.resolve_format(fmt, J, 64) == fmt
+        store = tcoupling.CouplingStore.build(J, fmt)
+        assert store.planes.num_words % 128 == 0
+        for shards in (1, 2, 4):
+            assert store.plane_bytes_per_shard(shards) == \
+                jstore.plane_bytes_per_shard(shards)
+        for shape in ((4,), (2, 2), (2, 4)):
+            assert store.plane_bytes_per_device(shape) == \
+                jstore.plane_bytes_per_device(shape)
+        with pytest.raises(ValueError, match="cannot shard evenly"):
+            store.plane_bytes_per_shard(3)
+        # The single-device sweep does not serve them: it names the
+        # sharded driver.
+        with pytest.raises(ValueError, match="solve_sharded"):
+            store.require(tcoupling.KERNEL_COUPLING_MODES, "fused_anneal")
+        # "auto" never resolves to them, and the ceiling is not theirs.
+        big = tcoupling.SWEEP_STATE_MAX_N + 1
+        edges = tising.EdgeList.create([0], [big - 1], [1], big)
+        assert tcoupling.resolve_format(fmt, edges, big) == fmt
+    with pytest.raises(ValueError, match="no planes"):
+        tcoupling.CouplingStore.build(J, "dense").plane_bytes_per_shard(2)
     with pytest.raises(ValueError, match="coupling format"):
         tcoupling.resolve_format("sparse", J, 8)
     big = tcoupling.SWEEP_STATE_MAX_N + 1
@@ -244,6 +267,6 @@ def test_fused_anneal_store_contract():
     with pytest.raises(ValueError, match="onehot"):
         ops.fused_anneal(problem, 0, cfg, coupling="bitplane",
                          gather="onehot", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(ValueError, match="solve_sharded"):
         ops.fused_anneal(problem, 0, dataclasses.replace(
             cfg, coupling_format="bitplane_sharded"), device="cpu")

@@ -6,7 +6,8 @@ reading variants and every cluster width against the plain version, a
 shorter last slice, rows_fetched at every group size, N past one block's
 shared memory), tempering on the card against the CPU (kernel A with a
 temperature column per replica, the round's merge and swap as a CUDA
-graph), the two field inits (the popcount init also on random
+graph), the row-sharded solve on a world of 1, the two field inits
+(the popcount init also on random
 overlapping plane words, W past the earlier design's shared-memory ceiling
 and misaligned words), and the flash-attention forward with the LM serving
 path around it.
@@ -306,6 +307,58 @@ def test_sweep_uniforms_kernel_bitwise(cuda_device, seed, chunk, t):
     assert sweep.uniforms_counter.count == before + 1
     want = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, chunk), (t, 8, 4))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("fold", [0, 1, 3])
+def test_sweep_with_a_device_fold_bitwise(cuda_device, fold):
+    """With a device fold the kernel's draw equals ``rng.uniform01`` of
+    ``stream(base, SWEEP, fold, chunk)`` and the keyed sweep equals the
+    CPU's keyed sweep (RSA + PWL, integer J) bitwise."""
+    base = rng.fold_in(rng.key(0), 6)
+    words = rng.words(base)
+    got = sweep.sweep_uniforms(words, 5, 100, 8, device=cuda_device,
+                               fold=fold)
+    want = rng.uniform01(rng.stream(base, rng.Salt.SWEEP, fold, 5),
+                         (100, 8, 4))
+    assert torch.equal(got.cpu(), want)
+    problem, (_, u0, s0, e0, _, _) = _state(256, 8, 100, cuda_device)
+    temps = torch.linspace(4.0, 0.1, 100)[:, None].expand(100, 8)
+    tbl = pwl.pwl_table(device=cuda_device)
+    on_card = sweep.mcmc_sweep_keyed(
+        problem.couplings, u0, s0, e0, words, 5,
+        temps.contiguous().to(cuda_device), tbl, mode="rsa", fold=fold)
+    on_cpu = sweep.mcmc_sweep_keyed(
+        problem.couplings.cpu(), u0.cpu(), s0.cpu(), e0.cpu(), words, 5,
+        temps.contiguous(), tbl.cpu(), mode="rsa", fold=fold)
+    for name, a, b in zip(NAMES, on_card, on_cpu):
+        assert torch.equal(a.cpu(), b), name
+
+
+def test_sharded_world_of_one_on_the_card_equals_fused(cuda_device):
+    """``solve_sharded`` on a world of 1 (NCCL) is the fused
+    ``bitplane_hbm`` solve bitwise on the card, every field; a CPU solve
+    on the CUDA mesh raises."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import (build_mesh, init_world,
+                                         solve_sharded)
+
+    edges = sparse_bipolar_edges(1024, 8 * 1024, seed=1)
+    problem = ising.IsingProblem.create_sparse(edges, device=cuda_device)
+    cfg = default_solver(1024, 512, mode="rsa")
+    init_world("nccl", rank=0, world_size=1, device_type="cuda")
+    try:
+        mesh = build_mesh("1", "cuda")
+        got = solve_sharded(problem, 3, cfg, mesh)
+        with pytest.raises(ValueError, match="device type"):
+            solve_sharded(problem, 3, cfg, mesh, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    want = solve(problem, 3, dc.replace(cfg, coupling_format="bitplane_hbm"))
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 def _width_operands(n, fmt, r, t, dev, seed=0):

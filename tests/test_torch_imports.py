@@ -2,8 +2,8 @@
 
 Every module of ``repro_torch`` imports without JAX or the JAX package;
 entry points with no device raise when there is no card (they never fall
-back to the CPU); unported backends and tiers raise naming their ROADMAP
-item, and the fused path refuses a colored config; every LM arch resolves
+back to the CPU); the mesh backends resolve and raise without a mesh, the
+fused path refuses the sharded tiers and a colored config; every LM arch resolves
 and runs its smoke forward; the CLI runs end to end on the CPU when asked,
 single-flip, colored and supervised.
 """
@@ -52,7 +52,11 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.train.step", "repro_torch.train.loop",
                  "repro_torch.launch.train",
                  "repro_torch.examples.train_lm",
-                 "repro_torch.examples.expert_placement"):
+                 "repro_torch.examples.expert_placement",
+                 "repro_torch.distributed", "repro_torch.distributed.mesh",
+                 "repro_torch.distributed.world",
+                 "repro_torch.distributed.solver_dist",
+                 "repro_torch.distributed.solver_sharded"):
         assert name in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -94,9 +98,15 @@ def test_entry_points_raise_without_a_card():
 def test_unported_backends_and_options_raise():
     problem = maxcut_to_ising(complete_bipolar(16, seed=0))
     cfg = default_solver(16, 8, mode="rsa")
-    for backend in ("sharded", "sharded_2d", "distributed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from repro_torch.distributed import DistSolverConfig
+    for backend in ("sharded", "sharded_2d"):
+        with pytest.raises(ValueError, match="needs a .*mesh"):
             solve(problem, 0, cfg, backend=backend, device="cpu")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        solve(problem, 0, DistSolverConfig(base=cfg), backend="distributed",
+              device="cpu")
+    with pytest.raises(TypeError, match="DistSolverConfig"):
+        solve(problem, 0, cfg, backend="distributed", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         solve(problem, 0, cfg, backend="magic", device="cpu")
     import dataclasses
@@ -107,7 +117,7 @@ def test_unported_backends_and_options_raise():
         ops.fused_anneal(problem, 0, colored, device="cpu")
     with pytest.raises(ValueError, match="colored"):
         solve(problem, 0, colored, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="solve_sharded"):
         solve(problem, 0,
               dataclasses.replace(cfg, coupling_format="bitplane_sharded"),
               device="cpu")

@@ -14,8 +14,9 @@
   reason, bitwise the same ``best_energy``, ``best_spins`` and
   ``num_flips``, and the same ``stats``.
 * The store cache hands back a store already on its device; without a
-  card a service with no device raises, and ``mesh=`` raises naming its
-  ROADMAP item.
+  card a service with no device raises; a service without a mesh refuses
+  the mesh paths, and a mesh-backed one (a gloo world of 2) admits a
+  "sharded" request and drains it bitwise the solo ``solve_sharded``.
 """
 import dataclasses
 
@@ -408,10 +409,11 @@ class TestAdmission:
         with pytest.raises(AdmissionError, match="edge-list"):
             svc.submit(SolveRequest(_edge_problem(4), _cfg(),
                                     backend="reference"))
-        # The multi-GPU paths are not ported: refused at the door, naming
-        # the ROADMAP item, and nothing is enqueued.
-        with pytest.raises(AdmissionError, match="mesh.*item 12"):
-            svc.submit(SolveRequest(_problem(), _cfg(), backend="sharded"))
+        # The mesh paths need SolverService(mesh=...): refused at the
+        # door, and nothing is enqueued.
+        for backend in ("sharded", "sharded_2d"):
+            with pytest.raises(AdmissionError, match="needs a mesh"):
+                svc.submit(SolveRequest(_problem(), _cfg(), backend=backend))
         assert svc.drain() == {}
 
     def test_rejection_counters(self):
@@ -420,9 +422,29 @@ class TestAdmission:
             svc.submit(SolveRequest(_problem(), _cfg()))
         assert svc.stats["rejected"] == 1 and svc.stats["admitted"] == 0
 
-    def test_device_and_mesh(self):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            SolverService(device=CPU, mesh=object())
+    def test_device_and_mesh(self, tmp_path):
+        """SPMD on a gloo world of 2: every rank builds the service, submits
+        the sharded request and drains it, bitwise the solo solve of the
+        padded problem; a mesh of another device type raises."""
+        import types
+
+        import torch_worlds
+        from repro_torch.distributed.world import run_world
+
+        with pytest.raises(ValueError, match="device type"):
+            SolverService(device=CPU,
+                          mesh=types.SimpleNamespace(device_type="cuda"))
+        ranks = run_world("torch_worlds:serve_world", 2,
+                          args=(str(tmp_path),), timeout=600)
+        for out in ranks:
+            assert out["n"] == 512 and out["batched"] == "single"
+            for f in torch_worlds.RESULT_FIELDS:
+                served, solo = out["served"][f], out["solo"][f]
+                if f == "best_spins":
+                    solo = solo[:, :500]
+                assert torch.equal(served, solo), f
+            for f in torch_worlds.RESULT_FIELDS:
+                assert torch.equal(out["served"][f], ranks[0]["served"][f])
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 SolverService()

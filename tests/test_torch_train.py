@@ -355,7 +355,7 @@ def test_train_loop_loss_decreases():
 
 def test_shardings_raise_naming_the_roadmap_item():
     cfg = get_config("qwen2-7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 23"):
         tstep.make_train_step(cfg, AdamWConfig(), param_shardings={})
 
 
