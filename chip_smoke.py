@@ -4661,6 +4661,415 @@ def train_phase() -> int:
     return launches
 
 
+#: [lm-shard]: the LM sharding on one card. qwen2-7b at full width and
+#: depth (bf16 weights from seed 0, kernel E) prefills one 2,048-token
+#: sequence on a world of 1 (NCCL, mesh (data=1, model=1)) in this
+#: process and on a world of 2 (gloo, both ranks on the card, mesh (data=1,
+#: model=2)); the world of 2 then decodes with the cache split on its
+#: length (kv_heads=None, cache_seq="model"), a 64-token prompt and 16
+#: steps at batch 2. granite-moe at full width takes 2 train steps (f32
+#: parameters and moments, remat "dots", the data pipeline's seed-0
+#: batches, global 4 x 2,048 in 2 microbatches) on (data=2, model=1), FSDP
+#: and data-parallel with gathered_shardings, and on (data=1, model=2),
+#: expert- and tensor-parallel, each held to the unsharded step run first
+#: on the card.
+LMS_SEQ = 2048
+LMS_DECODE_B, LMS_PROMPT, LMS_NEW = 2, 64, 16
+LMS_TRAIN_B, LMS_TRAIN_S, LMS_TRAIN_MB, LMS_TRAIN_STEPS = 4, 2048, 2, 2
+LMS_TRAIN_DEPTH = 0            # 0: granite's 24 layers
+LMS_TRAIN_LR = 3e-4
+LMS_ROOT = Path(__file__).resolve().parent / "build" / "lm_shard"
+#: The sharded train steps against the world-1 step on the same batches,
+#: per mesh: loss and grad norm (relative) each step, and after the steps
+#: the parameters' |diff| / |update| and their mean |diff| in units of lr.
+#: Set from sound runs on an H100 at two to three times their largest
+#: readings (PERF.md §6, the LM sharding); a gradient not summed over
+#: `data` fails every one of them at (2, 1) by more than 10x.
+LMS_TRAIN_BOUNDS = {(2, 1): dict(loss=5e-6, gnorm=2e-4, ratio=0.12,
+                                 mean=0.02),
+                    (1, 2): dict(loss=3e-5, gnorm=1e-3, ratio=0.25,
+                                 mean=0.05)}
+
+
+def lms_qwen():
+    cfg = dataclasses.replace(get_config(LM_ARCH), param_dtype="bfloat16",
+                              remat="none", attn_impl="flash")
+    return cfg, model_specs(cfg)
+
+
+def lms_granite():
+    cfg = train_config(LMS_TRAIN_DEPTH)
+    return cfg, model_specs(cfg)
+
+
+def lms_tokens(cfg) -> tuple:
+    g = np.random.default_rng(SEED)
+    prefill = g.integers(0, cfg.vocab_size, (1, LMS_SEQ))
+    decode = g.integers(0, cfg.vocab_size,
+                        (LMS_DECODE_B, LMS_PROMPT + LMS_NEW))
+    return (torch.from_numpy(prefill).to("cuda"),
+            torch.from_numpy(decode).to("cuda"))
+
+
+def lms_decode(cfg, params, tokens) -> tuple:
+    """The prompt, then one token a step: the logits of each call on the
+    host, and each call's synchronised host-clock seconds."""
+    cache = init_decode_cache(cfg, LMS_DECODE_B, LMS_PROMPT + LMS_NEW)
+    calls = [(0, tokens[:, :LMS_PROMPT])] + [
+        (LMS_PROMPT + i, tokens[:, LMS_PROMPT + i:LMS_PROMPT + i + 1])
+        for i in range(LMS_NEW)]
+    outs, secs = [], []
+    for pos, tok in calls:
+        lg, s = timed(lambda: decode_step(cfg, params, cache, pos,
+                                          tokens=tok)[0])
+        outs.append(lg.cpu())
+        secs.append(s)
+    return outs, secs
+
+
+def lms_collectives(M) -> dict:
+    return {f"{op}/{dim}": (n, M.COLLECTIVES.bytes[(op, dim)])
+            for (op, dim), n in sorted(M.COLLECTIVES.counts.items())}
+
+
+def lms_train_steps(cfg, specs, mesh=None, rules=None):
+    """``LMS_TRAIN_STEPS`` steps from the seed-0 f32 parameters (this
+    rank's blocks on a mesh), the metrics and host-clock seconds of each."""
+    from repro_torch.models import param_shardings, use_sharding
+    from repro_torch.optim.schedule import linear_warmup_cosine
+
+    shardings = None if mesh is None else param_shardings(specs, mesh, rules)
+    params = init_params(specs, torch.Generator("cuda").manual_seed(SEED),
+                         shardings=shardings)
+    opt = AdamWConfig(learning_rate=LMS_TRAIN_LR)
+    kw = {}
+    if mesh is not None:
+        kw = dict(param_shardings=shardings,
+                  gathered_shardings=param_shardings(
+                      specs, mesh, dataclasses.replace(rules, embed_w=None)))
+    step = make_train_step(cfg, opt, linear_warmup_cosine(
+        LMS_TRAIN_LR, 1, LMS_TRAIN_STEPS), num_microbatches=LMS_TRAIN_MB,
+        **kw)
+    state = init_train_state(cfg, params, opt)
+    data = SyntheticLMData(cfg, DataConfig(seed=SEED,
+                                           global_batch=LMS_TRAIN_B,
+                                           seq_len=LMS_TRAIN_S), "cuda")
+    metrics, secs = [], []
+    for i in range(LMS_TRAIN_STEPS):
+        batch = data.batch(i)
+        (state, m), s = timed(lambda: step(state, batch))
+        metrics.append({k: float(v) for k, v in m.items()})
+        secs.append(s)
+    return state, metrics, secs
+
+
+def lm_shard_world2_rank(ref_path: str) -> dict:
+    """A rank of the world of 2 sharing the card (gloo): the qwen2-7b
+    prefill on (data=1, model=2) with rank 0's first attention call held
+    to kernel E's plain version, the seq-sharded decode, and granite's
+    train steps on (data=2, model=1) and (data=1, model=2), their
+    parameters held to the unsharded run's (``ref_path``, read one block
+    at a time)."""
+    from repro_torch.distributed import mesh as M
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import (ShardingRules, param_shardings,
+                                    shard_params, sharding, use_sharding)
+    from repro_torch.models.params import tree_paths
+
+    exact_matmuls()
+    rank = torch.distributed.get_rank()
+    tp = make_host_mesh(model_parallel=2)
+    rules = ShardingRules()
+    cfg, specs = lms_qwen()
+    params = init_params(specs, torch.Generator("cuda").manual_seed(SEED),
+                         shardings=param_shardings(specs, tp, rules))
+    tokens, dtokens = lms_tokens(cfg)
+    out = {"weights_bytes": sum(t.numel() * t.element_size()
+                                for _, t in tree_paths(params))}
+    with use_sharding(tp, rules):
+        forward(cfg, params, tokens=tokens)       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        M.COLLECTIVES.reset()
+        reset_flash_counts()
+        seen = []
+
+        def run():
+            return forward(cfg, params, tokens=tokens).logits
+
+        def spy(orig, q, k, v, *args):
+            if not seen:
+                seen.append((q, k, v))
+            return orig(q, k, v, *args)
+
+        logits, secs = timed(lambda: with_flash(spy, run))
+        out.update(prefill_s=secs, launches=flash_launches(),
+                   collectives=lms_collectives(M),
+                   peak=torch.cuda.max_memory_allocated())
+        blk = logits.cpu()
+        out["logits"] = (blk, sharding.sharding_of(logits).block(
+            sharding.sharding_of(logits).global_shape(logits.shape)))
+    del logits
+    q0, k0, v0 = seen[0]
+    sc = q0.shape[-1] ** -0.5
+    got = fa.flash_attention(q0, k0, v0, True, sc, q0.shape[2], k0.shape[2])
+    want = ref.flash_attention(q0, k0, v0, True, sc)
+    out["e_check"] = (tuple(q0.shape), tuple(k0.shape), str(q0.dtype),
+                      max_abs_err([got], [want]),
+                      bool(torch.allclose(got.float(), want.float(),
+                                          rtol=FLASH_TOL[q0.dtype],
+                                          atol=FLASH_TOL[q0.dtype])))
+    del seen, q0, k0, v0, got, want
+
+    # The decode's layout: the kv projections whole on every rank (each
+    # rank's cache holds every kv head for its part of the length).
+    seq_rules = ShardingRules(kv_heads=None, cache_seq="model")
+    params = shard_params(params, param_shardings(specs, tp, seq_rules))
+    with use_sharding(tp, seq_rules):
+        M.COLLECTIVES.reset()
+        dec, dsecs = lms_decode(cfg, params, dtokens)
+        out.update(decode_s=dsecs, decode_collectives=lms_collectives(M))
+        out["decode"] = [(x, sharding.NamedSharding(tp, sharding.PartitionSpec(
+            None, None, "model")).block(x.shape[:2] + (cfg.vocab_size,)))
+            for x in dec]
+    del params
+    torch.cuda.empty_cache()
+
+    gcfg, gspecs = lms_granite()
+    want = torch.load(ref_path, mmap=True, weights_only=True)
+    out["train"] = {}
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_host_mesh(model_parallel=shape[1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        M.COLLECTIVES.reset()
+        reset_flash_counts()
+        with use_sharding(mesh, rules):
+            state, metrics, secs = lms_train_steps(gcfg, gspecs, mesh, rules)
+        launches = flash_launches()
+        coll = lms_collectives(M)
+        # The parameters against the unsharded run's, and the update's
+        # size (from the seed's blocks drawn again).
+        start = init_params(gspecs, torch.Generator("cuda").manual_seed(SEED),
+                            shardings=param_shardings(gspecs, mesh, rules))
+        dmax = dsum = n = err2 = upd2 = merr2 = mref2 = 0.0
+        for (path, p), (_, p0), (_, m) in zip(
+                tree_paths(state.params), tree_paths(start),
+                tree_paths(state.opt_state.m)):
+            key = "/".join(path)
+            block = sharding.sharding_of(p).block(want["p/" + key].shape)
+            w = want["p/" + key][block].to("cuda")
+            d = (p.float() - w).abs()
+            dmax = max(dmax, float(d.max()))
+            dsum, n = dsum + float(d.sum()), n + d.numel()
+            err2 += float(d.double().square().sum())
+            upd2 += float((w - p0).double().square().sum())
+            wm = want["m/" + key][block].to("cuda")
+            merr2 += float((m - wm).double().square().sum())
+            mref2 += float(wm.double().square().sum())
+        out["train"][shape] = dict(
+            metrics=metrics, secs=secs, launches=launches, collectives=coll,
+            peak=torch.cuda.max_memory_allocated(), dmax=dmax,
+            dmean=dsum / n, ratio=math.sqrt(err2 / upd2),
+            mratio=math.sqrt(merr2 / mref2))
+        del state, start
+        torch.cuda.empty_cache()
+    out["rank"] = rank
+    return out
+
+
+def lm_shard_phase() -> int:
+    """[lm-shard]: the LM sharding on the card (see ``LMS_*`` and
+    ``lm_shard_world2_rank``). Returns kernel E's launches on the phase's
+    sharded main paths."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_world
+    from repro_torch.distributed import mesh as M
+    from repro_torch.distributed.world import run_world
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import (ShardingRules, param_shardings,
+                                    shard_params, use_sharding)
+
+    smi = nvidia_smi()
+    print(f"[lm-shard] {smi}")
+    cfg, specs = lms_qwen()
+    bound = depth_bound(cfg.num_layers)
+    params = init_params(specs, torch.Generator("cuda").manual_seed(SEED))
+    tokens, dtokens = lms_tokens(cfg)
+    forward(cfg, params, tokens=tokens)                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref_logits, ref_s = timed(lambda: forward(cfg, params,
+                                              tokens=tokens).logits)
+    ref_peak = torch.cuda.max_memory_allocated()
+    top = float(ref_logits.float().abs().max())
+    print(f"[lm-shard] {LM_ARCH} unsharded prefill 1 x {LMS_SEQ}: "
+          f"{ref_s * 1e3:.3f} ms ({LMS_SEQ / ref_s:.1f} tokens/s), peak "
+          f"{ref_peak} bytes, max |logit| {top:.4f}")
+    ref_dec, ref_dsecs = lms_decode(cfg, params, dtokens)
+
+    print("[lm-shard] world of 1: NCCL in this process, mesh (data=1, "
+          "model=1); a dim of one rank issues no collective")
+    init_world("nccl", rank=0, world_size=1, device_type="cuda")
+    total = 0
+    try:
+        mesh = make_host_mesh()
+        sp = shard_params(params, param_shardings(specs, mesh))
+        with use_sharding(mesh):
+            forward(cfg, sp, tokens=tokens)                  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            M.COLLECTIVES.reset()
+            reset_flash_counts()
+            logits, w1_s = timed(lambda: forward(cfg, sp,
+                                                 tokens=tokens).logits)
+            w1_launches = flash_launches()
+            w1_peak = torch.cuda.max_memory_allocated()
+        check(torch.equal(logits, ref_logits),
+              f"world of 1: the sharded prefill's logits bitwise the "
+              f"unsharded ({w1_s * 1e3:.3f} ms, {LMS_SEQ / w1_s:.1f} tokens/s,"
+              f" {M.COLLECTIVES.total} collectives, peak {w1_peak} bytes)")
+        check(w1_launches == cfg.num_layers,
+              f"world of 1: kernel E launched {w1_launches} times, once a "
+              "layer")
+        total += w1_launches
+        ref_cpu = ref_logits.cpu()
+        del params, sp, logits, ref_logits
+        torch.cuda.empty_cache()
+
+        # The reference step: the world of 1 holds every parameter whole,
+        # and takes the same sharding arguments as the world of 2 (so the
+        # same cast of the gathered parameters to bf16).
+        gcfg, gspecs = lms_granite()
+        print(f"[lm-shard] {TRAIN_ARCH}: the unsharded step first (the "
+              f"world of 1), {gcfg.num_layers} layers, global {LMS_TRAIN_B} "
+              f"x {LMS_TRAIN_S} in {LMS_TRAIN_MB} microbatches, f32 "
+              "parameters and moments")
+        torch.cuda.reset_peak_memory_stats()
+        rules = ShardingRules()
+        with use_sharding(mesh, rules):
+            state, ref_metrics, ref_secs = lms_train_steps(gcfg, gspecs,
+                                                           mesh, rules)
+        ref_train_peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    LMS_ROOT.mkdir(parents=True, exist_ok=True)
+    ref_path = LMS_ROOT / "granite_after_steps.pt"
+    from repro_torch.models.params import tree_paths
+    torch.save({f"{k}/{'/'.join(p)}": t.cpu() for k, tree in
+                (("p", state.params), ("m", state.opt_state.m))
+                for p, t in tree_paths(tree)}, ref_path)
+    del state
+    torch.cuda.empty_cache()
+    for i, (m, s) in enumerate(zip(ref_metrics, ref_secs)):
+        print(f"[lm-shard] unsharded step {i}: {s:.3f} s, loss "
+              f"{m['loss']:.6f}, grad norm {m['grad_norm']:.6f}")
+
+    print("[lm-shard] world of 2: gloo, both ranks on the card (NCCL "
+          "refuses two ranks on one GPU); gloo stages every CUDA operand of "
+          "all_reduce and broadcast through pinned host memory")
+    ranks, w2_s = timed(lambda: run_world(
+        "chip_smoke:lm_shard_world2_rank", 2, args=(str(ref_path),),
+        backend="gloo", device_type="cuda", timeout=900, threads=4))
+    ref_path.unlink()
+    for out in ranks:
+        r = out["rank"]
+        blk, sl = out["logits"]
+        err = float((blk.float() - ref_cpu[sl].float()).abs().max())
+        check(err <= bound * top,
+              f"rank {r} of (data=1, model=2): its vocab block "
+              f"{tuple(blk.shape)} of the prefill logits within "
+              f"{bound:.4f} of max |logit| of the unsharded (max |diff| "
+              f"{err:.6f} = {err / top:.6f} of max |logit|)")
+        print(f"[lm-shard] rank {r} prefill 1 x {LMS_SEQ}: "
+              f"{out['prefill_s'] * 1e3:.3f} ms ({LMS_SEQ / out['prefill_s']:.1f}"
+              f" tokens/s), weights {out['weights_bytes']} bytes, peak "
+              f"{out['peak']} bytes, collectives (count, bytes) "
+              f"{out['collectives']}")
+        shape_q, shape_k, dtype, e_err, ok = out["e_check"]
+        if r == 0:
+            check(ok, f"kernel E on rank 0's first attention call "
+                  f"{shape_q}/{shape_k} {dtype}: max_abs_err {e_err:.3e} "
+                  f"against its plain version within {FLASH_TOL[torch.bfloat16]}")
+        check(out["launches"] == cfg.num_layers,
+              f"rank {r}: kernel E launched {out['launches']} times on its "
+              "heads, once a layer")
+        total += out["launches"]
+        derr = max(float((x.float() - want[sl_].float()).abs().max())
+                   / max(float(want.float().abs().max()), 1e-30)
+                   for (x, sl_), want in zip(out["decode"], ref_dec))
+        check(derr <= bound,
+              f"rank {r}: seq-sharded decode (prompt {LMS_PROMPT}, "
+              f"{LMS_NEW} steps, batch {LMS_DECODE_B}) within {bound:.4f} of"
+              f" max |logit| of the unsharded decode_step each call (worst "
+              f"{derr:.6f})")
+        ds = out["decode_s"]
+        print(f"[lm-shard] rank {r} seq-sharded decode: prompt "
+              f"{ds[0] * 1e3:.3f} ms, {1e3 * sum(ds[1:]) / len(ds[1:]):.3f} "
+              f"ms a step (unsharded {1e3 * sum(ref_dsecs[1:]) / len(ref_dsecs[1:]):.3f}"
+              f"), collectives {out['decode_collectives']}")
+        for shape, t in out["train"].items():
+            print(f"[lm-shard] rank {r} train (data={shape[0]}, model="
+                  f"{shape[1]}): steps {[round(x, 3) for x in t['secs']]} s "
+                  f"(unsharded {[round(x, 3) for x in ref_secs]}), peak "
+                  f"{t['peak']} bytes (unsharded {ref_train_peak}), "
+                  f"collectives {t['collectives']}")
+            tb = LMS_TRAIN_BOUNDS[shape]
+            for i, (m, w) in enumerate(zip(t["metrics"], ref_metrics)):
+                dl = abs(m["loss"] - w["loss"]) / abs(w["loss"])
+                dg = abs(m["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+                check(dl <= tb["loss"] and dg <= tb["gnorm"],
+                      f"rank {r} (data={shape[0]}, model={shape[1]}) step "
+                      f"{i}: loss {m['loss']:.6f} / {w['loss']:.6f} ({dl:.3e}"
+                      f" relative, within {tb['loss']}), grad norm "
+                      f"{m['grad_norm']:.6f} / {w['grad_norm']:.6f} "
+                      f"({dg:.3e}, within {tb['gnorm']})")
+            # The parameters: |diff| / |update| and the mean |diff| (the
+            # sound runs' bounds above); besides, the largest element
+            # within 2.5 lr a step (a gradient of opposite sign moves one
+            # by up to 2 lr a step, `train_card_against_cpu`) and the first
+            # moment, a sum of the steps' clipped gradients, within the
+            # bf16 gradient bound 0.03·sqrt(L/2) of its norm (PERF.md §2).
+            gbound = BF16_PATH_BOUND * math.sqrt(gcfg.num_layers / 2)
+            mean_lr = t["dmean"] / LMS_TRAIN_LR
+            check(t["ratio"] <= tb["ratio"] and mean_lr <= tb["mean"],
+                  f"rank {r} (data={shape[0]}, model={shape[1]}): after "
+                  f"{LMS_TRAIN_STEPS} steps the parameters' |diff| / "
+                  f"|update| {t['ratio']:.5f} (within {tb['ratio']}) and "
+                  f"mean |diff| {mean_lr:.4f} lr (within {tb['mean']} lr)")
+            check(t["dmax"] <= 2.5 * LMS_TRAIN_STEPS * LMS_TRAIN_LR
+                  and t["mratio"] <= gbound,
+                  f"rank {r} (data={shape[0]}, model={shape[1]}): the "
+                  f"parameters' max |diff| {t['dmax']:.3e} "
+                  f"({t['dmax'] / LMS_TRAIN_LR:.3f} lr, within 2.5 lr a "
+                  f"step) and the first moment's |diff| / |m| "
+                  f"{t['mratio']:.5f} (within {gbound:.4f})")
+            check(t["launches"] == 2 * gcfg.num_layers * LMS_TRAIN_MB
+                  * LMS_TRAIN_STEPS,
+                  f"rank {r}: kernel E launched {t['launches']} times in the"
+                  " steps (forward and recompute, every layer and "
+                  "microbatch)")
+            total += t["launches"]
+    print(f"[lm-shard] world of 2: {w2_s:.1f} s for both processes, their "
+          f"start-up included; {nvidia_smi()}")
+    print(f"[summary] lm-shard {LM_ARCH} prefill 1 x {LMS_SEQ}: unsharded "
+          f"{ref_s * 1e3:.3f} ms, world 1 {w1_s * 1e3:.3f} ms, world 2 "
+          f"{max(o['prefill_s'] for o in ranks) * 1e3:.3f} ms; train "
+          f"{TRAIN_ARCH} step unsharded {ref_secs[-1]:.3f} s, "
+          + ", ".join(f"{s} {max(o['train'][s]['secs'][-1] for o in ranks):.3f} s"
+                      for s in ((2, 1), (1, 2))) + f"; {smi}")
+    return total
+
+
+def exact_matmuls() -> None:
+    """f32 GEMMs without TF32, and bf16 products summed in f32 to the end,
+    as the JAX reference asks (in this process and in each rank's)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -4670,10 +5079,7 @@ def main() -> None:
     print(f"[device] {kind} count={count} nvidia-smi: {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
           f"L2 {props.L2_cache_size} bytes, {props.multi_processor_count} SMs")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # bf16 products sum in f32 to the end, as the JAX reference asks.
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    exact_matmuls()
 
     print("[build] nvcc, one process per source, in parallel")
     t0 = time.perf_counter()
@@ -4729,6 +5135,10 @@ def main() -> None:
     # ... and the train step's: its forward and its recompute.
     rows[-1]["launches"] += train_phase()
     print(f"[phase] train {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # ... and the sharded paths': each rank's heads.
+    rows[-1]["launches"] += lm_shard_phase()
+    print(f"[phase] lm-shard {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -22,6 +22,15 @@
   copy of every tensor to the host happens first, on the caller's thread,
   and finishes before the write starts.
 * **Retention.** The newest ``keep`` snapshots stay (default 3).
+* **Mesh-agnostic.** A sharded tree (blocks marked by
+  ``models.shard_params``, every rank of the mesh calling save with its
+  blocks) is saved as its logical, whole values: the blocks are gathered
+  one leaf at a time, each copied to the host of the mesh's rank 0 and
+  freed before the next (a card holds one whole leaf at most); only that
+  rank keeps the copy and writes, and every rank waits for the write.
+  :func:`restore` cuts each value to the template leaf's block (a meta
+  template of ``models.abstract_params`` goes to the mesh's device), so a
+  run saved on one mesh resumes on another.
 """
 from __future__ import annotations
 
@@ -37,6 +46,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from ..distributed.mesh import agree, flat_shard_index
+from ..models import sharding
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _SCALARS = (int, float, str, bool)
@@ -115,8 +127,84 @@ def _to_numpy(leaf) -> tuple[np.ndarray, bool]:
     return np.array(leaf), False
 
 
+def _rebuild(like, built: list):
+    if isinstance(like, dict):
+        return dict(zip(sorted(like), built))
+    if hasattr(like, "_fields"):
+        return type(like)(*built)
+    return type(like)(built)
+
+
+def _is_qtensor(node) -> bool:
+    return hasattr(node, "_fields") and node._fields == ("codes", "scales",
+                                                         "orig_last")
+
+
+def _split_last(t: torch.Tensor) -> bool:
+    s = sharding.sharding_of(t)
+    return s is not None and bool(sharding.live(s.mesh, s.axes(t.dim() - 1)))
+
+
+def _mesh_of(tree):
+    """The mesh of the tree's sharded blocks (None if it has none)."""
+    for leaf in _flatten_with_paths(tree).values():
+        s = sharding.sharding_of(leaf)
+        if s is not None:
+            return s.mesh
+    return None
+
+
+def _logical(tree):
+    """``(tree, mesh)``, ``mesh`` that of the tree's blocks. Without one,
+    the tree as it is. With one, its whole values on the host for the rank
+    that writes, None at every leaf for the others: each sharded block is
+    gathered on its device (every rank taking part), copied to the host and
+    freed before the next, so one whole leaf at most is on the device at a
+    time; a QTensor split on its last dim gets the whole ``orig_last``."""
+    mesh = _mesh_of(tree)
+    if mesh is None:
+        return tree, None
+    keep = _writes(mesh)
+
+    def walk(node):
+        kids = _children(node)
+        if kids is None:
+            if sharding.sharding_of(node) is not None:
+                whole = sharding.reshard(node, None)
+                host = _to_host(whole) if keep else None
+                del whole
+                return host
+            return _to_host(node) if keep else None
+        built = [walk(child) for _, child in kids]
+        if keep and _is_qtensor(node) and _split_last(node.codes):
+            built[2] = built[0].shape[-1]
+        return _rebuild(node, built)
+
+    return walk(tree), mesh
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes the snapshots of a tree on ``mesh``."""
+    return mesh is None or flat_shard_index(mesh, mesh.mesh_dim_names) == 0
+
+
+def _barrier(mesh) -> None:
+    agree(0, mesh, "cuda" if mesh.device_type == "cuda" else "cpu")
+
+
 def save(directory: str, step: int, tree, extra: Optional[dict] = None) -> str:
-    """Atomically write snapshot ``step`` of ``tree``."""
+    """Atomically write snapshot ``step`` of ``tree``; a sharded tree's
+    whole values, by the mesh's rank 0, every rank waiting for it."""
+    tree, mesh = _logical(tree)
+    final = os.path.join(directory, f"step_{step}")
+    if _writes(mesh):
+        _write(directory, step, tree, extra)
+    if mesh is not None:
+        _barrier(mesh)
+    return final
+
+
+def _write(directory: str, step: int, tree, extra: Optional[dict]) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step}")
     tmp = final + ".tmp"
@@ -178,11 +266,18 @@ def read_manifest(directory: str, step: int) -> dict:
 
 def _restore_leaf(val: np.ndarray, leaf, bf16: bool = False):
     if isinstance(leaf, torch.Tensor):
+        s = sharding.sharding_of(leaf)
+        device = leaf.device
+        if s is not None:   # the template's block, on the mesh's device
+            val = val[s.block(val.shape)]
+            if device.type == "meta":
+                device = torch.device(s.mesh.device_type)
         # np.array keeps a 0-d leaf 0-d (ascontiguousarray makes it (1,)).
         t = torch.from_numpy(np.array(val, order="C"))
         if bf16:
             t = t.view(torch.bfloat16)
-        return t.to(device=leaf.device, dtype=leaf.dtype)
+        t = t.to(device=device, dtype=leaf.dtype)
+        return t if s is None else sharding.with_sharding(t, s)
     return np.asarray(val, dtype=getattr(leaf, "dtype", None))
 
 
@@ -226,7 +321,19 @@ def restore(directory: str, step: int, like):
         else:
             raise SnapshotCorruptError(
                 f"snapshot step_{step} missing leaf {key!r}")
-    return _unflatten(like, values)
+    return _localize(_unflatten(like, values))
+
+
+def _localize(node):
+    """A restored QTensor whose codes are split on their last dim: its
+    ``orig_last`` is the block's."""
+    kids = _children(node)
+    if kids is None:
+        return node
+    built = [_localize(child) for _, child in kids]
+    if _is_qtensor(node) and _split_last(built[0]):
+        built[2] = built[0].shape[-1]
+    return _rebuild(node, built)
 
 
 class CheckpointManager:
@@ -241,11 +348,15 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:     # every rank sees the mesh's write
+            mesh, self._mesh = self._mesh, None
+            _barrier(mesh)
         if self._error is not None:
             error, self._error = self._error, None
             raise error
@@ -253,11 +364,15 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: Optional[dict] = None):
         # The host copy is made here, on the caller's thread, before any
         # write starts: a later chunk's tensors never reach this snapshot.
-        host = _unflatten(tree, {k: _to_host(v) for k, v in
-                                 _flatten_with_paths(tree).items()})
+        # A sharded tree is gathered whole first, on every rank, one leaf
+        # at a time into the writing rank's host copy.
+        host, mesh = _logical(tree)
+        if mesh is None:
+            host = _unflatten(tree, {k: _to_host(v) for k, v in
+                                     _flatten_with_paths(tree).items()})
 
         def do_save():
-            save(self.directory, step, host, extra)
+            _write(self.directory, step, host, extra)
             self._gc()
 
         def on_thread():
@@ -267,11 +382,14 @@ class CheckpointManager:
                 self._error = e
 
         self.wait()
-        if self.async_save:
+        if _writes(mesh) and self.async_save:
             self._thread = threading.Thread(target=on_thread, daemon=True)
             self._thread.start()
-        else:
+        elif _writes(mesh):
             do_save()
+        self._mesh = mesh
+        if not self.async_save:
+            self.wait()
 
     def _gc(self):
         steps = snapshot_steps(self.directory)

@@ -32,13 +32,20 @@ _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
 
 
 class CollectiveLog:
-    """Counts of the collectives issued, by ``(op, dim)``."""
+    """Counts of the collectives issued, and the bytes of their operands,
+    by ``(op, dim)``."""
 
     def __init__(self):
         self.counts = collections.Counter()
+        self.bytes = collections.Counter()
 
     def reset(self) -> None:
         self.counts.clear()
+        self.bytes.clear()
+
+    def add(self, key: tuple, x: torch.Tensor) -> None:
+        self.counts[key] += 1
+        self.bytes[key] += x.numel() * x.element_size()
 
     @property
     def total(self) -> int:
@@ -175,7 +182,7 @@ def all_reduce(x: torch.Tensor, mesh: DeviceMesh, dims,
     their reductions in turn, as the JAX package's per-axis ``psum``)."""
     for d in dims:
         dist.all_reduce(x, op=_OPS[op], group=mesh.get_group(d))
-        COLLECTIVES.counts[(f"all_reduce_{op}", d)] += 1
+        COLLECTIVES.add((f"all_reduce_{op}", d), x)
     return x
 
 
@@ -185,7 +192,7 @@ def broadcast(x: torch.Tensor, mesh: DeviceMesh, dim: str,
     ``dim`` to the others of its group."""
     group = mesh.get_group(dim)
     dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
-    COLLECTIVES.counts[("broadcast", dim)] += 1
+    COLLECTIVES.add(("broadcast", dim), x)
     return x
 
 

@@ -6,8 +6,10 @@ in ``model.py``). Each rounds where the JAX function rounds: norms and rope
 compute in f32 and cast back to the input's dtype; a contraction that JAX
 asks for with ``preferred_element_type=f32`` is taken on f32 copies of its
 operands (a product of two bf16 values is exact in f32), and every weight is
-cast to the activation's dtype first. ``logical_constraint`` has no part on
-one device and is left out.
+cast to the activation's dtype first. Under a sharding context
+(``models.sharding``) :func:`mlp` runs column- then row-parallel on the
+rank's ``ffn`` block, with the JAX function's two ``logical_constraint``
+sites; on one device they are the identity.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import sharding
 from .config import ModelConfig
+from .sharding import logical_constraint
 
 NEG_INF = -1e30
 
@@ -183,8 +187,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = x @ p["wi"].to(x.dtype)
+    """The MLP; under a sharding context on the rank's ``ffn`` block:
+    ``wi``/``wg`` column- and ``wo`` row-parallel, the partial sum
+    reduced."""
+    wi, (_, fax) = sharding.use(p["wi"], "embed_w", "ffn")
+    wo, _ = sharding.use(p["wo"], "ffn", "embed_w")
+    xin = sharding.enter(x, fax)
+    h = xin @ wi.to(x.dtype)
+    h = logical_constraint(h, "batch", "seq", "ffn", layout=((), (), fax))
     h = activation(cfg, h)
     if cfg.gated_mlp:
-        h = h * (x @ p["wg"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype)
+        wg, _ = sharding.use(p["wg"], "embed_w", "ffn")
+        h = h * (xin @ wg.to(x.dtype))
+    out = sharding.row_parallel(h, wo, fax)
+    return logical_constraint(out, "batch", "res_seq", "embed_act",
+                              partial=fax).to(x.dtype)

@@ -30,6 +30,20 @@ Public API:
 The decode cache is written in place: the attention blocks' keys and
 values at ``pos``, the Mamba blocks' conv window and SSM state, the RWKV
 blocks' wkv state and token shifts (the JAX function returns a new cache).
+
+Under ``sharding.use_sharding(mesh, rules)`` every rank runs the same call
+on its blocks of the parameters (``params.shard_params``) and takes its
+rows of the global batch; the JAX package's ``logical_constraint`` sites
+are where the port's collectives go (``models.sharding``). Attention is
+head-parallel (each rank runs kernel E on its query heads and the key and
+value heads of their groups), the MLP column- then row-parallel, the MoE
+expert-parallel, the embedding and the logits vocab-parallel, and a
+decode cache may be split on its length (``cache_seq``): the attention
+then combines the ranks' partial softmaxes, as flash-decoding does. The
+forward returns the rank's block of the logits (its batch rows and, where
+the vocab is split, its vocab block), marked with its sharding. The Mamba
+and RWKV blocks run data-parallel only; a mesh that splits their own dims
+raises (ROADMAP queue 1 item 25).
 """
 from __future__ import annotations
 
@@ -41,9 +55,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
-from . import layers, moe, rwkv, ssm
+from . import layers, moe, rwkv, sharding, ssm
 from .config import ModelConfig
 from .params import ParamSpec, stack_specs, torch_dtype, tree_paths
+from .sharding import logical_constraint
 
 
 class ForwardOut(NamedTuple):
@@ -207,28 +222,94 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
+def _group_kv(t: torch.Tensor, dim: int, q_lo: int, hq: int, rep: int,
+              axes) -> torch.Tensor:
+    """The key or value heads (dim ``dim`` of ``t``, every kv head) of the
+    query heads [q_lo, q_lo + hq): the covering kv heads, one per query
+    head where the local groups are uneven."""
+    lo, hi = q_lo // rep, (q_lo + hq - 1) // rep + 1
+    t = sharding.narrow(t, dim, lo, hi - lo, axes)
+    want = [(q_lo + j) // rep - lo for j in range(hq)]
+    if hq % (hi - lo) == 0 and want == [j // (hq // (hi - lo))
+                                        for j in range(hq)]:
+        return t
+    return t.index_select(dim, torch.tensor(want, device=t.device))
+
+
+def _seq_sharded_attention(q, k, v, kc, vc, pos: int, scale: float, cax):
+    """Decode attention over a cache split on its length over ``cax``:
+    every query head against this rank's positions, the ranks' softmaxes
+    combined by an all-reduce of the max and then of the exp-sums and
+    weighted values (flash-decoding). q: (B, Hq, S, D); k/v: this step's
+    (B, S, Hkv, D); kc/vc: (B, Hkv, Lc, D) written in place at the global
+    positions [pos, pos + S) they hold."""
+    mesh = sharding.current()[0]
+    b, hq, s, d = q.shape
+    hkv, lc = kc.shape[1], kc.shape[2]
+    c_lo = sharding.block_offset(lc * sharding.axes_size(mesh, cax), cax)
+    a, e = max(pos, c_lo), min(pos + s, c_lo + lc)
+    if a < e:
+        kc[:, :, a - c_lo:e - c_lo] = k[:, a - pos:e - pos].transpose(1, 2).to(kc.dtype)
+        vc[:, :, a - c_lo:e - c_lo] = v[:, a - pos:e - pos].transpose(1, 2).to(vc.dtype)
+    qg = (q * layers._const(q, scale)).reshape(b, hkv, hq // hkv, s, d)
+    sc = torch.einsum("bkrqd,bkld->bkrql", qg.float(), kc.float())
+    mask = c_lo + torch.arange(lc, device=q.device) < pos + s
+    sc = torch.where(mask, sc, layers.NEG_INF)
+    m = sharding.all_max(sc.amax(dim=-1), cax)
+    p = torch.exp(sc - m[..., None])
+    l = sharding.reduce(p.sum(dim=-1), cax)
+    acc = sharding.reduce(torch.einsum("bkrql,bkld->bkrqd",
+                                       p.to(vc.dtype).float(), vc.float()),
+                          cax)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, hq, s, d).to(kc.dtype)
+
+
 def _attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict],
                 pos: Optional[int]):
     """Self-attention of one layer. With a cache (one group's
     ``{"k", "v"}`` slices, (B, Hkv, L, D)), this step's k and v are written
-    into it in place at ``pos`` and attention runs over ``pos + S`` entries."""
+    into it in place at ``pos`` and attention runs over ``pos + S`` entries.
+    Under a sharding context on this rank's blocks: query heads split over
+    the ``heads`` dims, each rank's q heads with the kv heads of their
+    groups (split alike where ``kv_heads`` divides, else taken from every
+    kv head), ``wo`` row-parallel and its partial sum reduced."""
     s = x.shape[1]
-    hd = cfg.resolved_head_dim
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rep = hq // hkv
     xn = _pre_norm(cfg, p, x)
-    q = _proj(xn, p["wq"])
-    k = _proj(xn, p["wk"])
-    v = _proj(xn, p["wv"])
+    wq, (_, hax, _) = sharding.use(p["wq"], "embed_w", "heads", "head_dim")
+    wk, (_, kax, _) = sharding.use(p["wk"], "embed_w", "kv_heads", "head_dim")
+    wv, _ = sharding.use(p["wv"], "embed_w", "kv_heads", "head_dim")
+    wo, (oax, _, _) = sharding.use(p["wo"], "heads", "head_dim", "embed_w")
+    if oax != hax or (kax and kax != hax):
+        raise NotImplementedError(
+            f"attention with q heads on {hax}, kv heads on {kax} and wo on "
+            f"{oax}: the port splits them over one set of mesh dims")
+    xq = sharding.enter(xn, hax)
+    xk = xq if kax else xn
+    q, k, v = _proj(xq, wq), _proj(xk, wk), _proj(xk, wv)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        q = q + sharding.use(p["bq"], "heads", "head_dim")[0].to(x.dtype)
+        k = k + sharding.use(p["bk"], "kv_heads", "head_dim")[0].to(x.dtype)
+        v = v + sharding.use(p["bv"], "kv_heads", "head_dim")[0].to(x.dtype)
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
+    q = logical_constraint(q, "batch", "seq", "heads", None,
+                           layout=((), (), hax, ()))
+    k = logical_constraint(k, "batch", "seq", "kv_heads", None,
+                           layout=((), (), kax, ()))
     scale = 1.0 / math.sqrt(hd)
-    qh = q.transpose(1, 2).contiguous()  # (B,Hq,S,D)
+    hq_l = q.shape[2]
+    q_lo = sharding.block_offset(hq, hax)
+    grouped = bool(hax) and not kax     # every kv head here, q heads split
     if cache is None:
-        kh = k.transpose(1, 2).contiguous()  # (B,Hkv,S,D)
+        if grouped:
+            k = _group_kv(k, 2, q_lo, hq_l, rep, hax)
+            v = _group_kv(v, 2, q_lo, hq_l, rep, hax)
+        qh = q.transpose(1, 2).contiguous()
+        kh = k.transpose(1, 2).contiguous()
         vh = v.transpose(1, 2).contiguous()
         if cfg.attn_impl == "flash":
             from ..kernels.flash_attention import flash_attention
@@ -237,18 +318,47 @@ def _attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
         else:
             out = layers.chunked_attention(qh, kh, vh, causal=cfg.causal,
                                            q_chunk=cfg.seq_chunk_q,
-                                           kv_chunk=cfg.seq_chunk_kv, scale=scale)
+                                           kv_chunk=cfg.seq_chunk_kv,
+                                           scale=scale)
     else:
         kc, vc = cache["k"], cache["v"]
-        kc[:, :, pos:pos + s] = k.transpose(1, 2).to(kc.dtype)
-        vc[:, :, pos:pos + s] = v.transpose(1, 2).to(vc.dtype)
-        # Entries past pos + S are masked in the reference; leaving them out
-        # gives the same softmax (their weights are exactly 0).
-        out = layers.decode_attention(qh, kc[:, :, :pos + s], vc[:, :, :pos + s],
-                                      pos + s, scale=scale)
+        cl = sharding.layout(kc)
+        for c in (kc, vc):   # written in place: its layout must be the rules'
+            if logical_constraint(c, "batch", "kv_heads", "cache_seq", None,
+                                  layout=cl) is not c:
+                raise ValueError(
+                    f"a decode cache split over {cl} under rules that split "
+                    "it otherwise; make it with init_decode_cache under the "
+                    "same use_sharding")
+        if cl[2]:
+            if cl[1]:
+                raise NotImplementedError(
+                    "a decode cache split on both its kv heads and its "
+                    "length (set kv_heads=None with cache_seq)")
+            qa = sharding.gather(q, 2, hax).transpose(1, 2)
+            out = _seq_sharded_attention(
+                qa, sharding.gather(k, 2, kax), sharding.gather(v, 2, kax),
+                kc, vc, pos, scale, cl[2])
+            out = out.narrow(1, q_lo, hq_l)
+        else:
+            if cl[1] != kax:
+                raise ValueError(f"the cache's kv heads are split over "
+                                 f"{cl[1]}, the keys over {kax}")
+            kc[:, :, pos:pos + s] = k.transpose(1, 2).to(kc.dtype)
+            vc[:, :, pos:pos + s] = v.transpose(1, 2).to(vc.dtype)
+            # Entries past pos + S are masked in the reference; leaving them
+            # out gives the same softmax (their weights are exactly 0).
+            kc, vc = kc[:, :, :pos + s], vc[:, :, :pos + s]
+            if grouped:
+                kc = _group_kv(kc, 1, q_lo, hq_l, rep, ())
+                vc = _group_kv(vc, 1, q_lo, hq_l, rep, ())
+            out = layers.decode_attention(q.transpose(1, 2).contiguous(), kc,
+                                          vc, pos + s, scale=scale)
     out = out.transpose(1, 2)  # (B,S,H,D)
-    wo = p["wo"].to(x.dtype)
-    return out.flatten(2) @ wo.reshape(-1, wo.shape[-1])
+    proj = sharding.row_parallel(out.flatten(2), wo.reshape(-1, wo.shape[-1]),
+                                 hax)
+    return logical_constraint(proj, "batch", "res_seq", "embed_act",
+                              partial=hax).to(x.dtype)
 
 
 def _write(cache: dict, new) -> None:
@@ -258,6 +368,29 @@ def _write(cache: dict, new) -> None:
         cache[name].copy_(value)
 
 
+def _whole_recurrent(cfg: ModelConfig, mixer: str, ffn: str, p: dict) -> dict:
+    """Under a sharding context, a Mamba or RWKV block's parameters whole
+    (FSDP-gathered): these blocks run data-parallel only."""
+    out = dict(p)
+    for part, kind in (("mixer", mixer), ("ffn", ffn)):
+        specs = {"mamba": _mamba_specs, "rwkv": _rwkv_specs,
+                 "cmix": _cmix_specs}.get(kind)
+        if specs is None:
+            continue
+        leaves = {}
+        for name, spec in specs(cfg).items():
+            w, axes = sharding.use(p[part][name], *spec.axes)
+            if any(axes):
+                raise NotImplementedError(
+                    f"a {kind} block with {name!r} split over {axes}: the "
+                    "Mamba and RWKV blocks run data-parallel only, their "
+                    "tensor parallelism is ROADMAP queue 1 item 25 (set "
+                    "ssm_inner / rwkv_heads / ffn to None, or model=1)")
+            leaves[name] = w
+        out[part] = leaves
+    return out
+
+
 def _apply_block(cfg: ModelConfig, entry: str, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cache: Optional[dict], pos):
     """One pattern entry: mixer + ffn, residual around each. Returns ``(x,
@@ -265,6 +398,8 @@ def _apply_block(cfg: ModelConfig, entry: str, p: dict, x: torch.Tensor,
     its expert load (None for other FFNs). A decode cache (this group's
     slices of the block's entries) is written in place."""
     mixer, _, ffn = entry.partition(":")
+    if sharding.current() is not None:
+        p = _whole_recurrent(cfg, mixer, ffn, p)
     if mixer == "attn":
         h = _attn_apply(cfg, p["mixer"], x, positions,
                         cache["attn"] if cache else None, pos)
@@ -306,20 +441,59 @@ def _apply_block(cfg: ModelConfig, entry: str, p: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _embed_input(cfg: ModelConfig, params: dict, tokens, embeddings):
+    """The embedding of this rank's rows. Under a sharding context with
+    the table split on its vocab: a masked lookup of the rank's rows and a
+    sum over the vocab dims (every token found once; the sum exact)."""
     dtype = torch_dtype(cfg.compute_dtype)
-    if cfg.uses_token_embedding:
-        return params["embed"][tokens].to(dtype)
-    return embeddings.to(dtype) @ params["frontend_in"].to(dtype)
+    if not cfg.uses_token_embedding:
+        w, _ = sharding.use(params["frontend_in"], "embed_w", None)
+        x = embeddings.to(dtype) @ w.to(dtype)
+        return logical_constraint(x, "batch", "res_seq", "embed_act")
+    table, (vax, _) = sharding.use(params["embed"], "vocab", "embed_w")
+    if not vax:
+        rows = table[tokens]
+    else:
+        n = table.shape[0]
+        local = tokens - sharding.block_offset(cfg.vocab_size, vax)
+        inside = (local >= 0) & (local < n)
+        rows = table[torch.where(inside, local, 0)]
+        rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    x = logical_constraint(rows, "batch", "res_seq", "embed_act",
+                           partial=vax)
+    return x.to(dtype)
 
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The logits. Under a sharding context vocab-parallel: each rank's
+    vocab block of its rows, marked with that sharding (whole where the
+    vocab does not divide)."""
     xn = layers.norm(cfg, params["final_norm"], x, params.get("final_norm_b"))
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return xn @ head.to(x.dtype)
+    if cfg.tie_embeddings:
+        table, (vax, _) = sharding.use(params["embed"], "vocab", "embed_w")
+        head = table.T
+    else:
+        head, (_, vax) = sharding.use(params["lm_head"], "embed_w", "vocab")
+    logits = sharding.enter(xn, vax) @ head.to(xn.dtype)
+    logits = logical_constraint(logits, "batch", "seq", "vocab",
+                                layout=((), (), vax))
+    if sharding.current() is None:
+        return logits
+    mesh, rules = sharding.current()
+    bat = sharding.batch_axes(mesh, rules)
+    return sharding.with_sharding(logits, sharding.NamedSharding(
+        mesh, sharding.PartitionSpec(bat or None, None, vax or None)))
+
+
+def _part(t: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """``part`` (one layer group of the stacked ``t``) with t's sharding
+    less its group dim, if t has one."""
+    s = sharding.sharding_of(t)
+    return part if s is None else sharding.with_sharding(part,
+                                                         s.drop_leading())
 
 
 def _index(tree, g: int):
-    return {k: _index(v, g) if isinstance(v, dict) else v[g]
+    return {k: _index(v, g) if isinstance(v, dict) else _part(v, v[g])
             for k, v in tree.items()}
 
 
@@ -330,7 +504,7 @@ def _split_groups(tree: dict, n: int) -> list:
     out = [{} for _ in range(n)]
     for k, v in tree.items():
         parts = (_split_groups(v, n) if isinstance(v, dict)
-                 else torch.unbind(v, 0))
+                 else [_part(v, t) for t in torch.unbind(v, 0)])
         for g in range(n):
             out[g][k] = parts[g]
     return out
@@ -350,7 +524,12 @@ def _dots_context():
 
 
 def _remat_wrap(cfg: ModelConfig, fn):
-    """``fn`` checkpointed as ``cfg.remat`` says (non-reentrant)."""
+    """``fn`` checkpointed as ``cfg.remat`` says (non-reentrant). A
+    sharded group's recompute runs under the sharding context of its
+    forward: on the card the backward runs on autograd's device thread,
+    where the caller's context variable is not set."""
+    if cfg.remat != "none" and sharding.current() is not None:
+        fn = _in_context(fn, sharding.current())
     if cfg.remat == "full":
         return lambda *a: checkpoint(fn, *a, use_reentrant=False)
     if cfg.remat == "dots":
@@ -359,6 +538,13 @@ def _remat_wrap(cfg: ModelConfig, fn):
     if cfg.remat != "none":
         raise ValueError(f"unknown remat {cfg.remat!r}")
     return fn
+
+
+def _in_context(fn, ctx):
+    def run(*args):
+        with sharding.use_sharding(*ctx):
+            return fn(*args)
+    return run
 
 
 def _requires_grad(tree: dict) -> bool:
@@ -399,6 +585,25 @@ def _run_groups(cfg: ModelConfig, params: dict, x: torch.Tensor, positions,
     return x, aux, load
 
 
+def _local_rows(params: dict, *batch):
+    """Under a sharding context, this rank's rows of each global batch
+    tensor (None stays None), after checking the rules and that the mesh's
+    device type is the parameters'."""
+    ctx = sharding.current()
+    if ctx is None:
+        return batch
+    mesh, rules = ctx
+    sharding.check_rules(mesh, rules)
+    leaf = next(t for _, t in tree_paths(params))
+    if mesh.device_type != leaf.device.type:
+        raise ValueError(
+            f"the mesh's device type is {mesh.device_type!r} but the "
+            f"parameters are on {leaf.device}; build the mesh and the "
+            "model on one device type (no fallback)")
+    return tuple(None if t is None else sharding.local_batch(t)
+                 for t in batch)
+
+
 def _ref_shape(tokens, embeddings):
     ref = tokens if tokens is not None else embeddings
     return ref.shape[0], ref.shape[1], ref.device
@@ -410,6 +615,8 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None,
     ``tokens`` (B, S) int or ``embeddings`` (B, S, d_model) on the
     parameters' device. Differentiable in the parameters that require
     grad."""
+    tokens, embeddings, positions = _local_rows(params, tokens, embeddings,
+                                                positions)
     b, s, dev = _ref_shape(tokens, embeddings)
     if positions is None:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
@@ -429,9 +636,19 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     g = cfg.num_groups
     hd = cfg.resolved_head_dim
     dtype = torch_dtype(cfg.compute_dtype)
+    ctx = sharding.current()
+    rows = batch if ctx is None else sharding.local_batch(
+        torch.empty((batch, 0), device="meta")).shape[0]
+
+    def mark(t: torch.Tensor, names: tuple) -> torch.Tensor:
+        if ctx is None:
+            return t
+        return sharding.with_sharding(t, sharding.make_sharding(
+            names + (None,) * (t.dim() - len(names))))
 
     def stack(state) -> dict:
-        return {k: v.expand((g,) + v.shape).contiguous()
+        return {k: mark(v.expand((g,) + v.shape).contiguous(),
+                        ("layers", "batch"))
                 for k, v in state._asdict().items()}
 
     cache: dict = {}
@@ -439,15 +656,32 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
         mixer, _, ffn = entry.partition(":")
         blk: dict = {}
         if mixer == "attn":
-            shape = (g, batch, cfg.num_kv_heads, max_len, hd)
-            blk["attn"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                           "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            blk["attn"] = {name: _kv_cache(g, batch, cfg.num_kv_heads,
+                                           max_len, hd, dtype, dev)
+                           for name in ("k", "v")}
         elif mixer == "mamba":
-            blk["mamba"] = stack(ssm.init_cache(cfg, batch, dev))
+            blk["mamba"] = stack(ssm.init_cache(cfg, rows, dev))
         if mixer == "rwkv" or ffn == "cmix":
-            blk["rwkv"] = stack(rwkv.init_cache(cfg, batch, dev))
+            blk["rwkv"] = stack(rwkv.init_cache(cfg, rows, dev))
         cache[f"b{i}"] = blk
     return cache
+
+
+def _kv_cache(g: int, batch: int, hkv: int, max_len: int, hd: int, dtype,
+              dev) -> torch.Tensor:
+    """A zero (G, B, Hkv, L, D) cache, under a sharding context this
+    rank's block of it (split on its batch, kv heads and length as the
+    rules say, a dim they do not divide left whole)."""
+    shape = (g, batch, hkv, max_len, hd)
+    if sharding.current() is None:
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    sh = sharding.make_sharding(("layers", "batch", "kv_heads", "cache_seq",
+                                 None), shape=shape)
+    if sh.axes(1) != sharding.batch_axes(sh.mesh, sharding.current()[1]):
+        raise ValueError(f"a decode batch of {batch} does not split over "
+                         "the batch dims")
+    return sharding.with_sharding(
+        torch.zeros(sh.shard_shape(shape), dtype=dtype, device=dev), sh)
 
 
 @torch.no_grad()
@@ -462,6 +696,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, pos: int,
     states, into ``cache`` in place (the JAX function returns a new cache)
     and returns ``(logits (B, S, V), cache)``.
     """
+    tokens, embeddings = _local_rows(params, tokens, embeddings)
     b, s, dev = _ref_shape(tokens, embeddings)
     pos = int(pos)
     positions = pos + torch.arange(s, device=dev)[None].expand(b, s)

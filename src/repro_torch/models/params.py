@@ -4,9 +4,13 @@
 ``ParamSpec`` describes a single tensor; model assembly builds a nested dict
 of specs, from which :func:`init_params` materialises the parameters: a dict
 of tensors with the same keys, the stacked group dim first. The spec's
-``axes`` name the logical sharding axes of the JAX package; the port runs on
-one device and keeps them only so the trees stay comparable
-(``abstract_params`` and ``param_shardings`` wait for the multi-GPU item).
+``axes`` name its logical sharding axes: :func:`param_shardings` maps them
+to a mesh's :class:`~.sharding.NamedSharding` (``ShardingRules``), and
+:func:`abstract_params` gives meta tensors of the global shapes that carry
+them. :func:`shard_params` keeps each rank's block of whole parameters (the
+JAX package's ``jax.device_put(params, shardings)``), :func:`gather_params`
+puts the blocks back together, and :func:`init_params` with ``shardings``
+draws each leaf whole and keeps only its block.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .sharding import ShardingRules, make_sharding, reshard, with_sharding
 
 #: Leaves at least this large are drawn one leading slice at a time, so the
 #: f32 draw never holds a whole stacked leaf (qwen2-7b's ``wi`` is 1.9 B
@@ -103,25 +108,73 @@ def tree_paths(tree, prefix=()):
         yield from tree_paths(tree[k], prefix + (k,))
 
 
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _build(tree, fn):
+    """``fn(path, leaf)`` at every leaf of a dict tree, same keys."""
+    out: dict = {}
+    for path, leaf in tree_paths(tree):
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = fn(path, leaf)
+    return out
+
+
 def init_params(spec_tree, generator: torch.Generator,
-                device: DeviceLike = None):
+                device: DeviceLike = None, shardings=None):
     """Materialise a spec tree on ``device`` (default: the card), one leaf at
     a time in sorted path order, from ``generator`` (whose device must be
     the target's). Large leaves are drawn one leading slice at a time. The
     numbers differ from ``jax.random``'s for the same seed; the parity tests
     carry the JAX parameters across instead (``interop.lm_params_from_numpy``).
+    With ``shardings`` (:func:`param_shardings`' tree) each rank draws
+    every leaf whole, as one device would, and keeps only its block.
     """
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, parameters "
                          f"go to {dev}")
-    out: dict = {}
-    for path, spec in tree_paths(spec_tree):
-        node = out
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = _materialize(spec, generator, dev)
-    return out
+
+    def leaf(path, spec):
+        t = _materialize(spec, generator, dev)
+        return t if shardings is None else reshard(t, _at(shardings, path))
+
+    return _build(spec_tree, leaf)
+
+
+def param_shardings(spec_tree, mesh, rules: Optional[ShardingRules] = None):
+    """The :class:`~.sharding.NamedSharding` of every leaf on ``mesh``: its
+    axes under ``rules``, a dim its mesh dims do not divide left whole."""
+    return _build(spec_tree, lambda _, spec: make_sharding(
+        spec.axes, mesh, rules, shape=spec.shape))
+
+
+def abstract_params(spec_tree, mesh=None,
+                    rules: Optional[ShardingRules] = None):
+    """Meta tensors of the global shapes and dtypes, each carrying its
+    sharding on ``mesh`` (none without one)."""
+    return _build(spec_tree, lambda _, spec: with_sharding(
+        torch.empty(spec.shape, dtype=torch_dtype(spec.dtype), device="meta"),
+        make_sharding(spec.axes, mesh, rules, shape=spec.shape)
+        if mesh is not None else None))
+
+
+def shard_params(params, shardings):
+    """Each rank's block of whole ``params`` under ``shardings`` (the
+    parameters' tree of :class:`~.sharding.NamedSharding`), marked with its
+    sharding; a whole block shares the parameter's storage."""
+    return _build(params, lambda path, t: reshard(t, _at(shardings, path)))
+
+
+def gather_params(params):
+    """The whole parameters of sharded blocks (the inverse of
+    :func:`shard_params`; every rank of the mesh takes part)."""
+    return _build(params, lambda _, t: reshard(t, None))
 
 
 def param_count(spec_tree) -> int:

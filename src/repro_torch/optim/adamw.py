@@ -12,6 +12,15 @@ at each parameter's position the moments hold a tensor (f32 or bf16) or a
 package. Where JAX donates its state, :func:`adamw_update` writes the new
 parameters and moments into the old tensors in place (under
 ``torch.no_grad()``) and returns them.
+
+Sharded parameters (``models.shard_params``) get moments of the same
+blocks, marked with the same shardings; the update is elementwise on the
+blocks, and :func:`global_norm` sums each leaf's squares over the mesh
+dims it is split on (a replicated leaf is counted once). An int8 moment
+is quantized on the block: where the last dim is split, the block's last
+dim must be a whole number of 256-element quantization blocks, so that
+the codes are those of the whole tensor; otherwise it raises, naming the
+leaf.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models import sharding
 from ..models.params import tree_paths
 
 QBLOCK = 256  # elements per quantization block (last axis)
@@ -119,12 +129,43 @@ def _shape(p: torch.Tensor) -> tuple:
     return tuple(p.shape) if p.dim() else (1,)
 
 
+def _check_blocks(path, p: torch.Tensor) -> None:
+    """An int8 moment of a block split on its last dim quantizes as the
+    whole tensor only if the block holds whole quantization blocks."""
+    s = sharding.sharding_of(p)
+    if (s is not None and p.dim() and sharding.live(s.mesh, s.axes(p.dim() - 1))
+            and p.shape[-1] % QBLOCK):
+        raise ValueError(
+            f"int8 moments of {'/'.join(path)}: its block's last dim "
+            f"{p.shape[-1]} (split over {s.axes(p.dim() - 1)}) is not a "
+            f"multiple of the {QBLOCK}-element quantization block, so the "
+            "blocks would quantize otherwise than the whole tensor; use "
+            "float32 or bfloat16 moments, or leave that dim whole")
+
+
+def _mark(moment, s):
+    """A moment (tensor or QTensor) marked with its parameter's sharding."""
+    if s is None:
+        return moment
+    if isinstance(moment, QTensor):
+        sharding.with_sharding(moment.codes, s)
+        sharding.with_sharding(moment.scales, s)
+        return moment
+    return sharding.with_sharding(moment, s)
+
+
 def adamw_init(params: dict, config: AdamWConfig) -> AdamWState:
     """Zero moments at every parameter's position (shape (1,) for a 0-d
-    one), in ``config.state_dtype``, on the parameters' devices."""
+    one), in ``config.state_dtype``, on the parameters' devices, with the
+    parameters' shardings."""
+    if config.state_dtype == "int8":
+        for path, p in tree_paths(params):
+            _check_blocks(path, p)
+
     def zero_like(p):
-        return _encode(torch.zeros(_shape(p), dtype=torch.float32,
-                                   device=p.device), config.state_dtype)
+        return _mark(_encode(torch.zeros(_shape(p), dtype=torch.float32,
+                                         device=p.device), config.state_dtype),
+                     sharding.sharding_of(p))
 
     leaves = [p for _, p in tree_paths(params)]
     dev = leaves[0].device if leaves else None
@@ -135,11 +176,25 @@ def adamw_init(params: dict, config: AdamWConfig) -> AdamWState:
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum, leaf by leaf in key order, of each leaf's sum of
-    squares in f32."""
+    squares in f32. Blocks of sharded leaves: the sums of the leaves split
+    over the same mesh dims are summed over those dims (one all-reduce per
+    set of dims), so a replicated leaf counts once."""
     total = None
+    split: dict = {}
     for _, g in tree_paths(tree):
         s = g.float().square().sum()
+        sh = sharding.sharding_of(g)
+        axes = () if sh is None else tuple(sorted(
+            {a for d in range(g.dim()) for a in sharding.live(sh.mesh,
+                                                              sh.axes(d))}))
+        if axes:
+            mesh, acc = split.get(axes, (sh.mesh, None))
+            split[axes] = (mesh, s if acc is None else acc + s)
+            continue
         total = s if total is None else total + s
+    for axes, (mesh, acc) in split.items():
+        acc = sharding.reduce(acc, axes, mesh)
+        total = acc if total is None else total + acc
     return torch.sqrt(total)
 
 

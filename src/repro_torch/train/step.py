@@ -11,6 +11,16 @@ The step is functional over the parameter dict, as the JAX one is: it
 takes the gradients of detached views of the parameters (no ``.grad`` is
 touched) and returns a new :class:`TrainState`, whose parameters and
 moments :func:`~repro_torch.optim.adamw_update` has written in place.
+
+Sharded (``param_shardings``, under ``models.use_sharding``): every rank
+calls the step with the same global batch and its blocks of the state
+(``models.shard_params``); the forward takes the rank's rows, the loss
+sums its token count and cross-entropy over the data dims and takes a
+vocab-split logsumexp, and each gradient is summed over the data dims its
+parameter is not split on and kept as the parameter's block (a
+reduce-scatter, written as an all-reduce and a slice).
+``gathered_shardings`` casts the parameters to the compute dtype and
+gathers them to those shardings once a step, outside the microbatch loop.
 """
 from __future__ import annotations
 
@@ -18,9 +28,9 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..models import forward
+from ..models import forward, sharding
 from ..models.config import ModelConfig
-from ..models.params import tree_paths
+from ..models.params import torch_dtype, tree_paths
 from ..optim import AdamWConfig, AdamWState, adamw_init, adamw_update
 
 
@@ -35,7 +45,8 @@ def lm_loss(cfg: ModelConfig, params: dict,
     """Mean CE over valid label positions + MoE aux. Returns (loss,
     metrics). The label's logit is taken with ``torch.gather``, the value
     of JAX's one-hot contraction (every other term is 0·finite) without a
-    (B, S, V) one-hot tensor."""
+    (B, S, V) one-hot tensor. Under a sharding context the loss is the
+    global batch's, equal on every rank."""
     kwargs = {}
     if "tokens" in batch:
         kwargs["tokens"] = batch["tokens"]
@@ -43,24 +54,46 @@ def lm_loss(cfg: ModelConfig, params: dict,
         kwargs["embeddings"] = batch["embeddings"]
     out = forward(cfg, params, **kwargs)
     logits = out.logits.float()
-    labels = batch["labels"]
+    labels = sharding.local_batch(batch["labels"])
     if labels.shape[1] != logits.shape[1]:  # next-token on same-length stream
         logits = logits[:, :labels.shape[1]]
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    lse, picked = _vocab_terms(logits, safe, sharding.layout(out.logits)[-1])
     token_ce = (lse - picked) * valid.float()
-    denom = torch.clamp(valid.sum(), min=1)
-    ce = token_ce.sum() / denom
+    bax = sharding.live_batch_axes()
+    denom = torch.clamp(sharding.reduce(valid.sum(), bax), min=1)
+    ce = sharding.reduce(token_ce.sum() / denom, bax)
     loss = ce + out.aux_loss
     return loss, {"ce": ce, "aux": out.aux_loss, "tokens": denom.float()}
 
 
+def _vocab_terms(logits: torch.Tensor, labels: torch.Tensor, vax):
+    """``(logsumexp, the label's logit)``. Of logits split on the vocab
+    over ``vax``: the max over every rank, the exp-sums and the picked
+    logit (0 where another rank holds the label) summed."""
+    if not vax:
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels[..., None])[..., 0])
+    n = logits.shape[-1]
+    m = sharding.all_max(logits.detach().amax(dim=-1), vax)
+    lse = m + torch.log(sharding.reduce(
+        torch.exp(logits - m[..., None]).sum(dim=-1), vax))
+    local = labels - sharding.block_offset(
+        n * sharding.axes_size(sharding.current()[0], vax), vax)
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    picked = torch.where(inside, picked[..., 0], 0.0)
+    return lse, sharding.reduce(picked, vax)
+
+
 def _with_grad(params: dict) -> dict:
-    """Detached views of the parameters that require grad (no copy)."""
+    """Detached views of the parameters that require grad (no copy), with
+    their shardings."""
     return {k: _with_grad(v) if isinstance(v, dict)
-            else v.detach().requires_grad_() for k, v in params.items()}
+            else sharding.with_sharding(v.detach().requires_grad_(),
+                                        sharding.sharding_of(v))
+            for k, v in params.items()}
 
 
 def _unflatten(like: dict, leaves) -> dict:
@@ -80,7 +113,8 @@ def value_and_grad(cfg: ModelConfig, params: dict, batch: dict):
     loss, metrics = lm_loss(cfg, live, batch)
     leaves = [t for _, t in tree_paths(live)]
     grads = torch.autograd.grad(loss, leaves)
-    grads = [g.float() for g in grads]
+    grads = [sharding.with_sharding(g.float(), sharding.sharding_of(t))
+             for g, t in zip(grads, leaves)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, _unflatten(params, grads)
 
@@ -93,13 +127,43 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
     leading dim must divide into ``num_microbatches`` slices; their
     gradients are summed in f32 and scaled by 1/M, their losses averaged,
     and the last slice's ``ce``, ``aux`` and ``tokens`` reported, as the
-    JAX step's scan does. The sharding arguments belong to the LM
-    sharding work (ROADMAP queue 1 item 23) and raise."""
-    if param_shardings is not None or gathered_shardings is not None:
-        raise NotImplementedError(
-            "param_shardings / gathered_shardings: sharded training is "
-            "ROADMAP queue 1 item 23 (the LM sharding), not ported yet")
+    JAX step's scan does.
+
+    ``param_shardings`` (the parameters' tree of ``NamedSharding``, from
+    ``models.param_shardings``): the state holds each rank's blocks and the
+    step runs under ``models.use_sharding``; each gradient comes back as
+    its parameter's block, summed over the data dims. ``gathered_shardings``
+    (the same without the FSDP dims): the parameters are cast to the
+    compute dtype and gathered to them once a step."""
     m = num_microbatches
+    sharded = param_shardings is not None or gathered_shardings is not None
+    compute_dtype = torch_dtype(cfg.compute_dtype)
+
+    def gather_once(params):
+        if gathered_shardings is None:
+            return params
+        return _map(params, gathered_shardings, lambda p, s: sharding.reshard(
+            sharding.with_sharding(
+                p.to(compute_dtype) if p.dtype == torch.float32 else p,
+                sharding.sharding_of(p)), s))
+
+    def constrain_grads(grads, params):
+        """Each gradient summed over the batch dims its block is not split
+        on, as its parameter's block (``param_shardings``, else the
+        parameter's own sharding)."""
+        mesh, rules = sharding.current()
+        bat = sharding.live(mesh, sharding.batch_axes(mesh, rules))
+        targets = param_shardings if param_shardings is not None else \
+            _map(params, params, lambda p, _: sharding.sharding_of(p))
+
+        def one(g, s):
+            have = {a for d in sharding.layout(g) for a in d}
+            summed = sharding.reduce(g, tuple(a for a in bat if a not in have),
+                                     mesh)
+            return sharding.reshard(
+                sharding.with_sharding(summed, sharding.sharding_of(g)), s)
+
+        return _map(grads, targets, one)
 
     def grads_and_metrics(params, batch):
         if m == 1:
@@ -127,7 +191,13 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
         return loss_sum * inv, _unflatten(params, acc), metrics
 
     def train_step(state: TrainState, batch: dict):
-        loss, grads, metrics = grads_and_metrics(state.params, batch)
+        if sharded and sharding.current() is None:
+            raise ValueError("a sharded train step runs under "
+                             "models.use_sharding(mesh, rules)")
+        loss, grads, metrics = grads_and_metrics(gather_once(state.params),
+                                                 batch)
+        if sharded:
+            grads = constrain_grads(grads, state.params)
         lr = lr_fn(state.step) if lr_fn is not None else None
         params, opt_state, opt_metrics = adamw_update(
             state.params, grads, state.opt_state, opt, lr=lr)
@@ -138,6 +208,12 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
                           step=state.step + 1), metrics
 
     return train_step
+
+
+def _map(tree: dict, like: dict, fn) -> dict:
+    """``fn(leaf, like's leaf)`` at every leaf of ``tree``."""
+    return {k: _map(v, like[k], fn) if isinstance(v, dict) else fn(v, like[k])
+            for k, v in tree.items()}
 
 
 def init_train_state(cfg: ModelConfig, params: dict,

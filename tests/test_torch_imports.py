@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.distributed", "repro_torch.distributed.mesh",
                  "repro_torch.distributed.world",
                  "repro_torch.distributed.solver_dist",
-                 "repro_torch.distributed.solver_sharded"):
+                 "repro_torch.distributed.solver_sharded",
+                 "repro_torch.models.sharding", "repro_torch.launch.mesh"):
         assert name in mods
     code = textwrap.dedent(f"""
         import importlib, sys

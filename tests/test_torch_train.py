@@ -353,12 +353,6 @@ def test_train_loop_loss_decreases():
     assert last < first, f"loss did not decrease: {first} -> {last}"
 
 
-def test_shardings_raise_naming_the_roadmap_item():
-    cfg = get_config("qwen2-7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tstep.make_train_step(cfg, AdamWConfig(), param_shardings={})
-
-
 def test_train_cli_runs_on_the_cpu_when_asked():
     # A small batch and one thread: the tier-1 run shares the cores.
     out = subprocess.run(

@@ -295,3 +295,281 @@ def serve_world(run_dir: str) -> dict:
     solo = solve_sharded(padded, 3, cfg, mesh, device="cpu")
     return {"served": result_dict(got.result), "batched": got.batched,
             "solo": result_dict(solo), "n": padded.num_spins}
+
+
+# ---------------------------------------------------------------------------
+# The LM sharding (tests/test_torch_lm_sharded.py)
+# ---------------------------------------------------------------------------
+
+LM_MESHES = ((2, 2), (1, 4))
+LM_B, LM_S = 4, 32
+DECODE_B, DECODE_L = 2, 32
+RECURRENT_S = 16
+TRAIN_STEPS, TRAIN_LR = 3, 1e-3
+
+
+def lm_cfg(arch: str, compute: str):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch, smoke=True),
+                               compute_dtype=compute)
+
+
+def lm_tokens(vocab: int, shape, seed: int = 1) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, shape,
+                                                dtype=np.int32)
+
+
+def lm_train_batch(cfg, step: int) -> dict:
+    from repro_torch.data import DataConfig, SyntheticLMData
+
+    return SyntheticLMData(cfg, DataConfig(seed=1, global_batch=LM_B,
+                                           seq_len=LM_S), "cpu").batch(step)
+
+
+def _block(t: torch.Tensor):
+    """A block and its slices of the whole tensor."""
+    from repro_torch.models import sharding
+
+    s = sharding.sharding_of(t)
+    shape = s.global_shape(t.shape)
+    return t.detach().float().clone(), s.block(shape)
+
+
+def _params_blocks(params: dict) -> dict:
+    from repro_torch.models.params import tree_paths
+
+    return {path: _block(t) for path, t in tree_paths(params)}
+
+
+def lm_sharded_world(jparams: dict, run_dir: str) -> dict:
+    """Every sharded case of ``tests/test_torch_lm_sharded.py`` on a world
+    of 4, on JAX's parameters (``jparams``: arch -> numpy tree): the
+    forward, the seq-sharded decode, the MoE forward and the sharded train
+    step on the (2, 2) and (1, 4) meshes, the global norm, a checkpoint
+    saved on (2, 2) and restored on (1, 4), the recurrent blocks, the
+    meshes and the errors. Each logits block comes with its slices of the
+    whole."""
+    from repro_torch import interop
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import mesh as M
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models import (ShardingRules, abstract_params,
+                                    decode_step, forward, gather_params,
+                                    init_decode_cache, init_params,
+                                    model_specs, param_shardings,
+                                    shard_params, sharding, use_sharding)
+    from repro_torch.models.params import tree_paths
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    from repro_torch.train import step as tstep
+
+    meshes = {shape: make_host_mesh(model_parallel=shape[1],
+                                    device_type="cpu")
+              for shape in LM_MESHES}
+    out = {"mesh_names": {s: tuple(m.mesh_dim_names)
+                          for s, m in meshes.items()}}
+    pods = make_host_mesh(model_parallel=2, pods=2, device_type="cpu")
+    out["pod_mesh"] = (tuple(pods.mesh_dim_names), tuple(pods.shape))
+    out["errors"] = {
+        "tp3": _error(lambda: make_host_mesh(3, device_type="cpu")),
+        "production": _error(lambda: make_production_mesh(
+            device_type="cpu"))}
+    rules = ShardingRules()
+
+    def sharded(arch, compute, mesh, rules=rules):
+        cfg = lm_cfg(arch, compute)
+        full = interop.lm_params_from_numpy(jparams[arch], "cpu")
+        return cfg, shard_params(full, param_shardings(model_specs(cfg),
+                                                       mesh, rules))
+
+    toks = torch.from_numpy(lm_tokens(512, (LM_B, LM_S))).long()
+    out["forward"], out["collectives"] = {}, {}
+    for shape, mesh in meshes.items():
+        for arch, compute in (("qwen2-7b", "float32"),
+                              ("qwen2-7b", "bfloat16"),
+                              ("granite-moe-1b-a400m", "float32")):
+            cfg, params = sharded(arch, compute, mesh)
+            M.COLLECTIVES.reset()
+            with use_sharding(mesh, rules), torch.no_grad():
+                res = forward(cfg, params, tokens=toks)
+            out["collectives"][(shape, arch, compute)] = dict(
+                M.COLLECTIVES.counts)
+            out["forward"][(shape, arch, compute)] = {
+                "logits": _block(res.logits), "aux": float(res.aux_loss),
+                "load": None if res.expert_load is None
+                else res.expert_load.clone()}
+
+    seq_rules = ShardingRules(kv_heads=None, cache_seq="model")
+    dtoks = torch.from_numpy(lm_tokens(512, (DECODE_B, DECODE_L))).long()
+    out["decode"] = {}
+    for shape, mesh in meshes.items():
+        cfg, params = sharded("qwen2-7b", "bfloat16", mesh, seq_rules)
+        with use_sharding(mesh, seq_rules):
+            cache = init_decode_cache(cfg, DECODE_B, DECODE_L, device="cpu")
+            steps = []
+            for t in range(DECODE_L):
+                lg, cache = decode_step(cfg, params, cache, t,
+                                        tokens=dtoks[:, t:t + 1])
+                steps.append(_block(lg))
+        out["decode"][shape] = {
+            "steps": steps, "cache": tuple(cache["b0"]["attn"]["k"].shape)}
+
+    opt = AdamWConfig(learning_rate=TRAIN_LR)
+    out["train"] = {}
+    for shape, mesh in meshes.items():
+        cfg, params = sharded("qwen2-7b", "float32", mesh)
+        specs = model_specs(cfg)
+        fn = tstep.make_train_step(
+            cfg, opt, linear_warmup_cosine(TRAIN_LR, 1, TRAIN_STEPS),
+            param_shardings=param_shardings(specs, mesh, rules),
+            gathered_shardings=param_shardings(
+                specs, mesh, dataclasses.replace(rules, embed_w=None)))
+        state = tstep.init_train_state(cfg, params, opt)
+        steps = []
+        with use_sharding(mesh, rules):
+            for i in range(TRAIN_STEPS):
+                M.COLLECTIVES.reset()
+                state, m = fn(state, lm_train_batch(cfg, i))
+                steps.append({"metrics": {k: float(v) for k, v in m.items()},
+                              "params": _params_blocks(state.params),
+                              "collectives": dict(M.COLLECTIVES.counts)})
+        out["train"][shape] = steps
+        if shape == (2, 2):
+            saved = state
+            out["ckpt_whole_leaves"] = _most_whole_leaves(
+                lambda: CheckpointManager(run_dir).save(TRAIN_STEPS, state))
+
+    # The checkpoint saved on (2, 2), restored on (1, 4): into blocks of a
+    # fresh state and into abstract (meta) parameters.
+    cfg = lm_cfg("qwen2-7b", "float32")
+    specs = model_specs(cfg)
+    m14 = meshes[(1, 4)]
+    fresh = shard_params(init_params(specs, torch.Generator().manual_seed(5),
+                                     "cpu"), param_shardings(specs, m14))
+    like = tstep.init_train_state(cfg, fresh, opt)
+    restored, step = CheckpointManager(run_dir).restore(like)
+    meta, _ = CheckpointManager(run_dir).restore(
+        {"params": abstract_params(specs, m14)}, step)
+    want = gather_params(saved.params)
+    out["checkpoint"] = {
+        "step": step,
+        "params": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_paths(gather_params(restored.params)), tree_paths(want))),
+        "moments": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_paths(gather_params(restored.opt_state.v)),
+            tree_paths(gather_params(saved.opt_state.v)))),
+        "meta": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_paths(gather_params(meta["params"])), tree_paths(want))),
+        "blocks": all(tuple(t.shape) == sharding.sharding_of(t).shard_shape(
+            s.shape) for (_, t), (_, s) in zip(tree_paths(restored.params),
+                                               tree_paths(specs)))}
+
+    # The global norm of sharded blocks against the whole tree's.
+    g = torch.Generator().manual_seed(7)
+    whole = {"/".join(p): torch.randn(s.shape, generator=g)
+             for p, s in tree_paths(specs)}
+    whole = _nest(whole)
+    out["norm"] = {}
+    for shape, mesh in meshes.items():
+        blocks = shard_params(whole, param_shardings(specs, mesh))
+        M.COLLECTIVES.reset()
+        out["norm"][shape] = (float(global_norm(blocks)),
+                              float(global_norm(whole)),
+                              M.COLLECTIVES.total)
+    int8 = AdamWConfig(state_dtype="int8")
+    out["errors"]["int8"] = _error(lambda: adamw_init(
+        sharded("qwen2-7b", "float32", meshes[(2, 2)])[1], int8))
+
+    # The recurrent families: data-parallel on (4, 1), refused where the
+    # mesh splits their own dims.
+    m41 = make_host_mesh(model_parallel=1, device_type="cpu")
+    rtoks = torch.from_numpy(lm_tokens(512, (LM_B, RECURRENT_S))).long()
+    out["recurrent"] = {}
+    for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
+        cfg = lm_cfg(arch, "float32")
+        full = interop.lm_params_from_numpy(jparams[arch], "cpu")
+        with torch.no_grad():
+            plain = forward(cfg, full, tokens=rtoks).logits
+            params = shard_params(full, param_shardings(model_specs(cfg),
+                                                        m41))
+            with use_sharding(m41):
+                got = forward(cfg, params, tokens=rtoks).logits
+        blk, sl = _block(got)
+        out["recurrent"][arch] = {"block": (blk, sl),
+                                  "plain": float((plain[sl] - blk).abs().max())}
+        split = shard_params(full, param_shardings(model_specs(cfg),
+                                                   meshes[(2, 2)]))
+        with use_sharding(meshes[(2, 2)]):
+            out["errors"][arch] = _error_nie(lambda: forward(
+                cfg, split, tokens=rtoks))
+    out["errors"]["res_seq"] = _error_nie(lambda: _under(
+        meshes[(2, 2)], ShardingRules(res_seq="model"),
+        lambda: forward(*sharded("qwen2-7b", "float32", meshes[(2, 2)]),
+                        tokens=toks)))
+    qcfg, qparams = sharded("qwen2-7b", "float32", meshes[(2, 2)])
+    meta_params = {k: v for k, v in abstract_params(
+        model_specs(qcfg), meshes[(2, 2)]).items()}
+    out["errors"]["device"] = _error(lambda: _under(
+        meshes[(2, 2)], rules, lambda: forward(qcfg, meta_params,
+                                               tokens=toks)))
+    out["errors"]["no_context"] = _error(lambda: tstep.make_train_step(
+        qcfg, opt, param_shardings=param_shardings(
+            model_specs(qcfg), meshes[(2, 2)]))(
+                tstep.init_train_state(qcfg, qparams, opt),
+                lm_train_batch(qcfg, 0)))
+    return out
+
+
+def _most_whole_leaves(fn) -> int:
+    """Run ``fn`` and return the most whole leaves that the checkpoint's
+    gathers (``sharding.reshard`` to None) held alive at once."""
+    import weakref
+
+    from repro_torch.models import sharding
+
+    alive: weakref.WeakSet = weakref.WeakSet()
+    most = 0
+    orig = sharding.reshard
+
+    def spy(t, dst):
+        nonlocal most
+        out = orig(t, dst)
+        if dst is None:
+            alive.add(out)
+            most = max(most, len(alive))
+        return out
+
+    sharding.reshard = spy
+    try:
+        fn()
+    finally:
+        sharding.reshard = orig
+    return most
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+    return out
+
+
+def _under(mesh, rules, fn):
+    from repro_torch.models import use_sharding
+
+    with use_sharding(mesh, rules), torch.no_grad():
+        return fn()
+
+
+def _error_nie(fn) -> str:
+    try:
+        fn()
+    except NotImplementedError as e:
+        return str(e)
+    return "no error"
