@@ -33,19 +33,24 @@ _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
 
 class CollectiveLog:
     """Counts of the collectives issued, and the bytes of their operands,
-    by ``(op, dim)``."""
+    by ``(op, dim)``. Each of ``listeners`` (the roofline's cost counter)
+    is called with ``(op, bytes, group size)`` at every collective."""
 
     def __init__(self):
         self.counts = collections.Counter()
         self.bytes = collections.Counter()
+        self.listeners: list = []
 
     def reset(self) -> None:
         self.counts.clear()
         self.bytes.clear()
 
-    def add(self, key: tuple, x: torch.Tensor) -> None:
+    def add(self, key: tuple, x: torch.Tensor, group: int = 1) -> None:
+        n = x.numel() * x.element_size()
         self.counts[key] += 1
-        self.bytes[key] += x.numel() * x.element_size()
+        self.bytes[key] += n
+        for listener in self.listeners:
+            listener(key[0], n, group)
 
     @property
     def total(self) -> int:
@@ -182,7 +187,7 @@ def all_reduce(x: torch.Tensor, mesh: DeviceMesh, dims,
     their reductions in turn, as the JAX package's per-axis ``psum``)."""
     for d in dims:
         dist.all_reduce(x, op=_OPS[op], group=mesh.get_group(d))
-        COLLECTIVES.add((f"all_reduce_{op}", d), x)
+        COLLECTIVES.add((f"all_reduce_{op}", d), x, dim_size(mesh, d))
     return x
 
 
@@ -192,7 +197,7 @@ def broadcast(x: torch.Tensor, mesh: DeviceMesh, dim: str,
     ``dim`` to the others of its group."""
     group = mesh.get_group(dim)
     dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
-    COLLECTIVES.add(("broadcast", dim), x)
+    COLLECTIVES.add(("broadcast", dim), x, dim_size(mesh, dim))
     return x
 
 

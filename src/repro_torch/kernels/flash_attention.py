@@ -22,6 +22,8 @@ import functools
 
 import torch
 
+from ..device import meta_allowed
+from ..roofline import op_cost
 from . import _build, ref
 from ._launch import LaunchCounter
 
@@ -75,16 +77,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_q, block_k = min(block_q, sq), min(block_k, skv)
     if sq % block_q or skv % block_k:
         raise ValueError(f"seq ({sq},{skv}) not divisible by ({block_q},{block_k})")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
-                         f"{q.device}")
-    return _Flash.apply(q, k, v, bool(causal), float(scale), block_q, block_k)
+    if q.device.type not in ("cpu", "cuda") and not (q.is_meta
+                                                     and meta_allowed()):
+        raise ValueError(f"flash_attention takes CPU or CUDA tensors (meta "
+                         f"ones in a dry run), got {q.device}")
+    with op_cost.kernel("flash_attention", flops(q, k, causal),
+                        sum(op_cost.tensor_bytes(t) for t in (q, k, v, q))):
+        return _Flash.apply(q, k, v, bool(causal), float(scale), block_q,
+                            block_k)
+
+
+def flops(q: torch.Tensor, k: torch.Tensor, causal: bool) -> float:
+    """The kernel's work: 4·B·Hq·D·S(S+1)/2 causal (the QKᵀ and PV
+    products over the lower triangle), 4·B·Hq·D·Sq·Skv otherwise."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    pairs = sq * (sq + 1) / 2 if causal and sq == skv else sq * skv
+    return 4.0 * b * hq * d * pairs
 
 
 def _forward(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    """The plain version on the CPU, the kernel on the card."""
+    """The plain version on the CPU, the kernel on the card; on the meta
+    device (a dry run, ``device.meta_device``) the output's shape."""
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal, scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")

@@ -7,8 +7,9 @@ group. A single pod is ``("data", "model")``; several pods add a leading
 (``repro_torch.distributed.init_world``, or ``torch.distributed.run``), on
 which ``models.use_sharding`` and ``distributed.mesh``'s collectives run.
 
-The JAX module's ``xla_performance_flags`` (XLA's collective-overlap flags)
-has no counterpart here (ROADMAP queue 1 item 15).
+:func:`nccl_performance_env` is the counterpart of the JAX module's
+``xla_performance_flags``: the settings a multi-GPU launch would make for
+collective/compute overlap, recorded and inert (nothing applies them).
 """
 from __future__ import annotations
 
@@ -53,3 +54,27 @@ def make_host_mesh(model_parallel: int = 1, pods: int = 1,
                                 mesh_dim_names=("pod", "data", "model"))
     return init_device_mesh(device_type, (data, model_parallel),
                             mesh_dim_names=("data", "model"))
+
+
+def nccl_performance_env() -> list:
+    """``[(variable, value, reason)]``: the environment a multi-GPU launch
+    of the port would set for collective/compute overlap on H100s joined
+    by NVLink. Recorded here so launch scripts stay the deployable
+    artifact; nothing in the package applies them."""
+    return [
+        ("CUDA_DEVICE_MAX_CONNECTIONS", "1",
+         "one hardware queue: kernels start in issue order, so a "
+         "collective issued before a GEMM overlaps it as scheduled"),
+        ("TORCH_NCCL_HIGH_PRIORITY", "1",
+         "NCCL's streams at high priority: collectives are not starved by "
+         "the compute kernels they overlap"),
+        ("TORCH_NCCL_AVOID_RECORD_STREAMS", "1",
+         "async collectives keep their tensors alive by reference, not by "
+         "recordStream, so the caching allocator reuses them on time"),
+        ("NCCL_NVLS_ENABLE", "1",
+         "NVLink SHARP on the NVSwitch: all-reduces and reduce-scatters "
+         "reduced in the switch, fewer SMs taken from compute"),
+        ("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1",
+         "a hung collective aborts the process group instead of stalling "
+         "every rank"),
+    ]

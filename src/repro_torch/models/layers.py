@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..roofline.op_cost import named_scope
 from . import sharding
 from .config import ModelConfig
 from .sharding import logical_constraint
@@ -113,6 +114,7 @@ def _attend_block(q, k, v, mask):
     return m, l, acc
 
 
+@named_scope("chunked_attention")
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, q_chunk: int, kv_chunk: int,
                       scale: float) -> torch.Tensor:
@@ -160,6 +162,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, hq, sq, d).to(k.dtype)
 
 
+@named_scope("decode_attention")
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int, *,
                      scale: float) -> torch.Tensor:
@@ -186,6 +189,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # Dense MLP (gated / plain)
 # ---------------------------------------------------------------------------
 
+@named_scope("mlp")
 def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """The MLP; under a sharding context on the rank's ``ffn`` block:
     ``wi``/``wg`` column- and ``wo`` row-parallel, the partial sum

@@ -40,10 +40,18 @@ value heads of their groups), the MLP column- then row-parallel, the MoE
 expert-parallel, the embedding and the logits vocab-parallel, and a
 decode cache may be split on its length (``cache_seq``): the attention
 then combines the ranks' partial softmaxes, as flash-decoding does. The
-forward returns the rank's block of the logits (its batch rows and, where
-the vocab is split, its vocab block), marked with its sharding. The Mamba
-and RWKV blocks run data-parallel only; a mesh that splits their own dims
-raises (ROADMAP queue 1 item 25).
+Mamba block runs on the rank's ``ssm_inner`` channels and the RWKV time
+and channel mixes on its ``rwkv_heads`` and ``ffn`` dims, their decode
+states split alike. The residual stream may be split on its sequence
+(``res_seq``, Megatron-style sequence parallelism) or its ``d``
+(``embed_act``): each block's output is reduced and cut to the rank's
+block, the residual adds run on the blocks, and each sublayer's entry
+gathers the stream whole before its norm, so the arithmetic is the same
+mesh's without the rule, bit for bit. The small weight dims (``layers``,
+``head_dim``, ``ssm_state``, ...) are storage layouts, gathered whole for
+compute. The forward returns the rank's block of the logits under
+``("batch", "seq", "vocab")`` (its batch rows and its vocab block or, with
+``seq`` split, its sequence block), marked with its sharding.
 """
 from __future__ import annotations
 
@@ -54,10 +62,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, meta_allowed, resolve_device
+from ..roofline.op_cost import named_scope
 from . import layers, moe, rwkv, sharding, ssm
 from .config import ModelConfig
-from .params import ParamSpec, stack_specs, torch_dtype, tree_paths
+from .params import (ParamSpec, build_tree, stack_specs, torch_dtype,
+                     tree_paths)
 from .sharding import logical_constraint
 
 
@@ -368,57 +378,36 @@ def _write(cache: dict, new) -> None:
         cache[name].copy_(value)
 
 
-def _whole_recurrent(cfg: ModelConfig, mixer: str, ffn: str, p: dict) -> dict:
-    """Under a sharding context, a Mamba or RWKV block's parameters whole
-    (FSDP-gathered): these blocks run data-parallel only."""
-    out = dict(p)
-    for part, kind in (("mixer", mixer), ("ffn", ffn)):
-        specs = {"mamba": _mamba_specs, "rwkv": _rwkv_specs,
-                 "cmix": _cmix_specs}.get(kind)
-        if specs is None:
-            continue
-        leaves = {}
-        for name, spec in specs(cfg).items():
-            w, axes = sharding.use(p[part][name], *spec.axes)
-            if any(axes):
-                raise NotImplementedError(
-                    f"a {kind} block with {name!r} split over {axes}: the "
-                    "Mamba and RWKV blocks run data-parallel only, their "
-                    "tensor parallelism is ROADMAP queue 1 item 25 (set "
-                    "ssm_inner / rwkv_heads / ffn to None, or model=1)")
-            leaves[name] = w
-        out[part] = leaves
-    return out
-
-
 def _apply_block(cfg: ModelConfig, entry: str, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, cache: Optional[dict], pos):
-    """One pattern entry: mixer + ffn, residual around each. Returns ``(x,
-    aux, load)``: the block's weighted MoE losses (0 for other FFNs) and
-    its expert load (None for other FFNs). A decode cache (this group's
-    slices of the block's entries) is written in place."""
+                 positions: torch.Tensor, cache: Optional[dict], pos,
+                 res: tuple = ((), (), ())):
+    """One pattern entry: mixer + ffn, residual around each. ``x`` is the
+    residual stream laid out as ``res`` (:func:`sharding.residual_layout`),
+    gathered whole at each sublayer's entry. Returns ``(x, aux, load)``:
+    the block's weighted MoE losses (0 for other FFNs) and its expert load
+    (None for other FFNs). A decode cache (this group's slices of the
+    block's entries) is written in place."""
     mixer, _, ffn = entry.partition(":")
-    if sharding.current() is not None:
-        p = _whole_recurrent(cfg, mixer, ffn, p)
+    xw = sharding.whole(x, res)
     if mixer == "attn":
-        h = _attn_apply(cfg, p["mixer"], x, positions,
+        h = _attn_apply(cfg, p["mixer"], xw, positions,
                         cache["attn"] if cache else None, pos)
     elif mixer == "mamba":
         mc = ssm.MambaCache(**cache["mamba"]) if cache else None
-        h, new = ssm.mamba_block(cfg, p["mixer"], _pre_norm(cfg, p["mixer"], x),
-                                 cache=mc)
+        h, new = ssm.mamba_block(cfg, p["mixer"],
+                                 _pre_norm(cfg, p["mixer"], xw), cache=mc)
         if new is not None:
             _write(cache["mamba"], new)
     else:  # rwkv time-mix
         rc = rwkv.RwkvCache(**cache["rwkv"]) if cache else None
-        h, new = rwkv.time_mix(cfg, p["mixer"], _pre_norm(cfg, p["mixer"], x),
+        h, new = rwkv.time_mix(cfg, p["mixer"], _pre_norm(cfg, p["mixer"], xw),
                                cache=rc)
         if new is not None:
             _write(cache["rwkv"], new)   # channel-mix reads the new state
     x = x + h
 
     fp = p["ffn"]
-    xn = _pre_norm(cfg, fp, x)
+    xn = _pre_norm(cfg, fp, sharding.whole(x, res))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     load = None
     if ffn == "mlp":
@@ -463,10 +452,12 @@ def _embed_input(cfg: ModelConfig, params: dict, tokens, embeddings):
     return x.to(dtype)
 
 
+@named_scope("_logits")
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """The logits. Under a sharding context vocab-parallel: each rank's
-    vocab block of its rows, marked with that sharding (whole where the
-    vocab does not divide)."""
+    """The logits of the whole residual stream ``x``. Under a sharding
+    context vocab-parallel, then laid out as ``("batch", "seq", "vocab")``
+    says: each rank's block of its rows, marked with that sharding (a dim
+    the rules' dims do not divide whole)."""
     xn = layers.norm(cfg, params["final_norm"], x, params.get("final_norm_b"))
     if cfg.tie_embeddings:
         table, (vax, _) = sharding.use(params["embed"], "vocab", "embed_w")
@@ -474,14 +465,19 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         head, (_, vax) = sharding.use(params["lm_head"], "embed_w", "vocab")
     logits = sharding.enter(xn, vax) @ head.to(xn.dtype)
-    logits = logical_constraint(logits, "batch", "seq", "vocab",
-                                layout=((), (), vax))
+    names = ("batch", "seq", "vocab")
+    logits = logical_constraint(logits, *names, layout=((), (), vax),
+                                output=True)
     if sharding.current() is None:
         return logits
     mesh, rules = sharding.current()
-    bat = sharding.batch_axes(mesh, rules)
+    spec = sharding.make_sharding(
+        names, shape=(1, xn.shape[1], cfg.vocab_size)).spec
     return sharding.with_sharding(logits, sharding.NamedSharding(
-        mesh, sharding.PartitionSpec(bat or None, None, vax or None)))
+        mesh, sharding.PartitionSpec(
+            sharding.batch_axes(mesh, rules) or None,
+            *(sharding.live(mesh, sharding.entry_axes(e)) or None
+              for e in spec[1:]))))
 
 
 def _part(t: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
@@ -500,11 +496,20 @@ def _index(tree, g: int):
 def _split_groups(tree: dict, n: int) -> list:
     """The per-group dicts of a stacked tree: one ``torch.unbind`` per
     leaf, whose backward stacks the groups' gradients once (a ``select``
-    per group would write a zero tensor of the whole leaf per group)."""
+    per group would write a zero tensor of the whole leaf per group). A
+    leaf stored split on its group dim (``layers``) is gathered whole
+    first."""
     out = [{} for _ in range(n)]
     for k, v in tree.items():
-        parts = (_split_groups(v, n) if isinstance(v, dict)
-                 else [_part(v, t) for t in torch.unbind(v, 0)])
+        if isinstance(v, dict):
+            parts = _split_groups(v, n)
+        else:
+            s = sharding.sharding_of(v)
+            if s is not None and sharding.live(s.mesh, s.axes(0)):
+                v = sharding.with_sharding(
+                    sharding.gather(v, 0, s.axes(0), s.mesh),
+                    s.with_entry(0, None))
+            parts = [_part(v, t) for t in torch.unbind(v, 0)]
         for g in range(n):
             out[g][k] = parts[g]
     return out
@@ -552,20 +557,21 @@ def _requires_grad(tree: dict) -> bool:
 
 
 def _run_groups(cfg: ModelConfig, params: dict, x: torch.Tensor, positions,
-                cache: Optional[dict], pos):
+                cache: Optional[dict], pos, res: tuple = ((), (), ())):
     """A loop over the layer groups (the JAX package's ``lax.scan``); a
-    cache, if any, is indexed alongside and written in place. Returns ``(x,
-    aux, load)``: the MoE losses summed over every block, and the expert
-    load of each MoE block of the pattern averaged over the groups (None
-    without MoE blocks). Under autograd each group is checkpointed as
-    ``cfg.remat`` says."""
+    cache, if any, is indexed alongside and written in place. ``x`` is the
+    residual stream laid out as ``res``. Returns ``(x, aux, load)``: the
+    MoE losses summed over every block, and the expert load of each MoE
+    block of the pattern averaged over the groups (None without MoE
+    blocks). Under autograd each group is checkpointed as ``cfg.remat``
+    says."""
 
     def group_fn(x, aux, gp, gc):
         group_loads = []
         for i, entry in enumerate(cfg.block_pattern):
             bc = gc[f"b{i}"] if gc is not None else None
             x, a, load = _apply_block(cfg, entry, gp[f"b{i}"], x, positions,
-                                      bc, pos)
+                                      bc, pos, res)
             aux = aux + a
             if load is not None:
                 group_loads.append(load)
@@ -576,11 +582,16 @@ def _run_groups(cfg: ModelConfig, params: dict, x: torch.Tensor, positions,
     run = _remat_wrap(cfg, group_fn) if grad else group_fn
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     loads = []
+    work, stored = cache, []
+    if cache is not None and sharding.current() is not None:
+        work, stored = _compute_cache(cache)
     for g, gp in enumerate(_split_groups(params["groups"], cfg.num_groups)):
-        gc = _index(cache, g) if cache is not None else None
+        gc = _index(work, g) if work is not None else None
         x, aux, load = run(x, aux, gp, gc)
         if load is not None:
             loads.append(load)
+    for dst, src in stored:       # the storage blocks of the cache, in place
+        dst.copy_(sharding.reshard(src, sharding.sharding_of(dst)))
     load = torch.stack(loads).mean(dim=0) if loads else None
     return x, aux, load
 
@@ -588,14 +599,16 @@ def _run_groups(cfg: ModelConfig, params: dict, x: torch.Tensor, positions,
 def _local_rows(params: dict, *batch):
     """Under a sharding context, this rank's rows of each global batch
     tensor (None stays None), after checking the rules and that the mesh's
-    device type is the parameters'."""
+    device type is the parameters' (within ``device.meta_device``, the dry
+    run's, meta parameters run on any mesh)."""
     ctx = sharding.current()
     if ctx is None:
         return batch
     mesh, rules = ctx
     sharding.check_rules(mesh, rules)
     leaf = next(t for _, t in tree_paths(params))
-    if mesh.device_type != leaf.device.type:
+    if mesh.device_type != leaf.device.type and not (leaf.is_meta
+                                                     and meta_allowed()):
         raise ValueError(
             f"the mesh's device type is {mesh.device_type!r} but the "
             f"parameters are on {leaf.device}; build the mesh and the "
@@ -620,68 +633,122 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None,
     b, s, dev = _ref_shape(tokens, embeddings)
     if positions is None:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
+    res = sharding.residual_layout(s, cfg.d_model)
     x = _embed_input(cfg, params, tokens, embeddings)
-    x, aux, load = _run_groups(cfg, params, x, positions, None, None)
-    return ForwardOut(logits=_logits(cfg, params, x), aux_loss=aux,
-                      expert_load=load)
+    x, aux, load = _run_groups(cfg, params, x, positions, None, None, res)
+    return ForwardOut(logits=_logits(cfg, params, sharding.whole(x, res)),
+                      aux_loss=aux, expert_load=load)
+
+
+#: The logical axes of each decode-cache leaf (the JAX package's
+#: ``launch.abstracts._CACHE_AXES``); any other leaf is ``("layers",
+#: "batch", None, ...)``.
+CACHE_AXES = {
+    ("attn", "k"): ("layers", "batch", "kv_heads", "cache_seq", None),
+    ("attn", "v"): ("layers", "batch", "kv_heads", "cache_seq", None),
+    ("mamba", "conv"): ("layers", "batch", "ssm_inner", None),
+    ("mamba", "ssm"): ("layers", "batch", "ssm_inner", "ssm_state"),
+    ("rwkv", "wkv"): ("layers", "batch", "rwkv_heads", None, None),
+    ("rwkv", "shift"): ("layers", "batch", None),
+    ("rwkv", "cmix_shift"): ("layers", "batch", None),
+}
+
+
+def cache_axes(kind: str, field: str, ndim: int) -> tuple:
+    return CACHE_AXES.get((kind, field),
+                          ("layers", "batch") + (None,) * (ndim - 2))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The decode cache's leaves as :class:`ParamSpec` (global shape, logical
+    axes, dtype), stacked over the groups: per attention block the keys and
+    values (B, Hkv, max_len, D) in the compute dtype, per Mamba block its
+    conv window and f32 SSM state, per RWKV block its f32 wkv state and
+    token shifts."""
+    g, hd = cfg.num_groups, cfg.resolved_head_dim
+    cdt = cfg.compute_dtype
+    di, n, w = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_conv_width
+    d = cfg.d_model
+    rh = cfg.rwkv_head_dim
+    shapes = {
+        "attn": {"k": ((batch, cfg.num_kv_heads, max_len, hd), cdt),
+                 "v": ((batch, cfg.num_kv_heads, max_len, hd), cdt)},
+        "mamba": {"conv": ((batch, di, w - 1), cdt),
+                  "ssm": ((batch, di, n), "float32")},
+        "rwkv": {"wkv": ((batch, d // rh if rh else 0, rh, rh), "float32"),
+                 "shift": ((batch, d), cdt),
+                 "cmix_shift": ((batch, d), cdt)},
+    }
+    tree: dict = {}
+    for i, entry in enumerate(cfg.block_pattern):
+        mixer, _, ffn = entry.partition(":")
+        kinds = [mixer] if mixer in ("attn", "mamba") else []
+        if mixer == "rwkv" or ffn == "cmix":
+            kinds.append("rwkv")
+        tree[f"b{i}"] = {
+            kind: {f: ParamSpec((g,) + shape,
+                                cache_axes(kind, f, len(shape) + 1), "zeros",
+                                dt)
+                   for f, (shape, dt) in shapes[kind].items()}
+            for kind in kinds}
+    return tree
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device: DeviceLike = None) -> dict:
-    """Decode cache stacked over groups, on ``device`` (default: the card):
-    per attention block the keys and values (B, Hkv, max_len, D) in the
-    compute dtype, per Mamba block its conv window and f32 SSM state, per
-    RWKV block its f32 wkv state and token shifts; zeros."""
+    """Decode cache stacked over groups (:func:`cache_specs`), zeros on
+    ``device`` (default: the card). Under a sharding context each leaf is
+    this rank's block of it under its logical axes (a dim the rules' dims
+    do not divide left whole)."""
     dev = resolve_device(device)
-    g = cfg.num_groups
-    hd = cfg.resolved_head_dim
-    dtype = torch_dtype(cfg.compute_dtype)
     ctx = sharding.current()
-    rows = batch if ctx is None else sharding.local_batch(
-        torch.empty((batch, 0), device="meta")).shape[0]
 
-    def mark(t: torch.Tensor, names: tuple) -> torch.Tensor:
+    def leaf(_, spec: ParamSpec) -> torch.Tensor:
+        dtype = torch_dtype(spec.dtype)
         if ctx is None:
-            return t
-        return sharding.with_sharding(t, sharding.make_sharding(
-            names + (None,) * (t.dim() - len(names))))
+            return torch.zeros(spec.shape, dtype=dtype, device=dev)
+        sh = sharding.make_sharding(spec.axes, shape=spec.shape)
+        if sh.axes(1) != sharding.batch_axes(sh.mesh, ctx[1]):
+            raise ValueError(f"a decode batch of {batch} does not split over "
+                             "the batch dims")
+        return sharding.with_sharding(
+            torch.zeros(sh.shard_shape(spec.shape), dtype=dtype, device=dev),
+            sh)
 
-    def stack(state) -> dict:
-        return {k: mark(v.expand((g,) + v.shape).contiguous(),
-                        ("layers", "batch"))
-                for k, v in state._asdict().items()}
-
-    cache: dict = {}
-    for i, entry in enumerate(cfg.block_pattern):
-        mixer, _, ffn = entry.partition(":")
-        blk: dict = {}
-        if mixer == "attn":
-            blk["attn"] = {name: _kv_cache(g, batch, cfg.num_kv_heads,
-                                           max_len, hd, dtype, dev)
-                           for name in ("k", "v")}
-        elif mixer == "mamba":
-            blk["mamba"] = stack(ssm.init_cache(cfg, rows, dev))
-        if mixer == "rwkv" or ffn == "cmix":
-            blk["rwkv"] = stack(rwkv.init_cache(cfg, rows, dev))
-        cache[f"b{i}"] = blk
-    return cache
+    return build_tree(cache_specs(cfg, batch, max_len), leaf)
 
 
-def _kv_cache(g: int, batch: int, hkv: int, max_len: int, hd: int, dtype,
-              dev) -> torch.Tensor:
-    """A zero (G, B, Hkv, L, D) cache, under a sharding context this
-    rank's block of it (split on its batch, kv heads and length as the
-    rules say, a dim they do not divide left whole)."""
-    shape = (g, batch, hkv, max_len, hd)
-    if sharding.current() is None:
-        return torch.zeros(shape, dtype=dtype, device=dev)
-    sh = sharding.make_sharding(("layers", "batch", "kv_heads", "cache_seq",
-                                 None), shape=shape)
-    if sh.axes(1) != sharding.batch_axes(sh.mesh, sharding.current()[1]):
-        raise ValueError(f"a decode batch of {batch} does not split over "
-                         "the batch dims")
-    return sharding.with_sharding(
-        torch.zeros(sh.shard_shape(shape), dtype=dtype, device=dev), sh)
+def _compute_cache(cache: dict):
+    """The cache's leaves in their compute layout: the storage dims
+    (``layers``, ``ssm_state``, ...) whole. Returns ``(cache, stored)``,
+    ``stored`` the (storage leaf, compute copy) pairs to write back."""
+    stored = []
+
+    def walk(node, kind=None):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, k if k in ("attn", "mamba", "rwkv") else kind)
+                continue
+            s = sharding.sharding_of(v)
+            if s is None:
+                out[k] = v
+                continue
+            names = tuple(None if a in sharding.STORAGE_NAMES else a
+                          for a in cache_axes(kind, k, v.dim()))
+            want = sharding.make_sharding(
+                names, s.mesh, sharding.current()[1],
+                shape=s.global_shape(v.shape))
+            if all(sharding.live(s.mesh, s.axes(d))
+                   == sharding.live(s.mesh, want.axes(d))
+                   for d in range(v.dim())):
+                out[k] = v
+                continue
+            out[k] = sharding.reshard(v, want)
+            stored.append((v, out[k]))
+        return out
+
+    return walk(cache), stored
 
 
 @torch.no_grad()
@@ -700,9 +767,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, pos: int,
     b, s, dev = _ref_shape(tokens, embeddings)
     pos = int(pos)
     positions = pos + torch.arange(s, device=dev)[None].expand(b, s)
+    res = sharding.residual_layout(s, cfg.d_model)
     x = _embed_input(cfg, params, tokens, embeddings)
-    x = _run_groups(cfg, params, x, positions, cache, pos)[0]
-    return _logits(cfg, params, x), cache
+    x = _run_groups(cfg, params, x, positions, cache, pos, res)[0]
+    return _logits(cfg, params, sharding.whole(x, res)), cache
 
 
 class LM(torch.nn.Module):

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..roofline.op_cost import named_scope
 from . import sharding
 from .config import ModelConfig
 from .layers import activation
@@ -81,6 +82,7 @@ def _route(cfg: ModelConfig, logits: torch.Tensor, seq: int) -> Route:
     return Route(logits, probs, gates, experts, slot, keep)
 
 
+@named_scope("moe_ffn")
 def moe_ffn(cfg: ModelConfig, p: dict,
             x: torch.Tensor) -> tuple[torch.Tensor, MoEAux]:
     """x: (B, S, d) -> ((B, S, d), MoEAux); under a sharding context on

@@ -114,7 +114,7 @@ def _at(tree, path):
     return tree
 
 
-def _build(tree, fn):
+def build_tree(tree, fn):
     """``fn(path, leaf)`` at every leaf of a dict tree, same keys."""
     out: dict = {}
     for path, leaf in tree_paths(tree):
@@ -144,13 +144,13 @@ def init_params(spec_tree, generator: torch.Generator,
         t = _materialize(spec, generator, dev)
         return t if shardings is None else reshard(t, _at(shardings, path))
 
-    return _build(spec_tree, leaf)
+    return build_tree(spec_tree, leaf)
 
 
 def param_shardings(spec_tree, mesh, rules: Optional[ShardingRules] = None):
     """The :class:`~.sharding.NamedSharding` of every leaf on ``mesh``: its
     axes under ``rules``, a dim its mesh dims do not divide left whole."""
-    return _build(spec_tree, lambda _, spec: make_sharding(
+    return build_tree(spec_tree, lambda _, spec: make_sharding(
         spec.axes, mesh, rules, shape=spec.shape))
 
 
@@ -158,7 +158,7 @@ def abstract_params(spec_tree, mesh=None,
                     rules: Optional[ShardingRules] = None):
     """Meta tensors of the global shapes and dtypes, each carrying its
     sharding on ``mesh`` (none without one)."""
-    return _build(spec_tree, lambda _, spec: with_sharding(
+    return build_tree(spec_tree, lambda _, spec: with_sharding(
         torch.empty(spec.shape, dtype=torch_dtype(spec.dtype), device="meta"),
         make_sharding(spec.axes, mesh, rules, shape=spec.shape)
         if mesh is not None else None))
@@ -168,13 +168,13 @@ def shard_params(params, shardings):
     """Each rank's block of whole ``params`` under ``shardings`` (the
     parameters' tree of :class:`~.sharding.NamedSharding`), marked with its
     sharding; a whole block shares the parameter's storage."""
-    return _build(params, lambda path, t: reshard(t, _at(shardings, path)))
+    return build_tree(params, lambda path, t: reshard(t, _at(shardings, path)))
 
 
 def gather_params(params):
     """The whole parameters of sharded blocks (the inverse of
     :func:`shard_params`; every rank of the mesh takes part)."""
-    return _build(params, lambda _, t: reshard(t, None))
+    return build_tree(params, lambda _, t: reshard(t, None))
 
 
 def param_count(spec_tree) -> int:

@@ -15,6 +15,14 @@ steps a chunk, matmul-shaped); decode and other lengths run
 cmix_shift (B, d))``; the port's model writes it into its decode cache in
 place (``models.model.decode_step``), while :func:`time_mix` and
 :func:`channel_mix` return the new state, as the JAX functions do.
+
+Under a sharding context (``models.sharding``) the time mix runs on the
+rank's ``rwkv_heads``: ``wr``, ``wk``, ``wv`` and ``wg`` column-parallel,
+the decay (made whole from its LoRA), ``ln_x`` and ``bonus`` taken at the
+rank's heads, the wkv state and the group norm per head, ``wo``
+row-parallel and its partial sum reduced. The channel mix runs ``wk``
+column- and ``wv`` row-parallel on the ``ffn`` dims; its receptance,
+column-parallel on the heads, is gathered whole to gate the whole-d sum.
 """
 from __future__ import annotations
 
@@ -23,9 +31,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..roofline.op_cost import named_scope
+from . import sharding
 from .config import ModelConfig
 from .layers import silu
 from .params import torch_dtype
+from .sharding import logical_constraint
 
 N_MIX = 5  # r, k, v, g, w token-shift lerps
 
@@ -67,6 +78,7 @@ def _token_shift(x: torch.Tensor,
     return shifted
 
 
+@named_scope("_wkv_scan")
 def _wkv_scan(r, k, v, w, u, state):
     """The sequential wkv recurrence. r, k, v: (B, S, H, D); w: (B, S, H, D)
     decay in (0, 1); u: (H, D) bonus; state: (B, H, D, D). Returns out
@@ -82,6 +94,7 @@ def _wkv_scan(r, k, v, w, u, state):
     return torch.stack(outs, dim=1), wkv
 
 
+@named_scope("_wkv_chunked")
 def _wkv_chunked(r, k, v, w, u, state, chunk: int = WKV_CHUNK):
     """Chunked-parallel wkv, mathematically :func:`_wkv_scan`.
 
@@ -126,36 +139,55 @@ def _wkv_chunked(r, k, v, w, u, state, chunk: int = WKV_CHUNK):
 def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
              cache: Optional[RwkvCache] = None):
     """x: (B, S, d) -> (out (B, S, d), the new cache when ``cache`` is
-    given, else None)."""
+    given, else None). Under a sharding context on the rank's heads (the
+    cache's wkv state holds them too); ``out`` is then reduced and laid
+    out as the residual stream."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
-    h = d // hd
     dt = x.dtype
+    use = sharding.use
     prev = cache.shift if cache is not None else None
     xs = _token_shift(x, prev)
     delta = xs - x
 
     # Data-dependent token-shift lerp: mu + LoRA(x) per r/k/v/g/w stream.
-    base = p["mix_base"].to(dt)                            # (N_MIX, d)
-    lora = torch.tanh((x + 0.5 * delta) @ p["mix_lora_a"].to(dt))
-    lora = torch.einsum("bsr,rmd->bsmd", lora, p["mix_lora_b"].to(dt))
+    base = use(p["mix_base"], None, "embed_w")[0].to(dt)     # (N_MIX, d)
+    lora = torch.tanh((x + 0.5 * delta)
+                      @ use(p["mix_lora_a"], "embed_w", "lora")[0].to(dt))
+    lora = torch.einsum("bsr,rmd->bsmd", lora, use(
+        p["mix_lora_b"], "lora", None, "embed_w")[0].to(dt))
     mixed = x[:, :, None, :] + (base[None, None] + lora) * delta[:, :, None, :]
     xr, xk, xv, xg, xw = mixed.unbind(dim=2)
 
-    r = (xr @ p["wr"].to(dt)).reshape(b, s, h, hd)
-    k = (xk @ p["wk"].to(dt)).reshape(b, s, h, hd)
-    v = (xv @ p["wv"].to(dt)).reshape(b, s, h, hd)
-    g = silu(xg @ p["wg"].to(dt))
+    wr, (_, hax) = use(p["wr"], "embed_w", "rwkv_heads")
+    wk, (_, kax) = use(p["wk"], "embed_w", "rwkv_heads")
+    wv, (_, vax) = use(p["wv"], "embed_w", "rwkv_heads")
+    wg, (_, gax) = use(p["wg"], "embed_w", "rwkv_heads")
+    wo, (oax, _) = use(p["wo"], "rwkv_heads", "embed_w")
+    width = wr.shape[1]                     # the rank's heads · hd
+    if len({hax, kax, vax, gax, oax}) != 1 or width % hd:
+        raise NotImplementedError(
+            f"an RWKV time mix with wr/wk/wv/wg/wo split over "
+            f"{(hax, kax, vax, gax, oax)} into {width} columns: the port "
+            f"splits them over one set of mesh dims on whole heads of {hd}")
+    h = width // hd
+    lo = sharding.block_offset(d, hax)
+    r = (sharding.enter(xr, hax) @ wr.to(dt)).reshape(b, s, h, hd)
+    k = (sharding.enter(xk, hax) @ wk.to(dt)).reshape(b, s, h, hd)
+    v = (sharding.enter(xv, hax) @ wv.to(dt)).reshape(b, s, h, hd)
+    g = silu(sharding.enter(xg, hax) @ wg.to(dt))
 
     # Data-dependent decay: w_t = exp(-exp(decay_base + LoRA(xw))), the
-    # exponent clipped at +1 so the chunked form stays f32-safe.
-    dec = torch.tanh(xw @ p["decay_lora_a"].to(dt))
-    dec = dec @ p["decay_lora_b"].to(dt)
-    log_w = -torch.exp(torch.clamp(p["decay_base"].float() + dec.float(),
-                                   -8.0, 1.0))
+    # exponent clipped at +1 so the chunked form stays f32-safe; made whole
+    # and taken at the rank's heads.
+    dec = torch.tanh(xw @ use(p["decay_lora_a"], "embed_w", "lora")[0].to(dt))
+    dec = dec @ use(p["decay_lora_b"], "lora", "embed_w")[0].to(dt)
+    pre = use(p["decay_base"], "embed_w")[0].float() + dec.float()
+    pre = sharding.narrow(pre, -1, lo, width, hax)
+    log_w = -torch.exp(torch.clamp(pre, -8.0, 1.0))
     w = torch.exp(log_w).reshape(b, s, h, hd)
 
-    u = p["bonus"].float()                                 # (H, D)
+    u = use(p["bonus"], "rwkv_heads", None)[0].float()     # (H, D)
     state = (cache.wkv if cache is not None else
              torch.zeros((b, h, hd, hd), dtype=torch.float32,
                          device=x.device))
@@ -165,12 +197,14 @@ def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
         out, new_state = _wkv_scan(r, k, v, w, u, state)
 
     # Per-head group norm, then the gated output projection.
+    ln_x = sharding.narrow(use(p["ln_x"], "embed_w")[0], 0, lo, width, hax)
     mean = out.mean(-1, keepdim=True)
     var = (out - mean).square().mean(-1, keepdim=True)
     out = (out - mean) * torch.rsqrt(var + 1e-5)
-    out = out * (1.0 + p["ln_x"].float().reshape(1, 1, h, hd))
-    out = out.reshape(b, s, d).to(dt) * g
-    out = out @ p["wo"].to(dt)
+    out = out * (1.0 + ln_x.float().reshape(1, 1, h, hd))
+    out = out.reshape(b, s, width).to(dt) * g
+    out = logical_constraint(sharding.row_parallel(out, wo, hax), "batch",
+                             "res_seq", "embed_act", partial=hax).to(dt)
     new_cache = None
     if cache is not None:
         new_cache = RwkvCache(wkv=new_state, shift=x[:, -1],
@@ -181,19 +215,29 @@ def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 cache: Optional[RwkvCache] = None):
     """x: (B, S, d) -> (out (B, S, d), the cache with the new channel-mix
-    shift when ``cache`` is given, else None)."""
+    shift when ``cache`` is given, else None). Under a sharding context
+    ``wk`` is column- and ``wv`` row-parallel on the ``ffn`` dims, the sum
+    reduced before the receptance gate (``wr`` column-parallel, ``r``
+    gathered), and ``out`` laid out as the residual stream."""
     dt = x.dtype
+    use = sharding.use
     prev = cache.cmix_shift if cache is not None else None
     xs = _token_shift(x, prev)
     delta = xs - x
-    xk = x + p["mu_k"].to(dt) * delta
-    xr = x + p["mu_r"].to(dt) * delta
-    k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
-    kv = k @ p["wv"].to(dt)
+    xk = x + use(p["mu_k"], "embed_w")[0].to(dt) * delta
+    xr = x + use(p["mu_r"], "embed_w")[0].to(dt) * delta
+    wk, (_, fax) = use(p["wk"], "embed_w", "ffn")
+    wv, _ = use(p["wv"], "ffn", "embed_w")
+    k = torch.square(torch.relu(sharding.enter(xk, fax) @ wk.to(dt)))
+    kv = sharding.reduce(sharding.row_parallel(k, wv, fax), fax).to(dt)
     one = torch.tensor(1.0, dtype=dt, device=x.device)
-    # jax.nn.sigmoid, op by op in x's dtype as XLA expands it.
-    r = one / (one + torch.exp(-(xr @ p["wr"].to(dt))))
+    # jax.nn.sigmoid, op by op in x's dtype as XLA expands it; on the
+    # rank's heads, then gathered whole to gate the whole-d sum.
+    wr, (_, rax) = use(p["wr"], "embed_w", "rwkv_heads")
+    r = one / (one + torch.exp(-(sharding.enter(xr, rax) @ wr.to(dt))))
+    r = sharding.gather(r, -1, rax)
     new_cache = None
     if cache is not None:
         new_cache = cache._replace(cmix_shift=x[:, -1])
-    return r * kv, new_cache
+    out = logical_constraint(r * kv, "batch", "res_seq", "embed_act")
+    return out, new_cache

@@ -177,6 +177,12 @@ class NamedSharding:
         return tuple(_block_slice(self.mesh, self.axes(d), n)
                      for d, n in enumerate(shape))
 
+    def with_entry(self, dim: int, entry: Axis) -> "NamedSharding":
+        """This sharding with dim ``dim``'s entry replaced."""
+        spec = list(self.spec) + [None] * (dim + 1 - len(self.spec))
+        spec[dim] = entry
+        return NamedSharding(self.mesh, PartitionSpec(*spec))
+
     def drop_leading(self) -> "NamedSharding":
         """The sharding of one index of the leading dim (a layer group),
         which must not be sharded."""
@@ -277,37 +283,68 @@ def live_batch_axes() -> tuple:
     return live(ctx[0], batch_axes(*ctx))
 
 
-#: Logical names the port's sharded model keeps on their mesh dims during
-#: compute (tensor, expert and vocab parallelism).
-TP_NAMES = ("vocab", "heads", "kv_heads", "ffn", "experts", "ssm_inner",
-            "rwkv_heads")
-#: Rules the port's sharded model runs only at their defaults (None).
-_UNSHARDED_NAMES = ("layers", "seq", "res_seq", "embed_act", "head_dim",
-                    "ssm_state", "conv", "capacity", "dt_rank", "lora")
+#: Small weight dims that the rules may split for storage only:
+#: ``params.shard_params`` splits them as the spec says, and :func:`use`
+#: gathers them whole for compute (the backward keeps the rank's block), so
+#: the arithmetic is that of the whole weight.
+STORAGE_NAMES = ("layers", "head_dim", "ssm_state", "conv", "dt_rank",
+                 "lora")
+#: Activation dims that compute keeps whole; ``seq`` shows only in the
+#: layout of the logits that the forward returns.
+WHOLE_NAMES = ("seq", "capacity")
+#: The residual stream's layout (sequence parallelism): each block's output
+#: is reduced and cut to the rank's block, and gathered whole again at the
+#: next block's entry.
+RESIDUAL = ("batch", "res_seq", "embed_act")
 
 
 def check_rules(mesh, rules: ShardingRules) -> None:
-    """The rules the port's sharded model runs: the FSDP ``embed_w`` dims
-    within the batch dims, the tensor-parallel names off them, and no
-    sequence parallelism (ROADMAP queue 1 item 25)."""
+    """Refuse the rules the port's design cannot run: ``embed_w`` (the
+    FSDP dims, gathered over the data dims only) outside the batch dims,
+    and any other name on a batch dim (the port splits activations on the
+    batch alone over those dims)."""
     names = tuple(mesh.mesh_dim_names)
     bat = set(batch_axes(mesh, rules))
-    for name in _UNSHARDED_NAMES:
-        if live(mesh, entry_axes(rules.spec(name, mesh_axes=names)[0])):
-            raise NotImplementedError(
-                f"ShardingRules.{name}={getattr(rules, name)!r}: the port's "
-                "sharded LM keeps this dim whole (sequence parallelism and "
-                "the other layouts are ROADMAP queue 1 item 25)")
     if not set(entry_axes(rules.spec("embed_w", mesh_axes=names)[0])) <= bat:
         raise NotImplementedError(
             f"ShardingRules.embed_w={rules.embed_w!r} outside the batch dims "
             f"{sorted(bat)}: the port gathers embed_w over the data dims only")
-    for name in TP_NAMES:
-        if set(entry_axes(rules.spec(name, mesh_axes=names)[0])) & bat:
+    for field in dataclasses.fields(rules):
+        name = field.name
+        if name in ("batch", "embed_w"):
+            continue
+        shared = set(entry_axes(rules.spec(name, mesh_axes=names)[0])) & bat
+        if live(mesh, tuple(shared)):
             raise NotImplementedError(
                 f"ShardingRules.{name}={getattr(rules, name)!r} shares a "
-                f"batch dim {sorted(bat)}: the port keeps tensor and batch "
-                "parallelism on separate mesh dims")
+                f"batch dim {sorted(shared)}: the port splits only the batch "
+                "over the batch dims, and every other dim over the rest")
+
+
+def residual_layout(seq: int, d: int) -> tuple:
+    """The live mesh dims that split the residual stream's (batch, seq, d)
+    under the active context: () for the batch (already the rank's rows),
+    then the ``res_seq`` and ``embed_act`` dims where they divide ``seq``
+    and ``d`` (all () without a context)."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return ((), (), ())
+    mesh, rules = ctx
+    spec = rules.spec(*RESIDUAL, mesh_axes=tuple(mesh.mesh_dim_names))
+    out = [()]
+    for n, entry in zip((seq, d), spec[1:]):
+        axes = live(mesh, entry_axes(entry))
+        out.append(axes if axes and n % axes_size(mesh, axes) == 0 else ())
+    return tuple(out)
+
+
+def whole(x: torch.Tensor, layout: tuple) -> torch.Tensor:
+    """``x`` gathered whole on every dim that ``layout`` splits (the
+    backward keeps the rank's block of the gradient)."""
+    for d, axes in enumerate(layout):
+        if axes:
+            x = gather(x, d, axes)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -543,9 +580,11 @@ def use(w: torch.Tensor, *names: Optional[str]):
     """A weight block in its compute layout under the active context:
     ``(tensor, axes)``, ``axes[d]`` the live mesh dims that split dim d.
     The compute layout is the rules' spec of ``names`` fitted to the
-    global shape, without the batch dims: dims sharded over the data dims
-    (FSDP) are gathered, with a reduce-scatter backward; a tensor-parallel
-    dim the weight holds otherwise than the rules say is gathered or split.
+    global shape, without the batch dims and the :data:`STORAGE_NAMES`:
+    dims sharded over the data dims (FSDP) are gathered, with a
+    reduce-scatter backward; a storage dim is gathered, its backward
+    keeping the rank's block; a tensor-parallel dim the weight holds
+    otherwise than the rules say is gathered or split.
     Without a context: ``w`` as it is, no dim split.
     """
     ctx = current()
@@ -555,15 +594,15 @@ def use(w: torch.Tensor, *names: Optional[str]):
     cur = layout(w)
     s = sharding_of(w)
     shape = s.global_shape(w.shape) if s is not None else tuple(w.shape)
-    target = make_sharding(names, mesh, rules, shape=shape)
+    target = make_sharding(tuple(None if n in STORAGE_NAMES else n
+                                 for n in names), mesh, rules, shape=shape)
     bat = set(batch_axes(mesh, rules))
-    out = []
-    for d in range(w.dim()):
-        want = tuple(a for a in live(mesh, target.axes(d)) if a not in bat)
+    out = tuple(tuple(a for a in live(mesh, target.axes(d)) if a not in bat)
+                for d in range(w.dim()))
+    moved = [d for d in range(w.dim()) if cur[d] != out[d]]
+    # Every gather before any split: a mesh dim may move between dims.
+    for d in moved:
         have = cur[d]
-        if have == want:
-            out.append(want)
-            continue
         fsdp = tuple(a for a in have if a in bat)
         if fsdp:
             if len(fsdp) != len(have):
@@ -572,10 +611,10 @@ def use(w: torch.Tensor, *names: Optional[str]):
             w = gather(w, d, fsdp, mesh, sum_grad=True)
         elif have:
             w = gather(w, d, have, mesh)
-        if want:
-            w = split(w, d, want, mesh)
-        out.append(want)
-    return w, tuple(out)
+    for d in moved:
+        if out[d]:
+            w = split(w, d, out[d], mesh)
+    return w, out
 
 
 def local_batch(x: torch.Tensor) -> torch.Tensor:
@@ -597,7 +636,7 @@ def local_batch(x: torch.Tensor) -> torch.Tensor:
 
 def logical_constraint(x: torch.Tensor, *names: Optional[str],
                        layout: Optional[tuple] = None,
-                       partial=()) -> torch.Tensor:
+                       partial=(), output: bool = False) -> torch.Tensor:
     """Make x's block match the rules' spec of ``names`` under the active
     context; the identity without one.
 
@@ -605,17 +644,22 @@ def logical_constraint(x: torch.Tensor, *names: Optional[str],
     replicated), ``partial`` the mesh dims over which x is a pending
     partial sum. A dim named ``"batch"`` is already split (the model splits
     the batch at its entry). In order: the partial sum is reduced, then
-    each other dim is gathered or split to the spec (a dim the spec's dims
-    do not divide stays whole, as ``make_sharding`` leaves it).
+    the other dims are gathered, then split to the spec (a dim the spec's
+    dims do not divide stays whole, as ``make_sharding`` leaves it). The
+    :data:`WHOLE_NAMES` stand for None (compute keeps them whole) but in
+    the model's ``output``, the logits.
     """
     ctx = _CTX.get()
     if ctx is None:
         return x
     mesh, rules = ctx
     names = tuple(names[:x.dim()]) + (None,) * (x.dim() - len(names))
+    if not output:
+        names = tuple(None if n in WHOLE_NAMES else n for n in names)
     cur = tuple(layout) if layout is not None else ((),) * x.dim()
     x = reduce(x, partial, mesh)
     spec = rules.spec(*names, mesh_axes=tuple(mesh.mesh_dim_names))
+    moves = []
     for d, name in enumerate(names):
         if name == "batch":
             continue
@@ -627,10 +671,15 @@ def logical_constraint(x: torch.Tensor, *names: Optional[str],
         if want and size % axes_size(mesh, want):
             want = ()
         if have != want:
-            if have:
-                x = gather(x, d, have, mesh)
-            if want:
-                x = split(x, d, want, mesh)
+            moves.append((d, have, want))
+    # Every gather before any split: a dim split over a mesh dim that
+    # another dim is gathered over would gather blocks of different rows.
+    for d, have, _ in moves:
+        if have:
+            x = gather(x, d, have, mesh)
+    for d, _, want in moves:
+        if want:
+            x = split(x, d, want, mesh)
     return x
 
 
@@ -641,15 +690,17 @@ def reshard(t: torch.Tensor, dst: Optional[NamedSharding]) -> torch.Tensor:
     src = sharding_of(t)
     ref = dst if dst is not None else src
     out = t.detach()
-    for d in range(t.dim()):
-        if ref is None:
-            break
+    moves = []
+    for d in range(t.dim() if ref is not None else 0):
         have = live(ref.mesh, src.axes(d)) if src is not None else ()
         want = live(ref.mesh, dst.axes(d)) if dst is not None else ()
-        if have == want:
-            continue
+        if have != want:
+            moves.append((d, have, want))
+    # Every gather before any cut, as in logical_constraint.
+    for d, have, _ in moves:
         if have:
             out = _gather_raw(out, d, ref.mesh, have)
+    for d, _, want in moves:
         if want:
             out = _narrow_block(out, d, ref.mesh, want)
     if (out.untyped_storage().data_ptr() == t.untyped_storage().data_ptr()

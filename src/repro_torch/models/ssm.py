@@ -11,6 +11,13 @@ Decode carries ``(conv (B, d_inner, W−1), ssm (B, d_inner, N))``, O(1) a
 token. The port's model writes these states into its decode cache in place
 (``models.model.decode_step``); :func:`mamba_block` itself returns the new
 state, as the JAX function does.
+
+Under a sharding context (``models.sharding``) the block runs on the
+rank's ``ssm_inner`` channels: ``in_proj`` column-parallel on its block of
+each half (x and z), the conv, the scan and the skip per channel,
+``x_proj``'s partial sum reduced before the split into Δ, B and C,
+``dt_proj`` column- and ``out_proj`` row-parallel; the decode state holds
+the rank's channels.
 """
 from __future__ import annotations
 
@@ -20,9 +27,12 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..roofline.op_cost import named_scope
+from . import sharding
 from .config import ModelConfig
 from .layers import silu
 from .params import torch_dtype
+from .sharding import logical_constraint
 
 #: Largest |Σ log a| a chunk's cumulative product may span. The scan
 #: writes h_t = p_t·(h_0 + Σ_τ u_τ / p_τ) with p_t = exp(Σ_{s≤t} log a_s),
@@ -63,12 +73,15 @@ def _scan_chunk(log_a: torch.Tensor, u: torch.Tensor, h_in: torch.Tensor):
     return h, h[:, -1]
 
 
-def _piece_len(log_a: torch.Tensor, chunk: int) -> int:
+def _piece_len(log_a: torch.Tensor, chunk: int, axes=()) -> int:
     """The longest of chunk, chunk/2, … (while even), then 1, over which
-    no piece's Σ log a passes −:data:`SCAN_LOG_SPAN` (one host read)."""
+    no piece's Σ log a passes −:data:`SCAN_LOG_SPAN` (one host read). On
+    channels split over ``axes`` the spans are the minimum over the ranks,
+    so that every rank scans in the whole block's pieces. A meta tensor has
+    no value to read: it takes ``chunk``."""
     b, s, d, n = log_a.shape
-    if chunk == 1:
-        return 1
+    if chunk == 1 or log_a.is_meta:
+        return chunk
     lengths = [chunk]
     while lengths[-1] % 2 == 0:
         lengths.append(lengths[-1] // 2)
@@ -76,16 +89,18 @@ def _piece_len(log_a: torch.Tensor, chunk: int) -> int:
         lengths.append(1)
     spans = torch.stack([log_a.reshape(b, s // k, k, d, n).sum(2).amin()
                          for k in lengths[:-1]])
+    spans = -sharding.all_max(-spans, axes)
     fits = (spans >= -SCAN_LOG_SPAN).tolist()
     return next((k for k, ok in zip(lengths, fits) if ok), 1)
 
 
 def _ssm_scan_chunked(a_disc: torch.Tensor, bx: torch.Tensor, chunk: int,
-                      h0: Optional[torch.Tensor] = None):
+                      h0: Optional[torch.Tensor] = None, axes=()):
     """h_t = a_t · h_{t−1} + bx_t over the sequence axis 1.
 
-    a_disc, bx: (B, S, d, N). Returns h (B, S, d, N) float32 and h_last.
-    Raises unless S is a multiple of ``min(chunk, S)``."""
+    a_disc, bx: (B, S, d, N), the channels d split over ``axes``. Returns h
+    (B, S, d, N) float32 and h_last. Raises unless S is a multiple of
+    ``min(chunk, S)``."""
     b, s, d, n = a_disc.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -93,7 +108,7 @@ def _ssm_scan_chunked(a_disc: torch.Tensor, bx: torch.Tensor, chunk: int,
     h = (torch.zeros((b, d, n), dtype=torch.float32, device=a_disc.device)
          if h0 is None else h0.float())
     log_a = torch.log(torch.clamp(a_disc.float(), min=1e-37))
-    piece = _piece_len(log_a, chunk)
+    piece = _piece_len(log_a, chunk, axes)
     outs = []
     for c0 in range(0, s, piece):
         hs, h = _scan_chunk(log_a[:, c0:c0 + piece],
@@ -118,26 +133,51 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y.transpose(1, 2), new_state
 
 
+def _in_proj(w: torch.Tensor, di: int, axes) -> torch.Tensor:
+    """``in_proj`` (d, 2·di) in its compute layout: whole without a split,
+    else this rank's block of each half, [x block, z block]. Its storage
+    block is a slice of the concatenated [x; z], so it is gathered first."""
+    w, _ = sharding.use(w, "embed_w", None)
+    if not axes:
+        return w
+    n = di // sharding.axes_size(sharding.current()[0], axes)
+    halves = sharding.narrow(w.unflatten(1, (2, di)), 2,
+                             sharding.block_offset(di, axes), n, axes)
+    return halves.flatten(1)
+
+
+@named_scope("mamba_block")
 def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 cache: Optional[MambaCache] = None):
     """x: (B, S, d_model) -> (out (B, S, d_model), the new cache when
-    ``cache`` is given (decode), else None)."""
+    ``cache`` is given (decode), else None). Under a sharding context on
+    the rank's ``ssm_inner`` channels (the cache holds them too); ``out``
+    is then reduced and laid out as the residual stream."""
     s = x.shape[1]
     n = cfg.ssm_state_dim
     r = cfg.resolved_dt_rank
     decode = cache is not None
+    dt_ = x.dtype
 
-    xz = x @ p["in_proj"].to(x.dtype)
+    conv_w, (iax, _) = sharding.use(p["conv_w"], "ssm_inner", "conv")
+    xz = sharding.enter(x, iax) @ _in_proj(p["in_proj"], cfg.d_inner,
+                                            iax).to(dt_)
     xin, z = xz.chunk(2, dim=-1)
-    y_conv, conv_state = _causal_conv(xin, p["conv_w"],
+    y_conv, conv_state = _causal_conv(xin, conv_w,
                                       prev=cache.conv if decode else None)
-    xin = silu(y_conv + p["conv_b"].to(x.dtype))
+    xin = silu(y_conv + sharding.use(p["conv_b"], "ssm_inner")[0].to(dt_))
 
-    dbc = xin @ p["x_proj"].to(x.dtype)
+    # x_proj contracts over the channels: its partial sum is reduced, and
+    # Δ, B and C enter the channel-parallel region whole.
+    x_proj, _ = sharding.use(p["x_proj"], "ssm_inner", None)
+    dbc = sharding.reduce(sharding.row_parallel(xin, x_proj, iax), iax)
+    dbc = sharding.enter(dbc.to(dt_), iax)
     dt, bmat, cmat = torch.split(dbc, [r, n, n], dim=-1)
-    dt = dt @ p["dt_proj"].to(x.dtype)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())                 # (di, N)
+    dt = dt @ sharding.use(p["dt_proj"], "dt_rank", "ssm_inner")[0].to(dt_)
+    dt = F.softplus(dt.float()
+                    + sharding.use(p["dt_bias"], "ssm_inner")[0].float())
+    a = -torch.exp(sharding.use(p["a_log"], "ssm_inner",
+                                "ssm_state")[0].float())   # (di, N)
     a_disc = torch.exp(dt[..., None] * a)              # (B, S, di, N)
     bx = (dt[..., None] * bmat.float()[:, :, None, :]
           * xin.float()[..., None])
@@ -148,13 +188,17 @@ def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
         new_ssm = h
     else:
         hs, h_last = _ssm_scan_chunked(a_disc, bx, cfg.ssm_chunk,
-                                       h0=cache.ssm if decode else None)
+                                       h0=cache.ssm if decode else None,
+                                       axes=iax)
         y = torch.einsum("bsdn,bsn->bsd", hs, cmat.float())
         new_ssm = h_last
 
-    y = y + xin.float() * p["d_skip"].float()
-    y = y.to(x.dtype) * silu(z)
-    out = y @ p["out_proj"].to(x.dtype)
+    y = y + xin.float() * sharding.use(p["d_skip"], "ssm_inner")[0].float()
+    y = y.to(dt_) * silu(z)
+    out_proj, _ = sharding.use(p["out_proj"], "ssm_inner", "embed_w")
+    out = sharding.row_parallel(y, out_proj, iax)
+    out = logical_constraint(out, "batch", "res_seq", "embed_act",
+                             partial=iax).to(dt_)
     if decode:
         return out, MambaCache(conv=conv_state, ssm=new_ssm)
     return out, None

@@ -17,10 +17,11 @@ Sharded parameters (``models.shard_params``) get moments of the same
 blocks, marked with the same shardings; the update is elementwise on the
 blocks, and :func:`global_norm` sums each leaf's squares over the mesh
 dims it is split on (a replicated leaf is counted once). An int8 moment
-is quantized on the block: where the last dim is split, the block's last
-dim must be a whole number of 256-element quantization blocks, so that
-the codes are those of the whole tensor; otherwise it raises, naming the
-leaf.
+is quantized as the whole tensor's: where the parameter's last dim is
+split and its block is not a whole number of 256-element quantization
+blocks, the moment keeps that dim whole (replicated over its mesh dims),
+and the update gathers the gradient's last dim and keeps the parameter's
+block of the step.
 """
 from __future__ import annotations
 
@@ -129,18 +130,35 @@ def _shape(p: torch.Tensor) -> tuple:
     return tuple(p.shape) if p.dim() else (1,)
 
 
-def _check_blocks(path, p: torch.Tensor) -> None:
-    """An int8 moment of a block split on its last dim quantizes as the
-    whole tensor only if the block holds whole quantization blocks."""
+def _whole_last(p: torch.Tensor) -> tuple:
+    """The live mesh dims of a block's last dim when an int8 moment must
+    keep it whole (the block is not a whole number of quantization blocks),
+    else ()."""
     s = sharding.sharding_of(p)
-    if (s is not None and p.dim() and sharding.live(s.mesh, s.axes(p.dim() - 1))
-            and p.shape[-1] % QBLOCK):
+    if s is None or not p.dim():
+        return ()
+    axes = sharding.live(s.mesh, s.axes(p.dim() - 1))
+    return axes if axes and p.shape[-1] % QBLOCK else ()
+
+
+def _moment_sharding(p: torch.Tensor, dtype: str):
+    s = sharding.sharding_of(p)
+    if dtype == "int8" and _whole_last(p):
+        return s.with_entry(p.dim() - 1, None)
+    return s
+
+
+def _check_moment(path, p: torch.Tensor, q: QTensor, last: int) -> None:
+    """An int8 moment must quantize the block's rows and either its last
+    dim or the whole tensor's."""
+    if tuple(q.codes.shape[:-1]) != tuple(_shape(p)[:-1]) or \
+            q.orig_last != last:
         raise ValueError(
-            f"int8 moments of {'/'.join(path)}: its block's last dim "
-            f"{p.shape[-1]} (split over {s.axes(p.dim() - 1)}) is not a "
-            f"multiple of the {QBLOCK}-element quantization block, so the "
-            "blocks would quantize otherwise than the whole tensor; use "
-            "float32 or bfloat16 moments, or leave that dim whole")
+            f"int8 moments of {'/'.join(path)}: codes of shape "
+            f"{tuple(q.codes.shape)} for a last dim of {q.orig_last}, the "
+            f"parameter's block is {tuple(p.shape)} (last dim {last} in "
+            f"{QBLOCK}-element quantization blocks): made for another "
+            "layout; make the state with adamw_init on these blocks")
 
 
 def _mark(moment, s):
@@ -157,15 +175,18 @@ def _mark(moment, s):
 def adamw_init(params: dict, config: AdamWConfig) -> AdamWState:
     """Zero moments at every parameter's position (shape (1,) for a 0-d
     one), in ``config.state_dtype``, on the parameters' devices, with the
-    parameters' shardings."""
-    if config.state_dtype == "int8":
-        for path, p in tree_paths(params):
-            _check_blocks(path, p)
+    parameters' shardings (an int8 moment of a block split on its last dim
+    into part of a quantization block: that dim whole)."""
 
     def zero_like(p):
-        return _mark(_encode(torch.zeros(_shape(p), dtype=torch.float32,
+        s = _moment_sharding(p, config.state_dtype)
+        shape = _shape(p)
+        if s is not sharding.sharding_of(p):
+            shape = shape[:-1] + (sharding.sharding_of(p).global_shape(
+                p.shape)[-1],)
+        return _mark(_encode(torch.zeros(shape, dtype=torch.float32,
                                          device=p.device), config.state_dtype),
-                     sharding.sharding_of(p))
+                     s)
 
     leaves = [p for _, p in tree_paths(params)]
     dev = leaves[0].device if leaves else None
@@ -220,9 +241,22 @@ def adamw_update(params: dict, grads: dict, state: AdamWState,
         m, v = _at(state.m, path), _at(state.v, path)
         shape = _shape(p)
         g32 = g.float().reshape(shape) * clip
+        axes = _whole_last(p) if dtype == "int8" else ()
+        if dtype == "int8":
+            last = shape[-1] * (sharding.axes_size(
+                sharding.sharding_of(p).mesh, axes) if axes else 1)
+            _check_moment(path, p, m, last)
+        if axes:   # the moments hold the whole last dim
+            mesh = sharding.sharding_of(p).mesh
+            g32 = sharding._gather_raw(g32, -1 % g32.dim(), mesh, axes)
+            shape = tuple(g32.shape)
         m32 = b1 * _decode(m, shape, dtype) + (1 - b1) * g32
         v32 = b2 * _decode(v, shape, dtype) + (1 - b2) * g32 * g32
         update = (m32 / bc1) / (torch.sqrt(v32 / bc2) + config.eps)
+        if axes:
+            update = sharding._narrow_block(update, update.dim() - 1, mesh,
+                                            axes)
+            shape = _shape(p)
         if p.dim() >= 2:  # decoupled weight decay on matrices only
             update = update + config.weight_decay * p.float()
         new_p = p.float().reshape(shape) - lr * update

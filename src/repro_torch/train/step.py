@@ -55,13 +55,20 @@ def lm_loss(cfg: ModelConfig, params: dict,
     out = forward(cfg, params, **kwargs)
     logits = out.logits.float()
     labels = sharding.local_batch(batch["labels"])
+    _, sax, vax = sharding.layout(out.logits)
+    if sax:   # logits split on the sequence: this rank's labels of it
+        mesh = sharding.current()[0]
+        n = logits.shape[1]
+        labels = labels[:, :n * sharding.axes_size(mesh, sax)]
+        labels = labels.narrow(1, sharding.block_offset(labels.shape[1], sax),
+                               n)
     if labels.shape[1] != logits.shape[1]:  # next-token on same-length stream
         logits = logits[:, :labels.shape[1]]
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
-    lse, picked = _vocab_terms(logits, safe, sharding.layout(out.logits)[-1])
+    lse, picked = _vocab_terms(logits, safe, vax)
     token_ce = (lse - picked) * valid.float()
-    bax = sharding.live_batch_axes()
+    bax = sharding.live_batch_axes() + sax
     denom = torch.clamp(sharding.reduce(valid.sum(), bax), min=1)
     ce = sharding.reduce(token_ce.sum() / denom, bax)
     loss = ce + out.aux_loss

@@ -21,9 +21,9 @@ JAX's. Bounds:
   amplifies) and each within 0.05·lr (Adam moves an element whose
   gradient is near ``eps`` by up to ~1e-2·lr when the sharded sums round a
   1e-9 gradient otherwise);
-* the Mamba and RWKV families (rwkv6, jamba) data-parallel on (4, 1) in
-  f32: within 1e-4 of max |logit| of JAX's forward (the families' f32
-  bound, ``tests/test_torch_lm_families.py``);
+* the Mamba and RWKV families (rwkv6, jamba) data-parallel on (4, 1) and
+  split over model on (2, 2) in f32: within 1e-4 of max |logit| of JAX's
+  forward (the families' f32 bound, ``tests/test_torch_lm_families.py``);
 * the checkpoint: saved on (2, 2) and restored on (1, 4) exactly, with one
   whole leaf at most alive at a time while the blocks are gathered.
 """
@@ -215,8 +215,9 @@ def test_recurrent_families(runs, arch):
     """Data-parallel on (4, 1): each rank's rows of the logits within the
     families' f32 bound (1e-4 of max |logit|, ``test_torch_lm_families``)
     of JAX's unsharded forward on the same tokens, and within 1e-5 of the
-    port's own unsharded forward; a mesh that splits their own dims raises,
-    naming the ROADMAP item."""
+    port's own unsharded forward; split over model on (2, 2) (the
+    ``ssm_inner``, ``rwkv_heads`` and ``ffn`` dims), each rank's block
+    within the same bound of JAX's."""
     ranks, ref = runs
     want = ref["recurrent"][arch]
     scale = float(np.abs(want).max())
@@ -226,7 +227,9 @@ def test_recurrent_families(runs, arch):
         err = float(np.abs(blk.numpy() - want[sl]).max())
         assert err <= 1e-4 * scale, (err, scale)
         assert got["plain"] <= 1e-5
-        assert "item 25" in rank["errors"][arch]
+        blk, sl = got["split"]
+        err = float(np.abs(blk.numpy() - want[sl]).max())
+        assert err <= 1e-4 * scale, (err, scale)
     assert sum(r["recurrent"][arch]["block"][0].numel() for r in ranks) == \
         want.size
 
@@ -246,7 +249,7 @@ def test_meshes(runs):
 
 @pytest.mark.parametrize("case,match", [
     ("tp3", "not divisible"), ("production", "needs 256 ranks"),
-    ("int8", "quantization block"), ("res_seq", "item 25"),
+    ("int8", "quantization block"), ("res_seq", "shares a batch dim"),
     ("device", "device type"), ("no_context", "use_sharding")])
 def test_errors(runs, case, match):
     for rank in runs[0]:

@@ -361,7 +361,7 @@ def lm_sharded_world(jparams: dict, run_dir: str) -> dict:
                                     shard_params, sharding, use_sharding)
     from repro_torch.models.params import tree_paths
     from repro_torch.optim import AdamWConfig, adamw_init
-    from repro_torch.optim.adamw import global_norm
+    from repro_torch.optim.adamw import adamw_update, global_norm
     from repro_torch.optim.schedule import linear_warmup_cosine
     from repro_torch.train import step as tstep
 
@@ -478,12 +478,15 @@ def lm_sharded_world(jparams: dict, run_dir: str) -> dict:
         out["norm"][shape] = (float(global_norm(blocks)),
                               float(global_norm(whole)),
                               M.COLLECTIVES.total)
+    # int8 moments made for the whole parameters, used on (2, 2) blocks.
     int8 = AdamWConfig(state_dtype="int8")
-    out["errors"]["int8"] = _error(lambda: adamw_init(
-        sharded("qwen2-7b", "float32", meshes[(2, 2)])[1], int8))
+    unsplit = interop.lm_params_from_numpy(jparams["qwen2-7b"], "cpu")
+    blocks = sharded("qwen2-7b", "float32", meshes[(2, 2)])[1]
+    out["errors"]["int8"] = _error(lambda: adamw_update(
+        blocks, blocks, adamw_init(unsplit, int8), int8))
 
-    # The recurrent families: data-parallel on (4, 1), refused where the
-    # mesh splits their own dims.
+    # The recurrent families: data-parallel on (4, 1), and split over
+    # model on (2, 2).
     m41 = make_host_mesh(model_parallel=1, device_type="cpu")
     rtoks = torch.from_numpy(lm_tokens(512, (LM_B, RECURRENT_S))).long()
     out["recurrent"] = {}
@@ -501,11 +504,11 @@ def lm_sharded_world(jparams: dict, run_dir: str) -> dict:
                                   "plain": float((plain[sl] - blk).abs().max())}
         split = shard_params(full, param_shardings(model_specs(cfg),
                                                    meshes[(2, 2)]))
-        with use_sharding(meshes[(2, 2)]):
-            out["errors"][arch] = _error_nie(lambda: forward(
-                cfg, split, tokens=rtoks))
+        with use_sharding(meshes[(2, 2)]), torch.no_grad():
+            out["recurrent"][arch]["split"] = _block(forward(
+                cfg, split, tokens=rtoks).logits)
     out["errors"]["res_seq"] = _error_nie(lambda: _under(
-        meshes[(2, 2)], ShardingRules(res_seq="model"),
+        meshes[(2, 2)], ShardingRules(res_seq="data"),
         lambda: forward(*sharded("qwen2-7b", "float32", meshes[(2, 2)]),
                         tokens=toks)))
     qcfg, qparams = sharded("qwen2-7b", "float32", meshes[(2, 2)])
@@ -573,3 +576,333 @@ def _error_nie(fn) -> str:
     except NotImplementedError as e:
         return str(e)
     return "no error"
+
+
+# ---------------------------------------------------------------------------
+# The Mamba and RWKV blocks split over model, sequence parallelism
+# (tests/test_torch_lm_sp.py)
+# ---------------------------------------------------------------------------
+
+SP_ARCHS = ("qwen2-7b", "granite-moe-1b-a400m", "jamba-1.5-large-398b")
+SP_RULES = {"res_seq": {"res_seq": "model"},
+            "embed_act": {"embed_act": "model"}}
+SPLIT_ARCHS = ("rwkv6-1.6b", "jamba-1.5-large-398b")
+SPLIT_S = 16
+SPLIT_DECODE = 16
+STORAGE_DECODE = 4
+#: The storage-only layouts: small weight dims split for storage, gathered
+#: whole for compute (the layer groups; the other small dims, with the
+#: tensor-parallel names off model so that the spec gives it to them).
+STORAGE_RULES = {
+    "layers": {"layers": "model"},
+    "small": {"heads": None, "kv_heads": None, "ssm_inner": None,
+              "rwkv_heads": None, "lora": "model", "ssm_state": "model",
+              "conv": "model", "dt_rank": "model", "head_dim": "model"}}
+#: The Mamba channel planted in rank 1's block (of 2) with a span that
+#: forces a shorter scan piece there only.
+PLANT_CHANNEL = -1
+
+
+def planted_jamba(jparams: dict) -> dict:
+    """jamba's parameters with one Mamba channel whose decay spans more
+    than ``ssm.SCAN_LOG_SPAN`` over a chunk: the last channel of the first
+    Mamba block of every group (A = -1e4 on every state)."""
+    out = {k: v for k, v in jparams.items()}
+    groups = dict(out["groups"])
+    b0 = dict(groups["b0"])
+    mixer = dict(b0["mixer"])
+    a_log = np.array(mixer["a_log"], dtype=np.float32, copy=True)
+    a_log[:, PLANT_CHANNEL, :] = np.log(1e4)
+    mixer["a_log"] = a_log.astype(np.asarray(mixer["a_log"]).dtype)
+    b0["mixer"] = mixer
+    groups["b0"] = b0
+    out["groups"] = groups
+    return out
+
+
+def _pieces(fn):
+    """Run ``fn`` recording every piece length the Mamba scan picks."""
+    from repro_torch.models import ssm
+
+    seen = []
+    orig = ssm._piece_len
+
+    def spy(*a, **k):
+        seen.append(orig(*a, **k))
+        return seen[-1]
+
+    ssm._piece_len = spy
+    try:
+        out = fn()
+    finally:
+        ssm._piece_len = orig
+    return out, seen
+
+
+def shard_train_state(whole, shardings, opt):
+    """A whole ``TrainState`` as this rank's blocks: the parameters by
+    ``shardings``, each moment (a tensor or int8 ``QTensor``) cut to the
+    blocks that ``adamw_init`` makes for them."""
+    from repro_torch.models import sharding, shard_params
+    from repro_torch.optim import QTensor, adamw_init
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.step import TrainState
+
+    params = shard_params(whole.params, shardings)
+    like = adamw_init(params, opt)
+
+    def cut(w, blk):
+        if isinstance(w, QTensor):
+            s = sharding.sharding_of(blk.codes)
+            return QTensor(
+                codes=sharding.with_sharding(
+                    w.codes[s.block(w.codes.shape)].clone(), s),
+                scales=sharding.with_sharding(
+                    w.scales[s.block(w.scales.shape)].clone(), s),
+                orig_last=blk.orig_last)
+        s = sharding.sharding_of(blk)
+        return sharding.with_sharding(w[s.block(w.shape)].clone(), s)
+
+    def walk(w, b):
+        if isinstance(b, dict):
+            return {k: walk(w[k], b[k]) for k in b}
+        return cut(w, b)
+
+    opt_state = AdamWState(step=whole.opt_state.step,
+                           m=walk(whole.opt_state.m, like.m),
+                           v=walk(whole.opt_state.v, like.v))
+    return TrainState(params=params, opt_state=opt_state, step=whole.step)
+
+
+def lm_sp_world(jparams: dict, jstates: list) -> dict:
+    """Every case of ``tests/test_torch_lm_sp.py`` on a world of 4, from
+    JAX's parameters (``jparams``: arch -> numpy tree): rwkv6 and jamba
+    split over model on (2, 2) and (1, 4), forward and 16 decode steps
+    with split caches; the planted scan piece; qwen2, granite and jamba
+    under res_seq / embed_act against the same mesh without the rule; the
+    storage layouts; jamba's dry-run train hint (embed_act, int8 moments)
+    for three steps; the refusals."""
+    from repro_torch import interop
+    from repro_torch.distributed import mesh as M
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import (ShardingRules, decode_step, forward,
+                                    init_decode_cache, model_specs,
+                                    param_shardings, shard_params, sharding,
+                                    use_sharding)
+    from repro_torch.models.params import tree_paths
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    from repro_torch.train import step as tstep
+
+    meshes = {shape: make_host_mesh(model_parallel=shape[1],
+                                    device_type="cpu")
+              for shape in LM_MESHES}
+
+    def sharded(arch, mesh, rules, params=None):
+        cfg = lm_cfg(arch, "float32")
+        full = interop.lm_params_from_numpy(
+            jparams[arch] if params is None else params, "cpu")
+        return cfg, shard_params(full, param_shardings(model_specs(cfg),
+                                                       mesh, rules))
+
+    out = {"split": {}, "decode": {}, "sp": {}, "storage": {}}
+    rtoks = torch.from_numpy(lm_tokens(512, (LM_B, SPLIT_S))).long()
+    dtoks = torch.from_numpy(lm_tokens(512, (DECODE_B, SPLIT_DECODE))).long()
+    rules = ShardingRules()
+    for shape, mesh in meshes.items():
+        for arch in SPLIT_ARCHS:
+            cfg, params = sharded(arch, mesh, rules)
+            M.COLLECTIVES.reset()
+            with use_sharding(mesh, rules), torch.no_grad():
+                (lg, pieces) = _pieces(lambda: forward(cfg, params,
+                                                       tokens=rtoks).logits)
+            out["split"][(shape, arch)] = {
+                "logits": _block(lg), "pieces": pieces,
+                "collectives": dict(M.COLLECTIVES.counts)}
+            with use_sharding(mesh, rules):
+                cache = init_decode_cache(cfg, DECODE_B, SPLIT_DECODE,
+                                          device="cpu")
+                steps = []
+                for t in range(SPLIT_DECODE):
+                    lg, cache = decode_step(cfg, params, cache, t,
+                                            tokens=dtoks[:, t:t + 1])
+                    steps.append(_block(lg))
+            out["decode"][(shape, arch)] = {
+                "steps": steps,
+                "cache": {"/".join(p): tuple(t.shape)
+                          for p, t in tree_paths(cache)}}
+
+    # The planted channel: the scan's pieces on (1, 4), every rank's, and
+    # the unsharded run's.
+    planted = planted_jamba(jparams["jamba-1.5-large-398b"])
+    cfg, full = lm_cfg("jamba-1.5-large-398b", "float32"), None
+    full = interop.lm_params_from_numpy(planted, "cpu")
+    with torch.no_grad():
+        plain, plain_pieces = _pieces(lambda: forward(cfg, full,
+                                                      tokens=rtoks).logits)
+    cfg, params = sharded("jamba-1.5-large-398b", meshes[(1, 4)], rules,
+                          planted)
+    with use_sharding(meshes[(1, 4)], rules), torch.no_grad():
+        lg, pieces = _pieces(lambda: forward(cfg, params,
+                                             tokens=rtoks).logits)
+    blk, sl = _block(lg)
+    out["planted"] = {"pieces": pieces, "plain_pieces": plain_pieces,
+                      "err": float((blk - plain[sl]).abs().max()),
+                      "scale": float(plain.abs().max()),
+                      "finite": bool(torch.isfinite(blk).all())}
+
+    # res_seq and embed_act: bitwise the same mesh without the rule.
+    toks = torch.from_numpy(lm_tokens(512, (LM_B, LM_S))).long()
+    for shape, mesh in meshes.items():
+        for arch in SP_ARCHS:
+            cfg, params = sharded(arch, mesh, rules)
+            with use_sharding(mesh, rules), torch.no_grad():
+                base = forward(cfg, params, tokens=toks)
+            entry = {"base": _block(base.logits)}
+            for name, kw in SP_RULES.items():
+                sp = ShardingRules(**kw)
+                M.COLLECTIVES.reset()
+                with use_sharding(mesh, sp), torch.no_grad():
+                    got = forward(cfg, params, tokens=toks)
+                entry[name] = {
+                    "same": torch.equal(got.logits, base.logits)
+                    and torch.equal(got.aux_loss, base.aux_loss),
+                    "collectives": dict(M.COLLECTIVES.counts)}
+            out["sp"][(shape, arch)] = entry
+
+    # seq over model: compute keeps the sequence whole, the logits come
+    # back as the rank's block of it (the rules' ("batch", "seq", "vocab")).
+    out["seq"] = {}
+    for shape, mesh in meshes.items():
+        cfg, params = sharded("qwen2-7b", mesh, rules)
+        with use_sharding(mesh, ShardingRules(seq="model")), torch.no_grad():
+            out["seq"][shape] = _block(forward(cfg, params,
+                                               tokens=toks).logits)
+
+    # The storage layouts: the small weight dims split for storage only.
+    for name, kw in STORAGE_RULES.items():
+        st = ShardingRules(**kw)
+        for arch in ("qwen2-7b",) + SPLIT_ARCHS:
+            cfg, params = sharded(arch, meshes[(2, 2)], st)
+            with use_sharding(meshes[(2, 2)], st), torch.no_grad():
+                lg = forward(cfg, params, tokens=rtoks).logits
+            steps = []
+            if arch in SPLIT_ARCHS:   # decode: the cache stored alike
+                with use_sharding(meshes[(2, 2)], st):
+                    cache = init_decode_cache(cfg, DECODE_B, SPLIT_DECODE,
+                                              device="cpu")
+                    for t in range(STORAGE_DECODE):
+                        lg_t, cache = decode_step(cfg, params, cache, t,
+                                                  tokens=dtoks[:, t:t + 1])
+                        steps.append(_block(lg_t))
+            out["storage"][(name, arch)] = {
+                "logits": _block(lg), "decode": steps,
+                "model_split": sorted(
+                    "/".join(p) for p, t in tree_paths(params)
+                    if any("model" in a for a in sharding.layout(t)))}
+
+    # jamba's dry-run train hint: embed_act over model, int8 moments; each
+    # step from JAX's state before it (``jstates``), as int8 steps are
+    # compared (ROADMAP, reference caveats).
+    opt = AdamWConfig(learning_rate=TRAIN_LR, state_dtype="int8")
+    hint = ShardingRules(embed_act="model")
+    out["train"] = {}
+    for shape, mesh in meshes.items():
+        cfg = lm_cfg("jamba-1.5-large-398b", "float32")
+        shardings = param_shardings(model_specs(cfg), mesh, hint)
+        fn = tstep.make_train_step(
+            cfg, opt, linear_warmup_cosine(TRAIN_LR, 1, TRAIN_STEPS),
+            param_shardings=shardings)
+        steps = []
+        with use_sharding(mesh, hint):
+            for i, jstate in enumerate(jstates):
+                state = shard_train_state(
+                    interop.train_state_from_numpy(jstate, "cpu"), shardings,
+                    opt)
+                state, m = fn(state, lm_train_batch(cfg, i))
+                steps.append({"metrics": {k: float(v) for k, v in m.items()},
+                              "params": _params_blocks(state.params)})
+        out["train"][shape] = steps
+
+    m22 = meshes[(2, 2)]
+    cfg, params = sharded("qwen2-7b", m22, rules)
+    out["errors"] = {
+        "batch_dim": _error_nie(lambda: _under(
+            m22, ShardingRules(res_seq="data"),
+            lambda: forward(cfg, params, tokens=toks))),
+        "embed_w": _error_nie(lambda: _under(
+            m22, ShardingRules(embed_w="model"),
+            lambda: forward(cfg, params, tokens=toks)))}
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# The int8 gradient exchange and the pipeline
+# (tests/test_torch_compress_pipeline.py)
+# ---------------------------------------------------------------------------
+
+COMPRESS_STEPS = 20
+COMPRESS_SHAPES = {"w": (16, 8), "b": (8,), "zero": (3,)}
+PIPE_STAGES, PIPE_M, PIPE_MB, PIPE_D = 4, 8, 2, 16
+
+
+def compress_grads(world: int, seed: int = 3) -> dict:
+    """Every rank's gradients of every step: ``{leaf: (steps, world,
+    *shape)}`` f32, the "zero" leaf zero at even steps (its scale is 0)."""
+    g = np.random.default_rng(seed)
+    out = {}
+    for name, shape in COMPRESS_SHAPES.items():
+        x = g.standard_normal((COMPRESS_STEPS, world) + shape)
+        x *= np.exp(g.uniform(-3, 3, (COMPRESS_STEPS, world, 1)
+                              + (1,) * (len(shape) - 1)))
+        if name == "zero":
+            x[::2] = 0.0
+        out[name] = x.astype(np.float32)
+    return out
+
+
+def pipeline_inputs(seed: int = 4):
+    g = np.random.default_rng(seed)
+    w = (g.standard_normal((PIPE_STAGES, PIPE_D, PIPE_D)) * 0.3)
+    x = g.standard_normal((PIPE_M, PIPE_MB, PIPE_D))
+    return w.astype(np.float32), x.astype(np.float32)
+
+
+def pipeline_stage(w, h):
+    return torch.tanh(h @ w)
+
+
+def compress_pipeline_world(dims: tuple = ("data",),
+                            device_type: str = "cpu") -> dict:
+    """One rank: ``compressed_psum_grads`` over 20 error-feedback steps on
+    its gradients (``compress_grads``), and ``pipeline_apply`` with its
+    stage (``pipeline_inputs``), on a 1-D mesh of the world."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.compress import (compressed_psum_grads,
+                                                  init_compression)
+    from repro_torch.distributed.pipeline import pipeline_apply
+
+    world = dist.get_world_size()
+    rank = dist.get_rank()
+    dev = torch.device(device_type)
+    mesh = init_device_mesh(device_type, (world,), mesh_dim_names=dims)
+    grads = compress_grads(world)
+    state = init_compression({k: torch.zeros(s, device=dev)
+                              for k, s in COMPRESS_SHAPES.items()})
+    steps = []
+    for t in range(COMPRESS_STEPS):
+        mine = {k: torch.from_numpy(v[t, rank]).to(dev)
+                for k, v in grads.items()}
+        reduced, state = compressed_psum_grads(mine, state, mesh, dims[0])
+        steps.append({"reduced": {k: v.cpu() for k, v in reduced.items()},
+                      "ef": {k: v.cpu() for k, v in
+                             state.error_feedback.items()}})
+    w, x = pipeline_inputs()
+    out = pipeline_apply(pipeline_stage, torch.from_numpy(w[rank]).to(dev),
+                         torch.from_numpy(x).to(dev), mesh, dims[0]) \
+        if world == PIPE_STAGES else None
+    return {"rank": rank, "steps": steps,
+            "pipeline": None if out is None else out.cpu()}
