@@ -20,8 +20,9 @@ results:
   N=16384 instance (``sparse_bipolar_edges(16384, 8·16384, seed=16384)`` →
   ``IsingProblem.create_sparse``, 65,536 steps), RSA and RWA, with the
   popcount init; plus the cross-tier check (dense, ``bitplane`` and
-  ``bitplane_hbm`` trajectories bitwise equal at both sizes) and per-tier
-  timings;
+  ``bitplane_hbm`` trajectories bitwise equal at both sizes), the tier
+  "auto" resolves to at both sizes with its K4096 solves bitwise the
+  explicit tier's, and per-tier timings;
 * the colored path on the same sparse N=16384 instance (greedy coloring,
   χ = 11): ``solve(P, 0, replace(default_solver(16384, 64·χ, mode="rsa"),
   flip_mode="colored", coupling_format="bitplane_hbm"), backend="colored")``,
@@ -131,7 +132,7 @@ from repro_torch.configs.snowball import K2000, default_solver  # noqa: E402
 from repro_torch.core import ising, rng  # noqa: E402
 from repro_torch.core.bitplane import pack_spins  # noqa: E402
 from repro_torch.core.coupling import (CouplingStore,  # noqa: E402
-                                       measure_host_build)
+                                       measure_host_build, resolve_format)
 from repro_torch.core.schedules import linear  # noqa: E402
 from repro_torch.core.solver import SolverConfig, solve  # noqa: E402
 from repro_torch.graphs import (complete_bipolar, cut_from_energy,  # noqa: E402
@@ -1073,6 +1074,47 @@ def plane_kernel_checks(k_store, sp_store, k_h, sp_h, cfg, tbl):
     return err, field_in
 
 
+def auto_tier_checks(k_prob, dense_sp, edges, k_build) -> None:
+    """[tiers] "auto": the tier it resolves to at K4096 and N=16384, the
+    K4096 store it builds beside the ``bitplane`` one (the tier "auto" took
+    before the thresholds were read on the card), and its K4096 solves
+    bitwise the explicit tier's from the same seed."""
+    smi = nvidia_smi()
+    for label, src, n in ((f"K{K_PLANE_N} integer J", k_prob.couplings,
+                           K_PLANE_N),
+                          (f"N={SPARSE_N} integer dense J", dense_sp,
+                           SPARSE_N),
+                          (f"N={SPARSE_N} edge list", edges, SPARSE_N)):
+        print(f"[tiers] 'auto' on the {label}: "
+              f"{resolve_format('auto', src, n)}")
+
+    def build():
+        store = CouplingStore.build(k_prob.couplings, "auto").to("cuda")
+        torch.cuda.synchronize()
+        return store
+
+    store, stats = measure_host_build(build)
+    fmt = store.fmt
+    print(f"[tiers] K{K_PLANE_N} store builds on {smi}: 'auto' ({fmt}) "
+          f"{stats['seconds']:.4f} s, host peak {stats['peak_bytes']} bytes; "
+          f"'bitplane' {k_build['seconds']:.4f} s, host peak "
+          f"{k_build['peak_bytes']} bytes ([setup])")
+    init = "dense_init" if fmt == "dense" else "init"
+    for mode in ("rsa", "rwa"):
+        c = default_solver(K_PLANE_N, TIER_STEPS, mode=mode)
+        reset_counts()
+        auto = solve(k_prob, SEED, c)
+        launched = read_counts()
+        check(launched[init] == 1 and launched["sweep"] == math.ceil(
+            TIER_STEPS / T), f"K{K_PLANE_N} {mode} 'auto' solve ran on the "
+              f"{fmt} store ({launched})")
+        explicit = solve(k_prob, SEED, dataclasses.replace(
+            c, coupling_format=fmt))
+        for name, a, b in zip(auto._fields, auto, explicit):
+            check(torch.equal(a, b), f"K{K_PLANE_N} {mode} 'auto' solve "
+                  f"{name} bitwise the explicit {fmt} solve")
+
+
 def plane_slice() -> list:
     """The plane tiers: kernel checks at full width, the cross-tier check,
     the card against the CPU, the K4096 and sparse N=16384 main-path
@@ -1234,6 +1276,7 @@ def plane_slice() -> list:
               and sums["bitplane_hbm"] <= R * TIER_STEPS,
               f"N={n} bitplane_hbm rows_fetched == the coalesced count of "
               "its sites, <= R*T")
+    auto_tier_checks(k_prob, dense_sp, edges, k_build)
     phase_done("tiers")
 
     print("[reference] at full width: a 1024-step RSA + PWL solve of "

@@ -1,7 +1,8 @@
 """Snowball solver configurations (port of ``repro.configs.snowball``).
 
 ``K2000`` mirrors paper §V-A2: complete graph, N=2000, J ∈ {−1,+1}; the TTS
-target cut is 33,000 (Table III).
+target cut is 33,000 (Table III). ``GSET_TABLE1`` mirrors Table I's instance
+families at their published sizes (synthetic — see DESIGN.md §8.4).
 """
 from __future__ import annotations
 
@@ -19,6 +20,16 @@ class BenchmarkInstance:
     num_edges: int
     target_cut: float | None = None
 
+
+# Table I families (|V|, |E| from the paper; synthetic regeneration).
+GSET_TABLE1 = (
+    BenchmarkInstance("G6", "erdos_renyi", 800, 19176),
+    BenchmarkInstance("G61", "erdos_renyi", 7000, 17148),
+    BenchmarkInstance("G18", "small_world", 800, 4694),
+    BenchmarkInstance("G64", "small_world", 7000, 41459),
+    BenchmarkInstance("G11", "torus", 800, 1600),
+    BenchmarkInstance("G62", "torus", 7000, 14000),
+)
 
 K2000 = BenchmarkInstance("K2000", "complete", 2000, 1_999_000,
                           target_cut=33_000.0)

@@ -16,24 +16,39 @@ Tiers of the fused sweep, and what each is on one H100:
 
 On the TPU the tiers are VMEM budgets (``DENSE_COUPLING_MAX_N = 2000``,
 ``BITPLANE_VMEM_MAX_N = 8000``). On the H100 the store lives in global
-memory on every tier, and the sweep reads one row per replica per step that
-it needs before the next step can start, so what matters is whether that
-row read hits the 50 MiB L2 (:data:`L2_BYTES`) or goes to HBM. "auto" picks
-the widest store that still fits L2:
+memory on every tier, so "auto" weighs what each tier costs a user: its
+build (a dense J is used where it lies; planes are encoded on the host,
+1.30 s at N=4096 and 97 s at N=32768) and its steps. The thresholds are
+readings on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit, taken by
+``scripts/tier_crossover.py`` (N from 4,096 to 32,768; the dense J of
+``complete_bipolar(N, seed=N)`` and ``sparse_bipolar_edges(N, 8·N,
+seed=N)``; RSA and RWA, R = 8), under one rule. A tier costs its build
+seconds plus 20,000 × its µs/step (a 4,096-step solve, host clock); a lower
+tier wins at N where it costs no more than the tiers above it; a mode's
+crossover is the largest N read at which the lower tier wins, as it does at
+every N read below it; a threshold is the smaller of the RSA and RWA
+crossovers:
 
-* dense while the f32 J fits: 4·N² ≤ L2 → N ≤ √(L2/4) = 3620
-  (:data:`DENSE_COUPLING_MAX_N`);
-* ``bitplane`` while the B=1 planes fit: 2·N·(N/32)·4 = N²/4 ≤ L2 →
-  N ≤ √(4·L2) = 14481 (:data:`BITPLANE_L2_MAX_N`);
-* ``bitplane_hbm`` past that.
+* dense against the cheaper plane tier, on the dense J: dense won at every
+  N read in both modes (where 20,000 plane steps save anything, the encode
+  costs 66 times what they save or more), so :data:`DENSE_COUPLING_MAX_N`
+  is the largest N read, 32,768, within :data:`DENSE_MEMORY_MAX_N` (a dense
+  f32 J in a sixteenth of device memory); past it "auto" packs an integral
+  J;
+* ``bitplane`` against ``bitplane_hbm`` wherever "auto" can pick a plane
+  tier (every edge list; a dense J past 32,768): both hold the same planes
+  and tie within the readings' noise (``bitplane_hbm``'s kernel is 0.03–9.5 %
+  slower at every N; its solves' medians run from 4.4 % faster to 18 %
+  slower, and the builds differ by milliseconds). The first reading that
+  went ``bitplane_hbm``'s way, RWA on the edge list at N = 8,192, puts
+  :data:`BITPLANE_L2_MAX_N` at 6,144.
 
 Every tier is also capped by the sweep state in shared memory: the
 single-flip sweep splits each replica's u, s and best_s (12·N bytes) over
 the at most 8 blocks of a thread-block cluster, each holding 232,448 bytes,
 so N ≤ 154,965 (:data:`SWEEP_STATE_MAX_N`; the sweep wrapper checks the
 exact budget of each mode and width, ``kernels.sweep.max_n``). Past it every
-tier raises. These thresholds are a hypothesis: ``chip_smoke.py``'s
-per-tier timings test it.
+tier raises.
 
 ``CouplingStore.build`` is the single host-side resolve → encode entry point;
 an :class:`~repro_torch.core.ising.EdgeList` packs straight into planes in
@@ -53,15 +68,23 @@ import torch
 from .bitplane import WORD_BITS, BitPlanes, encode_couplings, encode_edges
 from .ising import EdgeList
 
-#: L2 cache of the H100 (50 MiB, ``cudaDeviceProp.l2CacheSize``).
-L2_BYTES = 50 * 2 ** 20
+#: Device memory of one H100 80GB, as its specification gives it.
+DEVICE_MEMORY_BYTES = 80 * 10 ** 9
 
-#: "auto" keeps J dense while its f32 matrix fits L2.
-DENSE_COUPLING_MAX_N = math.isqrt(L2_BYTES // 4)
+#: "auto" keeps a dense f32 J within a sixteenth of device memory (5 GB).
+DENSE_MEMORY_BYTES = DEVICE_MEMORY_BYTES // 16
 
-#: "auto" keeps the planes on the ``bitplane`` tier while the B=1 store
-#: (N²/4 bytes) fits L2, and streams them (``bitplane_hbm``) past it.
-BITPLANE_L2_MAX_N = math.isqrt(4 * L2_BYTES)
+#: The largest N whose dense f32 J (4·N² bytes) fits that share: 35,355.
+DENSE_MEMORY_MAX_N = math.isqrt(DENSE_MEMORY_BYTES // 4)
+
+#: "auto" keeps an integral dense J dense up to here: the largest N read on
+#: the card, where dense still won in both modes (``scripts/tier_crossover.py``).
+DENSE_COUPLING_MAX_N = 32_768
+
+#: "auto" serves planes on the ``bitplane`` tier up to here and on
+#: ``bitplane_hbm`` past it: the readings' crossover (the tiers tie within
+#: noise; see the module docstring).
+BITPLANE_L2_MAX_N = 6_144
 
 #: Dynamic shared memory one block may use on Hopper.
 SHARED_MEMORY_BYTES = 232_448

@@ -66,3 +66,8 @@ def cut_value(instance: MaxCutInstance, spins):
 def cut_from_energy(instance: MaxCutInstance, ising_energy) -> np.ndarray:
     """cut = (Σw − H)/2 for H from the J=−w encoding."""
     return (instance.total_weight - np.asarray(ising_energy)) / 2.0
+
+
+def energy_from_cut(instance: MaxCutInstance, cut) -> np.ndarray:
+    """H = Σw − 2·cut, the inverse of :func:`cut_from_energy`."""
+    return instance.total_weight - 2.0 * np.asarray(cut)

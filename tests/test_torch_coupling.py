@@ -2,8 +2,8 @@
 
 * The registry names, the plane alignment and the "auto" decision structure
   equal the JAX package's ``core.coupling`` (its VMEM thresholds replaced by
-  the port's L2-derived ones: both modules are given the same thresholds
-  for the comparison).
+  the port's, read on the card: both modules are given the same thresholds
+  for the comparison); "auto" picks the tiers those readings name.
 * Edge lists never resolve to dense and never build an (N, N) array; the
   sharded tiers resolve (served by the sharded driver, past the sweep's
   shared-memory ceiling too, with the JAX package's per-rank byte
@@ -28,7 +28,8 @@ from repro_torch.core import coupling as tcoupling
 from repro_torch.core import ising as tising
 from repro_torch.core.schedules import linear
 from repro_torch.core.solver import SolverConfig
-from repro_torch.graphs import sparse_bipolar_edges
+from repro_torch.graphs import (complete_bipolar, maxcut_to_ising,
+                                sparse_bipolar_edges)
 from repro_torch.kernels import ops, sweep
 
 
@@ -57,11 +58,17 @@ def test_registry_equals_the_reference():
 
 
 def test_thresholds_follow_from_l2_and_shared_memory():
-    l2 = tcoupling.L2_BYTES
+    """The thresholds are the card's readings under the rule of the module
+    docstring (``scripts/tier_crossover.py``), and a dense J at the dense
+    threshold stays within the stated share of device memory."""
+    assert tcoupling.DENSE_COUPLING_MAX_N == 32_768
+    assert tcoupling.BITPLANE_L2_MAX_N == 6_144
+    cap = tcoupling.DENSE_MEMORY_BYTES
+    assert cap == tcoupling.DEVICE_MEMORY_BYTES // 16 == 5 * 10 ** 9
+    n = tcoupling.DENSE_MEMORY_MAX_N
+    assert 4 * n * n <= cap < 4 * (n + 1) ** 2 and n == 35_355
     n = tcoupling.DENSE_COUPLING_MAX_N
-    assert 4 * n * n <= l2 < 4 * (n + 1) ** 2 and n == 3620
-    n = tcoupling.BITPLANE_L2_MAX_N
-    assert n * n // 4 <= l2 < (n + 1) ** 2 // 4 and n == 14481
+    assert n <= tcoupling.DENSE_MEMORY_MAX_N and 4 * n * n <= cap
     n = tcoupling.SWEEP_STATE_MAX_N
     blocks = tcoupling.SWEEP_MAX_BLOCKS
     assert blocks == sweep.MAX_CLUSTER == 8
@@ -70,6 +77,21 @@ def test_thresholds_follow_from_l2_and_shared_memory():
             == tcoupling.SHARED_MEMORY_BYTES)
     for rwa in (False, True):
         assert sweep.max_n(rwa) <= tcoupling.SWEEP_STATE_MAX_N
+
+
+def test_auto_picks_the_tiers_the_readings_name():
+    """K4096's integer J stays dense (it went to ``bitplane`` before the
+    readings); at N=16,384 an integer dense J stays dense and the edge list
+    streams its planes."""
+    k4096 = maxcut_to_ising(complete_bipolar(4096, seed=4096)).couplings
+    assert tcoupling.resolve_format("auto", k4096, 4096) == "dense"
+    n = 16_384
+    ones = torch.ones((n, n), dtype=torch.int8)
+    ones.fill_diagonal_(0)
+    assert tcoupling.resolve_format("auto", ones, n) == "dense"
+    del ones
+    edges = sparse_bipolar_edges(n, 8 * n, seed=n)
+    assert tcoupling.resolve_format("auto", edges, n) == "bitplane_hbm"
 
 
 @pytest.mark.parametrize("fmt", [None, "auto", "dense", "bitplane",
