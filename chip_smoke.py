@@ -90,13 +90,16 @@ results:
   (its f32 parameters, bf16 compute, remat "dots", attention on kernel E)
   through ``train_loop`` on 8 x 4,096 in 4 microbatches with f32 AdamW
   moments, four steps: s/step, tokens/s, peak memory, kernel E's launches
-  (192 a step: the forward and its recompute), the step split by CUDA
-  events (E, the recompute backward, the optimizer) and one microbatch
-  profiled; kernel E's autograd Function against autograd through
-  ``chunked_attention`` (bitwise) beside SDPA's backward; the data
+  (192 a step: the forward and its recompute) and its backward's (96),
+  the step split by CUDA events (E, E's backward, the optimizer) and one
+  microbatch profiled; E's backward kernel (``flash_attention_bwd.cu``,
+  both entries) against its plain version at granite's shape and others,
+  two runs bitwise, two planted faults read beside its bound, the
+  Function against autograd through ``chunked_attention``, timed beside
+  that recompute and SDPA's backward; the data
   pipeline and one smoke train step on the card against the CPU; remat
   "none", "full" and "dots" bitwise at 2 layers; a crash and resume
-  bitwise a clean run at 4 layers with int8 and bf16 moments; and
+  bitwise a clean run at 2 layers with int8 and bf16 moments; and
   ``repro_torch.examples.train_lm --preset 100m`` for 40 steps.
 
 Prints the card, the build, every check and each phase's seconds, a
@@ -276,6 +279,10 @@ def depth_bound(num_layers: int) -> float:
 #: order (JAX's own flash-against-chunked bound, 2e-5); bf16 outputs may
 #: round apart by one bf16 ulp, 2^-7 at |out| < 2 (JAX's bf16 bound, 2e-2).
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: Kernel E's Function's bf16 gradients against autograd through
+#: chunked_attention (the recompute it replaces): the bound they meet
+#: against JAX's on the CPU (tests/test_torch_train.py).
+FLASH_BWD_RECOMPUTE_TOL = 0.02
 
 #: flips/s of the single-flip bitplane_hbm main path at N=16384, by mode,
 #: printed beside the colored main path's (one run, one card).
@@ -3707,12 +3714,19 @@ def dist_phase() -> None:
 
 
 def reset_flash_counts() -> None:
-    fa.tc_counter.reset()
-    fa.f32_counter.reset()
+    for c in (fa.tc_counter, fa.f32_counter, fa.bwd_tc_counter,
+              fa.bwd_f32_counter):
+        c.reset()
 
 
 def flash_launches() -> int:
+    """Kernel E's forward launches, both entries."""
     return fa.tc_counter.count + fa.f32_counter.count
+
+
+def flash_bwd_launches() -> int:
+    """Kernel E's backward entry calls, both entries."""
+    return fa.bwd_tc_counter.count + fa.bwd_f32_counter.count
 
 
 def attention_flops(b: int, hq: int, s: int, d: int,
@@ -4362,58 +4376,203 @@ def same_state(a, b) -> bool:
         la[k].dtype == lb[k].dtype and torch.equal(la[k], lb[k]) for k in la)
 
 
+def rel_errs(got, want) -> list:
+    """``rel_err`` of each pair."""
+    return [rel_err([a], [b]) for a, b in zip(got, want)]
+
+
+def fmt_errs(errs) -> str:
+    return "/".join(f"{e:.3e}" for e in errs)
+
+
+def flash_bwd_against_plain(label, q, k, v, grad, causal=True,
+                            quiet=False) -> dict:
+    """Kernel E's backward against its plain version on the same inputs
+    (the kernel forward's out and lse, one dO): two runs bitwise equal, and
+    dq, dk, dv within ``ref.FLASH_BWD_TOL`` of max |plain|. The forward's
+    lse, which both backwards read, is held to the plain forward's within
+    ``ref.FLASH_LSE_TOL``."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa._forward(q, k, v, causal, scale, with_lse=True)
+    _, plain_lse = ref.flash_attention(q, k, v, causal, scale,
+                                       return_lse=True)
+    got = fa._backward(q, k, v, out, lse, grad, causal, scale)
+    again = fa._backward(q, k, v, out, lse, grad, causal, scale)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, grad, causal, scale)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want)
+    lse_err = float((lse - plain_lse).abs().max())
+    tol = ref.FLASH_BWD_TOL[q.dtype]
+    check(all(torch.equal(a, b) for a, b in zip(got, again))
+          and max(errs) <= tol and lse_err <= ref.FLASH_LSE_TOL,
+          f"{label} {tuple(q.shape)}/{tuple(k.shape)} causal={causal} "
+          f"{q.dtype}: two runs bitwise, dq/dk/dv within {tol} of max "
+          f"|plain|: {fmt_errs(errs)}; the forward's lse within "
+          f"{ref.FLASH_LSE_TOL} of the plain one: {lse_err:.3e}", quiet)
+    return dict(out=out, lse=lse, got=got, want=want, errs=errs,
+                lse_err=lse_err, plain_lse=plain_lse,
+                abs=max_abs_err(got, want))
+
+
+def device_ms_by_kernel(run, names, reps: int = 20) -> dict:
+    """Device ms a launch of each kernel named by a substring, from
+    torch.profiler over ``reps`` calls of ``run``: the kernels' device time
+    over the launches the trace recorded (it may drop some of a short
+    window's); None where it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    total = {n: [0.0, 0] for n in names}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        for n in names:
+            if n in ev.key:
+                total[n][0] += t / 1e3
+                total[n][1] += ev.count
+    return {n: (ms / c if c else None) for n, (ms, c) in total.items()}
+
+
 def flash_backward_check() -> dict:
-    """Kernel E's autograd Function against plain autograd through
-    ``chunked_attention`` at granite's per-microbatch shape, bf16: dq, dk
-    and dv bitwise, the forward within the E-against-plain bound; the
-    recompute backward's ms beside SDPA's backward at the same shape."""
+    """Kernel E's backward at granite's per-microbatch shape (2, 16/8,
+    4,096, 64), causal: both entries against their plain version (with two
+    planted faults read beside the bf16 bound), the Function against
+    autograd through ``chunked_attention`` (the recompute it replaced), its
+    ms by CUDA events beside the plain version's, the recompute's,
+    SDPA's backward and the bound, its three passes by the profiler; then
+    the kernel against the plain version at other head dims and shapes.
+    Returns the ``kernels`` row of flash_attention_bwd (launches 0)."""
     cfg = train_config()
     b, s, d = TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     scale = d ** -0.5
     gen = torch.Generator("cuda").manual_seed(SEED)
-    q, k, v, grad = (torch.randn(shape, generator=gen, device="cuda").to(
-        torch.bfloat16) for shape in ((b, hq, s, d), (b, hkv, s, d),
-                                      (b, hkv, s, d), (b, hq, s, d)))
+
+    def rand(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, grad = (rand(sh) for sh in ((b, hq, s, d), (b, hkv, s, d),
+                                         (b, hkv, s, d), (b, hq, s, d)))
+    main = flash_bwd_against_plain("E's backward", q, k, v, grad)
+    out, lse, want = main["out"], main["lse"], main["want"]
+    tol = ref.FLASH_BWD_TOL[torch.bfloat16]
+    for name, bad_out, bad_lse in (
+            ("Δ dropped (out zeroed)", torch.zeros_like(out), lse),
+            ("p 1 % high (lse − log2 1.01)", out, lse - math.log2(1.01))):
+        fe = rel_errs(ref.flash_attention_bwd(q, k, v, bad_out, bad_lse, grad,
+                                              True, scale), want)
+        check(max(fe) > tol, f"planted fault, {name}: the plain backward "
+              f"moves by {fmt_errs(fe)} of max |grad|, above the bound {tol}")
+    lse_fault = float((lse - math.log2(1.01) - main["plain_lse"]).abs().max())
+    check(lse_fault > ref.FLASH_LSE_TOL, f"planted fault, p 1 % high: the "
+          f"lse moves by {lse_fault:.3e}, above its bound {ref.FLASH_LSE_TOL}")
+    check(torch.equal(fa._forward(q, k, v, True, scale), out),
+          "the forward's out bitwise the same without lse")
+
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = fa.flash_attention(*ins, True, scale, cfg.seq_chunk_q,
-                             cfg.seq_chunk_kv)
-    got = torch.autograd.grad(out, ins, grad, retain_graph=True)
+    reset_flash_counts()
+    fout = fa.flash_attention(*ins, True, scale, cfg.seq_chunk_q,
+                              cfg.seq_chunk_kv)
+    got = torch.autograd.grad(fout, ins, grad)
+    check((fa.tc_counter.count, fa.bwd_tc_counter.count, fa.f32_counter.count,
+           fa.bwd_f32_counter.count) == (1, 1, 0, 0)
+          and all(torch.equal(a, w) for a, w in zip(got, main["got"])),
+          "the Function launches the bf16 forward and backward entries "
+          "once each, and its gradients are the entry's, bitwise")
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(layers.chunked_attention(
+    rc_out = layers.chunked_attention(
         *plain, causal=True, q_chunk=cfg.seq_chunk_q,
-        kv_chunk=cfg.seq_chunk_kv, scale=scale), plain, grad)
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        check(g.dtype == torch.bfloat16 and torch.equal(g, w),
-              f"{name} of kernel E's Function bitwise autograd through "
-              f"chunked_attention at {tuple(q.shape)}/{tuple(k.shape)}")
-    plain_out = ref.flash_attention(q, k, v, True, scale)
-    tol = FLASH_TOL[torch.bfloat16]
-    err = max_abs_err([out], [plain_out])
-    check(torch.allclose(out.float(), plain_out.float(), rtol=tol, atol=tol),
-          f"the Function's forward against the plain version: max_abs_err "
-          f"{err:.3e} within {tol} (bf16)")
-    del want, plain
+        kv_chunk=cfg.seq_chunk_kv, scale=scale)
+    rerrs = rel_errs(got, torch.autograd.grad(rc_out, plain, grad,
+                                              retain_graph=True))
+    check(max(rerrs) <= FLASH_BWD_RECOMPUTE_TOL,
+          f"the Function's dq/dk/dv within {FLASH_BWD_RECOMPUTE_TOL} of max "
+          f"|grad| of autograd through chunked_attention: {fmt_errs(rerrs)}")
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, grad))
+    f32 = flash_bwd_against_plain("E's backward", q32, k32, v32, g32)
+
     sdpa_in = [t.clone().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(
         *sdpa_in, is_causal=True, scale=scale, enable_gqa=True)
-    e = {"ms": cuda_ms(lambda: torch.autograd.grad(out, ins, grad,
-                                                   retain_graph=True), 2),
-         "sdpa_ms": cuda_ms(lambda: torch.autograd.grad(
-             sdpa_out, sdpa_in, grad, retain_graph=True), 5)}
-    # Backward: the 5 matmuls of FA-2 over the kept pairs (2.5x the
-    # forward's flops), at the bf16 rate.
+    e = {"ms": cuda_ms(lambda: fa._backward(q, k, v, out, lse, grad, True,
+                                            scale), 10),
+         "fwd_ms": cuda_ms(lambda: fa._forward(q, k, v, True, scale,
+                                               with_lse=True), 10),
+         "plain_ms": cuda_ms(lambda: ref.flash_attention_bwd(
+             q, k, v, out, lse, grad, True, scale), 2),
+         "recompute_ms": cuda_ms(lambda: torch.autograd.grad(
+             rc_out, plain, grad, retain_graph=True), 2),
+         "library_ms": cuda_ms(lambda: torch.autograd.grad(
+             sdpa_out, sdpa_in, grad, retain_graph=True), 5),
+         "f32_ms": cuda_ms(lambda: fa._backward(
+             q32, k32, v32, f32["out"], f32["lse"], g32, True, scale), 2)}
+    del rc_out, plain, sdpa_out, sdpa_in
+    # The five products of FA-2's backward over the kept pairs (2.5x the
+    # forward's flops) at the bf16 rate; q, k, v, out, dO, dq, dk, dv once
+    # and lse and Δ in f32.
     flops = 2.5 * attention_flops(b, hq, s, d)
-    e["bound"] = bound(q.element_size() * (4 * q.numel() + 4 * k.numel()),
-                       flops, BF16_FLOP_PER_S)
+    nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
+              + 2 * 4 * b * hq * s)
+    e["bound"] = bound(nbytes, flops, BF16_FLOP_PER_S)
+    passes = device_ms_by_kernel(
+        lambda: fa._backward(q, k, v, out, lse, grad, True, scale),
+        ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
+    split = ", ".join(f"{n} " + ("not measured" if t is None
+                                 else f"{t:.4f} ms")
+                      for n, t in passes.items())
     print(f"[train] flash backward {tuple(q.shape)}/{tuple(k.shape)} bf16 "
-          f"causal: the recompute through chunked_attention (f32 einsums, "
-          f"TF32 off) {e['ms']:.3f} ms, scaled_dot_product_attention's "
-          f"backward {e['sdpa_ms']:.3f} ms (recompute / SDPA "
-          f"{e['ms'] / e['sdpa_ms']:.1f}), bound {e['bound'][0]:.4f} ms "
+          f"causal: the kernel {e['ms']:.4f} ms a call ({flops / e['ms'] / 1e9:.1f} "
+          f"TFLOP/s, {e['bound'][0] / e['ms']:.1%} of the bound; passes by "
+          f"the profiler: {split}), its forward with lse {e['fwd_ms']:.4f} "
+          f"ms, the plain version {e['plain_ms']:.3f} ms, the recompute "
+          f"through chunked_attention (f32 einsums, TF32 off: the Function's "
+          f"earlier backward) {e['recompute_ms']:.3f} ms, "
+          f"scaled_dot_product_attention's "
+          f"backward {e['library_ms']:.4f} ms (kernel / SDPA "
+          f"{e['ms'] / e['library_ms']:.2f}), bound {e['bound'][0]:.4f} ms "
           f"({e['bound'][1]}: {flops:.4e} flop at "
-          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16)")
-    return e
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); the f32 entry "
+          f"{e['f32_ms']:.3f} ms")
+
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_lse = max(main["lse_err"], f32["lse_err"])
+    shapes = [(2, 8, 2, 512, 512, dd)
+              for dd in (16, 32, 64, 80, 128, 160, 192, 256)]
+    shapes += [(1, 7, 1, 333, 200, 128), (1, 6, 3, 100, 200, 160),
+               (2, 28, 4, 200, 200, 128), (1, 4, 2, 160, 96, 80),
+               (2, hq // 2, hkv // 2, 2048, 2048, d)]
+    for sh in shapes:
+        for causal in (True, False):
+            for dtype in (torch.bfloat16, torch.float32):
+                qq, kk, vv, gg = (rand(x, dtype) for x in (
+                    sh[:2] + sh[3:4] + sh[5:], sh[:1] + sh[2:3] + sh[4:],
+                    sh[:1] + sh[2:3] + sh[4:], sh[:2] + sh[3:4] + sh[5:]))
+                r = flash_bwd_against_plain("E's backward", qq, kk, vv, gg,
+                                            causal, quiet=True)
+                worst[dtype] = max(worst[dtype], max(r["errs"]))
+                worst_lse = max(worst_lse, r["lse_err"])
+    print(f"[kernels] E's backward against its plain version at "
+          f"{len(shapes)} shapes x causal and not: two runs bitwise each, "
+          f"worst dq/dk/dv / max |plain| bf16 {worst[torch.bfloat16]:.3e} "
+          f"(bound {ref.FLASH_BWD_TOL[torch.bfloat16]}), f32 "
+          f"{worst[torch.float32]:.3e} (bound "
+          f"{ref.FLASH_BWD_TOL[torch.float32]}); worst |lse − plain lse| "
+          f"{worst_lse:.3e} (bound {ref.FLASH_LSE_TOL})")
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:116",
+        "launches": 0, "max_abs_err": max(main["abs"], f32["abs"]),
+        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+        "bound_by": e["bound"][1], "library_ms": e["library_ms"]}
 
 
 def train_card_against_cpu() -> None:
@@ -4480,7 +4639,8 @@ def remat_check() -> None:
             dataclasses.replace(cfg, remat=remat), params, batch)
         runs[remat] = (loss, grads)
         print(f"[train] remat={remat}: loss {float(loss):.6f}, kernel E "
-              f"launches {fa.tc_counter.count}, peak device memory "
+              f"launches {fa.tc_counter.count}, its backward "
+              f"{fa.bwd_tc_counter.count}, peak device memory "
               f"{torch.cuda.max_memory_allocated()} bytes")
     for remat in ("full", "dots"):
         check(torch.equal(runs[remat][0], runs["none"][0])
@@ -4537,13 +4697,12 @@ def resume_check() -> None:
 
 def split_train_step(step_fn, state, batch) -> dict:
     """One more train step with CUDA events around each of kernel E's
-    launches, each recompute backward (the Function's backward: the
-    einsums and elementwise work of ``chunked_attention`` and its
-    autograd) and the optimizer update. Returns their device spans and
-    the step's host-clock wall, in seconds."""
+    forward launches, each call of its backward entry (the three passes)
+    and the optimizer update. Returns their device spans and the step's
+    host-clock wall, in seconds."""
     from repro_torch.train import step as train_step
 
-    spans = {"flash": [], "recompute": [], "optimizer": []}
+    spans = {"flash": [], "flash_bwd": [], "optimizer": []}
 
     def spanned(name, fn):
         def run(*args, **kw):
@@ -4556,16 +4715,14 @@ def split_train_step(step_fn, state, batch) -> dict:
             return out
         return run
 
-    orig = (fa._launch, fa._Flash.backward, train_step.adamw_update)
+    orig = (fa._launch, fa._launch_bwd, train_step.adamw_update)
     fa._launch = spanned("flash", orig[0])
-    fa._Flash.backward = staticmethod(spanned("recompute", orig[1]))
+    fa._launch_bwd = spanned("flash_bwd", orig[1])
     train_step.adamw_update = spanned("optimizer", orig[2])
     try:
         _, wall = timed(lambda: step_fn(state, batch))
     finally:
-        fa._launch = orig[0]
-        fa._Flash.backward = staticmethod(orig[1])
-        train_step.adamw_update = orig[2]
+        fa._launch, fa._launch_bwd, train_step.adamw_update = orig
     out = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3
            for k, v in spans.items()}
     out.update(wall=wall, calls={k: len(v) for k, v in spans.items()})
@@ -4594,11 +4751,12 @@ def profile_microbatch(cfg, params, batch) -> None:
         return
     gemm = sum(s for s, _, k in rows
                if any(g in k.lower() for g in GEMM_KERNELS))
-    flash = sum(s for s, _, k in rows if "flash" in k)
+    flash = sum(s for s, _, k in rows if "flash_tc_kernel" in k)
+    flash_bwd = sum(s for s, _, k in rows if "flash_bwd" in k)
     print(f"[train] one microbatch's forward and backward (profiled): wall "
           f"{wall:.4f} s, device busy {busy:.4f} s = {busy / wall:.1%}, "
-          f"kernel E {flash:.4f} s, cuBLAS GEMMs {gemm:.4f} s (bf16 "
-          "projections and experts, and the recompute's f32 einsums), "
+          f"kernel E {flash:.4f} s, its backward {flash_bwd:.4f} s, cuBLAS "
+          f"GEMMs {gemm:.4f} s (bf16 projections and experts), "
           f"{sum(c for _, c, _ in rows)} device events")
     for s, count, key in rows[:10]:
         print(f"[train]   {s * 1e3:10.3f} ms  x{count:<7d} {key[:90]}")
@@ -4609,7 +4767,7 @@ def train_throughput() -> int:
     8 x 4,096 in 4 microbatches, f32 states, ``TRAIN_STEPS`` steps, the
     launch counts zeroed just before and read just after; then the data
     draw timed alone and one more step profiled. Returns kernel E's
-    launches."""
+    forward launches and its backward entry's."""
     cfg = train_config()
     print(f"[train] {TRAIN_ARCH}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_experts} experts top-"
@@ -4628,6 +4786,7 @@ def train_throughput() -> int:
     (state, history), wall = timed(lambda: train_loop(
         cfg, dc, loop, device="cuda", log_fn=print))
     launches, launches_f32 = fa.tc_counter.count, fa.f32_counter.count
+    bwd, bwd_f32 = fa.bwd_tc_counter.count, fa.bwd_f32_counter.count
     others = read_all_counts()
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -4642,12 +4801,15 @@ def train_throughput() -> int:
     print(f"[main] train_loop({TRAIN_ARCH}) {TRAIN_STEPS} steps: {wall:.3f} "
           f"s with set-up, {steady:.4f} s a step after the first "
           f"({tokens / steady:.1f} tokens/s), peak device memory {peak} "
-          f"bytes, kernel E launches bf16={launches} f32={launches_f32} "
-          f"(others {others})")
+          f"bytes, kernel E launches bf16={launches} f32={launches_f32}, its "
+          f"backward bf16={bwd} f32={bwd_f32} (others {others})")
     per_step = 2 * cfg.num_layers * TRAIN_MB
     check(launches == per_step * TRAIN_STEPS and launches_f32 == 0,
           f"kernel E's bf16 entry launched {per_step} times a step (forward "
           "and recompute, every layer and microbatch), the f32 entry never")
+    check(bwd == per_step // 2 * TRAIN_STEPS and bwd_f32 == 0,
+          f"its backward's bf16 entry called {per_step // 2} times a step "
+          "(every layer and microbatch), the f32 entry never")
     check(not any(others.values()), "no Ising kernel launched")
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
               for h in history), "loss and grad norm finite every step")
@@ -4659,12 +4821,12 @@ def train_throughput() -> int:
                               num_microbatches=TRAIN_MB)
     batch = data.batch(TRAIN_STEPS)
     split = split_train_step(step_fn, state, batch)
-    rest = split["wall"] - split["flash"] - split["recompute"] - split[
+    rest = split["wall"] - split["flash"] - split["flash_bwd"] - split[
         "optimizer"]
     print(f"[train] one more step with CUDA events: {split['wall']:.4f} s; "
           f"kernel E {split['flash']:.4f} s ({split['calls']['flash']} "
-          f"launches), the recompute backward {split['recompute']:.4f} s "
-          f"({split['calls']['recompute']} calls), the optimizer "
+          f"launches), E's backward {split['flash_bwd']:.4f} s "
+          f"({split['calls']['flash_bwd']} calls), the optimizer "
           f"{split['optimizer']:.4f} s, the rest (projections, experts, "
           f"norms, routing, the loss) {rest:.4f} s; the data draw "
           f"{data_s:.3f} s beside it")
@@ -4672,13 +4834,13 @@ def train_throughput() -> int:
     profile_microbatch(cfg, state.params, mb)
     print(f"[summary] train {TRAIN_ARCH} {TRAIN_BATCH}x{TRAIN_SEQ}: "
           f"{steady:.4f} s/step, {tokens / steady:.1f} tokens/s, peak "
-          f"{peak} bytes; a step: the recompute backward "
-          f"{split['recompute']:.3f} s, kernel E {split['flash']:.3f} s, "
+          f"{peak} bytes; a step: E's backward {split['flash_bwd']:.3f} s, "
+          f"kernel E {split['flash']:.3f} s, "
           f"the optimizer {split['optimizer']:.3f} s, the rest {rest:.3f} s;"
           f" data draw {data_s:.3f} s")
     del state, batch, data, mb
     torch.cuda.empty_cache()
-    return launches
+    return launches, bwd
 
 
 def dense_example() -> None:
@@ -4694,12 +4856,13 @@ def dense_example() -> None:
           f"{history[-1]['loss']:.4f} in 40 steps ({wall:.1f} s)")
 
 
-def train_phase() -> int:
-    """[train]: the training path on the card. Returns kernel E's launches
-    on its main path."""
+def train_phase() -> tuple:
+    """[train]: the training path on the card. Returns kernel E's forward
+    launches on its main path and the ``kernels`` row of its backward, the
+    main path's calls of the entry as its launches."""
     print(f"[train] {nvidia_smi()}")
     t0 = time.perf_counter()
-    flash_backward_check()
+    bwd_row = flash_backward_check()
     print(f"[phase] train flash-backward {time.perf_counter() - t0:.1f} s")
     for name, part in (("card-cpu", train_card_against_cpu),
                        ("remat", remat_check), ("resume", resume_check)):
@@ -4708,12 +4871,12 @@ def train_phase() -> int:
         torch.cuda.empty_cache()
         print(f"[phase] train {name} {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = train_throughput()
+    launches, bwd_row["launches"] = train_throughput()
     print(f"[phase] train main {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dense_example()
     print(f"[phase] train dense-example {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, bwd_row
 
 
 #: [lm-shard]: the LM sharding on one card. qwen2-7b at full width and
@@ -4960,7 +5123,7 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
         reset_flash_counts()
         with use_sharding(mesh, rules):
             state, metrics, secs = lms_train_steps(gcfg, gspecs, mesh, rules)
-        launches = flash_launches()
+        launches, bwd_launches = flash_launches(), flash_bwd_launches()
         coll = lms_collectives(M)
         # The parameters against the unsharded run's, and the update's
         # size (from the seed's blocks drawn again).
@@ -4982,7 +5145,8 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
             merr2 += float((m - wm).double().square().sum())
             mref2 += float(wm.double().square().sum())
         out["train"][shape] = dict(
-            metrics=metrics, secs=secs, launches=launches, collectives=coll,
+            metrics=metrics, secs=secs, launches=launches,
+            bwd_launches=bwd_launches, collectives=coll,
             peak=torch.cuda.max_memory_allocated(), dmax=dmax,
             dmean=dsum / n, ratio=math.sqrt(err2 / upd2),
             mratio=math.sqrt(merr2 / mref2))
@@ -4994,8 +5158,8 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
 
 def lm_shard_phase() -> int:
     """[lm-shard]: the LM sharding on the card (see ``LMS_*`` and
-    ``lm_shard_world2_rank``). Returns kernel E's launches on the phase's
-    sharded main paths."""
+    ``lm_shard_world2_rank``). Returns kernel E's forward launches on the
+    phase's sharded main paths and its backward entry's calls."""
     import torch.distributed as dist
 
     from repro_torch.distributed import init_world
@@ -5026,7 +5190,7 @@ def lm_shard_phase() -> int:
     print("[lm-shard] world of 1: NCCL in this process, mesh (data=1, "
           "model=1); a dim of one rank issues no collective")
     init_world("nccl", rank=0, world_size=1, device_type="cuda")
-    total = 0
+    total = total_bwd = 0
     try:
         mesh = make_host_mesh()
         sp = shard_params(params, param_shardings(specs, mesh))
@@ -5176,7 +5340,12 @@ def lm_shard_phase() -> int:
                   f"rank {r}: kernel E launched {t['launches']} times in the"
                   " steps (forward and recompute, every layer and "
                   "microbatch)")
+            check(t["bwd_launches"] == gcfg.num_layers * LMS_TRAIN_MB
+                  * LMS_TRAIN_STEPS,
+                  f"rank {r}: its backward entry called {t['bwd_launches']}"
+                  " times in the steps (every layer and microbatch)")
             total += t["launches"]
+            total_bwd += t["bwd_launches"]
     print(f"[lm-shard] world of 2: {w2_s:.1f} s for both processes, their "
           f"start-up included; {nvidia_smi()}")
     print(f"[summary] lm-shard {LM_ARCH} prefill 1 x {LMS_SEQ}: unsharded "
@@ -5185,7 +5354,7 @@ def lm_shard_phase() -> int:
           f"{TRAIN_ARCH} step unsharded {ref_secs[-1]:.3f} s, "
           + ", ".join(f"{s} {max(o['train'][s]['secs'][-1] for o in ranks):.3f} s"
                       for s in ((2, 1), (1, 2))) + f"; {smi}")
-    return total
+    return total, total_bwd
 
 
 #: [lm-sp]: the Mamba and RWKV blocks split over model, sequence
@@ -5727,21 +5896,27 @@ def main() -> None:
     check(not EXTRA_LAUNCHES, f"every main path's launches land on a "
           f"kernels row (left: {EXTRA_LAUNCHES})")
     rows += lm_slice()
+    e_row = rows[-1]
     t0 = time.perf_counter()
     # Kernel E's row counts the MoE and hybrid families' launches too.
-    rows[-1]["launches"] += lm_families_phase()
+    e_row["launches"] += lm_families_phase()
     print(f"[phase] lm-families {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    # ... and the train step's: its forward and its recompute.
-    rows[-1]["launches"] += train_phase()
+    # ... and the train step's: its forward and its recompute; E's
+    # backward row counts the step's backward.
+    fwd, bwd_row = train_phase()
+    e_row["launches"] += fwd
+    rows.append(bwd_row)
     print(f"[phase] train {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # ... and the sharded paths': each rank's heads.
-    rows[-1]["launches"] += lm_shard_phase()
+    fwd, bwd = lm_shard_phase()
+    e_row["launches"] += fwd
+    bwd_row["launches"] += bwd
     print(f"[phase] lm-shard {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # ... and the split families' (jamba's attention block).
-    rows[-1]["launches"] += lm_sp_phase()
+    e_row["launches"] += lm_sp_phase()
     print(f"[phase] lm-sp {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -25,17 +25,20 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"sweep": "sweep.cu", "colored_sweep": "colored_sweep.cu",
            "local_field": "local_field.cu",
            "bitplane_field": "bitplane_field.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: The Ising kernels round every multiply and add on its own (-fmad=false)
-#: to agree bitwise with their plain versions; flash attention contracts.
+#: to agree bitwise with their plain versions; flash attention (forward and
+#: backward) contracts.
 EXACT = ("-fmad=false",)
 NVCC_FLAGS = {"sweep": COMMON_FLAGS + EXACT,
               "colored_sweep": COMMON_FLAGS + EXACT,
               "local_field": COMMON_FLAGS + EXACT,
               "bitplane_field": COMMON_FLAGS + EXACT,
-              "flash_attention": COMMON_FLAGS}
+              "flash_attention": COMMON_FLAGS,
+              "flash_attention_bwd": COMMON_FLAGS}
 
 
 @dataclasses.dataclass(frozen=True)

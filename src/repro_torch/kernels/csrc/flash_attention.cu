@@ -52,11 +52,22 @@
 // tile and 4 rows × D/16 columns of the output; K and V are staged in f32
 // through one shared buffer.
 //
+// The row log-sum-exp for the backward (flash_attention_bwd.cu): given a
+// non-null lse, each entry also writes, for every query row, in log2 units
+// with the scale folded in,
+//   lse = log2 Σ_j 2^(x_j),  x_j = (q·k_j)·scale·log2 e,
+// f32, (B, Hq, Sq); the backward's p_j = 2^(x_j − lse). The bf16 kernel
+// writes m + log2 l from its running max m and sum l (already in those
+// units), the f32 kernel (m + ln l)·log2 e. A null lse writes nothing, and
+// out is the same either way.
+//
 // Built without -fmad=false: the softmax's multiply-adds may contract.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -77,64 +88,6 @@ struct TcShape {
   static constexpr int kStride = D + 8;               // smem row, bf16
   static constexpr int kSmemBytes = (kTcRows + 2 * kCols) * kStride * 2;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (src must still be a
-// mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16×8, f32) += a (16×16, bf16, row) · b (16×8, bf16, col).
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the special-function unit (about 2 ulp; results below 2^-126
-// flush to 0, far under what a bf16 p or the f32 sum l can hold beside the
-// row's max term, which is 1).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Rows [c0, c0 + kCols) of one head's K or V into a padded smem tile; rows
 // past Skv are zero (their p is 0, and 0 · garbage could be NaN).
@@ -157,8 +110,9 @@ __global__ void __launch_bounds__(kTcThreads, D <= 128 ? 2 : 1)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int Hkv, int rep, int Sq,
-                int Skv, float scale_log2, int causal) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int Hkv, int rep, int Sq, int Skv, float scale_log2,
+                int causal) {
   constexpr int kCols = TcShape<D>::kCols;
   constexpr int ST = TcShape<D>::kStride;
   constexpr int kChunks = D / 8;   // 16-byte chunks per row
@@ -230,13 +184,11 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
-      ldmatrix_x4(a, Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
-                         (lane >> 4) * 8);
+      ldmatrix_x4(a, a_frag_addr<ST>(Qs, warp * 16, kk * 16, lane));
 #pragma unroll
       for (int j = 0; j < NS / 2; ++j) {
         uint32_t bk[4];
-        ldmatrix_x4(bk, Ks + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * ST +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
+        ldmatrix_x4(bk, b_frag_addr<ST>(Ks, j * 16, kk * 16, lane));
         mma_bf16(s[2 * j], a, bk[0], bk[1]);
         mma_bf16(s[2 * j + 1], a, bk[2], bk[3]);
       }
@@ -292,16 +244,12 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // fragment of the 16-key step kk.
 #pragma unroll
     for (int kk = 0; kk < kCols / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t a[4];
+      acc_to_a<NS>(a, s, kk);
 #pragma unroll
       for (int n = 0; n < NO / 2; ++n) {
         uint32_t bv[4];
-        ldmatrix_x4_trans(
-            bv, Vs + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * ST +
-                    n * 16 + (lane >> 4) * 8);
+        ldmatrix_x4_trans(bv, bt_frag_addr<ST>(Vs, kk * 16, n * 16, lane));
         mma_bf16(acc[2 * n], a, bv[0], bv[1]);
         mma_bf16(acc[2 * n + 1], a, bv[2], bv[3]);
       }
@@ -315,8 +263,10 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const long rho = row0 + warp * 16 + g + 8 * h;
     if (rho >= rows_total) continue;
     const int p = (int)(rho / rep), r = (int)(rho % rep);
-    __nv_bfloat16* out =
-        o + ((size_t)(b * Hq + kvh * rep + r) * Sq + p) * D + 2 * t4;
+    const size_t row = (size_t)(b * Hq + kvh * rep + r) * Sq + p;
+    if (lse != nullptr && t4 == 0)
+      lse[row] = l[h] > 0.f ? m[h] + log2f(l[h]) : kInf;
+    __nv_bfloat16* out = o + row * D + 2 * t4;
     const float den = fmaxf(l[h], 1e-30f);
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -326,9 +276,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int Hq, int Hkv, int Sq, int Skv, float scale, int causal,
-              cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              void* lse, int B, int Hq, int Hkv, int Sq, int Skv, float scale,
+              int causal, cudaStream_t stream) {
   constexpr int smem = TcShape<D>::kSmemBytes;
   auto kern = flash_tc_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -340,7 +290,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Hkv, Hq / Hkv, Sq, Skv, scale * 1.4426950408889634f, causal);
+      static_cast<float*>(lse), Hkv, Hq / Hkv, Sq, Skv,
+      scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
@@ -365,8 +316,9 @@ __host__ __device__ constexpr int smem_floats(int d) {
 template <int ND>
 __global__ void __launch_bounds__(kThreads, ND <= 8 ? 2 : 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int Hkv,
-                 int rep, int Sq, int Skv, float scale, int causal) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int Hkv, int rep, int Sq, int Skv,
+                 float scale, int causal) {
   constexpr int D = 16 * ND;
   constexpr int QS = kRows + kPad;   // row stride of Qt and Pt
   constexpr int KS = kCols + kPad;   // row stride of Kt
@@ -500,7 +452,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long rho = row0 + ty * 4 + i;
     if (rho >= rows_total) continue;
     const int p = (int)(rho / rep), r = (int)(rho % rep);
-    float* out = o + ((size_t)(b * Hq + kvh * rep + r) * Sq + p) * D;
+    const size_t row = (size_t)(b * Hq + kvh * rep + r) * Sq + p;
+    if (lse != nullptr && tx == 0)
+      lse[row] = l[i] > 0.f ? (m[i] + logf(l[i])) * 1.4426950408889634f
+                            : kInf;
+    float* out = o + row * D;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < ND; ++j) out[tx + 16 * j] = acc[i][j] / den;
@@ -508,9 +464,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int ND>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Sq, int Skv, float scale, int causal,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+               float scale, int causal, cudaStream_t stream) {
   const int smem = smem_floats(16 * ND) * (int)sizeof(float);
   auto kern = flash_f32_kernel<ND>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -520,8 +476,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((unsigned)((rows + kRows - 1) / kRows), Hkv, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hkv, Hq / Hkv, Sq,
-      Skv, scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), Hkv, Hq / Hkv, Sq, Skv, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -538,19 +494,21 @@ bool bad_shape(int B, int Hq, int Hkv, int Sq, int Skv, int D) {
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), out like q; contiguous
 // bfloat16, each base 16-byte aligned. D a multiple of 16 up to 256, Hq a
-// multiple of Hkv. Returns a cudaError_t (0 on a good launch).
+// multiple of Hkv. lse: null, or float32 (B, Hq, Sq) that receives each
+// row's log-sum-exp in log2 units (the header). Returns a cudaError_t (0 on
+// a good launch).
 extern "C" int flash_attention_forward_bf16(const void* q, const void* k,
-                                            const void* v, void* o, int B,
-                                            int Hq, int Hkv, int Sq, int Skv,
-                                            int D, float scale, int causal,
-                                            void* stream) {
+                                            const void* v, void* o, void* lse,
+                                            int B, int Hq, int Hkv, int Sq,
+                                            int Skv, int D, float scale,
+                                            int causal, void* stream) {
   if (bad_shape(B, Hq, Hkv, Sq, Skv, D) ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define TC_CASE(ND)                                                        \
   case ND:                                                                 \
-    return launch_tc<16 * ND>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,      \
+    return launch_tc<16 * ND>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, \
                               causal, s);
   switch (D / 16) { FLASH_DIMS(TC_CASE) }
 #undef TC_CASE
@@ -570,16 +528,16 @@ extern "C" int flash_attention_bf16_smem_bytes(int D) {
 
 // The same for contiguous float32 q, k, v and out, on the CUDA cores.
 extern "C" int flash_attention_forward_f32(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int Hq, int Hkv, int Sq, int Skv,
-                                           int D, float scale, int causal,
-                                           void* stream) {
+                                           const void* v, void* o, void* lse,
+                                           int B, int Hq, int Hkv, int Sq,
+                                           int Skv, int D, float scale,
+                                           int causal, void* stream) {
   if (bad_shape(B, Hq, Hkv, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define F32_CASE(ND)                                                       \
   case ND:                                                                 \
-    return launch_f32<ND>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal,  \
-                          s);
+    return launch_f32<ND>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale,     \
+                          causal, s);
   switch (D / 16) { FLASH_DIMS(F32_CASE) }
 #undef F32_CASE
   return (int)cudaErrorInvalidValue;

@@ -1,19 +1,24 @@
-"""Flash-attention forward, GQA-native and causal-aware: the CUDA kernels
-and their plain version (port of ``repro.kernels.flash_attention``).
+"""Flash attention, GQA-native and causal-aware, forward and backward: the
+CUDA kernels and their plain versions (port of
+``repro.kernels.flash_attention``).
 
-A CPU tensor goes to the plain version (``ref.flash_attention``). A CUDA
-tensor launches ``csrc/flash_attention.cu`` or raises: bfloat16 inputs its
+A CPU tensor goes to the plain versions (``ref.flash_attention``,
+``ref.flash_attention_bwd``). A CUDA tensor launches the kernels or
+raises: the forward ``csrc/flash_attention.cu``, bfloat16 inputs its
 tensor-core entry (``flash_attention_forward_bf16``, counted by
 ``tc_counter``), float32 inputs its CUDA-core entry
-(``flash_attention_forward_f32``, counted by ``f32_counter``).
+(``flash_attention_forward_f32``, ``f32_counter``); the backward
+``csrc/flash_attention_bwd.cu`` likewise (``flash_attention_backward_bf16``,
+``bwd_tc_counter``; ``flash_attention_backward_f32``, ``bwd_f32_counter``;
+one count a call of the entry, which launches its three passes).
 
 :func:`flash_attention` is differentiable: an autograd Function whose
-backward recomputes the attention through ``layers.chunked_attention``
-from the saved q, k and v and differentiates that, as the JAX package's
-``_flash_bwd`` does, so its gradients are bitwise those of autograd
-through the chunked path. Under activation checkpointing the forward runs
-again in the recompute, so a training step launches the kernel twice a
-layer and microbatch.
+forward also saves the rows' log-sum-exp and whose backward is the
+backward kernel (FlashAttention-2's, deterministic). The JAX package's
+``_flash_bwd`` differentiates its chunked path instead; the two compute
+the same gradients. Under activation checkpointing the forward runs again
+in the recompute, so a training step launches the forward twice a layer
+and microbatch and the backward once.
 """
 from __future__ import annotations
 
@@ -29,11 +34,17 @@ from ._launch import LaunchCounter
 
 tc_counter = LaunchCounter("flash_attention_bf16")
 f32_counter = LaunchCounter("flash_attention_f32")
+bwd_tc_counter = LaunchCounter("flash_attention_bwd_bf16")
+bwd_f32_counter = LaunchCounter("flash_attention_bwd_f32")
 
 #: The kernel entry and its launch count for each input dtype (q, k and v
 #: alike).
 ENTRIES = {torch.bfloat16: ("flash_attention_forward_bf16", tc_counter),
            torch.float32: ("flash_attention_forward_f32", f32_counter)}
+#: The same for the backward.
+BWD_ENTRIES = {
+    torch.bfloat16: ("flash_attention_backward_bf16", bwd_tc_counter),
+    torch.float32: ("flash_attention_backward_f32", bwd_f32_counter)}
 
 #: Head dims the kernels take: multiples of 16 up to 256.
 MAX_HEAD_DIM = 256
@@ -41,8 +52,20 @@ MAX_HEAD_DIM = 256
 
 @functools.cache
 def _fn(entry: str):
+    """A forward entry: q, k, v, out, lse (or None) and the shape."""
     fn = getattr(_build.load("flash_attention"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_fn(entry: str):
+    """A backward entry: q, k, v, out, lse, dout, dq, dk, dv, the Δ
+    scratch and the shape."""
+    fn = getattr(_build.load("flash_attention_bwd"), entry)
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -83,8 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"ones in a dry run), got {q.device}")
     with op_cost.kernel("flash_attention", flops(q, k, causal),
                         sum(op_cost.tensor_bytes(t) for t in (q, k, v, q))):
-        return _Flash.apply(q, k, v, bool(causal), float(scale), block_q,
-                            block_k)
+        return _Flash.apply(q, k, v, bool(causal), float(scale))
 
 
 def flops(q: torch.Tensor, k: torch.Tensor, causal: bool) -> float:
@@ -96,13 +118,26 @@ def flops(q: torch.Tensor, k: torch.Tensor, causal: bool) -> float:
     return 4.0 * b * hq * d * pairs
 
 
-def _forward(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+def bwd_cost(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple:
+    """The backward's (flops, bytes): the five products over the kept pairs
+    (2.5 × :func:`flops`); q, k, v, out, dout, dq, dk and dv in the inputs'
+    dtype, and lse and Δ in f32."""
+    rows = q.numel() // q.shape[3]
+    nbytes = (4 * op_cost.tensor_bytes(q) + 4 * op_cost.tensor_bytes(k)
+              + 2 * 4 * rows)
+    return 2.5 * flops(q, k, causal), nbytes
+
+
+def _forward(q, k, v, causal: bool, scale: float, with_lse: bool = False):
     """The plain version on the CPU, the kernel on the card; on the meta
-    device (a dry run, ``device.meta_device``) the output's shape."""
+    device (a dry run, ``device.meta_device``) the output's shape. Returns
+    out, or (out, lse) ``with_lse``."""
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal, scale)
+        return ref.flash_attention(q, k, v, causal, scale, with_lse)
     if q.device.type == "meta":
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        return (out, torch.empty(q.shape[:3], dtype=torch.float32,
+                                 device=q.device)) if with_lse else out
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -119,43 +154,83 @@ def _forward(q, k, v, causal: bool, scale: float) -> torch.Tensor:
         raise ValueError("q, k and v must start on 16-byte boundaries")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        return _launch(q, k, v, causal, scale, stream)
+        return _launch(q, k, v, causal, scale, stream, with_lse)
+
+
+def _backward(q, k, v, out, lse, dout, causal: bool, scale: float):
+    """(dq, dk, dv): the plain backward on the CPU, the kernel on the card;
+    on the meta device empty gradients of the inputs' shapes."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, out, lse, dout, causal, scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dout.dtype != q.dtype:
+        raise ValueError(f"the output gradient is {dout.dtype}, q {q.dtype}")
+    dout = dout.contiguous()
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        return _launch_bwd(q, k, v, out, lse, dout, causal, scale, stream)
 
 
 class _Flash(torch.autograd.Function):
-    """Forward: :func:`_forward`. Backward: autograd through
-    ``chunked_attention(q, k, v, causal, q_chunk=block_q,
-    kv_chunk=block_k, scale)`` recomputed from the saved inputs."""
+    """Forward: :func:`_forward`, which also returns the rows' log-sum-exp
+    when a gradient is wanted; it saves q, k, v, out and lse. Backward:
+    :func:`_backward` from them, counted by the cost counter at its entry
+    (:func:`bwd_cost`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
-        ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, scale, block_q, block_k)
-        return _forward(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.args = (causal, scale)
+        if not any(ctx.needs_input_grad[:3]):
+            return _forward(q, k, v, causal, scale)
+        out, lse = _forward(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        # Imported here: the models package calls into this module.
-        from ..models.layers import chunked_attention
-
-        causal, scale, block_q, block_k = ctx.args
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = chunked_attention(*inputs, causal=causal, q_chunk=block_q,
-                                    kv_chunk=block_k, scale=scale)
-        dq, dk, dv = torch.autograd.grad(out, inputs, grad)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale = ctx.args
+        with op_cost.kernel("flash_attention_bwd", *bwd_cost(q, k, causal)):
+            dq, dk, dv = _backward(q, k, v, out, lse, grad, causal, scale)
+        return dq, dk, dv, None, None
 
 
-def _launch(q, k, v, causal: bool, scale: float, stream: int) -> torch.Tensor:
-    """Launch the entry for q's dtype on ``stream`` and count it."""
+def _launch(q, k, v, causal: bool, scale: float, stream: int,
+            with_lse: bool = False):
+    """Launch the entry for q's dtype on ``stream`` and count it; with
+    ``with_lse`` it also writes the rows' log-sum-exp."""
     entry, counter = ENTRIES[q.dtype]
     b, hq, sq, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     rc = _fn(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, hq, k.shape[1], sq, k.shape[2], d, float(scale),
+                    None if lse is None else lse.data_ptr(), b, hq,
+                    k.shape[1], sq, k.shape[2], d, float(scale),
                     int(bool(causal)), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     counter.count += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal: bool, scale: float,
+                stream: int):
+    """Launch the backward entry for q's dtype on ``stream`` (its three
+    passes) and count it once."""
+    entry, counter = BWD_ENTRIES[q.dtype]
+    b, hq, sq, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    rc = _bwd_fn(entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), b, hq, k.shape[1], sq, k.shape[2], d,
+        float(scale), int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    counter.count += 1
+    return dq, dk, dv

@@ -3,9 +3,11 @@
 Port of ``repro.kernels.ref``'s ``local_field_init``,
 ``bitplane_field_init``, ``mcmc_sweep`` and ``colored_sweep`` (dense J or
 packed planes), the keyed sweeps' per-thread draws (``sweep_uniforms``,
-``colored_uniforms``), and ``flash_attention`` (the forward of
+``colored_uniforms``), ``flash_attention`` (the forward of
 ``repro.kernels.flash_attention``, whose oracle in the JAX package is
-``models.layers.chunked_attention``). The wrappers in ``local_field.py``,
+``models.layers.chunked_attention``) and ``flash_attention_bwd`` (its
+gradients, which the JAX package's ``_flash_bwd`` takes by autodiff through
+that oracle). The wrappers in ``local_field.py``,
 ``bitplane_field.py``, ``sweep.py`` and ``flash_attention.py`` run these for
 CPU tensors; the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
@@ -280,8 +282,25 @@ def colored_sweep(couplings, fields0: torch.Tensor, spins0: torch.Tensor,
 FLASH_PLAIN_SCORE_ELEMENTS = 1 << 27
 
 
+#: log2(e), the factor from natural to log2 units of the saved lse.
+LOG2E = 1.4426950408889634
+
+#: Kernel E's forward lse against ``flash_attention``'s (``return_lse``):
+#: max |kernel − plain| in the lse's log2 units. ``chip_smoke.py``'s
+#: ``flash_backward_check`` reads at most 2.861e-6 on an H100 80GB HBM3 at
+#: 700 W over D 16 to 256, causal and not, GQA and ragged shapes (PERF.md
+#: §6); p 1 % high moves it by log2 1.01 = 1.4e-2.
+FLASH_LSE_TOL = 1e-5
+#: Kernel E's backward against ``flash_attention_bwd`` on the same q, k, v,
+#: out, lse and dO: max |kernel − plain| / max |plain| of each gradient.
+#: The same check reads bf16 at most 4.274e-3, where a planted fault, p 1 %
+#: high, reads 1.154e-2 to 1.538e-2 and dropping Δ up to 1.54; f32 at most
+#: 5.3e-6, held to the forward's 2e-5.
+FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, scale: float) -> torch.Tensor:
+                    causal: bool, scale: float, return_lse: bool = False):
     """Straightforward GQA attention with the flash kernels' cast points:
     the scores, the softmax and P·V in f32, the causal mask ``row >= col``
     on absolute positions (top-left aligned), out = acc / max(l, 1e-30)
@@ -297,7 +316,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D). The scores of one batch entry
     and a slice of query rows are formed at a time, at most
-    ``FLASH_PLAIN_SCORE_ELEMENTS`` of them.
+    ``FLASH_PLAIN_SCORE_ELEMENTS`` of them. With ``return_lse`` also the
+    rows' log-sum-exp in the kernels' units, log2 with the scale folded in
+    (``(m + ln l)·log2 e``, f32, (B, Hq, Sq)); ``out`` is the same either
+    way.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -305,6 +327,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 = q.dtype == torch.bfloat16
     rows = max(1, FLASH_PLAIN_SCORE_ELEMENTS // (hq * skv))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     cols = torch.arange(skv, device=q.device)
     for bi in range(b):
         kb, vb = k[bi].float(), v[bi].float()                 # (Hkv, Skv, D)
@@ -327,9 +351,82 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if causal:
                 p = torch.where(mask, p, 0.0)
             l = p.sum(dim=-1, keepdim=True)
+            if lse is not None:
+                lse[bi, :, r0:r1] = ((m + torch.log(l)) * LOG2E).reshape(
+                    hq, r1 - r0)
             if bf16:
                 p = p.to(torch.bfloat16).float()
             acc = torch.matmul(p.reshape(hkv, -1, skv), vb)
             o = acc.reshape(hkv, rep, r1 - r0, d) / torch.clamp(l, min=1e-30)
             out[bi, :, r0:r1] = o.reshape(hq, r1 - r0, d).to(q.dtype)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool, scale: float):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` for the output
+    gradient ``dout``, from its ``out`` and ``lse``: the backward kernel's
+    three passes written straight, with its cast points.
+
+    (a) Δ = rowsum(dout ∘ out) in f32. Then for each slice of query rows
+    p = 2^(x − lse), x the scores in log2 units (f32 inputs: ((q·scale)·k)
+    ·log2 e; bf16: (q·k)·(scale·log2 e), q and k as their bf16 values, the
+    factor rounded to f32 as the kernel folds it), masked as the forward;
+    dp = dout·vᵀ and ds = p ∘ (dp − Δ) in f32; (b) dv += pᵀ·dout and
+    dk += dsᵀ·q summed over the slices and the GQA group's heads; (c)
+    dq = ds·k. bf16 inputs round p and ds to bf16 as the operands of those
+    products and multiply dk and dq by the scale in f32 at the end; f32
+    inputs take dk = dsᵀ·(q·scale), dq = (ds·k)·scale. The gradients are
+    returned in the inputs' dtypes. At most ``FLASH_PLAIN_SCORE_ELEMENTS``
+    scores are formed at a time.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    bf16 = q.dtype == torch.bfloat16
+    factor = torch.tensor(scale if bf16 else 1.0, dtype=torch.float32,
+                          device=q.device) * LOG2E
+    rows = max(1, FLASH_PLAIN_SCORE_ELEMENTS // (hq * skv))
+    delta = (dout.float() * out.float()).sum(dim=-1)          # (B, Hq, Sq)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    cols = torch.arange(skv, device=q.device)
+    for bi in range(b):
+        kb, vb = k[bi].float(), v[bi].float()                 # (Hkv, Skv, D)
+        qb = q[bi].reshape(hkv, rep, sq, d)
+        gb = dout[bi].reshape(hkv, rep, sq, d)
+        lb = lse[bi].reshape(hkv, rep, sq, 1)
+        db = delta[bi].reshape(hkv, rep, sq, 1)
+        dk_acc = torch.zeros((hkv, skv, d), device=q.device)
+        dv_acc = torch.zeros((hkv, skv, d), device=q.device)
+        for r0 in range(0, sq, rows):
+            r1 = min(sq, r0 + rows)
+            n = rep * (r1 - r0)
+            qs = qb[:, :, r0:r1].float().reshape(hkv, n, d)
+            if not bf16:
+                qs = qs * scale
+            go = gb[:, :, r0:r1].float().reshape(hkv, n, d)
+            s = torch.matmul(qs, kb.transpose(1, 2)).reshape(
+                hkv, rep, r1 - r0, skv)
+            p = torch.exp2(s * factor - lb[:, :, r0:r1])
+            if causal:
+                pos = torch.arange(r0, r1, device=q.device)
+                p = torch.where(pos[:, None] >= cols[None, :], p, 0.0)
+            dp = torch.matmul(go, vb.transpose(1, 2)).reshape(
+                hkv, rep, r1 - r0, skv)
+            ds = (p * (dp - db[:, :, r0:r1])).reshape(hkv, n, skv)
+            p = p.reshape(hkv, n, skv)
+            if bf16:
+                p = p.to(torch.bfloat16).float()
+                ds = ds.to(torch.bfloat16).float()
+            dv_acc += torch.matmul(p.transpose(1, 2), go)
+            dk_acc += torch.matmul(ds.transpose(1, 2), qs)
+            dqs = torch.matmul(ds, kb) * scale
+            dq[bi, :, r0:r1] = dqs.reshape(hq, r1 - r0, d).to(q.dtype)
+        if bf16:
+            dk_acc = dk_acc * scale
+        dk[bi] = dk_acc.to(k.dtype)
+        dv[bi] = dv_acc.to(v.dtype)
+    return dq, dk, dv

@@ -9,8 +9,10 @@ temperature column per replica, the round's merge and swap as a CUDA
 graph), the row-sharded solve on a world of 1, the two field inits
 (the popcount init also on random
 overlapping plane words, W past the earlier design's shared-memory ceiling
-and misaligned words), and the flash-attention forward with the LM serving
-path around it.
+and misaligned words), the flash-attention forward with the LM serving
+path around it, and its backward kernel against its plain version (both
+entries, several head dims, two runs bitwise) and inside the training
+step.
 
 Marked ``cuda``; each test skips (inside the ``cuda_device`` fixture) when
 no card is present. The file imports neither JAX nor the JAX package, so it
@@ -739,6 +741,50 @@ def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, d,
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+def _rel_errs(got, want):
+    return [float((a.float() - b.float()).abs().max())
+            / float(b.float().abs().max()) for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [
+    (2, 6, 2, 256, 256, 64),
+    (1, 4, 4, 128, 128, 32),     # MHA
+    (1, 2, 2, 192, 192, 16),     # non-power-of-two seq
+    (1, 4, 2, 160, 96, 80),      # ragged rows and keys, Sq > Skv
+    (1, 6, 3, 100, 200, 160),    # Sq < Skv, two warps a key group
+    (1, 8, 2, 200, 200, 192),
+    (1, 2, 1, 70, 70, 256),
+    (2, 28, 4, 200, 200, 128),   # rep = 7
+])
+def test_flash_backward_kernel_matches_plain(cuda_device, b, hq, hkv, sq,
+                                             skv, d, causal, dtype):
+    """The backward entry for the dtype, once a call, against the plain
+    backward on the same q, k, v, out, lse and dO; a second call bitwise
+    the first (no atomics); the forward's lse, which both read, against
+    the plain forward's."""
+    q, k, v = _qkv((b, hq, sq, d), (b, hkv, skv, d), dtype, cuda_device)
+    g = _qkv((b, hq, sq, d), (1,), dtype, cuda_device, seed=1)[0]
+    scale = d ** -0.5
+    out, lse = fa._forward(q, k, v, causal, scale, with_lse=True)
+    _, plain_lse = ref.flash_attention(q, k, v, causal, scale,
+                                       return_lse=True)
+    assert float((lse - plain_lse).abs().max()) <= ref.FLASH_LSE_TOL
+    mine, other = ((fa.bwd_tc_counter, fa.bwd_f32_counter)
+                   if dtype == torch.bfloat16
+                   else (fa.bwd_f32_counter, fa.bwd_tc_counter))
+    before = (mine.count, other.count)
+    got = fa._backward(q, k, v, out, lse, g, causal, scale)
+    assert (mine.count, other.count) == (before[0] + 1, before[1])
+    again = fa._backward(q, k, v, out, lse, g, causal, scale)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, g, causal, scale)
+    torch.cuda.synchronize()
+    for x, y, w in zip(got, again, want):
+        assert x.dtype == dtype and x.shape == w.shape and torch.equal(x, y)
+    assert max(_rel_errs(got, want)) <= ref.FLASH_BWD_TOL[dtype]
+
+
 def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
     q, k, v = _qkv((1, 4, 64, 24), (1, 2, 64, 24), torch.float32, cuda_device)
     before = (fa.tc_counter.count, fa.f32_counter.count)
@@ -748,8 +794,13 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
     out = torch.empty_like(q)
     for entry, _ in fa.ENTRIES.values():
         rc = fa._fn(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), 1, 4, 2, 64, 64, 24, 0.2, 1,
+                           out.data_ptr(), None, 1, 4, 2, 64, 64, 24, 0.2, 1,
                            torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, entry
+    for entry, _ in fa.BWD_ENTRIES.values():
+        ptrs = [t.data_ptr() for t in (q, k, v, out, out, q, out, k, v, out)]
+        rc = fa._bwd_fn(entry)(*ptrs, 1, 4, 2, 64, 64, 24, 0.2, 1,
+                               torch.cuda.current_stream().cuda_stream)
         assert rc != 0, entry
     q, k, v = _qkv((1, 4, 64, 32), (1, 2, 64, 32), torch.float16, cuda_device)
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
@@ -854,23 +905,34 @@ def test_store_cache_moves_a_cpu_store_to_the_card_once(cuda_device):
 
 
 def test_flash_function_backward_on_card(cuda_device):
-    """Kernel E's autograd Function on the card: the bf16 entry launches
-    once in the forward, and dq, dk, dv are bitwise autograd's through
-    ``chunked_attention`` (the backward is that recompute)."""
+    """Kernel E's autograd Function on the card: the bf16 forward and
+    backward entries launch once each; the lse within its bound of the
+    plain forward's; dq, dk, dv within the backward's bound of the plain
+    backward on the kernel forward's out and lse, and within 0.02 of max |grad| of autograd through ``chunked_attention``
+    (the recompute the backward replaced)."""
     q, k, v = _qkv((2, 4, 256, 64), (2, 2, 256, 64), torch.bfloat16,
                    cuda_device)
     grad = torch.randn_like(q)
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-    before = fa.tc_counter.count
+    counters = (fa.tc_counter, fa.bwd_tc_counter, fa.f32_counter,
+                fa.bwd_f32_counter)
+    before = [c.count for c in counters]
     out = fa.flash_attention(qs, ks, vs, True, 0.125, 64, 128)
-    assert fa.tc_counter.count == before + 1
     got = torch.autograd.grad(out, (qs, ks, vs), grad)
+    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
+    fout, lse = fa._forward(q, k, v, True, 0.125, with_lse=True)
+    assert torch.equal(fout, out)
+    _, plain_lse = ref.flash_attention(q, k, v, True, 0.125, return_lse=True)
+    assert float((lse - plain_lse).abs().max()) <= ref.FLASH_LSE_TOL
+    want = ref.flash_attention_bwd(q, k, v, fout, lse, grad, True, 0.125)
+    assert max(_rel_errs(got, want)) <= ref.FLASH_BWD_TOL[torch.bfloat16]
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(lm_model.layers.chunked_attention(
+    recompute = torch.autograd.grad(lm_model.layers.chunked_attention(
         *plain, causal=True, q_chunk=64, kv_chunk=128, scale=0.125),
         plain, grad)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for g, w in zip(got, recompute):
+        assert g.dtype == torch.bfloat16
+    assert max(_rel_errs(got, recompute)) <= 0.02
 
 
 def test_data_pipeline_on_card_equals_cpu(cuda_device):
@@ -891,9 +953,9 @@ def test_data_pipeline_on_card_equals_cpu(cuda_device):
 
 def test_train_step_on_card_matches_cpu(cuda_device):
     """granite-moe's smoke config, one microbatched train step on the card
-    (kernel E's bf16 entry) against the CPU from the same parameters and
-    batch: the loss within 0.03 relative, and the remat modes' gradients
-    bitwise equal on the card."""
+    (kernel E's bf16 entries, forward and backward) against the CPU from
+    the same parameters and batch: the loss within 0.03 relative, and the
+    remat modes' gradients bitwise equal on the card."""
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import step as tstep
@@ -916,9 +978,12 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         assert all(torch.equal(a, b) for a, b in zip(runs[remat],
                                                      runs["none"]))
     step = tstep.make_train_step(cfg, opt, num_microbatches=2)
-    before = fa.tc_counter.count
+    before = (fa.tc_counter.count, fa.bwd_tc_counter.count)
     card, mc = step(tstep.init_train_state(cfg, params, opt), batch)
-    assert fa.tc_counter.count - before == 2 * cfg.num_layers
+    assert fa.tc_counter.count - before[0] == 2 * cfg.num_layers
+    # remat "none" here: one forward and one backward a layer and
+    # microbatch.
+    assert fa.bwd_tc_counter.count - before[1] == 2 * cfg.num_layers
     cpu, mh = step(tstep.init_train_state(cfg, cpu_params, opt),
                    {k: v.cpu() for k, v in batch.items()})
     assert abs(float(mc["loss"]) - float(mh["loss"])) < 0.03 * float(mh["loss"])

@@ -115,7 +115,8 @@ def test_flash_bf16_plain_rounds_p_before_pv(causal):
     (torch.float32, "flash_attention_forward_f32")])
 def test_flash_launch_routes_by_dtype(monkeypatch, dtype, entry):
     """The launch picks the C entry by dtype and bumps only that entry's
-    counter (a stand-in for the library records the calls; no card)."""
+    counter (a stand-in for the library records the calls; no card); a
+    launch without ``with_lse`` passes a null lse."""
     calls = []
 
     def fake_fn(name):
@@ -131,7 +132,8 @@ def test_flash_launch_routes_by_dtype(monkeypatch, dtype, entry):
     assert out.dtype == dtype and out.shape == q.shape
     assert [name for name, _ in calls] == [entry]
     args = calls[0][1]
-    assert args[4:10] == (2, 6, 2, 64, 64, 32) and args[11:] == (1, 7)
+    assert args[4] is None
+    assert args[5:11] == (2, 6, 2, 64, 64, 32) and args[12:] == (1, 7)
     bumped = fa.ENTRIES[dtype][1]
     for c in (fa.tc_counter, fa.f32_counter):
         assert c.count == before[c.name] + (c is bumped)

@@ -19,8 +19,8 @@ bitwise the same in both packages. Bounds:
   ~1e4·lr, so a one-ulp scale difference is amplified 1e8 times in the
   next step in both packages: ROADMAP queue 3): parameters within 1e-5 of
   max(1, |p|) and the codes within one, ties counted.
-* Remat ``none``/``full``/``dots`` and the flash Function against
-  autograd through ``chunked_attention``: bitwise.
+* Remat ``none``/``full``/``dots``: bitwise; the flash Function against
+  its plain backward: bitwise.
 * Resume after a crash: bitwise a clean run, for f32, bf16 and int8 moments.
 """
 import dataclasses
@@ -49,7 +49,8 @@ from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models import layers, model_specs
+from repro_torch.kernels import ref
+from repro_torch.models import model_specs
 from repro_torch.models.params import init_params, tree_paths
 from repro_torch.optim import AdamWConfig, QTensor
 from repro_torch.optim.schedule import linear_warmup_cosine
@@ -226,10 +227,11 @@ def test_remat_gradients_bitwise(arch):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_function_backward(dtype):
-    """Kernel E's Function (the plain forward on the CPU): its gradients
-    bitwise autograd's through the port's ``chunked_attention``, and within
-    1e-5 (f32) / 0.02 (bf16) of max |grad| of ``jax.vjp`` through the
-    reference's ``chunked_attention`` (what ``_flash_bwd`` runs)."""
+    """Kernel E's Function (the plain forward and backward on the CPU): its
+    gradients bitwise the plain backward's (``ref.flash_attention_bwd`` from
+    the plain forward's out and lse), and within 1e-5 (f32) / 0.02 (bf16)
+    of max |grad| of ``jax.vjp`` through the reference's
+    ``chunked_attention`` (what ``_flash_bwd`` runs)."""
     rng = np.random.default_rng(3)
     b, hq, hkv, s, d = 2, 4, 2, 64, 16
     arrays = [rng.normal(size=(b, h, s, d)).astype(np.float32)
@@ -242,10 +244,10 @@ def test_flash_function_backward(dtype):
     out = fa.flash_attention(*inputs, True, scale, 16, 32)
     got = torch.autograd.grad(out, inputs, torch.from_numpy(gout).to(tdt))
     assert fa.tc_counter.count + fa.f32_counter.count == before
-    plain = [torch.from_numpy(a).to(tdt).requires_grad_() for a in arrays]
-    ref_out = layers.chunked_attention(*plain, causal=True, q_chunk=16,
-                                       kv_chunk=32, scale=scale)
-    want = torch.autograd.grad(ref_out, plain, torch.from_numpy(gout).to(tdt))
+    plain = [torch.from_numpy(a).to(tdt) for a in arrays]
+    ref_out, lse = ref.flash_attention(*plain, True, scale, return_lse=True)
+    want = ref.flash_attention_bwd(*plain, ref_out, lse,
+                                   torch.from_numpy(gout).to(tdt), True, scale)
     for g, w in zip(got, want):
         assert g.dtype == tdt and torch.equal(g, w)
     jdt = getattr(jnp, dtype)
