@@ -63,7 +63,7 @@ results:
   in this process and a world of 2 ranks sharing the card on gloo (NCCL
   refuses two ranks on one GPU), the sparse N=16384 anchor from its edges
   (RSA + PWL, R=8): ``solve_sharded`` on a (spins=1) and a (1, 1) mesh,
-  2,048 steps, bitwise the fused ``bitplane_hbm`` solve with kernel C's
+  512 steps, bitwise the fused ``bitplane_hbm`` solve with kernel C's
   launches counted; RWA against kernel A step by step over 256 steps, each
   split pick a near tie; ``run_resilient(backend="sharded")`` through a
   crash; ``solve_distributed`` on K2000 (2 replicas a rank, an exchange
@@ -90,14 +90,18 @@ results:
   (its f32 parameters, bf16 compute, remat "dots", attention on kernel E)
   through ``train_loop`` on 8 x 4,096 in 4 microbatches with f32 AdamW
   moments, four steps: s/step, tokens/s, peak memory, kernel E's launches
-  (192 a step: the forward and its recompute) and its backward's (96),
-  the step split by CUDA events (E, E's backward, the optimizer) and one
-  microbatch profiled; E's backward kernel (``flash_attention_bwd.cu``,
-  both entries) against its plain version at granite's shape and others,
-  two runs bitwise, two planted faults read beside its bound, the
-  Function against autograd through ``chunked_attention``, timed beside
-  that recompute and SDPA's backward; the data
-  pipeline and one smoke train step on the card against the CPU; remat
+  (192 a step: the forward and its recompute) and its backward's (96, on
+  the wgmma entry), the step split by CUDA events (E, E's backward, the
+  optimizer) and one microbatch profiled; E's backward
+  (``flash_attention_bwd_wgmma.cu`` on wgmma at D 64 and 128,
+  ``flash_attention_bwd.cu`` on mma.sync and in f32) against its plain
+  version at granite's shape and others, each route, two runs bitwise,
+  two planted faults read beside its bound, the Function against
+  autograd through ``chunked_attention``; the two bf16 routes timed side
+  by side at granite's shape and qwen2-7b's heads, beside the plain
+  version, SDPA's backward and the bound; the data
+  pipeline and one smoke train step on the card against the CPU (E's
+  backward on mma.sync at head dim 16); remat
   "none", "full" and "dots" bitwise at 2 layers; a crash and resume
   bitwise a clean run at 2 layers with int8 and bf16 moments; and
   ``repro_torch.examples.train_lm --preset 100m`` for 40 steps.
@@ -3441,7 +3445,8 @@ def serve_phase() -> None:
 # [dist]: the multi-GPU solver on the one card: a world of 1 on NCCL in this
 # process, and a world of 2 ranks sharing the card on gloo.
 
-DIST_STEPS = 2048          # the sharded anchor at world 1
+DIST_STEPS = 512           # the sharded anchor at world 1
+DIST_CRASH_CHUNK = 1       # of its 256-step chunks, resumed
 DIST_W2_STEPS = 512        # the sharded solve at world 2
 DIST_LOCK_STEPS = 256      # RWA's prefix, held step by step
 DIST_K_PREFIX = 2000       # the distributed RSA prefix held to the CPU
@@ -3598,16 +3603,18 @@ def dist_world1(edges, prob) -> dict:
     run_dir = str(DIST_RUN_ROOT / "sharded")
     try:
         run_resilient(prob, SEED, cfg, run_dir, backend="sharded",
-                      mesh=mesh1, on_event=crash_after(4))
+                      mesh=mesh1, on_event=crash_after(DIST_CRASH_CHUNK))
         check(False, "the injected crash stops the supervised run")
     except SimulatedCrash:
         pass
     rr = run_resilient(prob, SEED, cfg, run_dir, backend="sharded",
                        mesh=mesh1)
-    check(rr.resumed_from_chunk == 4 and rr.stop_reason == "completed"
+    check(rr.resumed_from_chunk == DIST_CRASH_CHUNK
+          and rr.stop_reason == "completed"
           and same_result(sharded["bitplane_sharded"], rr.result),
-          "run_resilient(backend='sharded') crashed at chunk 4 and resumed "
-          "== solve_sharded, bitwise, every field")
+          f"run_resilient(backend='sharded') crashed at chunk "
+          f"{DIST_CRASH_CHUNK} of {DIST_STEPS // 256} and resumed == "
+          "solve_sharded, bitwise, every field")
     shutil.rmtree(DIST_RUN_ROOT, ignore_errors=True)
 
     # solve_distributed on K2000, 2 replicas a rank.
@@ -3715,7 +3722,7 @@ def dist_phase() -> None:
 
 def reset_flash_counts() -> None:
     for c in (fa.tc_counter, fa.f32_counter, fa.bwd_tc_counter,
-              fa.bwd_f32_counter):
+              fa.bwd_f32_counter, fa.bwd_wgmma_counter):
         c.reset()
 
 
@@ -3725,8 +3732,9 @@ def flash_launches() -> int:
 
 
 def flash_bwd_launches() -> int:
-    """Kernel E's backward entry calls, both entries."""
-    return fa.bwd_tc_counter.count + fa.bwd_f32_counter.count
+    """Kernel E's backward entry calls, all three entries."""
+    return (fa.bwd_tc_counter.count + fa.bwd_f32_counter.count
+            + fa.bwd_wgmma_counter.count)
 
 
 def attention_flops(b: int, hq: int, s: int, d: int,
@@ -4385,19 +4393,31 @@ def fmt_errs(errs) -> str:
     return "/".join(f"{e:.3e}" for e in errs)
 
 
+def flash_bwd_call(q, k, v, out, lse, grad, causal, scale,
+                   mma_sync: bool = False):
+    """Kernel E's backward through the wrapper's route for (dtype, D);
+    ``mma_sync`` forces the mma.sync entry at D 64 and 128 (the timing
+    keyword of ``_launch_bwd``)."""
+    if not mma_sync:
+        return fa._backward(q, k, v, out, lse, grad, causal, scale)
+    return fa._launch_bwd(q, k, v, out, lse, grad.contiguous(), causal, scale,
+                          torch.cuda.current_stream().cuda_stream,
+                          mma_sync=True)
+
+
 def flash_bwd_against_plain(label, q, k, v, grad, causal=True,
-                            quiet=False) -> dict:
+                            quiet=False, mma_sync=False) -> dict:
     """Kernel E's backward against its plain version on the same inputs
     (the kernel forward's out and lse, one dO): two runs bitwise equal, and
     dq, dk, dv within ``ref.FLASH_BWD_TOL`` of max |plain|. The forward's
     lse, which both backwards read, is held to the plain forward's within
-    ``ref.FLASH_LSE_TOL``."""
+    ``ref.FLASH_LSE_TOL``. ``mma_sync`` as ``flash_bwd_call``."""
     scale = q.shape[-1] ** -0.5
     out, lse = fa._forward(q, k, v, causal, scale, with_lse=True)
     _, plain_lse = ref.flash_attention(q, k, v, causal, scale,
                                        return_lse=True)
-    got = fa._backward(q, k, v, out, lse, grad, causal, scale)
-    again = fa._backward(q, k, v, out, lse, grad, causal, scale)
+    got = flash_bwd_call(q, k, v, out, lse, grad, causal, scale, mma_sync)
+    again = flash_bwd_call(q, k, v, out, lse, grad, causal, scale, mma_sync)
     want = ref.flash_attention_bwd(q, k, v, out, lse, grad, causal, scale)
     torch.cuda.synchronize()
     errs = rel_errs(got, want)
@@ -4441,15 +4461,84 @@ def device_ms_by_kernel(run, names, reps: int = 20) -> dict:
     return {n: (ms / c if c else None) for n, (ms, c) in total.items()}
 
 
-def flash_backward_check() -> dict:
+#: Each bf16 route's passes, by a substring of their kernels' names.
+BWD_PASSES = {"wgmma": ("flash_bwd_delta", "flash_bwd_dkdv_wgmma",
+                        "flash_bwd_dq_wgmma"),
+              "mma.sync": ("flash_bwd_delta", "flash_bwd_dkdv_kernel",
+                           "flash_bwd_dq_kernel")}
+
+
+def bwd_route_times(q, k, v, grad) -> dict:
+    """Both bf16 routes of E's backward, causal, on the same inputs: ms a
+    call by CUDA events in turns (mma.sync, wgmma, wgmma, mma.sync), their
+    passes by the profiler, the plain version, SDPA's backward and the
+    bound. Checks that the wgmma route is the faster in both turns."""
+    b, hq, s, d = q.shape
+    scale = d ** -0.5
+    out, lse = fa._forward(q, k, v, True, scale, with_lse=True)
+
+    def run(route):
+        mma_sync = route == "mma.sync"
+        return lambda: flash_bwd_call(q, k, v, out, lse, grad, True, scale,
+                                      mma_sync)
+
+    t = {"mma.sync": [cuda_ms(run("mma.sync"), 10)]}
+    t["wgmma"] = [cuda_ms(run("wgmma"), 10), cuda_ms(run("wgmma"), 10)]
+    t["mma.sync"].append(cuda_ms(run("mma.sync"), 10))
+    passes = {r: device_ms_by_kernel(run(r), BWD_PASSES[r]) for r in t}
+    plain_ms = cuda_ms(lambda: ref.flash_attention_bwd(
+        q, k, v, out, lse, grad, True, scale), 2)
+    sdpa_in = [x.clone().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(
+        *sdpa_in, is_causal=True, scale=scale, enable_gqa=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, sdpa_in, grad, retain_graph=True), 5)
+    del sdpa_out, sdpa_in
+    # The five products of FA-2's backward over the kept pairs (2.5x the
+    # forward's flops) at the bf16 rate; q, k, v, out, dO, dq, dk, dv once
+    # and lse and Δ in f32.
+    flops = 2.5 * attention_flops(b, hq, s, d)
+    nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
+              + 2 * 4 * b * hq * s)
+    bnd = bound(nbytes, flops, BF16_FLOP_PER_S)
+    ratio = t["wgmma"][0] / t["mma.sync"][0]
+
+    def fmt_passes(r):
+        return ", ".join(f"{n} " + ("not measured" if x is None
+                                    else f"{x:.4f} ms")
+                         for n, x in passes[r].items())
+
+    print(f"[train] flash backward {tuple(q.shape)}/{tuple(k.shape)} bf16 "
+          f"causal: the wgmma route {t['wgmma'][0]:.4f} / "
+          f"{t['wgmma'][1]:.4f} ms a call ({flops / t['wgmma'][0] / 1e9:.1f}"
+          f" TFLOP/s, {bnd[0] / t['wgmma'][0]:.1%} of the bound), the "
+          f"mma.sync route {t['mma.sync'][0]:.4f} / {t['mma.sync'][1]:.4f} "
+          f"ms, wgmma / mma.sync {ratio:.3f}; SDPA's backward "
+          f"{library_ms:.4f} ms (wgmma / SDPA "
+          f"{t['wgmma'][0] / library_ms:.2f}), the plain version "
+          f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}: "
+          f"{flops:.4e} flop at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16)")
+    for r in t:
+        print(f"[train]   {r} passes by the profiler: {fmt_passes(r)}")
+    check(max(t["wgmma"]) < min(t["mma.sync"]),
+          f"{tuple(q.shape)}: the wgmma route is faster than the mma.sync "
+          "route in both turns")
+    return dict(out=out, lse=lse, ms=t, passes=passes, plain_ms=plain_ms,
+                library_ms=library_ms, bound=bnd, ratio=ratio)
+
+
+def flash_backward_check() -> tuple:
     """Kernel E's backward at granite's per-microbatch shape (2, 16/8,
-    4,096, 64), causal: both entries against their plain version (with two
-    planted faults read beside the bf16 bound), the Function against
-    autograd through ``chunked_attention`` (the recompute it replaced), its
-    ms by CUDA events beside the plain version's, the recompute's,
-    SDPA's backward and the bound, its three passes by the profiler; then
-    the kernel against the plain version at other head dims and shapes.
-    Returns the ``kernels`` row of flash_attention_bwd (launches 0)."""
+    4,096, 64), causal: both bf16 routes (the wgmma entry, which the wrapper
+    takes at D 64 and 128, and the mma.sync entry, forced) and the f32
+    entry against their plain version (with two planted faults read beside
+    the bf16 bound), the Function against autograd through
+    ``chunked_attention`` (the recompute it replaced); both routes timed
+    side by side, beside the plain version, SDPA's backward and the bound,
+    there and at qwen2-7b's heads (2, 28/4, 4,096, 128); then every
+    route against the plain version at other head dims and shapes.
+    Returns the ``kernels`` rows of flash_attention_bwd (its mma.sync and
+    f32 entries) and flash_attention_bwd_wgmma (launches 0)."""
     cfg = train_config()
     b, s, d = TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -4461,7 +4550,9 @@ def flash_backward_check() -> dict:
 
     q, k, v, grad = (rand(sh) for sh in ((b, hq, s, d), (b, hkv, s, d),
                                          (b, hkv, s, d), (b, hq, s, d)))
-    main = flash_bwd_against_plain("E's backward", q, k, v, grad)
+    main = flash_bwd_against_plain("E's backward, wgmma", q, k, v, grad)
+    main_mma = flash_bwd_against_plain("E's backward, mma.sync", q, k, v,
+                                       grad, mma_sync=True)
     out, lse, want = main["out"], main["lse"], main["want"]
     tol = ref.FLASH_BWD_TOL[torch.bfloat16]
     for name, bad_out, bad_lse in (
@@ -4482,11 +4573,12 @@ def flash_backward_check() -> dict:
     fout = fa.flash_attention(*ins, True, scale, cfg.seq_chunk_q,
                               cfg.seq_chunk_kv)
     got = torch.autograd.grad(fout, ins, grad)
-    check((fa.tc_counter.count, fa.bwd_tc_counter.count, fa.f32_counter.count,
-           fa.bwd_f32_counter.count) == (1, 1, 0, 0)
+    check((fa.tc_counter.count, fa.bwd_wgmma_counter.count,
+           fa.bwd_tc_counter.count, fa.f32_counter.count,
+           fa.bwd_f32_counter.count) == (1, 1, 0, 0, 0)
           and all(torch.equal(a, w) for a, w in zip(got, main["got"])),
-          "the Function launches the bf16 forward and backward entries "
-          "once each, and its gradients are the entry's, bitwise")
+          "the Function launches the bf16 forward and the wgmma backward "
+          "entry once each, and its gradients are the entry's, bitwise")
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
     rc_out = layers.chunked_attention(
         *plain, causal=True, q_chunk=cfg.seq_chunk_q,
@@ -4497,89 +4589,86 @@ def flash_backward_check() -> dict:
           f"the Function's dq/dk/dv within {FLASH_BWD_RECOMPUTE_TOL} of max "
           f"|grad| of autograd through chunked_attention: {fmt_errs(rerrs)}")
     q32, k32, v32, g32 = (t.float() for t in (q, k, v, grad))
-    f32 = flash_bwd_against_plain("E's backward", q32, k32, v32, g32)
+    f32 = flash_bwd_against_plain("E's backward, f32", q32, k32, v32, g32)
 
-    sdpa_in = [t.clone().requires_grad_() for t in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(
-        *sdpa_in, is_causal=True, scale=scale, enable_gqa=True)
-    e = {"ms": cuda_ms(lambda: fa._backward(q, k, v, out, lse, grad, True,
-                                            scale), 10),
-         "fwd_ms": cuda_ms(lambda: fa._forward(q, k, v, True, scale,
-                                               with_lse=True), 10),
-         "plain_ms": cuda_ms(lambda: ref.flash_attention_bwd(
-             q, k, v, out, lse, grad, True, scale), 2),
-         "recompute_ms": cuda_ms(lambda: torch.autograd.grad(
-             rc_out, plain, grad, retain_graph=True), 2),
-         "library_ms": cuda_ms(lambda: torch.autograd.grad(
-             sdpa_out, sdpa_in, grad, retain_graph=True), 5),
-         "f32_ms": cuda_ms(lambda: fa._backward(
-             q32, k32, v32, f32["out"], f32["lse"], g32, True, scale), 2)}
-    del rc_out, plain, sdpa_out, sdpa_in
-    # The five products of FA-2's backward over the kept pairs (2.5x the
-    # forward's flops) at the bf16 rate; q, k, v, out, dO, dq, dk, dv once
-    # and lse and Δ in f32.
-    flops = 2.5 * attention_flops(b, hq, s, d)
-    nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
-              + 2 * 4 * b * hq * s)
-    e["bound"] = bound(nbytes, flops, BF16_FLOP_PER_S)
-    passes = device_ms_by_kernel(
-        lambda: fa._backward(q, k, v, out, lse, grad, True, scale),
-        ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
-    split = ", ".join(f"{n} " + ("not measured" if t is None
-                                 else f"{t:.4f} ms")
-                      for n, t in passes.items())
-    print(f"[train] flash backward {tuple(q.shape)}/{tuple(k.shape)} bf16 "
-          f"causal: the kernel {e['ms']:.4f} ms a call ({flops / e['ms'] / 1e9:.1f} "
-          f"TFLOP/s, {e['bound'][0] / e['ms']:.1%} of the bound; passes by "
-          f"the profiler: {split}), its forward with lse {e['fwd_ms']:.4f} "
-          f"ms, the plain version {e['plain_ms']:.3f} ms, the recompute "
-          f"through chunked_attention (f32 einsums, TF32 off: the Function's "
-          f"earlier backward) {e['recompute_ms']:.3f} ms, "
-          f"scaled_dot_product_attention's "
-          f"backward {e['library_ms']:.4f} ms (kernel / SDPA "
-          f"{e['ms'] / e['library_ms']:.2f}), bound {e['bound'][0]:.4f} ms "
-          f"({e['bound'][1]}: {flops:.4e} flop at "
-          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); the f32 entry "
-          f"{e['f32_ms']:.3f} ms")
+    e = bwd_route_times(q, k, v, grad)
+    extra = {
+        "fwd_ms": cuda_ms(lambda: fa._forward(q, k, v, True, scale,
+                                              with_lse=True), 10),
+        "recompute_ms": cuda_ms(lambda: torch.autograd.grad(
+            rc_out, plain, grad, retain_graph=True), 2),
+        "f32_ms": cuda_ms(lambda: fa._backward(
+            q32, k32, v32, f32["out"], f32["lse"], g32, True, scale), 2)}
+    del rc_out, plain
+    print(f"[train]   its forward with lse {extra['fwd_ms']:.4f} ms, the "
+          f"recompute through chunked_attention (f32 einsums, TF32 off: the "
+          f"Function's earlier backward) {extra['recompute_ms']:.3f} ms, "
+          f"the f32 entry {extra['f32_ms']:.3f} ms")
+    lm = get_config(LM_ARCH)
+    wide = [rand(sh) for sh in (
+        (b, lm.num_heads, s, lm.resolved_head_dim),
+        (b, lm.num_kv_heads, s, lm.resolved_head_dim),
+        (b, lm.num_kv_heads, s, lm.resolved_head_dim),
+        (b, lm.num_heads, s, lm.resolved_head_dim))]
+    print(f"[train] {LM_ARCH}'s heads ({lm.num_heads}/{lm.num_kv_heads} x "
+          f"{lm.resolved_head_dim}):")
+    bwd_route_times(*wide)
+    del wide
 
-    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst = {"wgmma": 0.0, "mma.sync": 0.0, "f32": 0.0}
     worst_lse = max(main["lse_err"], f32["lse_err"])
     shapes = [(2, 8, 2, 512, 512, dd)
               for dd in (16, 32, 64, 80, 128, 160, 192, 256)]
     shapes += [(1, 7, 1, 333, 200, 128), (1, 6, 3, 100, 200, 160),
                (2, 28, 4, 200, 200, 128), (1, 4, 2, 160, 96, 80),
-               (2, hq // 2, hkv // 2, 2048, 2048, d)]
+               (2, hq // 2, hkv // 2, 2048, 2048, d),
+               (1, 8, 2, 200, 333, 64), (1, 4, 1, s + 17, s + 17, 128)]
     for sh in shapes:
         for causal in (True, False):
             for dtype in (torch.bfloat16, torch.float32):
                 qq, kk, vv, gg = (rand(x, dtype) for x in (
                     sh[:2] + sh[3:4] + sh[5:], sh[:1] + sh[2:3] + sh[4:],
                     sh[:1] + sh[2:3] + sh[4:], sh[:2] + sh[3:4] + sh[5:]))
-                r = flash_bwd_against_plain("E's backward", qq, kk, vv, gg,
-                                            causal, quiet=True)
-                worst[dtype] = max(worst[dtype], max(r["errs"]))
-                worst_lse = max(worst_lse, r["lse_err"])
+                wgmma = (dtype == torch.bfloat16
+                         and sh[5] in fa.WGMMA_HEAD_DIMS)
+                for mma_sync in ((False, True) if wgmma else (False,)):
+                    r = flash_bwd_against_plain("E's backward", qq, kk, vv,
+                                                gg, causal, quiet=True,
+                                                mma_sync=mma_sync)
+                    key = ("f32" if dtype == torch.float32 else
+                           "wgmma" if wgmma and not mma_sync else "mma.sync")
+                    worst[key] = max(worst[key], max(r["errs"]))
+                    worst_lse = max(worst_lse, r["lse_err"])
     print(f"[kernels] E's backward against its plain version at "
-          f"{len(shapes)} shapes x causal and not: two runs bitwise each, "
-          f"worst dq/dk/dv / max |plain| bf16 {worst[torch.bfloat16]:.3e} "
-          f"(bound {ref.FLASH_BWD_TOL[torch.bfloat16]}), f32 "
-          f"{worst[torch.float32]:.3e} (bound "
-          f"{ref.FLASH_BWD_TOL[torch.float32]}); worst |lse − plain lse| "
-          f"{worst_lse:.3e} (bound {ref.FLASH_LSE_TOL})")
-    return {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:116",
-        "launches": 0, "max_abs_err": max(main["abs"], f32["abs"]),
-        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
-        "bound_by": e["bound"][1], "library_ms": e["library_ms"]}
+          f"{len(shapes)} shapes x causal and not, every route the wrapper "
+          f"takes and the mma.sync route forced at D 64 and 128: two runs "
+          f"bitwise each, worst dq/dk/dv / max |plain| wgmma "
+          f"{worst['wgmma']:.3e}, mma.sync {worst['mma.sync']:.3e} (bound "
+          f"{ref.FLASH_BWD_TOL[torch.bfloat16]}), f32 {worst['f32']:.3e} "
+          f"(bound {ref.FLASH_BWD_TOL[torch.float32]}); worst |lse − plain "
+          f"lse| {worst_lse:.3e} (bound {ref.FLASH_LSE_TOL})")
+    common = {"route": "cuda",
+              "replaces": "src/repro/kernels/flash_attention.py:116",
+              "launches": 0, "plain_ms": e["plain_ms"],
+              "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
+              "library_ms": e["library_ms"]}
+    mma_row = dict(common, name="flash_attention_bwd",
+                   source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   max_abs_err=max(main_mma["abs"], f32["abs"]),
+                   ms=e["ms"]["mma.sync"][0])
+    wgmma_row = dict(
+        common, name="flash_attention_bwd_wgmma",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+        max_abs_err=main["abs"], ms=e["ms"]["wgmma"][0])
+    return mma_row, wgmma_row
 
 
-def train_card_against_cpu() -> None:
+def train_card_against_cpu() -> int:
     """granite's smoke config: the data pipeline's batches on the card
     bitwise the CPU's (also at the full vocabulary), and one microbatched
     train step on the card against the CPU from the same parameters and
-    batch."""
+    batch. Its head dim (16) takes E's mma.sync backward entry: returns
+    that entry's calls in the step, the counts zeroed just before it."""
     smoke = dataclasses.replace(get_config(TRAIN_ARCH, smoke=True),
                                 attn_impl="flash")
     for cfg, dc in ((smoke, DataConfig(seed=SEED, global_batch=4,
@@ -4599,7 +4688,14 @@ def train_card_against_cpu() -> None:
                                               seq_len=64), "cuda").batch(0)
     opt = AdamWConfig(learning_rate=1e-3)
     step = make_train_step(smoke, opt, num_microbatches=2)
+    reset_flash_counts()
     card, mc = step(init_train_state(smoke, params, opt), batch)
+    mma_calls = fa.bwd_tc_counter.count
+    check(mma_calls == smoke.num_layers * 2
+          and fa.bwd_wgmma_counter.count == fa.bwd_f32_counter.count == 0,
+          f"the smoke step (head dim {smoke.resolved_head_dim}) calls E's "
+          f"mma.sync backward entry {mma_calls} times (every layer and "
+          "microbatch), the wgmma and f32 entries never")
     cpu, mh = step(init_train_state(smoke, cpu_params, opt),
                    {k: v.cpu() for k, v in batch.items()})
     dl = abs(float(mc["loss"]) - float(mh["loss"])) / float(mh["loss"])
@@ -4620,6 +4716,7 @@ def train_card_against_cpu() -> None:
     # gradient of opposite sign in bf16 moves it by up to 2·lr.
     check(dmax <= 2.5e-3 and dmean <= 1e-5, "updated parameters within "
           "2.5 lr of each other, mean |diff| within 0.01 lr")
+    return mma_calls
 
 
 def remat_check() -> None:
@@ -4640,7 +4737,8 @@ def remat_check() -> None:
         runs[remat] = (loss, grads)
         print(f"[train] remat={remat}: loss {float(loss):.6f}, kernel E "
               f"launches {fa.tc_counter.count}, its backward "
-              f"{fa.bwd_tc_counter.count}, peak device memory "
+              f"{flash_bwd_launches()} (wgmma {fa.bwd_wgmma_counter.count})"
+              f", peak device memory "
               f"{torch.cuda.max_memory_allocated()} bytes")
     for remat in ("full", "dots"):
         check(torch.equal(runs[remat][0], runs["none"][0])
@@ -4786,7 +4884,8 @@ def train_throughput() -> int:
     (state, history), wall = timed(lambda: train_loop(
         cfg, dc, loop, device="cuda", log_fn=print))
     launches, launches_f32 = fa.tc_counter.count, fa.f32_counter.count
-    bwd, bwd_f32 = fa.bwd_tc_counter.count, fa.bwd_f32_counter.count
+    bwd, bwd_other = fa.bwd_wgmma_counter.count, (
+        fa.bwd_tc_counter.count + fa.bwd_f32_counter.count)
     others = read_all_counts()
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -4802,14 +4901,14 @@ def train_throughput() -> int:
           f"s with set-up, {steady:.4f} s a step after the first "
           f"({tokens / steady:.1f} tokens/s), peak device memory {peak} "
           f"bytes, kernel E launches bf16={launches} f32={launches_f32}, its "
-          f"backward bf16={bwd} f32={bwd_f32} (others {others})")
+          f"backward wgmma={bwd} mma.sync/f32={bwd_other} (others {others})")
     per_step = 2 * cfg.num_layers * TRAIN_MB
     check(launches == per_step * TRAIN_STEPS and launches_f32 == 0,
           f"kernel E's bf16 entry launched {per_step} times a step (forward "
           "and recompute, every layer and microbatch), the f32 entry never")
-    check(bwd == per_step // 2 * TRAIN_STEPS and bwd_f32 == 0,
-          f"its backward's bf16 entry called {per_step // 2} times a step "
-          "(every layer and microbatch), the f32 entry never")
+    check(bwd == per_step // 2 * TRAIN_STEPS and bwd_other == 0,
+          f"its backward's wgmma entry called {per_step // 2} times a step "
+          "(every layer and microbatch), the mma.sync and f32 entries never")
     check(not any(others.values()), "no Ising kernel launched")
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
               for h in history), "loss and grad norm finite every step")
@@ -4858,25 +4957,28 @@ def dense_example() -> None:
 
 def train_phase() -> tuple:
     """[train]: the training path on the card. Returns kernel E's forward
-    launches on its main path and the ``kernels`` row of its backward, the
-    main path's calls of the entry as its launches."""
+    launches on its main path and the ``kernels`` rows of its backward: the
+    mma.sync entry's (its launches the smoke step's, the one path at a head
+    dim it takes) and the wgmma entry's (the main path's calls)."""
     print(f"[train] {nvidia_smi()}")
     t0 = time.perf_counter()
-    bwd_row = flash_backward_check()
+    mma_row, wgmma_row = flash_backward_check()
     print(f"[phase] train flash-backward {time.perf_counter() - t0:.1f} s")
     for name, part in (("card-cpu", train_card_against_cpu),
                        ("remat", remat_check), ("resume", resume_check)):
         t0 = time.perf_counter()
-        part()
+        calls = part()
+        if name == "card-cpu":
+            mma_row["launches"] = calls
         torch.cuda.empty_cache()
         print(f"[phase] train {name} {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches, bwd_row["launches"] = train_throughput()
+    launches, wgmma_row["launches"] = train_throughput()
     print(f"[phase] train main {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dense_example()
     print(f"[phase] train dense-example {time.perf_counter() - t0:.1f} s")
-    return launches, bwd_row
+    return launches, mma_row, wgmma_row
 
 
 #: [lm-shard]: the LM sharding on one card. qwen2-7b at full width and
@@ -5123,7 +5225,8 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
         reset_flash_counts()
         with use_sharding(mesh, rules):
             state, metrics, secs = lms_train_steps(gcfg, gspecs, mesh, rules)
-        launches, bwd_launches = flash_launches(), flash_bwd_launches()
+        launches, bwd_launches = flash_launches(), fa.bwd_wgmma_counter.count
+        bwd_other = flash_bwd_launches() - bwd_launches
         coll = lms_collectives(M)
         # The parameters against the unsharded run's, and the update's
         # size (from the seed's blocks drawn again).
@@ -5146,7 +5249,8 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
             mref2 += float(wm.double().square().sum())
         out["train"][shape] = dict(
             metrics=metrics, secs=secs, launches=launches,
-            bwd_launches=bwd_launches, collectives=coll,
+            bwd_launches=bwd_launches, bwd_other=bwd_other,
+            collectives=coll,
             peak=torch.cuda.max_memory_allocated(), dmax=dmax,
             dmean=dsum / n, ratio=math.sqrt(err2 / upd2),
             mratio=math.sqrt(merr2 / mref2))
@@ -5341,9 +5445,10 @@ def lm_shard_phase() -> int:
                   " steps (forward and recompute, every layer and "
                   "microbatch)")
             check(t["bwd_launches"] == gcfg.num_layers * LMS_TRAIN_MB
-                  * LMS_TRAIN_STEPS,
-                  f"rank {r}: its backward entry called {t['bwd_launches']}"
-                  " times in the steps (every layer and microbatch)")
+                  * LMS_TRAIN_STEPS and t["bwd_other"] == 0,
+                  f"rank {r}: its backward's wgmma entry called "
+                  f"{t['bwd_launches']} times in the steps (every layer and "
+                  "microbatch), the mma.sync and f32 entries never")
             total += t["launches"]
             total_bwd += t["bwd_launches"]
     print(f"[lm-shard] world of 2: {w2_s:.1f} s for both processes, their "
@@ -5858,6 +5963,13 @@ def main() -> None:
         print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}")
         for line in ptxas_summary(b.log):
             print(f"[build]   {line}")
+    wgmma = [line for line in ptxas_summary(
+        built["flash_attention_bwd_wgmma"].log) if "wgmma_kernel" in line]
+    if wgmma:   # empty where an earlier build was reused
+        check(len(wgmma) == 4 and all(
+            "0 bytes spill stores, 0 bytes spill loads" in line
+            for line in wgmma), "ptxas: E's wgmma backward kernels (dK/dV "
+              "and dQ at D 64 and 128) spill nothing")
 
     t0 = time.perf_counter()
     rows = dense_slice()
@@ -5903,10 +6015,11 @@ def main() -> None:
     print(f"[phase] lm-families {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # ... and the train step's: its forward and its recompute; E's
-    # backward row counts the step's backward.
-    fwd, bwd_row = train_phase()
+    # backward rows count the step's backward (wgmma) and the smoke step's
+    # (mma.sync).
+    fwd, mma_row, bwd_row = train_phase()
     e_row["launches"] += fwd
-    rows.append(bwd_row)
+    rows += [mma_row, bwd_row]
     print(f"[phase] train {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # ... and the sharded paths': each rank's heads.

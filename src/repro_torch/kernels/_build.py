@@ -26,7 +26,8 @@ SOURCES = {"sweep": "sweep.cu", "colored_sweep": "colored_sweep.cu",
            "local_field": "local_field.cu",
            "bitplane_field": "bitplane_field.cu",
            "flash_attention": "flash_attention.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "flash_attention_bwd_wgmma": "flash_attention_bwd_wgmma.cu"}
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: The Ising kernels round every multiply and add on its own (-fmad=false)
@@ -38,7 +39,8 @@ NVCC_FLAGS = {"sweep": COMMON_FLAGS + EXACT,
               "local_field": COMMON_FLAGS + EXACT,
               "bitplane_field": COMMON_FLAGS + EXACT,
               "flash_attention": COMMON_FLAGS,
-              "flash_attention_bwd": COMMON_FLAGS}
+              "flash_attention_bwd": COMMON_FLAGS,
+              "flash_attention_bwd_wgmma": COMMON_FLAGS}
 
 
 @dataclasses.dataclass(frozen=True)

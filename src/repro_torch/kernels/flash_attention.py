@@ -7,10 +7,14 @@ A CPU tensor goes to the plain versions (``ref.flash_attention``,
 raises: the forward ``csrc/flash_attention.cu``, bfloat16 inputs its
 tensor-core entry (``flash_attention_forward_bf16``, counted by
 ``tc_counter``), float32 inputs its CUDA-core entry
-(``flash_attention_forward_f32``, ``f32_counter``); the backward
-``csrc/flash_attention_bwd.cu`` likewise (``flash_attention_backward_bf16``,
-``bwd_tc_counter``; ``flash_attention_backward_f32``, ``bwd_f32_counter``;
-one count a call of the entry, which launches its three passes).
+(``flash_attention_forward_f32``, ``f32_counter``). The backward routes
+by dtype and head dim (:func:`bwd_route`): bfloat16 at D = 64 and 128 to
+``csrc/flash_attention_bwd_wgmma.cu`` (``flash_attention_backward_bf16_wgmma``
+on wgmma and TMA, ``bwd_wgmma_counter``), bfloat16 at every other D to
+``csrc/flash_attention_bwd.cu`` (``flash_attention_backward_bf16`` on
+mma.sync, ``bwd_tc_counter``), float32 to the latter's
+``flash_attention_backward_f32`` (``bwd_f32_counter``); one count a call of
+the entry, which launches its three passes.
 
 :func:`flash_attention` is differentiable: an autograd Function whose
 forward also saves the rows' log-sum-exp and whose backward is the
@@ -36,6 +40,7 @@ tc_counter = LaunchCounter("flash_attention_bf16")
 f32_counter = LaunchCounter("flash_attention_f32")
 bwd_tc_counter = LaunchCounter("flash_attention_bwd_bf16")
 bwd_f32_counter = LaunchCounter("flash_attention_bwd_f32")
+bwd_wgmma_counter = LaunchCounter("flash_attention_bwd_bf16_wgmma")
 
 #: The kernel entry and its launch count for each input dtype (q, k and v
 #: alike).
@@ -45,6 +50,14 @@ ENTRIES = {torch.bfloat16: ("flash_attention_forward_bf16", tc_counter),
 BWD_ENTRIES = {
     torch.bfloat16: ("flash_attention_backward_bf16", bwd_tc_counter),
     torch.float32: ("flash_attention_backward_f32", bwd_f32_counter)}
+#: The Hopper backward (wgmma, a TMA-fed ring, warp specialisation) and the
+#: bfloat16 head dims it takes; every other (dtype, D) keeps BWD_ENTRIES.
+WGMMA_BWD = ("flash_attention_backward_bf16_wgmma", bwd_wgmma_counter)
+WGMMA_HEAD_DIMS = (64, 128)
+#: The source (``_build.SOURCES`` key) of each backward entry.
+BWD_LIBRARIES = {"flash_attention_backward_bf16": "flash_attention_bwd",
+                 "flash_attention_backward_f32": "flash_attention_bwd",
+                 WGMMA_BWD[0]: "flash_attention_bwd_wgmma"}
 
 #: Head dims the kernels take: multiples of 16 up to 256.
 MAX_HEAD_DIM = 256
@@ -64,7 +77,7 @@ def _fn(entry: str):
 def _bwd_fn(entry: str):
     """A backward entry: q, k, v, out, lse, dout, dq, dk, dv, the Δ
     scratch and the shape."""
-    fn = getattr(_build.load("flash_attention_bwd"), entry)
+    fn = getattr(_build.load(BWD_LIBRARIES[entry]), entry)
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -217,11 +230,21 @@ def _launch(q, k, v, causal: bool, scale: float, stream: int,
     return (out, lse) if with_lse else out
 
 
+def bwd_route(dtype: torch.dtype, d: int, mma_sync: bool = False) -> tuple:
+    """The backward entry and its counter for q's dtype and head dim D:
+    bfloat16 at D in ``WGMMA_HEAD_DIMS`` the wgmma entry, everything else
+    ``BWD_ENTRIES[dtype]``. ``mma_sync`` sends bfloat16 at those D to the
+    mma.sync entry instead (for timing the two side by side only)."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and not mma_sync:
+        return WGMMA_BWD
+    return BWD_ENTRIES[dtype]
+
+
 def _launch_bwd(q, k, v, out, lse, dout, causal: bool, scale: float,
-                stream: int):
-    """Launch the backward entry for q's dtype on ``stream`` (its three
-    passes) and count it once."""
-    entry, counter = BWD_ENTRIES[q.dtype]
+                stream: int, *, mma_sync: bool = False):
+    """Launch the backward entry of :func:`bwd_route` on ``stream`` (its
+    three passes) and count it once; a refused launch raises."""
+    entry, counter = bwd_route(q.dtype, q.shape[3], mma_sync)
     b, hq, sq, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)

@@ -760,7 +760,8 @@ def _rel_errs(got, want):
 ])
 def test_flash_backward_kernel_matches_plain(cuda_device, b, hq, hkv, sq,
                                              skv, d, causal, dtype):
-    """The backward entry for the dtype, once a call, against the plain
+    """The backward entry for the dtype and head dim (``fa.bwd_route``:
+    bf16 at D 64 and 128 the wgmma entry), once a call, against the plain
     backward on the same q, k, v, out, lse and dO; a second call bitwise
     the first (no atomics); the forward's lse, which both read, against
     the plain forward's."""
@@ -771,12 +772,12 @@ def test_flash_backward_kernel_matches_plain(cuda_device, b, hq, hkv, sq,
     _, plain_lse = ref.flash_attention(q, k, v, causal, scale,
                                        return_lse=True)
     assert float((lse - plain_lse).abs().max()) <= ref.FLASH_LSE_TOL
-    mine, other = ((fa.bwd_tc_counter, fa.bwd_f32_counter)
-                   if dtype == torch.bfloat16
-                   else (fa.bwd_f32_counter, fa.bwd_tc_counter))
-    before = (mine.count, other.count)
+    counters = (fa.bwd_tc_counter, fa.bwd_f32_counter, fa.bwd_wgmma_counter)
+    mine = fa.bwd_route(dtype, d)[1]
+    before = [c.count for c in counters]
     got = fa._backward(q, k, v, out, lse, g, causal, scale)
-    assert (mine.count, other.count) == (before[0] + 1, before[1])
+    assert [c.count for c in counters] == [
+        n + (c is mine) for n, c in zip(before, counters)]
     again = fa._backward(q, k, v, out, lse, g, causal, scale)
     want = ref.flash_attention_bwd(q, k, v, out, lse, g, causal, scale)
     torch.cuda.synchronize()
@@ -905,21 +906,21 @@ def test_store_cache_moves_a_cpu_store_to_the_card_once(cuda_device):
 
 
 def test_flash_function_backward_on_card(cuda_device):
-    """Kernel E's autograd Function on the card: the bf16 forward and
-    backward entries launch once each; the lse within its bound of the
-    plain forward's; dq, dk, dv within the backward's bound of the plain
+    """Kernel E's autograd Function on the card: the bf16 forward and the
+    wgmma backward entry (D = 64) launch once each; the lse within its
+    bound of the plain forward's; dq, dk, dv within the backward's bound of the plain
     backward on the kernel forward's out and lse, and within 0.02 of max |grad| of autograd through ``chunked_attention``
     (the recompute the backward replaced)."""
     q, k, v = _qkv((2, 4, 256, 64), (2, 2, 256, 64), torch.bfloat16,
                    cuda_device)
     grad = torch.randn_like(q)
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-    counters = (fa.tc_counter, fa.bwd_tc_counter, fa.f32_counter,
-                fa.bwd_f32_counter)
+    counters = (fa.tc_counter, fa.bwd_wgmma_counter, fa.f32_counter,
+                fa.bwd_f32_counter, fa.bwd_tc_counter)
     before = [c.count for c in counters]
     out = fa.flash_attention(qs, ks, vs, True, 0.125, 64, 128)
     got = torch.autograd.grad(out, (qs, ks, vs), grad)
-    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
+    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0]
     fout, lse = fa._forward(q, k, v, True, 0.125, with_lse=True)
     assert torch.equal(fout, out)
     _, plain_lse = ref.flash_attention(q, k, v, True, 0.125, return_lse=True)
