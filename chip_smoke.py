@@ -3721,14 +3721,26 @@ def dist_phase() -> None:
 
 
 def reset_flash_counts() -> None:
-    for c in (fa.tc_counter, fa.f32_counter, fa.bwd_tc_counter,
-              fa.bwd_f32_counter, fa.bwd_wgmma_counter):
+    for c in (*fa.FWD_COUNTERS, fa.bwd_tc_counter, fa.bwd_f32_counter,
+              fa.bwd_wgmma_counter):
         c.reset()
 
 
 def flash_launches() -> int:
-    """Kernel E's forward launches, both entries."""
-    return fa.tc_counter.count + fa.f32_counter.count
+    """Kernel E's forward launches, all three entries."""
+    return sum(c.count for c in fa.FWD_COUNTERS)
+
+
+def flash_routes() -> dict:
+    """Kernel E's forward launches by ``kernels`` row: the wgmma entry's
+    (``flash_attention_wgmma.cu``) and those of ``flash_attention.cu``'s
+    mma.sync and f32 entries."""
+    return {"wgmma": fa.fwd_wgmma_counter.count,
+            "mma.sync": fa.tc_counter.count + fa.f32_counter.count}
+
+
+def add_routes(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
 
 
 def flash_bwd_launches() -> int:
@@ -3743,6 +3755,51 @@ def attention_flops(b: int, hq: int, s: int, d: int,
     pairs: 4·B·Hq·D·S(S+1)/2 when causal."""
     pairs = s * (s + 1) // 2 if causal else s * s
     return 4 * b * hq * d * pairs
+
+
+def fwd_route_times(label, q, k, v, reps: int, with_lse: bool = False,
+                    plain_reps: int = 2) -> dict:
+    """Both bf16 routes of kernel E's forward, causal, on the same q, k, v:
+    ms a call by CUDA events in turns (mma.sync forced, wgmma, wgmma,
+    mma.sync), beside the plain version, SDPA (causal, GQA) and the bound;
+    ``with_lse`` writes the rows' lse too (the train step's forward).
+    Checks that the wgmma route is the faster in both turns."""
+    b, hq, s, d = q.shape
+    sc = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(mma_sync):
+        return lambda: fa._launch(q, k, v, True, sc, stream, with_lse,
+                                  mma_sync=mma_sync)
+
+    t = {"mma.sync": [cuda_ms(run(True), reps)]}
+    t["wgmma"] = [cuda_ms(run(False), reps), cuda_ms(run(False), reps)]
+    t["mma.sync"].append(cuda_ms(run(True), reps))
+    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, True, sc,
+                                                   with_lse), plain_reps)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=sc, enable_gqa=True), reps)
+    flops = attention_flops(b, hq, s, d)
+    # q, k, v in and out once (and the lse); the flops at the bf16 rate.
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * k.numel())
+              + (4 * b * hq * s if with_lse else 0))
+    bnd = bound(nbytes, flops, BF16_FLOP_PER_S)
+    w, m = t["wgmma"], t["mma.sync"]
+    print(f"[timing] flash_attention {label} {tuple(q.shape)}/"
+          f"{tuple(k.shape)} bf16 causal{' with lse' if with_lse else ''}: "
+          f"the wgmma route {w[0]:.4f} / {w[1]:.4f} ms a call "
+          f"({flops / w[0] / 1e9:.1f} TFLOP/s, {bnd[0] / w[0]:.1%} of the "
+          f"bound, wgmma / SDPA {w[0] / library_ms:.2f}), the mma.sync route "
+          f"{m[0]:.4f} / {m[1]:.4f} ms ({bnd[0] / m[0]:.1%} of the bound, "
+          f"mma.sync / SDPA {m[0] / library_ms:.2f}), wgmma / mma.sync "
+          f"{w[0] / m[0]:.3f}; scaled_dot_product_attention "
+          f"{library_ms:.4f} ms, the plain version {plain_ms:.4f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}: {flops} flop at "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16)")
+    check(max(w) < min(m), f"{label}: the wgmma forward is faster than the "
+          "mma.sync route in both turns")
+    return dict(ms=t, plain_ms=plain_ms, library_ms=library_ms, bound=bnd,
+                flops=flops)
 
 
 def rel_err(a, b) -> float:
@@ -3797,10 +3854,13 @@ def layer_errors(cfg, params, tokens) -> list:
 
 def lm_slice() -> list:
     """The LM serving path: qwen2-7b at full width and depth, a 4 x 4,096
-    prefill through the flash kernel (28 launches), the chunked path on the
-    same inputs, one-token decode, the kernel against its plain version at
-    the main path's shapes and others, and the timings. Returns the
-    ``kernels`` row of flash_attention."""
+    prefill through kernel E's wgmma forward (D 128: 28 launches), the
+    chunked path on the same inputs, one-token decode, the kernel against
+    its plain version at the main path's shapes and others (every route
+    the wrapper takes, and the mma.sync route forced at D 64 and 128), and
+    both bf16 routes timed side by side. Returns the ``kernels`` rows of
+    E's forward: the wgmma route's and flash_attention.cu's (its mma.sync
+    and f32 entries)."""
     phase_t = time.perf_counter()
 
     def phase_done(name):
@@ -3839,18 +3899,20 @@ def lm_slice() -> list:
     logits = forward(cfg, params, tokens=tokens).logits
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.tc_counter.count
-    launches_f32 = fa.f32_counter.count
+    routes = flash_routes()
+    launches = fa.fwd_wgmma_counter.count
     others = read_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"[main] prefill {wall * 1e3:.3f} ms, "
           f"{LM_BATCH * LM_SEQ / wall:.1f} tokens/s, peak device memory "
-          f"{peak} bytes, launches flash_attention bf16 (tensor cores)="
-          f"{launches} f32={launches_f32} (others {others})")
+          f"{peak} bytes, launches flash_attention bf16 wgmma={launches} "
+          f"mma.sync={fa.tc_counter.count} f32={fa.f32_counter.count} "
+          f"(others {others})")
     check(launches == cfg.num_layers,
-          f"flash_attention's tensor-core entry launched {cfg.num_layers} "
-          "times, once a layer")
-    check(launches_f32 == 0, "flash_attention's f32 entry launched 0 times")
+          f"flash_attention's wgmma entry launched {cfg.num_layers} times, "
+          "once a layer")
+    check(routes["mma.sync"] == 0,
+          "flash_attention's mma.sync and f32 entries launched 0 times")
     check(tuple(logits.shape) == (LM_BATCH, LM_SEQ, cfg.vocab_size)
           and logits.dtype == torch.bfloat16,
           f"logits are bf16 of shape ({LM_BATCH}, {LM_SEQ}, {cfg.vocab_size})")
@@ -3947,102 +4009,136 @@ def lm_slice() -> list:
     torch.cuda.empty_cache()
     phase_done("decode")
 
-    scale = cfg.resolved_head_dim ** -0.5
-    print("[kernels] flash_attention against its plain version")
-    errs = {}
+    rows = flash_forward_check(q0, k0, v0)
+    rows[0]["launches"], rows[1]["launches"] = (routes["wgmma"],
+                                                routes["mma.sync"])
+    phase_done("flash-forward")
+    return rows
 
-    def against_plain(label, q, k, v, causal=True):
-        sc = q.shape[-1] ** -0.5
-        got = fa.flash_attention(q, k, v, causal, sc, q.shape[2], k.shape[2])
-        want = ref.flash_attention(q, k, v, causal, sc)
-        torch.cuda.synchronize()
-        tol = FLASH_TOL[q.dtype]
-        e = max_abs_err([got], [want])
-        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-              f"{label}: max_abs_err {e:.3e} within {tol} ({q.dtype})")
-        return e
 
-    errs["main_bf16"] = against_plain(
-        f"layer-0 q, k, v of the prefill {tuple(q0.shape)}/{tuple(k0.shape)}",
-        q0, k0, v0)
+def flash_forward_check(q0=None, k0=None, v0=None) -> list:
+    """Kernel E's forward against its plain version: at the prefill's
+    layer-0 q, k, v (random ones at qwen2-7b's prefill shape where none are
+    given) and at other head dims, GQA groups and ragged lengths, every
+    route the wrapper takes and the mma.sync route forced at D 64 and 128;
+    two calls bitwise, the rows' lse within ``ref.FLASH_LSE_TOL``. Then
+    both bf16 routes timed side by side there and at prefill_32k's
+    sequence, beside the plain version, SDPA and the bound. Returns the
+    ``kernels`` rows of E's forward (launches 0): the wgmma route's and
+    flash_attention.cu's (its mma.sync and f32 entries)."""
     gen = torch.Generator("cuda").manual_seed(SEED)
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    if q0 is None:
+        lm = get_config(LM_ARCH)
+        d = lm.resolved_head_dim
+        q0 = rand((LM_BATCH, lm.num_heads, LM_SEQ, d), torch.bfloat16)
+        k0, v0 = (rand((LM_BATCH, lm.num_kv_heads, LM_SEQ, d),
+                       torch.bfloat16) for _ in range(2))
+    print("[kernels] flash_attention against its plain version: the route "
+          "the wrapper takes, and the mma.sync route forced at D 64 and 128; "
+          "two calls bitwise, the rows' lse against the plain version's")
+    errs = {}
+
+    def against_plain(label, q, k, v, causal=True, mma_sync=False):
+        sc = q.shape[-1] ** -0.5
+        route = ("wgmma" if fa.fwd_route(q.dtype, q.shape[3], mma_sync)
+                 == fa.WGMMA_FWD else "mma.sync")
+        if mma_sync:
+            stream = torch.cuda.current_stream().cuda_stream
+            got = fa._launch(q, k, v, causal, sc, stream, mma_sync=True)
+            again, lse = fa._launch(q, k, v, causal, sc, stream, True,
+                                    mma_sync=True)
+        else:
+            got = fa.flash_attention(q, k, v, causal, sc, q.shape[2],
+                                     k.shape[2])
+            again, lse = fa._forward(q, k, v, causal, sc, with_lse=True)
+        want, want_lse = ref.flash_attention(q, k, v, causal, sc,
+                                             return_lse=True)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[q.dtype]
+        e = max_abs_err([got], [want])
+        lse_err = float((lse - want_lse).abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+              and torch.equal(got, again) and lse_err <= ref.FLASH_LSE_TOL,
+              f"{label} [{route}]: max_abs_err {e:.3e} within {tol} "
+              f"({q.dtype}), two calls bitwise, lse within "
+              f"{ref.FLASH_LSE_TOL} of the plain one: {lse_err:.3e}")
+        return e
+
+    errs["main_bf16"] = against_plain(
+        f"layer-0 q, k, v of the prefill {tuple(q0.shape)}/{tuple(k0.shape)}",
+        q0, k0, v0)
+    errs["main_mma"] = against_plain(
+        f"layer-0 q, k, v of the prefill {tuple(q0.shape)}/{tuple(k0.shape)}",
+        q0, k0, v0, mma_sync=True)
     qs, ks = tuple(q0.shape), tuple(k0.shape)
     errs["main_f32"] = against_plain(
         "random f32 at the main path's shapes", rand(qs, torch.float32),
         rand(ks, torch.float32), rand(ks, torch.float32))
-    for d in (80, 128, 160, 192):
+    for d in (64, 80, 128, 160, 192):
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = (rand((2, 8, 512, d), dtype),
                            rand((2, 2, 512, d), dtype),
                            rand((2, 2, 512, d), dtype))
-                errs[(d, causal, dtype)] = against_plain(
-                    f"(2, 8/2, 512, {d}) causal={causal}", q, k, v, causal)
+                label = f"(2, 8/2, 512, {d}) causal={causal}"
+                errs[(d, causal, dtype)] = against_plain(label, q, k, v,
+                                                         causal)
+                if dtype == torch.bfloat16 and d in fa.WGMMA_HEAD_DIMS:
+                    against_plain(label, q, k, v, causal, mma_sync=True)
     for causal in (True, False):
-        q, k, v = (rand((1, 7, 333, 128), torch.bfloat16),
-                   rand((1, 1, 200, 128), torch.bfloat16),
-                   rand((1, 1, 200, 128), torch.bfloat16))
-        errs[("ragged", causal)] = against_plain(
-            f"ragged (1, 7/1, 333 x 200, 128) causal={causal}", q, k, v,
-            causal)
+        q, k, v = (rand((2, 7, 512, 64), torch.bfloat16),
+                   rand((2, 1, 512, 64), torch.bfloat16),
+                   rand((2, 1, 512, 64), torch.bfloat16))
+        errs[("rep7", causal)] = against_plain(
+            f"GQA rep 7 (2, 7/1, 512, 64) causal={causal}", q, k, v, causal)
+        for d in (64, 128):
+            q, k, v = (rand((1, 7, 333, d), torch.bfloat16),
+                       rand((1, 1, 200, d), torch.bfloat16),
+                       rand((1, 1, 200, d), torch.bfloat16))
+            errs[("ragged", d, causal)] = against_plain(
+                f"ragged (1, 7/1, 333 x 200, {d}) causal={causal}", q, k, v,
+                causal)
     long_q, long_k, long_v = (rand((1, 28, LM_LONG_SEQ, 128), torch.bfloat16),
                               rand((1, 4, LM_LONG_SEQ, 128), torch.bfloat16),
                               rand((1, 4, LM_LONG_SEQ, 128), torch.bfloat16))
     errs["long"] = against_plain(f"random bf16 (1, 28/4, {LM_LONG_SEQ}, 128)",
                                  long_q, long_k, long_v)
-    phase_done("kernels")
 
     smem = _build.load("flash_attention").flash_attention_bf16_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     print("[build] flash_tc_kernel dynamic shared memory per block: "
           + ", ".join(f"D={d}: {smem(d)} B" for d in (80, 128, 160, 192)))
-    print("[timing] CUDA events: the kernel, its plain version and "
-          "scaled_dot_product_attention (causal, GQA) on the same inputs")
-    timing = {}
-    for label, (q, k, v), reps in (("main", (q0, k0, v0), (5, 2, 10)),
-                                   ("long", (long_q, long_k, long_v),
-                                    (2, 1, 3))):
-        b, hq, s, d = q.shape
-        flops = attention_flops(b, hq, s, d)
-        e = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v, True, scale,
-                                                      s, s), reps[0]),
-             "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, True,
-                                                             scale), reps[1]),
-             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                 q, k, v, is_causal=True, scale=scale, enable_gqa=True),
-                 reps[2]),
-             # q, k, v in and out once; the flops at the bf16 rate.
-             "bound": bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
-                            flops, BF16_FLOP_PER_S),
-             "f32_ms": flops / F32_FLOP_PER_S * 1e3}
-        timing[label] = e
-        print(f"[timing] flash_attention {tuple(q.shape)}/{tuple(k.shape)} "
-              f"bf16 causal (tensor cores): {e['ms']:.4f} ms per launch "
-              f"({flops / e['ms'] / 1e9:.1f} TFLOP/s, "
-              f"{e['bound'][0] / e['ms']:.1%} of the bound), plain "
-              f"{e['plain_ms']:.4f} ms, scaled_dot_product_attention "
-              f"{e['library_ms']:.4f} ms (kernel / SDPA "
-              f"{e['ms'] / e['library_ms']:.2f}), bound {e['bound'][0]:.4f} ms "
-              f"({e['bound'][1]}: {flops} flop at "
-              f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16), the f32 "
-              f"CUDA-core ceiling {e['f32_ms']:.4f} ms")
-        check(e["ms"] < e["f32_ms"], f"{label}: the bf16 kernel beats the "
-              f"f32 CUDA-core ceiling ({e['ms']:.4f} < {e['f32_ms']:.4f} ms)")
-    phase_done("timing")
+    print("[timing] CUDA events: both bf16 routes of the kernel in turns, its "
+          "plain version and scaled_dot_product_attention (causal, GQA) on "
+          "the same inputs")
+    timing = {"main": fwd_route_times("main", q0, k0, v0, 10),
+              "long": fwd_route_times("long", long_q, long_k, long_v, 2,
+                                      plain_reps=1)}
+    for label, e in timing.items():
+        f32_ms = e["flops"] / F32_FLOP_PER_S * 1e3
+        check(max(e["ms"]["mma.sync"]) < f32_ms, f"{label}: both bf16 "
+              f"routes beat the f32 CUDA-core ceiling ({f32_ms:.4f} ms)")
 
     e = timing["main"]
-    return [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:80",
-        "launches": launches,
-        "max_abs_err": max(errs["main_bf16"], errs["main_f32"]),
-        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
-        "bound_by": e["bound"][1], "library_ms": e["library_ms"]}]
+    common = {"route": "cuda",
+              "replaces": "src/repro/kernels/flash_attention.py:80",
+              "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+              "bound_by": e["bound"][1], "library_ms": e["library_ms"]}
+    return [dict(common, name="flash_attention_wgmma",
+                 source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+                 launches=0, max_abs_err=errs["main_bf16"],
+                 ms=e["ms"]["wgmma"][0]),
+            dict(common, name="flash_attention",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 launches=0,
+                 max_abs_err=max(errs["main_mma"], errs["main_f32"]),
+                 ms=e["ms"]["mma.sync"][0])]
+
+
 
 
 #: [lm-families]: granite-moe and rwkv6 at full width and depth, a 4 x 4,096
@@ -4090,7 +4186,8 @@ def bf16_model(arch: str):
 def moe_family() -> tuple:
     """granite-moe: the 4 x 4,096 prefill through kernel E at D=64, its MoE
     losses and loads, the chunked path, one-token decode, and E at this
-    shape against its plain version and SDPA. Returns (flash launches,
+    shape (and at the train step's microbatch) against its plain version,
+    both routes timed beside SDPA. Returns (flash launches by route,
     prefill tokens/s)."""
     from repro_torch.models import moe
 
@@ -4100,7 +4197,8 @@ def moe_family() -> tuple:
     forward(cfg, params, tokens=tok[:1, :512])   # warm-up
     reset_flash_counts()
     out, wall = timed(lambda: forward(cfg, params, tokens=tok))
-    launches = fa.tc_counter.count
+    routes = flash_routes()
+    launches = routes["wgmma"]
     e, k = cfg.num_experts, cfg.experts_per_token
     c = moe._capacity(cfg, LM_SEQ)
     print(f"[lm-families] {MOE_ARCH} prefill ({LM_BATCH}, {LM_SEQ}): "
@@ -4108,8 +4206,9 @@ def moe_family() -> tuple:
           f"flash_attention launches {launches}; aux_loss "
           f"{float(out.aux_loss):.6f}; expert capacity {c} of {LM_SEQ} "
           f"tokens x {k} / {e} experts")
-    check(launches == cfg.num_layers and fa.f32_counter.count == 0,
-          f"kernel E's tensor-core entry once a layer ({launches})")
+    check(launches == cfg.num_layers and routes["mma.sync"] == 0,
+          f"kernel E's wgmma entry once a layer ({launches}), the mma.sync "
+          "and f32 entries never")
     check(float(out.aux_loss) > 0 and out.expert_load.shape == (1, e)
           and bool(torch.allclose(out.expert_load.sum(-1),
                                   torch.ones(1, device="cuda"), atol=1e-5)),
@@ -4171,19 +4270,12 @@ def moe_family() -> tuple:
           f"kernel E at granite's layer-0 q, k, v {tuple(q0.shape)}/"
           f"{tuple(k0.shape)}: max_abs_err {ferr:.3e} against its plain "
           "version")
-    flops = attention_flops(b, hq, s, d)
-    t_k = cuda_ms(lambda: fa.flash_attention(q0, k0, v0, True, sc, s, s), 5)
-    t_p = cuda_ms(lambda: ref.flash_attention(q0, k0, v0, True, sc), 2)
-    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q0, k0, v0, is_causal=True, scale=sc, enable_gqa=True), 10)
-    bnd_ms, by = bound(q0.element_size() * (2 * q0.numel() + 2 * k0.numel()),
-                       flops, BF16_FLOP_PER_S)
-    print(f"[timing] flash_attention {tuple(q0.shape)}/{tuple(k0.shape)} "
-          f"bf16 causal (granite): {t_k:.4f} ms ({bnd_ms / t_k:.1%} of the "
-          f"bound), plain {t_p:.4f} ms, scaled_dot_product_attention "
-          f"{t_l:.4f} ms (kernel / SDPA {t_k / t_l:.2f}), bound "
-          f"{bnd_ms:.4f} ms ({by})")
-    return launches, LM_BATCH * LM_SEQ / wall
+    fwd_route_times("granite", q0, k0, v0, 10)
+    # The train step's per-microbatch shape, its forward saving the lse.
+    mb = TRAIN_BATCH // TRAIN_MB
+    fwd_route_times("granite train microbatch", q0[:mb], k0[:mb], v0[:mb],
+                    10, with_lse=True)
+    return routes, LM_BATCH * LM_SEQ / wall
 
 
 def rwkv_family() -> None:
@@ -4245,10 +4337,10 @@ def rwkv_family() -> None:
     torch.cuda.empty_cache()
 
 
-def hybrid_family() -> int:
+def hybrid_family() -> dict:
     """jamba: its smoke model on the card against the CPU (forward and
     decode), and one Mamba block at its full width. Returns the smoke
-    forward's flash launches."""
+    forward's flash launches by route (``flash_routes``)."""
     from repro_torch.models import ssm
 
     cfg = dataclasses.replace(get_config(HYBRID_ARCH, smoke=True),
@@ -4260,7 +4352,7 @@ def hybrid_family() -> int:
         0, cfg.vocab_size, (2, 32)))
     reset_flash_counts()
     card = forward(cfg, card_p, tokens=tok.cuda())
-    launches = flash_launches()
+    launches, routes = flash_launches(), flash_routes()
     cpu = forward(cfg, cpu_p, tokens=tok)
     bnd = depth_bound(cfg.num_layers)
     err = rel_err(card.logits.cpu(), cpu.logits)
@@ -4327,12 +4419,13 @@ def hybrid_family() -> int:
           f"the CPU ({cerr:.6f})")
     del p, x, y, cache, state
     torch.cuda.empty_cache()
-    return launches
+    return routes
 
 
-def lm_families_phase() -> int:
+def lm_families_phase() -> dict:
     """[lm-families]: the MoE, RWKV and hybrid families on the card.
-    Returns kernel E's launches on their main paths."""
+    Returns kernel E's forward launches on their main paths by route
+    (``flash_routes``)."""
     phase_t = time.perf_counter()
     print(f"[lm-families] {nvidia_smi()}")
     launches, _ = moe_family()
@@ -4341,7 +4434,7 @@ def lm_families_phase() -> int:
     rwkv_family()
     print(f"[phase] lm-families rwkv {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches += hybrid_family()
+    launches = add_routes(launches, hybrid_family())
     print(f"[phase] lm-families hybrid {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -4573,12 +4666,12 @@ def flash_backward_check() -> tuple:
     fout = fa.flash_attention(*ins, True, scale, cfg.seq_chunk_q,
                               cfg.seq_chunk_kv)
     got = torch.autograd.grad(fout, ins, grad)
-    check((fa.tc_counter.count, fa.bwd_wgmma_counter.count,
-           fa.bwd_tc_counter.count, fa.f32_counter.count,
-           fa.bwd_f32_counter.count) == (1, 1, 0, 0, 0)
+    check((fa.fwd_wgmma_counter.count, fa.bwd_wgmma_counter.count,
+           fa.tc_counter.count, fa.bwd_tc_counter.count, fa.f32_counter.count,
+           fa.bwd_f32_counter.count) == (1, 1, 0, 0, 0, 0)
           and all(torch.equal(a, w) for a, w in zip(got, main["got"])),
-          "the Function launches the bf16 forward and the wgmma backward "
-          "entry once each, and its gradients are the entry's, bitwise")
+          "the Function launches the wgmma forward and backward entries "
+          "once each, and its gradients are the entry's, bitwise")
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
     rc_out = layers.chunked_attention(
         *plain, causal=True, q_chunk=cfg.seq_chunk_q,
@@ -4736,7 +4829,8 @@ def remat_check() -> None:
             dataclasses.replace(cfg, remat=remat), params, batch)
         runs[remat] = (loss, grads)
         print(f"[train] remat={remat}: loss {float(loss):.6f}, kernel E "
-              f"launches {fa.tc_counter.count}, its backward "
+              f"launches {flash_launches()} (wgmma "
+              f"{fa.fwd_wgmma_counter.count}), its backward "
               f"{flash_bwd_launches()} (wgmma {fa.bwd_wgmma_counter.count})"
               f", peak device memory "
               f"{torch.cuda.max_memory_allocated()} bytes")
@@ -4860,12 +4954,12 @@ def profile_microbatch(cfg, params, batch) -> None:
         print(f"[train]   {s * 1e3:10.3f} ms  x{count:<7d} {key[:90]}")
 
 
-def train_throughput() -> int:
+def train_throughput() -> tuple:
     """The main path: ``train_loop`` on granite at full width and depth,
     8 x 4,096 in 4 microbatches, f32 states, ``TRAIN_STEPS`` steps, the
     launch counts zeroed just before and read just after; then the data
     draw timed alone and one more step profiled. Returns kernel E's
-    forward launches and its backward entry's."""
+    forward launches by route (``flash_routes``) and its backward entry's."""
     cfg = train_config()
     print(f"[train] {TRAIN_ARCH}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_experts} experts top-"
@@ -4883,7 +4977,8 @@ def train_throughput() -> int:
     reset_flash_counts()
     (state, history), wall = timed(lambda: train_loop(
         cfg, dc, loop, device="cuda", log_fn=print))
-    launches, launches_f32 = fa.tc_counter.count, fa.f32_counter.count
+    routes = flash_routes()
+    launches, launches_other = routes["wgmma"], routes["mma.sync"]
     bwd, bwd_other = fa.bwd_wgmma_counter.count, (
         fa.bwd_tc_counter.count + fa.bwd_f32_counter.count)
     others = read_all_counts()
@@ -4900,12 +4995,14 @@ def train_throughput() -> int:
     print(f"[main] train_loop({TRAIN_ARCH}) {TRAIN_STEPS} steps: {wall:.3f} "
           f"s with set-up, {steady:.4f} s a step after the first "
           f"({tokens / steady:.1f} tokens/s), peak device memory {peak} "
-          f"bytes, kernel E launches bf16={launches} f32={launches_f32}, its "
+          f"bytes, kernel E launches wgmma={launches} mma.sync/f32="
+          f"{launches_other}, its "
           f"backward wgmma={bwd} mma.sync/f32={bwd_other} (others {others})")
     per_step = 2 * cfg.num_layers * TRAIN_MB
-    check(launches == per_step * TRAIN_STEPS and launches_f32 == 0,
-          f"kernel E's bf16 entry launched {per_step} times a step (forward "
-          "and recompute, every layer and microbatch), the f32 entry never")
+    check(launches == per_step * TRAIN_STEPS and launches_other == 0,
+          f"kernel E's wgmma entry launched {per_step} times a step (forward "
+          "and recompute, every layer and microbatch), the mma.sync and f32 "
+          "entries never")
     check(bwd == per_step // 2 * TRAIN_STEPS and bwd_other == 0,
           f"its backward's wgmma entry called {per_step // 2} times a step "
           "(every layer and microbatch), the mma.sync and f32 entries never")
@@ -4939,7 +5036,7 @@ def train_throughput() -> int:
           f" data draw {data_s:.3f} s")
     del state, batch, data, mb
     torch.cuda.empty_cache()
-    return launches, bwd
+    return routes, bwd
 
 
 def dense_example() -> None:
@@ -4957,9 +5054,10 @@ def dense_example() -> None:
 
 def train_phase() -> tuple:
     """[train]: the training path on the card. Returns kernel E's forward
-    launches on its main path and the ``kernels`` rows of its backward: the
-    mma.sync entry's (its launches the smoke step's, the one path at a head
-    dim it takes) and the wgmma entry's (the main path's calls)."""
+    launches on its main path by route and the ``kernels`` rows of its
+    backward: the mma.sync entry's (its launches the smoke step's, the one
+    path at a head dim it takes) and the wgmma entry's (the main path's
+    calls)."""
     print(f"[train] {nvidia_smi()}")
     t0 = time.perf_counter()
     mma_row, wgmma_row = flash_backward_check()
@@ -5047,12 +5145,12 @@ def lms_decode(cfg, params, tokens) -> tuple:
     return outs, secs
 
 
-def cost_counter_check(cfg, params, tokens, mesh, secs: float) -> int:
+def cost_counter_check(cfg, params, tokens, mesh, secs: float) -> dict:
     """[lm-sp] (e): the roofline's cost counter on the world-1 prefill on
     the card against the meta dry run of the same cell (the same rank's
     step as shapes): the flops equal exactly; the three roofline terms
     printed beside the measured time. Returns the counted run's E
-    launches."""
+    launches by route (``flash_routes``)."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch.dryrun import measure
     from repro_torch.models import use_sharding
@@ -5061,7 +5159,7 @@ def cost_counter_check(cfg, params, tokens, mesh, secs: float) -> int:
     reset_flash_counts()
     with use_sharding(mesh), count_costs(arguments=params) as card:
         forward(cfg, params, tokens=tokens)
-    launches = flash_launches()
+    launches = flash_routes()
     cell = InputShape(f"prefill_{LMS_SEQ}", LMS_SEQ, tokens.shape[0],
                       "prefill")
     rep, meta = measure(cfg, cell, mesh, False, "world1")
@@ -5162,6 +5260,7 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
 
         logits, secs = timed(lambda: with_flash(spy, run))
         out.update(prefill_s=secs, launches=flash_launches(),
+                   e_routes=flash_routes(),
                    collectives=lms_collectives(M),
                    peak=torch.cuda.max_memory_allocated())
         blk = logits.cpu()
@@ -5195,6 +5294,7 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
         same = got.shape == blk.shape and torch.equal(got, blk)
         out["sp"][rule] = dict(
             same=same, secs=secs, launches=flash_launches(),
+            e_routes=flash_routes(),
             collectives=lms_collectives(M), shape=tuple(got.shape),
             diff=(float((got.float() - blk.float()).abs().max())
                   if got.shape == blk.shape else None))
@@ -5226,6 +5326,7 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
         with use_sharding(mesh, rules):
             state, metrics, secs = lms_train_steps(gcfg, gspecs, mesh, rules)
         launches, bwd_launches = flash_launches(), fa.bwd_wgmma_counter.count
+        e_routes = flash_routes()
         bwd_other = flash_bwd_launches() - bwd_launches
         coll = lms_collectives(M)
         # The parameters against the unsharded run's, and the update's
@@ -5248,7 +5349,7 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
             merr2 += float((m - wm).double().square().sum())
             mref2 += float(wm.double().square().sum())
         out["train"][shape] = dict(
-            metrics=metrics, secs=secs, launches=launches,
+            metrics=metrics, secs=secs, launches=launches, e_routes=e_routes,
             bwd_launches=bwd_launches, bwd_other=bwd_other,
             collectives=coll,
             peak=torch.cuda.max_memory_allocated(), dmax=dmax,
@@ -5260,10 +5361,11 @@ def lm_shard_world2_rank(ref_path: str) -> dict:
     return out
 
 
-def lm_shard_phase() -> int:
+def lm_shard_phase() -> tuple:
     """[lm-shard]: the LM sharding on the card (see ``LMS_*`` and
     ``lm_shard_world2_rank``). Returns kernel E's forward launches on the
-    phase's sharded main paths and its backward entry's calls."""
+    phase's sharded main paths by route (``flash_routes``) and its backward
+    entry's calls."""
     import torch.distributed as dist
 
     from repro_torch.distributed import init_world
@@ -5294,7 +5396,7 @@ def lm_shard_phase() -> int:
     print("[lm-shard] world of 1: NCCL in this process, mesh (data=1, "
           "model=1); a dim of one rank issues no collective")
     init_world("nccl", rank=0, world_size=1, device_type="cuda")
-    total = total_bwd = 0
+    total, total_bwd = {"wgmma": 0, "mma.sync": 0}, 0
     try:
         mesh = make_host_mesh()
         sp = shard_params(params, param_shardings(specs, mesh))
@@ -5306,7 +5408,7 @@ def lm_shard_phase() -> int:
             reset_flash_counts()
             logits, w1_s = timed(lambda: forward(cfg, sp,
                                                  tokens=tokens).logits)
-            w1_launches = flash_launches()
+            w1_launches, w1_routes = flash_launches(), flash_routes()
             w1_peak = torch.cuda.max_memory_allocated()
         check(torch.equal(logits, ref_logits),
               f"world of 1: the sharded prefill's logits bitwise the "
@@ -5315,8 +5417,8 @@ def lm_shard_phase() -> int:
         check(w1_launches == cfg.num_layers,
               f"world of 1: kernel E launched {w1_launches} times, once a "
               "layer")
-        total += w1_launches
-        total += cost_counter_check(cfg, sp, tokens, mesh, w1_s)
+        total = add_routes(add_routes(total, w1_routes), cost_counter_check(
+            cfg, sp, tokens, mesh, w1_s))
         ref_cpu = ref_logits.cpu()
         del params, sp, logits, ref_logits
         torch.cuda.empty_cache()
@@ -5378,7 +5480,7 @@ def lm_shard_phase() -> int:
         check(out["launches"] == cfg.num_layers,
               f"rank {r}: kernel E launched {out['launches']} times on its "
               "heads, once a layer")
-        total += out["launches"]
+        total = add_routes(total, out["e_routes"])
         derr = max(float((x.float() - want[sl_].float()).abs().max())
                    / max(float(want.float().abs().max()), 1e-30)
                    for (x, sl_), want in zip(out["decode"], ref_dec))
@@ -5397,7 +5499,7 @@ def lm_shard_phase() -> int:
             check(sp["launches"] == cfg.num_layers,
                   f"[lm-sp] rank {r}: kernel E launched {sp['launches']} "
                   f"times under {rule}, once a layer")
-            total += sp["launches"]
+            total = add_routes(total, sp["e_routes"])
         ds = out["decode_s"]
         print(f"[lm-shard] rank {r} seq-sharded decode: prompt "
               f"{ds[0] * 1e3:.3f} ms, {1e3 * sum(ds[1:]) / len(ds[1:]):.3f} "
@@ -5449,7 +5551,7 @@ def lm_shard_phase() -> int:
                   f"rank {r}: its backward's wgmma entry called "
                   f"{t['bwd_launches']} times in the steps (every layer and "
                   "microbatch), the mma.sync and f32 entries never")
-            total += t["launches"]
+            total = add_routes(total, t["e_routes"])
             total_bwd += t["bwd_launches"]
     print(f"[lm-shard] world of 2: {w2_s:.1f} s for both processes, their "
           f"start-up included; {nvidia_smi()}")
@@ -5745,7 +5847,7 @@ def lm_sp_world2_rank() -> dict:
                 lambda: with_flash(spy, lambda: blocks(
                     lambda: forward(cfg, params, tokens=tok), "logits"))))
             entry = dict(logits=logits, slices=sl, secs=secs, routes=routes,
-                         launches=flash_launches(),
+                         launches=flash_launches(), e_routes=flash_routes(),
                          collectives=lms_collectives(M),
                          peak=torch.cuda.max_memory_allocated(),
                          shapes={k: tuple(v.shape) for k, v in
@@ -5770,9 +5872,9 @@ def lm_sp_world2_rank() -> dict:
     return out
 
 
-def lm_sp_phase() -> int:
+def lm_sp_phase() -> dict:
     """[lm-sp] (see ``LSP_*`` and ``lm_sp_world2_rank``). Returns kernel
-    E's launches on its main paths."""
+    E's forward launches on its main paths by route (``flash_routes``)."""
     import torch.distributed as dist
 
     from repro_torch.distributed import init_world
@@ -5823,7 +5925,7 @@ def lm_sp_phase() -> int:
               f"{LSP_SEQ} {secs * 1e3:.3f} ms, weights {nbytes} bytes")
         del params, lg
         torch.cuda.empty_cache()
-    total = 0
+    total = {"wgmma": 0, "mma.sync": 0}
 
     # The int8 gradient exchange and the pipeline: worlds of 1 (NCCL on
     # the card, gloo on the CPU) in this process.
@@ -5930,7 +6032,7 @@ def lm_sp_phase() -> int:
             check(e["launches"] == ref_launches,
                   f"rank {r}: kernel E launched {e['launches']} times in "
                   f"block {b}'s forward (unsharded {ref_launches})")
-            total += e["launches"]
+            total = add_routes(total, e["e_routes"])
     print(f"[lm-sp] world of 2: {w2_s:.1f} s for both processes, their "
           f"start-up included; {nvidia_smi()}")
     return total
@@ -5942,6 +6044,28 @@ def exact_matmuls() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def ptxas_checks(built: dict) -> None:
+    """What ptxas said of kernel E's wgmma sources (nothing where an
+    earlier build was reused): no kernel spills, and none of the forward's
+    products is serialized."""
+    wgmma = [line for line in ptxas_summary(
+        built["flash_attention_bwd_wgmma"].log) if "wgmma_kernel" in line]
+    if wgmma:   # empty where an earlier build was reused
+        check(len(wgmma) == 4 and all(
+            "0 bytes spill stores, 0 bytes spill loads" in line
+            for line in wgmma), "ptxas: E's wgmma backward kernels (dK/dV "
+              "and dQ at D 64 and 128) spill nothing")
+    fwd_log = built["flash_attention_wgmma"].log
+    fwd = [line for line in ptxas_summary(fwd_log)
+           if "flash_fwd_wgmma_kernel" in line]
+    if fwd:
+        check(len(fwd) == 2 and all(
+            "0 bytes spill stores, 0 bytes spill loads" in line
+            for line in fwd) and "C7513" not in fwd_log,
+              "ptxas: E's wgmma forward kernels (D 64 and 128) spill "
+              "nothing, and no product of theirs is serialized (C7513)")
 
 
 def main() -> None:
@@ -5963,13 +6087,7 @@ def main() -> None:
         print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}")
         for line in ptxas_summary(b.log):
             print(f"[build]   {line}")
-    wgmma = [line for line in ptxas_summary(
-        built["flash_attention_bwd_wgmma"].log) if "wgmma_kernel" in line]
-    if wgmma:   # empty where an earlier build was reused
-        check(len(wgmma) == 4 and all(
-            "0 bytes spill stores, 0 bytes spill loads" in line
-            for line in wgmma), "ptxas: E's wgmma backward kernels (dK/dV "
-              "and dQ at D 64 and 128) spill nothing")
+    ptxas_checks(built)
 
     t0 = time.perf_counter()
     rows = dense_slice()
@@ -6008,28 +6126,33 @@ def main() -> None:
     check(not EXTRA_LAUNCHES, f"every main path's launches land on a "
           f"kernels row (left: {EXTRA_LAUNCHES})")
     rows += lm_slice()
-    e_row = rows[-1]
+    e_rows = {"wgmma": rows[-2], "mma.sync": rows[-1]}
+
+    def add_e(routes):
+        for route, n in routes.items():
+            e_rows[route]["launches"] += n
+
     t0 = time.perf_counter()
-    # Kernel E's row counts the MoE and hybrid families' launches too.
-    e_row["launches"] += lm_families_phase()
+    # Kernel E's rows count the MoE and hybrid families' launches too.
+    add_e(lm_families_phase())
     print(f"[phase] lm-families {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # ... and the train step's: its forward and its recompute; E's
     # backward rows count the step's backward (wgmma) and the smoke step's
     # (mma.sync).
     fwd, mma_row, bwd_row = train_phase()
-    e_row["launches"] += fwd
+    add_e(fwd)
     rows += [mma_row, bwd_row]
     print(f"[phase] train {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # ... and the sharded paths': each rank's heads.
     fwd, bwd = lm_shard_phase()
-    e_row["launches"] += fwd
+    add_e(fwd)
     bwd_row["launches"] += bwd
     print(f"[phase] lm-shard {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # ... and the split families' (jamba's attention block).
-    e_row["launches"] += lm_sp_phase()
+    add_e(lm_sp_phase())
     print(f"[phase] lm-sp {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

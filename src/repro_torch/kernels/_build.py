@@ -27,6 +27,7 @@ SOURCES = {"sweep": "sweep.cu", "colored_sweep": "colored_sweep.cu",
            "bitplane_field": "bitplane_field.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
+           "flash_attention_wgmma": "flash_attention_wgmma.cu",
            "flash_attention_bwd_wgmma": "flash_attention_bwd_wgmma.cu"}
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +41,7 @@ NVCC_FLAGS = {"sweep": COMMON_FLAGS + EXACT,
               "bitplane_field": COMMON_FLAGS + EXACT,
               "flash_attention": COMMON_FLAGS,
               "flash_attention_bwd": COMMON_FLAGS,
+              "flash_attention_wgmma": COMMON_FLAGS,
               "flash_attention_bwd_wgmma": COMMON_FLAGS}
 
 

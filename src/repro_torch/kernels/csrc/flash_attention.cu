@@ -16,10 +16,12 @@
 //
 // bf16 kernel (flash_tc_kernel). The products run on the tensor cores as
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), fed by ldmatrix from shared
-// memory; warpgroup wgmma would need TMA-swizzled operands and descriptors
-// that only the card can check, so this kernel takes the FlashAttention-2
-// shape. Cast points, the only places it departs from the TPU kernel's
-// all-f32 body:
+// memory, in the FlashAttention-2 shape. At D 64 and 128 the wrapper sends
+// bf16 to flash_attention_wgmma.cu instead (warpgroup wgmma on TMA-fed
+// tiles, warp-specialised, about twice as fast on the card); this kernel
+// keeps every other D, and those two only when the mma.sync route is forced
+// to time it beside the other. Cast points, the only places it departs
+// from the TPU kernel's all-f32 body:
 //   * q and k enter the tensor cores as their bf16 values (their products
 //     are exact) and S = q·kᵀ accumulates in f32;
 //   * the scale is applied to S in f32, folded with log2(e) so that

@@ -1,7 +1,8 @@
 // Hopper's asynchronous machinery as inline PTX (sm_90a): mbarriers, TMA
 // tile loads, warpgroup matrix products (wgmma) and register hand-over
 // (setmaxnreg), and the host's cuTensorMapEncodeTiled, looked up at run
-// time (no -lcuda). Used by flash_attention_bwd_wgmma.cu.
+// time (no -lcuda). Used by flash_attention_wgmma.cu (the forward) and
+// flash_attention_bwd_wgmma.cu (the backward).
 //
 // wgmma.m64n64k16 fragments, per warpgroup of 128 threads (w = warp in the
 // group, g = lane / 4, t4 = lane % 4):
@@ -10,6 +11,7 @@
 //   A from registers a[0..3]: the mma.sync A fragment of rows 16w..16w+15
 //     (flash_mma.cuh), so acc_to_a<8>(a, d, kk) turns an accumulator into
 //     the A operand of k16 step kk of the next product.
+// wgmma.m64n128k16 (wgmma_rs_n128) has the same fragments with j = 0..15.
 // Shared-memory operands are tiles of 64 rows × 64 bf16 (128 bytes a row,
 // 8 KB), each 1024-byte aligned and laid out by TMA's 128-byte swizzle
 // (16-byte chunk c of row r at chunk c ^ (r % 8)). Their descriptors:
@@ -139,22 +141,23 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // The accumulator's registers are not touched until the wait; this keeps
 // the compiler from moving their uses across it.
-__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
 
-#define WGMMA_D32(d)                                                        \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),               \
-      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),           \
-      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),           \
-      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),           \
-      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),           \
-      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),           \
-      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),           \
-      "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define WGMMA_ROW(d, j) \
+  "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define WGMMA_D32(d)                                                    \
+  WGMMA_ROW(d, 0), WGMMA_ROW(d, 1), WGMMA_ROW(d, 2), WGMMA_ROW(d, 3),   \
+      WGMMA_ROW(d, 4), WGMMA_ROW(d, 5), WGMMA_ROW(d, 6), WGMMA_ROW(d, 7)
+#define WGMMA_D64(d)                                                    \
+  WGMMA_D32(d), WGMMA_ROW(d, 8), WGMMA_ROW(d, 9), WGMMA_ROW(d, 10),     \
+      WGMMA_ROW(d, 11), WGMMA_ROW(d, 12), WGMMA_ROW(d, 13),             \
+      WGMMA_ROW(d, 14), WGMMA_ROW(d, 15)
 
 // d (64×64, f32) = (accumulate ? d : 0) + A·B, A and B from shared memory
 // (A K-major; B K-major, or MN-major with TRANS_B).
@@ -193,7 +196,34 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
         "r"(accumulate), "n"(TRANS_B));
 }
 
+// d (64×128, f32; d[j] the n8 tile j = 0..15) = (accumulate ? d : 0) + A·B,
+// A (64×16 bf16) from registers, B 128 rows (K-major) or columns (MN-major,
+// TRANS_B) from shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : WGMMA_D64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
+#undef WGMMA_D64
 #undef WGMMA_D32
+#undef WGMMA_ROW
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps

@@ -4,17 +4,21 @@ CUDA kernels and their plain versions (port of
 
 A CPU tensor goes to the plain versions (``ref.flash_attention``,
 ``ref.flash_attention_bwd``). A CUDA tensor launches the kernels or
-raises: the forward ``csrc/flash_attention.cu``, bfloat16 inputs its
-tensor-core entry (``flash_attention_forward_bf16``, counted by
-``tc_counter``), float32 inputs its CUDA-core entry
-(``flash_attention_forward_f32``, ``f32_counter``). The backward routes
-by dtype and head dim (:func:`bwd_route`): bfloat16 at D = 64 and 128 to
-``csrc/flash_attention_bwd_wgmma.cu`` (``flash_attention_backward_bf16_wgmma``
-on wgmma and TMA, ``bwd_wgmma_counter``), bfloat16 at every other D to
-``csrc/flash_attention_bwd.cu`` (``flash_attention_backward_bf16`` on
-mma.sync, ``bwd_tc_counter``), float32 to the latter's
-``flash_attention_backward_f32`` (``bwd_f32_counter``); one count a call of
-the entry, which launches its three passes.
+raises. Both directions route by dtype and head dim (:func:`fwd_route`,
+:func:`bwd_route`): bfloat16 at D = 64 and 128 (``WGMMA_HEAD_DIMS``) to the
+Hopper sources on wgmma and TMA, the forward
+``csrc/flash_attention_wgmma.cu`` (``flash_attention_forward_bf16_wgmma``,
+counted by ``fwd_wgmma_counter``) and the backward
+``csrc/flash_attention_bwd_wgmma.cu``
+(``flash_attention_backward_bf16_wgmma``, ``bwd_wgmma_counter``);
+bfloat16 at every other D to the mma.sync entries,
+``csrc/flash_attention.cu``'s ``flash_attention_forward_bf16``
+(``tc_counter``) and ``csrc/flash_attention_bwd.cu``'s
+``flash_attention_backward_bf16`` (``bwd_tc_counter``); float32 to their
+CUDA-core entries ``flash_attention_forward_f32`` (``f32_counter``) and
+``flash_attention_backward_f32`` (``bwd_f32_counter``). One count a call
+of the entry (the backward's launches its three passes); a refused launch
+raises with the entry's name and counts nothing.
 
 :func:`flash_attention` is differentiable: an autograd Function whose
 forward also saves the rows' log-sum-exp and whose backward is the
@@ -38,22 +42,31 @@ from ._launch import LaunchCounter
 
 tc_counter = LaunchCounter("flash_attention_bf16")
 f32_counter = LaunchCounter("flash_attention_f32")
+fwd_wgmma_counter = LaunchCounter("flash_attention_bf16_wgmma")
 bwd_tc_counter = LaunchCounter("flash_attention_bwd_bf16")
 bwd_f32_counter = LaunchCounter("flash_attention_bwd_f32")
 bwd_wgmma_counter = LaunchCounter("flash_attention_bwd_bf16_wgmma")
 
 #: The kernel entry and its launch count for each input dtype (q, k and v
-#: alike).
+#: alike), outside ``WGMMA_HEAD_DIMS``.
 ENTRIES = {torch.bfloat16: ("flash_attention_forward_bf16", tc_counter),
            torch.float32: ("flash_attention_forward_f32", f32_counter)}
 #: The same for the backward.
 BWD_ENTRIES = {
     torch.bfloat16: ("flash_attention_backward_bf16", bwd_tc_counter),
     torch.float32: ("flash_attention_backward_f32", bwd_f32_counter)}
-#: The Hopper backward (wgmma, a TMA-fed ring, warp specialisation) and the
-#: bfloat16 head dims it takes; every other (dtype, D) keeps BWD_ENTRIES.
+#: The Hopper forward and backward (wgmma, a TMA-fed ring, warp
+#: specialisation) and the bfloat16 head dims they take; every other
+#: (dtype, D) keeps ENTRIES and BWD_ENTRIES.
+WGMMA_FWD = ("flash_attention_forward_bf16_wgmma", fwd_wgmma_counter)
 WGMMA_BWD = ("flash_attention_backward_bf16_wgmma", bwd_wgmma_counter)
 WGMMA_HEAD_DIMS = (64, 128)
+#: Every forward entry's counter.
+FWD_COUNTERS = (fwd_wgmma_counter, tc_counter, f32_counter)
+#: The source (``_build.SOURCES`` key) of each forward entry.
+LIBRARIES = {"flash_attention_forward_bf16": "flash_attention",
+             "flash_attention_forward_f32": "flash_attention",
+             WGMMA_FWD[0]: "flash_attention_wgmma"}
 #: The source (``_build.SOURCES`` key) of each backward entry.
 BWD_LIBRARIES = {"flash_attention_backward_bf16": "flash_attention_bwd",
                  "flash_attention_backward_f32": "flash_attention_bwd",
@@ -66,7 +79,7 @@ MAX_HEAD_DIM = 256
 @functools.cache
 def _fn(entry: str):
     """A forward entry: q, k, v, out, lse (or None) and the shape."""
-    fn = getattr(_build.load("flash_attention"), entry)
+    fn = getattr(_build.load(LIBRARIES[entry]), entry)
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -211,11 +224,22 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def fwd_route(dtype: torch.dtype, d: int, mma_sync: bool = False) -> tuple:
+    """The forward entry and its counter for q's dtype and head dim D:
+    bfloat16 at D in ``WGMMA_HEAD_DIMS`` the wgmma entry, everything else
+    ``ENTRIES[dtype]``. ``mma_sync`` sends bfloat16 at those D to the
+    mma.sync entry instead (for timing the two side by side only)."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and not mma_sync:
+        return WGMMA_FWD
+    return ENTRIES[dtype]
+
+
 def _launch(q, k, v, causal: bool, scale: float, stream: int,
-            with_lse: bool = False):
-    """Launch the entry for q's dtype on ``stream`` and count it; with
-    ``with_lse`` it also writes the rows' log-sum-exp."""
-    entry, counter = ENTRIES[q.dtype]
+            with_lse: bool = False, *, mma_sync: bool = False):
+    """Launch the entry of :func:`fwd_route` on ``stream`` and count it
+    once; with ``with_lse`` it also writes the rows' log-sum-exp. A refused
+    launch raises."""
+    entry, counter = fwd_route(q.dtype, q.shape[3], mma_sync)
     b, hq, sq, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)

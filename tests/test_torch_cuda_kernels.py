@@ -728,12 +728,13 @@ def test_tempering_on_card_equals_cpu(cuda_device, fmt, mode):
 def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, d,
                                     causal, dtype):
     q, k, v = _qkv((b, hq, sq, d), (b, hkv, skv, d), dtype, cuda_device)
-    # bf16 goes to the tensor-core entry, f32 to the CUDA-core one.
-    mine, other = ((fa.tc_counter, fa.f32_counter) if dtype == torch.bfloat16
-                   else (fa.f32_counter, fa.tc_counter))
-    before = (mine.count, other.count)
+    # bf16 at D 64 and 128 goes to the wgmma entry, at other D to the
+    # mma.sync one, f32 to the CUDA-core one.
+    mine = fa.fwd_route(dtype, d)[1]
+    before = [c.count for c in fa.FWD_COUNTERS]
     got = fa.flash_attention(q, k, v, causal, d ** -0.5, sq, skv)
-    assert (mine.count, other.count) == (before[0] + 1, before[1])
+    assert [c.count for c in fa.FWD_COUNTERS] == [
+        n + (c is mine) for n, c in zip(before, fa.FWD_COUNTERS)]
     want = ref.flash_attention(q, k, v, causal, d ** -0.5)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -788,12 +789,12 @@ def test_flash_backward_kernel_matches_plain(cuda_device, b, hq, hkv, sq,
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
     q, k, v = _qkv((1, 4, 64, 24), (1, 2, 64, 24), torch.float32, cuda_device)
-    before = (fa.tc_counter.count, fa.f32_counter.count)
+    before = [c.count for c in fa.FWD_COUNTERS]
     with pytest.raises(ValueError, match="head dim 24"):
         fa.flash_attention(q, k, v, True, 0.2)
     # Each entry's own check refuses the launch as well (no silent run).
     out = torch.empty_like(q)
-    for entry, _ in fa.ENTRIES.values():
+    for entry, _ in (*fa.ENTRIES.values(), fa.WGMMA_FWD):
         rc = fa._fn(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), None, 1, 4, 2, 64, 64, 24, 0.2, 1,
                            torch.cuda.current_stream().cuda_stream)
@@ -816,12 +817,12 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
                      device=cuda_device)[1:].view(1, 4, 64, 32)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention(qb, k.bfloat16(), v.bfloat16(), True, 0.2)
-    assert (fa.tc_counter.count, fa.f32_counter.count) == before
+    assert [c.count for c in fa.FWD_COUNTERS] == before
 
 
 def test_lm_serving_path_on_card(cuda_device):
     """qwen2-7b smoke on the card: the bf16 flash forward launches the
-    tensor-core kernel once a layer (the f32 one never) and agrees with the
+    entry of its head dim's route once a layer (no other) and agrees with the
     chunked path and with the CPU's flash forward, and decode reproduces
     the forward (bf16; 0.03 of max |logit|, the bound
     tests/test_arch_smoke.py uses for bf16 path differences)."""
@@ -832,11 +833,12 @@ def test_lm_serving_path_on_card(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
                          device=cuda_device)
-    fa.tc_counter.reset()
-    fa.f32_counter.reset()
+    for c in fa.FWD_COUNTERS:
+        c.reset()
     flash = lm_model.forward(cfg, params, tokens=toks).logits.float()
-    assert fa.tc_counter.count == cfg.num_layers
-    assert fa.f32_counter.count == 0
+    mine = fa.fwd_route(torch.bfloat16, cfg.resolved_head_dim)[1]
+    assert [c.count for c in fa.FWD_COUNTERS] == [
+        cfg.num_layers if c is mine else 0 for c in fa.FWD_COUNTERS]
     chunked = lm_model.forward(dc.replace(cfg, attn_impl="chunked"), params,
                                tokens=toks).logits.float()
     cpu = lm_model.forward(cfg, _to_cpu(params),
@@ -906,8 +908,8 @@ def test_store_cache_moves_a_cpu_store_to_the_card_once(cuda_device):
 
 
 def test_flash_function_backward_on_card(cuda_device):
-    """Kernel E's autograd Function on the card: the bf16 forward and the
-    wgmma backward entry (D = 64) launch once each; the lse within its
+    """Kernel E's autograd Function on the card: the wgmma forward and
+    backward entries (D = 64) launch once each; the lse within its
     bound of the plain forward's; dq, dk, dv within the backward's bound of the plain
     backward on the kernel forward's out and lse, and within 0.02 of max |grad| of autograd through ``chunked_attention``
     (the recompute the backward replaced)."""
@@ -915,12 +917,13 @@ def test_flash_function_backward_on_card(cuda_device):
                    cuda_device)
     grad = torch.randn_like(q)
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-    counters = (fa.tc_counter, fa.bwd_wgmma_counter, fa.f32_counter,
-                fa.bwd_f32_counter, fa.bwd_tc_counter)
+    counters = (fa.fwd_wgmma_counter, fa.bwd_wgmma_counter, fa.tc_counter,
+                fa.f32_counter, fa.bwd_f32_counter, fa.bwd_tc_counter)
     before = [c.count for c in counters]
     out = fa.flash_attention(qs, ks, vs, True, 0.125, 64, 128)
     got = torch.autograd.grad(out, (qs, ks, vs), grad)
-    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0]
+    assert [c.count - b for c, b in zip(counters, before)] == [
+        1, 1, 0, 0, 0, 0]
     fout, lse = fa._forward(q, k, v, True, 0.125, with_lse=True)
     assert torch.equal(fout, out)
     _, plain_lse = ref.flash_attention(q, k, v, True, 0.125, return_lse=True)
@@ -979,9 +982,12 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         assert all(torch.equal(a, b) for a, b in zip(runs[remat],
                                                      runs["none"]))
     step = tstep.make_train_step(cfg, opt, num_microbatches=2)
-    before = (fa.tc_counter.count, fa.bwd_tc_counter.count)
+    mine = fa.fwd_route(torch.bfloat16, cfg.resolved_head_dim)[1]
+    before = ([c.count for c in fa.FWD_COUNTERS], fa.bwd_tc_counter.count)
     card, mc = step(tstep.init_train_state(cfg, params, opt), batch)
-    assert fa.tc_counter.count - before[0] == 2 * cfg.num_layers
+    assert [c.count for c in fa.FWD_COUNTERS] == [
+        n + 2 * cfg.num_layers * (c is mine)
+        for n, c in zip(before[0], fa.FWD_COUNTERS)]
     # remat "none" here: one forward and one backward a layer and
     # microbatch.
     assert fa.bwd_tc_counter.count - before[1] == 2 * cfg.num_layers

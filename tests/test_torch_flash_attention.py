@@ -110,13 +110,33 @@ def test_flash_bf16_plain_rounds_p_before_pv(causal):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("dtype,entry", [
-    (torch.bfloat16, "flash_attention_forward_bf16"),
-    (torch.float32, "flash_attention_forward_f32")])
-def test_flash_launch_routes_by_dtype(monkeypatch, dtype, entry):
-    """The launch picks the C entry by dtype and bumps only that entry's
-    counter (a stand-in for the library records the calls; no card); a
-    launch without ``with_lse`` passes a null lse."""
+@pytest.mark.parametrize("dtype,d,mma_sync,entry", [
+    pytest.param(torch.bfloat16, 32, False, "flash_attention_forward_bf16",
+                 id="dtype0-flash_attention_forward_bf16"),
+    pytest.param(torch.float32, 32, False, "flash_attention_forward_f32",
+                 id="dtype1-flash_attention_forward_f32"),
+    pytest.param(torch.bfloat16, 64, False,
+                 "flash_attention_forward_bf16_wgmma", id="bf16-64"),
+    pytest.param(torch.bfloat16, 128, False,
+                 "flash_attention_forward_bf16_wgmma", id="bf16-128"),
+    pytest.param(torch.bfloat16, 64, True, "flash_attention_forward_bf16",
+                 id="bf16-64-mma_sync"),
+    pytest.param(torch.bfloat16, 128, True, "flash_attention_forward_bf16",
+                 id="bf16-128-mma_sync"),
+    pytest.param(torch.bfloat16, 80, False, "flash_attention_forward_bf16",
+                 id="bf16-80"),
+    pytest.param(torch.float32, 64, False, "flash_attention_forward_f32",
+                 id="f32-64"),
+    pytest.param(torch.float32, 128, True, "flash_attention_forward_f32",
+                 id="f32-128-mma_sync"),
+])
+def test_flash_launch_routes_by_dtype(monkeypatch, dtype, d, mma_sync,
+                                      entry):
+    """The launch picks the C entry by dtype and head dim (bf16 at D 64 and
+    128 the wgmma entry unless ``mma_sync`` forces the mma.sync one) and
+    bumps only that entry's counter (a stand-in for the library records
+    the calls; no card); a launch without ``with_lse`` passes a null
+    lse."""
     calls = []
 
     def fake_fn(name):
@@ -126,27 +146,28 @@ def test_flash_launch_routes_by_dtype(monkeypatch, dtype, entry):
         return launch
 
     monkeypatch.setattr(fa, "_fn", fake_fn)
-    q, k, v = _port(_qkv(3, 2, 6, 2, 64, 32), dtype)
-    before = {c.name: c.count for c in (fa.tc_counter, fa.f32_counter)}
-    out = fa._launch(q, k, v, True, 0.25, 7)
+    q, k, v = _port(_qkv(3, 2, 6, 2, 64, d), dtype)
+    before = [c.count for c in fa.FWD_COUNTERS]
+    out = fa._launch(q, k, v, True, 0.25, 7, mma_sync=mma_sync)
     assert out.dtype == dtype and out.shape == q.shape
     assert [name for name, _ in calls] == [entry]
     args = calls[0][1]
     assert args[4] is None
-    assert args[5:11] == (2, 6, 2, 64, 64, 32) and args[12:] == (1, 7)
-    bumped = fa.ENTRIES[dtype][1]
-    for c in (fa.tc_counter, fa.f32_counter):
-        assert c.count == before[c.name] + (c is bumped)
+    assert args[5:11] == (2, 6, 2, 64, 64, d) and args[12:] == (1, 7)
+    bumped = fa.fwd_route(dtype, d, mma_sync)[1]
+    assert fa.fwd_route(dtype, d, mma_sync)[0] == entry
+    assert [c.count for c in fa.FWD_COUNTERS] == [
+        n + (c is bumped) for n, c in zip(before, fa.FWD_COUNTERS)]
 
 
 def test_flash_launch_refuses_a_failed_entry(monkeypatch):
     """A non-zero return from the entry raises and counts nothing."""
     monkeypatch.setattr(fa, "_fn", lambda name: lambda *args: 1)
     q, k, v = _port(_qkv(4, 1, 2, 1, 32, 16), torch.bfloat16)
-    before = fa.tc_counter.count
+    before = [c.count for c in fa.FWD_COUNTERS]
     with pytest.raises(RuntimeError, match="flash_attention_forward_bf16"):
         fa._launch(q, k, v, False, 0.25, 0)
-    assert fa.tc_counter.count == before
+    assert [c.count for c in fa.FWD_COUNTERS] == before
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -217,8 +238,8 @@ def test_flash_never_falls_back_for_a_device_tensor(monkeypatch):
     monkeypatch.setattr(ref, "flash_attention",
                         lambda *a, **k: called.append(1))
     q = torch.empty((1, 2, 64, 16), device="meta")
-    before = (fa.tc_counter.count, fa.f32_counter.count)
+    before = [c.count for c in fa.FWD_COUNTERS]
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fa.flash_attention(q, q, q, True, 0.25)
     assert not called
-    assert (fa.tc_counter.count, fa.f32_counter.count) == before
+    assert [c.count for c in fa.FWD_COUNTERS] == before

@@ -82,11 +82,11 @@ def test_flash_forward_matches_jax_chunked(arch, compute, bound, jax_params):
     inputs = _inputs(tcfg, 1)
     want = jmodel.forward(jcfg, jax.tree.map(jnp.asarray, np_params),
                           **_jax_in(inputs)).logits
-    before = (fa.tc_counter.count, fa.f32_counter.count)
+    before = [c.count for c in fa.FWD_COUNTERS]
     out = tmodel.forward(tcfg, interop.lm_params_from_numpy(np_params, "cpu"),
                          **_port_in(inputs))
     # the CPU runs the plain version
-    assert (fa.tc_counter.count, fa.f32_counter.count) == before
+    assert [c.count for c in fa.FWD_COUNTERS] == before
     assert out.logits.shape == (B, S, tcfg.vocab_size)
     assert out.logits.dtype == getattr(torch, compute)
     assert float(out.aux_loss) == 0.0

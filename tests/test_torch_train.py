@@ -240,10 +240,10 @@ def test_flash_function_backward(dtype):
     tdt = getattr(torch, dtype)
     scale = d ** -0.5
     inputs = [torch.from_numpy(a).to(tdt).requires_grad_() for a in arrays]
-    before = fa.tc_counter.count + fa.f32_counter.count
+    before = [c.count for c in fa.FWD_COUNTERS]
     out = fa.flash_attention(*inputs, True, scale, 16, 32)
     got = torch.autograd.grad(out, inputs, torch.from_numpy(gout).to(tdt))
-    assert fa.tc_counter.count + fa.f32_counter.count == before
+    assert [c.count for c in fa.FWD_COUNTERS] == before
     plain = [torch.from_numpy(a).to(tdt) for a in arrays]
     ref_out, lse = ref.flash_attention(*plain, True, scale, return_lse=True)
     want = ref.flash_attention_bwd(*plain, ref_out, lse,
