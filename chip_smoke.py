@@ -13,8 +13,15 @@ results:
   ``torch.addmm``; the keyed sweep's device draw against ``rng.uniform01``
   and the keyed sweep against the reading one; for every single-flip
   main path its device idle share, launches per chunk (at most 8) and
-  fixed cost, and kernel A's cluster-width sweep (c = 1, 2, 4, 8) beside
-  its earlier one-block design's times;
+  fixed cost, and kernel A's cluster-width sweep (RSA at c = 1, 2, 4, 8;
+  RWA on ``sweep_rwa.cu`` at c = 1, 2, 4, 8, 16 beside PR 16's
+  ``sweep.cu`` forced at its widths) beside its earlier one-block design's
+  times; kernel A's RWA route (``sweep_rwa.cu``) at every width bitwise
+  its plain version (row 1-RWA, also on both plane tiers and at N=14,481,
+  whose RWA is timed against N=16384's), a K2000 RWA + PWL solve on the
+  card bitwise the CPU's, and every RWA launch of the main paths, of
+  ``[stat]``, ``[tempering]``, ``[tts]``, ``[serve]`` and ``[dist]`` on
+  that route (``sweep.rwa_hopper_counter``);
 * the ``bitplane`` tier on K4096 (``complete_bipolar(4096, seed=4096)``,
   20,000 steps) and the dense-J-free ``bitplane_hbm`` tier on the sparse
   N=16384 instance (``sparse_bipolar_edges(16384, 8·16384, seed=16384)`` →
@@ -218,8 +225,9 @@ COLORED_BIG_CHUNK = 8
 #: unequal-slice check (no width splits 20,000 into equal words).
 COLORED_WIDE_R = 32
 UNEVEN_N = 20000
-#: Cluster widths of the width sweep.
-SWEEP_WIDTHS = (1, 2, 4, 8)
+#: The later phases whose main paths run kernel A's RWA (their launches
+#: are held to its route, ``sweep_rwa.cu``).
+RWA_PHASES = ("stat", "tempering", "tts", "serve", "dist")
 
 SEED = 0
 R, N, T = 8, K2000.num_vertices, 256
@@ -231,6 +239,10 @@ K_PLANE_N = 4096
 SPARSE_N = 16384
 SPARSE_EDGES = 8 * SPARSE_N
 SPARSE_STEPS = 4 * SPARSE_N        # four sweeps' worth of steps
+#: A sparse N whose default lane (9) split PR 16's RWA route badly.
+ODD_N = 14481
+#: Steps of the K2000 RWA solve held bitwise to the CPU's.
+RWA_PREFIX = 512
 #: Kernel C's ms per launch in its earlier design (two popcounts per replica
 #: and word, 8 replicas' spin words staged in shared memory), by CUDA events
 #: from the host at R=8 (PERF.md §6 row 4, an H100 80GB HBM3 at 700 W),
@@ -517,7 +529,8 @@ def profile_device(run, top: int = 8, tag: str = "[profile]"):
             "host_calls": sum(ev.count for ev in prof.key_averages()
                               if ev.key in HOST_LAUNCH_CALLS),
             "sweep_s": sum(us for us, _, key in rows
-                           if "sweep_kernel" in key) / 1e6}
+                           if "sweep_kernel" in key or "rwa_kernel" in key)
+            / 1e6}
 
 
 def launches_per_chunk(problem, config, store=None,
@@ -572,31 +585,88 @@ def single_flip_main(label: str, problem, config, steps: int, store=None):
     return prof, per_chunk, {"kernel_us": kernel_us, "fixed_ms": fixed}
 
 
-def width_sweep(label: str, couplings, args, tbl, words, fmt: str) -> dict:
+def width_sweep(label: str, couplings, args, tbl, words, fmt: str,
+                modes=("rsa", "rwa")) -> dict:
     """Kernel A's ms per 256-step launch (CUDA events, the keyed variant)
-    at each cluster width that fits, for RSA and RWA, beside the width
-    the rule picks."""
+    at each cluster width that fits, beside the width the rule picks: RSA,
+    and RWA on its route (``sweep_rwa.cu``) beside PR 16's kernel forced
+    at its own widths (``pr16``), in the same run."""
     u0, s0, e0, _, temps = args
     n = u0.shape[1]
     lane = common.default_lane(n)
     segs = tbl.shape[0] - 1
     out = {}
-    for mode in ("rsa", "rwa"):
-        fits = sweep.widths(n, lane, segs, mode == "rwa")
-        times = {}
-        for c in SWEEP_WIDTHS:
-            if c not in fits:
-                continue
-            times[c] = cuda_ms(lambda c=c, mode=mode: sweep.mcmc_sweep_at_width(
-                c, couplings, u0, s0, e0, temps, tbl, base_words=words,
-                chunk=0, mode=mode, coupling=fmt), 10)
-        pick = sweep.cluster_width(n, lane, segs, mode == "rwa",
-                                   fmt != "dense")
-        out[mode] = times
-        print(f"[timing] width sweep {label} {mode}: "
-              + ", ".join(f"c={c} {ms:.4f} ms" for c, ms in times.items())
-              + f"; the rule picks c={pick}")
+    for mode in modes:
+        rwa = mode == "rwa"
+        for pr16 in ((False, True) if rwa else (False,)):
+            times = {}
+            for c in sweep.widths(n, lane, segs, rwa, pr16):
+                times[c] = cuda_ms(
+                    lambda c=c, mode=mode, pr16=pr16:
+                    sweep.mcmc_sweep_at_width(
+                        c, couplings, u0, s0, e0, temps, tbl,
+                        base_words=words, chunk=0, mode=mode, coupling=fmt,
+                        pr16=pr16), 10)
+            pick = sweep.cluster_width(n, lane, segs, rwa, fmt != "dense",
+                                       R, pr16)
+            name = (mode if not rwa else "rwa, PR 16's route (sweep.cu)"
+                    if pr16 else "rwa (sweep_rwa.cu)")
+            out[(mode, pr16)] = times
+            print(f"[timing] width sweep {label} {name}: "
+                  + ", ".join(f"c={c} {ms:.4f} ms" for c, ms in times.items())
+                  + f"; the rule picks c={pick}")
     return out
+
+
+def rwa_width_checks(label: str, op, args, tbl, fmt: str) -> float:
+    """[kernels] row 1-RWA: kernel A's RWA route (``sweep_rwa.cu``), RWA +
+    PWL, at every cluster width it runs against its plain version (the
+    widths walk one trajectory). Returns the max_abs_err (0.0)."""
+    u0, s0, e0, unif, temps = args
+    n = u0.shape[1]
+    t = temps.shape[0]
+    want = ref.mcmc_sweep(op, *args, tbl, mode="rwa", coupling=fmt)
+    fits = sweep.widths(n, common.default_lane(n), tbl.shape[0] - 1, True)
+    errs = []
+    for c in fits:
+        got = sweep.mcmc_sweep_at_width(c, op, u0, s0, e0, temps, tbl,
+                                        uniforms=unif, mode="rwa",
+                                        coupling=fmt)
+        errs.append(max_abs_err(got, want))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"row 1-RWA {label} (R={u0.shape[0]}, T={t}) at c={c}: "
+              "sweep_rwa.cu bit-equal to plain, all seven outputs")
+    return max(errs)
+
+
+class RwaRoutes:
+    """While active, counts kernel A's RWA launches by the source they take
+    (wrapping ``sweep._launch``), beside ``sweep.rwa_hopper_counter``."""
+
+    def __enter__(self):
+        self.by_route = {"sweep_rwa": 0, "sweep": 0}
+        self.start = sweep.rwa_hopper_counter.count
+        self.orig = orig = sweep._launch
+
+        def spy(*args, **kw):
+            if kw["mode"] == "rwa":
+                route = sweep.rwa_route("rwa", kw.get("pr16", False))
+                self.by_route[route] += 1
+            return orig(*args, **kw)
+        sweep._launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        sweep._launch = self.orig
+        self.hopper = sweep.rwa_hopper_counter.count - self.start
+
+    def check(self, label: str, runs_rwa: bool = True) -> None:
+        n = self.by_route["sweep_rwa"]
+        check(self.by_route["sweep"] == 0 and self.hopper == n
+              and (n > 0 or not runs_rwa),
+              f"{label}: {n} RWA launches of kernel A, all on sweep_rwa.cu "
+              f"(rwa_hopper_counter +{self.hopper}), none on PR 16's "
+              "sweep.cu")
 
 
 def dense_slice() -> list:
@@ -721,6 +791,11 @@ def dense_slice() -> list:
         check(all(torch.equal(x, y) for x, y in zip(a, b)),
               f"{label}: keyed kernel bit-equal to the reading kernel, all "
               "seven outputs")
+    print("[kernels] row 1-RWA: sweep_rwa.cu's RWA + PWL at every width "
+          f"against its plain version (K2000, R={R}, T={T})")
+    sw["rwa"]["err"] = max(sw["rwa"]["err"], rwa_width_checks(
+        "K2000 dense", problem.couplings, (u0, s0, e0, unif, temps), tbl,
+        "dense"))
 
     print("[reference] small input: the card's solve against the CPU's "
           "(N=250, RSA + PWL, linear schedule)")
@@ -740,6 +815,15 @@ def dense_slice() -> list:
     for name, a, b in zip(on_card._fields, on_card, on_cpu):
         check(torch.equal(a.cpu(), b), f"K2000 1024-step solve {name}: "
               "card == CPU")
+    print(f"[reference] K2000 RWA + PWL, a {RWA_PREFIX}-step solve on "
+          "sweep_rwa.cu: the card's against the CPU's (the plain version's "
+          "tree pick)")
+    short = default_solver(N, RWA_PREFIX, mode="rwa")
+    on_card = solve(problem, SEED, short, backend="fused")
+    on_cpu = solve(problem, SEED, short, backend="fused", device="cpu")
+    for name, a, b in zip(on_card._fields, on_card, on_cpu):
+        check(torch.equal(a.cpu(), b), f"K2000 {RWA_PREFIX}-step RWA solve "
+              f"{name}: card == CPU")
 
     print(f"[main] solve(K2000, seed={SEED}, default_solver(2000, {STEPS}, "
           f"mode), backend='fused'), R={R}")
@@ -751,10 +835,12 @@ def dense_slice() -> list:
         torch.cuda.reset_peak_memory_stats()
         sweep.counter.reset()
         local_field.counter.reset()
-        t0 = time.perf_counter()
-        res = solve(problem, SEED, cfg[mode], backend="fused")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with RwaRoutes() as routes:
+            t0 = time.perf_counter()
+            res = solve(problem, SEED, cfg[mode], backend="fused")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        routes.check(f"[main] K2000 dense {mode}", mode == "rwa")
         launches = {"sweep": sweep.counter.count,
                     "init": local_field.counter.count}
         peak = torch.cuda.max_memory_allocated()
@@ -765,7 +851,8 @@ def dense_slice() -> list:
               f"{wall / STEPS * 1e6:.3f} us/step, {flips / wall:.4e} flips/s, "
               f"wall {wall:.4f} s, peak device memory {peak / 2**20:.1f} MiB, "
               f"launches sweep={launches['sweep']} init={launches['init']}, "
-              f"cluster width {sweep.cluster_width(N, lane, segs, mode == 'rwa')}")
+              f"cluster width "
+              f"{sweep.cluster_width(N, lane, segs, mode == 'rwa', r=R)}")
         prof, per_chunk, extra = single_flip_main(
             f"K2000 dense {mode}", problem, cfg[mode], STEPS)
         MAIN_PATHS[("dense", mode)] = {
@@ -834,7 +921,7 @@ def dense_slice() -> list:
         mode = label
         line["kernels"].append({
             "name": f"mcmc_sweep[{label}]", "route": "cuda",
-            "source": src + "sweep.cu",
+            "source": src + ("sweep_rwa.cu" if mode == "rwa" else "sweep.cu"),
             "replaces": "src/repro/kernels/sweep.py:555",
             "launches": main_runs[mode]["sweep"],
             "max_abs_err": entry["err"], "ms": entry["ms"],
@@ -1082,6 +1169,12 @@ def plane_kernel_checks(k_store, sp_store, k_h, sp_h, cfg, tbl):
                   f"{ru} states ({ru - int(keep.sum())} near ties)")
         err[("rwa", fmt, key)] = max_abs_err([x[keep] for x in a[:5]],
                                              [y[keep] for y in b[:5]])
+        print(f"[kernels] row 1-RWA: sweep_rwa.cu's RWA + PWL at every "
+              f"width against its plain version (N={n} {fmt}, R={R}, "
+              f"T={CHECK_T})")
+        err[("rwa", fmt, key)] = max(err[("rwa", fmt, key)],
+                                     rwa_width_checks(f"N={n} {fmt}", pl,
+                                                      args, tbl, fmt))
     return err, field_in
 
 
@@ -1191,10 +1284,12 @@ def plane_slice() -> list:
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
             reset_counts()
-            t0 = time.perf_counter()
-            res = solve(prob, SEED, c, backend="fused", store=store)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with RwaRoutes() as routes:
+                t0 = time.perf_counter()
+                res = solve(prob, SEED, c, backend="fused", store=store)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            routes.check(f"[main] N={n} {fmt} {mode}", mode == "rwa")
             launches = read_counts()
             peak = torch.cuda.max_memory_allocated()
             h = prob.fields
@@ -1219,7 +1314,7 @@ def plane_slice() -> list:
                   f"bitplane_field_init={launches['init']} "
                   f"local_field_init={launches['dense_init']}, "
                   f"rows_fetched {int(res.rows_fetched.sum())}, cluster "
-                  f"width {sweep.cluster_width(n, common.default_lane(n), segs, mode == 'rwa', True)}")
+                  f"width {sweep.cluster_width(n, common.default_lane(n), segs, mode == 'rwa', True, R)}")
             prof, per_chunk, extra = single_flip_main(
                 f"N={n} {fmt} {mode}", prob, c, steps, store)
             MAIN_PATHS[(fmt, mode)] = {
@@ -1355,6 +1450,28 @@ def plane_slice() -> list:
                 print(f"[timing] mcmc_sweep {fmt} {mode} N={n} uncoalesced: "
                       f"{ms:.4f} ms ({ms / T * 1e3:.3f} us/step)")
         width_sweep(f"N={n} {fmt}", pl, args, tbl, base_words, fmt)
+    # N = 14,481: default_lane is 9, which PR 16's RWA route split by.
+    odd_edges = sparse_bipolar_edges(ODD_N, 8 * ODD_N, seed=ODD_N)
+    odd_pl = CouplingStore.build(odd_edges, "bitplane_hbm").to("cuda").planes
+    odd_h = torch.zeros(ODD_N, device="cuda")
+    temps0 = cfg[(SPARSE_N, "rwa")].schedule(torch.arange(T,
+                                                          dtype=torch.int32))
+    odd_args = plane_inputs(odd_pl, odd_h, R, T, temps0, SEED)
+    print(f"[kernels] row 1-RWA: sweep_rwa.cu's RWA + PWL at every width "
+          f"against its plain version (N={ODD_N} bitplane_hbm, R={R}, "
+          f"T={CHECK_T})")
+    rwa_width_checks(f"N={ODD_N} bitplane_hbm", odd_pl,
+                     plane_inputs(odd_pl, odd_h, R, CHECK_T, temps0, SEED),
+                     tbl, "bitplane_hbm")
+    odd = width_sweep(f"N={ODD_N} bitplane_hbm", odd_pl, odd_args, tbl,
+                      base_words, "bitplane_hbm", modes=("rwa",))
+    pick = sweep.cluster_width(ODD_N, common.default_lane(ODD_N), segs, True,
+                               True, R)
+    ratio = odd[("rwa", False)][pick] / timing[("bitplane_hbm", "rwa")]["ms"]
+    print(f"[timing] RWA at N={ODD_N} against N={SPARSE_N} (bitplane_hbm, "
+          f"the rule's widths): {ratio:.3f}x")
+    check(ratio < 2.0, f"RWA at N={ODD_N} within 2x of N={SPARSE_N}'s")
+    del odd_edges, odd_pl, odd_args
     rate, mhz = popc_per_s()
     print(f"[timing] bitplane_field_init by CUDA-graph replay (from the "
           f"host: back-to-back calls by CUDA events); bound: bytes at "
@@ -1429,7 +1546,8 @@ def plane_slice() -> list:
             e = timing[(fmt, mode)]
             rows.append({
                 "name": f"mcmc_sweep[{fmt},{mode}]", "route": "cuda",
-                "source": src + "sweep.cu",
+                "source": src + ("sweep_rwa.cu" if mode == "rwa"
+                                 else "sweep.cu"),
                 "replaces": "src/repro/kernels/sweep.py:555",
                 "launches": mains[(fmt, mode)]["sweep"],
                 "max_abs_err": err[(mode, fmt, key)], "ms": e["ms"],
@@ -6047,9 +6165,16 @@ def exact_matmuls() -> None:
 
 
 def ptxas_checks(built: dict) -> None:
-    """What ptxas said of kernel E's wgmma sources (nothing where an
-    earlier build was reused): no kernel spills, and none of the forward's
-    products is serialized."""
+    """What ptxas said of kernel E's wgmma sources and kernel A's RWA
+    source (nothing where an earlier build was reused): no kernel spills,
+    and none of the forward's products is serialized."""
+    rwa = [line for line in ptxas_summary(built["sweep_rwa"].log)
+           if "rwa_kernel" in line]
+    if rwa:
+        check(len(rwa) == 16 and all(
+            "0 bytes spill stores, 0 bytes spill loads" in line
+            for line in rwa), "ptxas: kernel A's RWA kernels "
+              "(sweep_rwa.cu, 16 instances) spill nothing")
     wgmma = [line for line in ptxas_summary(
         built["flash_attention_bwd_wgmma"].log) if "wgmma_kernel" in line]
     if wgmma:   # empty where an earlier build was reused
@@ -6116,7 +6241,9 @@ def main() -> None:
                         ("serve", serve_phase),
                         ("dist", dist_phase)):
         t0 = time.perf_counter()
-        phase()
+        with RwaRoutes() as routes:
+            phase()
+        routes.check(f"[{name}]", name in RWA_PHASES)
         print(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
     # Kernel A's, C's, D's and the inits' rows count the launches of the
     # later slices' main paths too (tempering, TTS, the CLI's workloads,

@@ -89,12 +89,15 @@ BITPLANE_L2_MAX_N = 6_144
 #: Dynamic shared memory one block may use on Hopper.
 SHARED_MEMORY_BYTES = 232_448
 
-#: Blocks of the thread-block cluster that holds one replica of the sweep
-#: (the portable cluster size).
+#: Blocks of the thread-block cluster that holds one replica of the RSA
+#: sweep, ``kernels/csrc/sweep.cu`` (the portable cluster size). RWA runs
+#: on ``sweep_rwa.cu``, whose clusters take up to 16 blocks (the
+#: non-portable size, ``kernels.sweep.RWA_CLUSTERS``).
 SWEEP_MAX_BLOCKS = 8
 
-#: The sweep splits u, s and best_s (3·N f32) of one replica over the shared
-#: memory of at most :data:`SWEEP_MAX_BLOCKS` blocks, on every tier.
+#: The RSA sweep splits u, s and best_s (3·N f32) of one replica over the
+#: shared memory of at most :data:`SWEEP_MAX_BLOCKS` blocks, on every tier;
+#: the port serves no N past it (the RWA sweep alone would take 262,144).
 SWEEP_STATE_MAX_N = SWEEP_MAX_BLOCKS * SHARED_MEMORY_BYTES // 12
 
 #: Word-axis alignment of the streamed tier's planes (the JAX package's 128-

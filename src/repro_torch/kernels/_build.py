@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"sweep": "sweep.cu", "colored_sweep": "colored_sweep.cu",
+SOURCES = {"sweep": "sweep.cu", "sweep_rwa": "sweep_rwa.cu",
+           "colored_sweep": "colored_sweep.cu",
            "local_field": "local_field.cu",
            "bitplane_field": "bitplane_field.cu",
            "flash_attention": "flash_attention.cu",
@@ -36,6 +37,7 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: backward) contracts.
 EXACT = ("-fmad=false",)
 NVCC_FLAGS = {"sweep": COMMON_FLAGS + EXACT,
+              "sweep_rwa": COMMON_FLAGS + EXACT,
               "colored_sweep": COMMON_FLAGS + EXACT,
               "local_field": COMMON_FLAGS + EXACT,
               "bitplane_field": COMMON_FLAGS + EXACT,

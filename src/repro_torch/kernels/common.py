@@ -1,10 +1,12 @@
 """Per-step selection math shared by the sweep's plain version and kernel.
 
 Port of ``repro.kernels.common``. These torch functions are the plain
-PyTorch definition of each step of the sweep; ``csrc/sweep.cu`` repeats the
-same float operations in the same order where bitwise agreement is claimed
-(the PWL flip probability, the site rescaling) and documents where it adds
-in another order (the roulette sums).
+PyTorch definition of each step of the sweep; ``csrc/sweep.cu`` and
+``csrc/sweep_rwa.cu`` repeat the same float operations in the same order
+where bitwise agreement is claimed (the PWL flip probability, the site
+rescaling, and ``roulette_pick_tree``, RWA's roulette on the card);
+``roulette_pick`` is JAX's lane-order roulette, which the card's sums
+follow only up to their order.
 """
 from __future__ import annotations
 
@@ -145,6 +147,93 @@ def roulette_pick(p_all: torch.Tensor, u_roulette: torch.Tensor, lane: int):
     sel = pb[torch.arange(r_, device=p_all.device), g]
     l = roulette_lane_pick(sel, residual, lane)
     return g * lane + l, total, degenerate
+
+
+def tree_leaves(n: int) -> int:
+    """Leaves of :func:`roulette_pick_tree`'s tree over N sites: the power
+    of two ≥ ⌈N / MAX_LANE⌉ (sites past N are phantoms of probability 0)."""
+    need = -(-n // MAX_LANE)
+    return 1 << max(0, (need - 1).bit_length())
+
+
+def _pairs(x: torch.Tensor) -> torch.Tensor:
+    """Each node of the next level up: left child plus right child."""
+    return x[..., 0::2] + x[..., 1::2]
+
+
+def _subtree_levels(p: torch.Tensor) -> list:
+    """The node sums of the tree over (R, leaves·128) padded probabilities,
+    from the leaves (level 0, (R, leaves)) up to the subtree's root. A
+    leaf's 128 sites sit 4 to a lane of 32; a lane adds its pairs, then
+    the lanes pair up in index order (the card's shuffle butterfly)."""
+    r = p.shape[0]
+    x = _pairs(_pairs(p.reshape(r, -1, 32, 4)))[..., 0]       # (R, L, 32)
+    while x.shape[-1] > 1:
+        x = _pairs(x)
+    levels = [x[..., 0]]
+    while levels[-1].shape[1] > 1:
+        levels.append(_pairs(levels[-1]))
+    return levels
+
+
+def roulette_pick_tree(p_all: torch.Tensor, u_roulette: torch.Tensor,
+                       subtrees: int = 1):
+    """The roulette of the card's RWA kernel (``csrc/sweep_rwa.cu``): site
+    ``j`` with probability ``p_j / W`` over a binary tree whose sums do not
+    depend on how the card splits it. Returns ``(site int64, total,
+    degenerate)`` as :func:`roulette_pick`.
+
+    N is padded with zeros to :func:`tree_leaves` leaves of 128 sites;
+    every node is its left child plus its right child, from a lane's 4
+    sites up to the total W. ``subtrees`` (a power of two up to the
+    leaves) sums each of that many equal subtrees on its own and then the
+    top of the tree over their sums, as the card's cluster ranks do; the
+    result is the same bitwise for every split. The radius is ``u·W`` (``u``
+    alone on a degenerate W ≤ 0 or non-finite); the pick descends from the
+    root, going right iff the radius is ≥ the left sum and the right
+    subtree holds a site < N, subtracting that sum; in the leaf it takes
+    the ≤-count of the prefix sums (lane k's exclusive scan of the lane
+    totals plus its running sum over its 4 sites), clamped to the leaf's
+    last site < N. The reference's ≤-count form summed in another order:
+    it agrees with :func:`roulette_pick` except near ties."""
+    r, n = p_all.shape
+    nl = tree_leaves(n)
+    if subtrees < 1 or subtrees > nl or subtrees & (subtrees - 1):
+        raise ValueError(f"subtrees must be a power of two in [1, {nl}], "
+                         f"got {subtrees}")
+    rows = torch.arange(r, device=p_all.device)
+    p = torch.zeros((r, nl * MAX_LANE), dtype=torch.float32,
+                    device=p_all.device)
+    p[:, :n] = p_all
+    parts = [_subtree_levels(x) for x in p.chunk(subtrees, dim=1)]
+    levels = [torch.cat([part[k] for part in parts], dim=1)
+              for k in range(len(parts[0]))]
+    while levels[-1].shape[1] > 1:          # the top, over the subtrees
+        levels.append(_pairs(levels[-1]))
+    total = levels[-1][:, 0]
+    degenerate = (total <= 0) | ~torch.isfinite(total)
+    res = u_roulette * torch.where(degenerate, torch.ones_like(total), total)
+    node = torch.zeros(r, dtype=torch.int64, device=p_all.device)
+    for lvl in range(len(levels) - 2, -1, -1):
+        left = levels[lvl][rows, 2 * node]
+        right_first = (2 * node + 1) * (MAX_LANE << lvl)
+        go = (res >= left) & (right_first < n)
+        res = torch.where(go, res - left, res)
+        node = 2 * node + go.to(torch.int64)
+    x = p.reshape(r, nl, 32, 4)[rows, node]                    # (R, 32, 4)
+    run = [x[..., 0]]
+    for m in range(1, 4):
+        run.append(run[-1] + x[..., m])
+    incl = run[3]
+    for off in (1, 2, 4, 8, 16):
+        incl = torch.cat([incl[:, :off], incl[:, off:] + incl[:, :-off]],
+                         dim=1)
+    excl = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1)
+    pref = torch.stack([excl + c for c in run], dim=2)         # (R, 32, 4)
+    cnt = (pref <= res[:, None, None]).sum(dim=(1, 2))
+    first = node * MAX_LANE
+    last = torch.clamp(n - 1 - first, max=MAX_LANE - 1)
+    return first + torch.minimum(cnt, last), total, degenerate
 
 
 def site_from_uniform(u01: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,8 +1,10 @@
 // Hopper's asynchronous machinery as inline PTX (sm_90a): mbarriers, TMA
-// tile loads, warpgroup matrix products (wgmma) and register hand-over
-// (setmaxnreg), and the host's cuTensorMapEncodeTiled, looked up at run
-// time (no -lcuda). Used by flash_attention_wgmma.cu (the forward) and
-// flash_attention_bwd_wgmma.cu (the backward).
+// tile loads, stores into a peer block's shared memory that complete on
+// its mbarrier (st.async), warpgroup matrix products (wgmma) and register
+// hand-over (setmaxnreg), and the host's cuTensorMapEncodeTiled, looked up
+// at run time (no -lcuda). Used by flash_attention_wgmma.cu (the forward),
+// flash_attention_bwd_wgmma.cu (the backward) and sweep_rwa.cu (kernel A's
+// RWA step).
 //
 // wgmma.m64n64k16 fragments, per warpgroup of 128 threads (w = warp in the
 // group, g = lane / 4, t4 = lane % 4):
@@ -75,6 +77,58 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "@!p bra WAIT;\n"
       "}\n" ::"r"(shared_u32(bar)),
       "r"(parity)
+      : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed, acquiring at
+// cluster scope what peers wrote with st.async before completing it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(shared_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Distributed shared memory: stores into a peer block of the cluster
+// ---------------------------------------------------------------------------
+
+// The shared::cluster address of `p` (in this block's shared memory) in
+// the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(shared_u32(p)), "r"(rank));
+  return out;
+}
+
+// Stores 4 bytes at a peer's address and completes them on that peer's
+// mbarrier (its transaction count falls by 4); release at cluster scope.
+__device__ __forceinline__ void st_async_b32(uint32_t addr, uint32_t v,
+                                             uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
+// The same for 16 bytes (addr 16-byte aligned).
+__device__ __forceinline__ void st_async_v4(uint32_t addr, int4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
       : "memory");
 }
 

@@ -1,7 +1,8 @@
-// Device functions shared by the sweep kernels (sweep.cu, colored_sweep.cu):
-// the coupling store, the plane-row decode, the flip probability, dE and
+// Device functions shared by the sweep kernels (sweep.cu, sweep_rwa.cu,
+// colored_sweep.cu): the coupling store, the plane-row decode, the site of
+// a uniform, the coalesced tier's row count, the flip probability, dE and
 // the threefry uniforms of a sweep chunk.
-// Both kernels repeat the float operations of kernels/common.py in the same
+// The kernels repeat the float operations of kernels/common.py in the same
 // order, so they agree bitwise with the plain versions where that is
 // claimed; build with -fmad=false (see sweep.cu).
 #pragma once
@@ -64,6 +65,34 @@ __device__ __forceinline__ void plane_couplings(const Store& st, int j, int N,
   }
 }
 
+__device__ __forceinline__ int site_from_uniform(float u, int n) {
+  return min((int)__fmul_rn(u, (float)n), n - 1);
+}
+
+// The coalesced tier's count, by the last cluster of a group to finish
+// (its `warps` warps): replica r0 + k is charged one row at step t unless
+// a lower replica of its group chose the same site
+// (common.rows_fetched_step). site_log is the (T, R) log of every
+// replica's sites.
+__device__ inline void count_group_rows(const int* site_log, int* rf_out,
+                                        int R, int T, int group, int r0,
+                                        int warps) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  for (int k = warp; k < group; k += warps) {
+    int mine = 0;
+    for (int t = wl; t < T; t += 32) {
+      const int* row = site_log + (size_t)t * R + r0;
+      const int j = __ldcg(row + k);
+      bool dup = false;
+      for (int m = 0; m < k && !dup; ++m) dup = __ldcg(row + m) == j;
+      mine += !dup;
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      mine += __shfl_xor_sync(kFull, mine, off);
+    if (wl == 0) rf_out[r0 + k] = mine;
+  }
+}
+
 struct Pwl {
   const float* icpt;   // (S,) in shared memory
   const float* slope;  // (S,) in shared memory
@@ -71,11 +100,9 @@ struct Pwl {
   int segs;
 };
 
+// The flip probability at z = -dE/T for T > 0: PWL or the exact sigmoid.
 template <bool PWL>
-__device__ __forceinline__ float flip_probability(float de, float t,
-                                                  const Pwl& pwl) {
-  if (!(t > 0.f)) return de < 0.f ? 1.f : (de == 0.f ? 0.5f : 0.f);
-  float z = __fdiv_rn(-de, t);
+__device__ __forceinline__ float probability_at(float z, const Pwl& pwl) {
   if (PWL) {
     float zc = fminf(fmaxf(z, pwl.z_lo), pwl.z_hi);
     int seg = (int)__fmul_rn(__fsub_rn(zc, pwl.z_lo), pwl.inv_step);
@@ -83,6 +110,13 @@ __device__ __forceinline__ float flip_probability(float de, float t,
     return __fmaf_rn(pwl.slope[seg], zc, pwl.icpt[seg]);
   }
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z)));
+}
+
+template <bool PWL>
+__device__ __forceinline__ float flip_probability(float de, float t,
+                                                  const Pwl& pwl) {
+  if (!(t > 0.f)) return de < 0.f ? 1.f : (de == 0.f ? 0.5f : 0.f);
+  return probability_at<PWL>(__fdiv_rn(-de, t), pwl);
 }
 
 __device__ __forceinline__ float delta_e(const float* s, const float* u,

@@ -7,7 +7,10 @@
 // site's flip probability, with the RSA fallback on a degenerate total, or
 // the uniformized null transition), then e += accept*dE,
 // u <- u - 2*accept*s_old*J[j,:], the spin flip and the copy of s into
-// best_s when e improves.
+// best_s when e improves. The solves' RWA runs on sweep_rwa.cu (a
+// roulette tree that does not depend on the width); RWA runs here only
+// when the wrapper is asked to (sweep.mcmc_sweep_at_width(pr16=True)), to
+// time both designs in one run.
 //
 // What bounds it on this card: the T steps of one replica form a serial
 // chain, and each step reads one J row that it needs before the next step
@@ -140,10 +143,6 @@ struct SweepParams {
   int R, N, T, lane, width;
 };
 
-__device__ __forceinline__ int site_from_uniform(float u, int n) {
-  return min((int)__fmul_rn(u, (float)n), n - 1);
-}
-
 // Warp-level prefix machinery over x[0, m): lane k owns the contiguous chunk
 // [k*c, min(m, (k+1)*c)), c = ceil(m/32), summed in order; chunk sums are
 // combined by a shuffle scan. Returns this lane's exclusive prefix and
@@ -226,26 +225,6 @@ __device__ __forceinline__ void stage_window(const SweepParams& p, int r,
   }
   if (tid < kWindow && t0 + tid < p.T)
     wtemp[tid] = p.temps[(size_t)(t0 + tid) * p.R + r];
-}
-
-// The coalesced tier's count, by the last cluster of a group to finish:
-// replica r0 + k is charged one row at step t unless a lower replica of
-// its group chose the same site (common.rows_fetched_step).
-__device__ void count_group_rows(const SweepParams& p, int r0) {
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  for (int k = warp; k < p.group; k += kWarps) {
-    int mine = 0;
-    for (int t = wl; t < p.T; t += 32) {
-      const int* row = p.site_log + (size_t)t * p.R + r0;
-      const int j = __ldcg(row + k);
-      bool dup = false;
-      for (int m = 0; m < k && !dup; ++m) dup = __ldcg(row + m) == j;
-      mine += !dup;
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      mine += __shfl_xor_sync(kFull, mine, off);
-    if (wl == 0) p.rf_out[r0 + k] = mine;
-  }
 }
 
 template <bool RWA, bool UNIFORMIZED, bool PWL, int STORE, bool DRAW>
@@ -460,7 +439,7 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(const SweepParams p) {
     __syncthreads();
     if (sh_last) {
       __threadfence();
-      count_group_rows(p, r0);
+      count_group_rows(p.site_log, p.rf_out, p.R, p.T, p.group, r0, kWarps);
     }
   }
   // No rank leaves while a peer could still address its shared memory.

@@ -57,7 +57,9 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
     energy0 (R,); uniforms (T, R, 4) f32 (site, accept, roulette,
     uniformize); temps (T, R); ``pwl_table`` optional (S+1, 3) (None = exact
     sigmoid). ``coupling`` names the tier (default: "bitplane" for planes,
-    else "dense"). Returns ``(fields, spins, energy, best_energy, best_spins,
+    else "dense"). RWA picks with ``common.roulette_pick_tree``, the card's
+    tree (JAX's lane-order ``roulette_pick`` agrees except near ties), so
+    ``lane`` is accepted for JAX's signature and not read. Returns ``(fields, spins, energy, best_energy, best_spins,
     num_flips, rows_fetched)``: rows_fetched counts one row per replica per
     step, or, on a coalescable tier with ``coalesce``, each step's unique
     sites per group of ``fit_block(R, block_r)`` replicas, charged to the
@@ -82,7 +84,6 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
     coalesce = coalesce and coupling_store.FORMATS[coupling].coalescable
     r = fields0.shape[0]
     num_steps = uniforms.shape[0]
-    lane = common.default_lane(n) if lane is None else lane
     rows_idx = torch.arange(r, device=fields0.device)
 
     u = fields0.to(torch.float32).clone()
@@ -103,8 +104,8 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
         else:
             de_all = 2.0 * sf * u
             p_all = common.flip_probability(de_all, temp[:, None], pwl_table)
-            j_rw, total, degenerate = common.roulette_pick(p_all, u01[:, 2],
-                                                           lane)
+            j_rw, total, degenerate = common.roulette_pick_tree(
+                p_all, u01[:, 2])
             if uniformized:
                 accept = ~degenerate & (u01[:, 3] * float(n) < total)
                 j = j_rw

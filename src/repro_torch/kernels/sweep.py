@@ -4,12 +4,14 @@ dual-mode single-flip sweep) and ``colored_sweep`` (graph-colored block
 Gibbs), each with ``coupling="dense"|"bitplane"|"bitplane_hbm"``.
 
 A CPU tensor goes to the plain version (``ref.mcmc_sweep``,
-``ref.colored_sweep``); a CUDA tensor launches ``csrc/sweep.cu`` or
-``csrc/colored_sweep.cu``, or raises. ``mcmc_sweep`` and ``colored_sweep``
+``ref.colored_sweep``); a CUDA tensor launches ``csrc/sweep_rwa.cu`` (RWA,
+the route :func:`rwa_route` names, counted by ``rwa_hopper_counter``),
+``csrc/sweep.cu`` (RSA, and RWA when forced onto PR 16's kernel for
+timing) or ``csrc/colored_sweep.cu``, or raises. ``mcmc_sweep`` and ``colored_sweep``
 take their uniforms as a tensor, as the JAX kernels do;
 ``mcmc_sweep_keyed`` and ``colored_sweep_keyed``, the solves' entries, take
 the base key's two words and the chunk index and let the kernel draw the
-same uniforms itself. The single-flip kernel runs each replica on a
+same uniforms itself. The single-flip kernels run each replica on a
 thread-block cluster of :func:`cluster_width` blocks that split N
 (:func:`max_n` is its ceiling); the colored kernel runs each replica on a
 cluster of :func:`colored_width` blocks that split N (:func:`colored_max_n`
@@ -30,7 +32,10 @@ from ..core.bitplane import BitPlanes
 from . import _build, common, ref
 from ._launch import LaunchCounter, check_operands
 
+#: Every launch of kernel A, on either source.
 counter = LaunchCounter("mcmc_sweep")
+#: Kernel A's launches on ``csrc/sweep_rwa.cu``, the RWA route.
+rwa_hopper_counter = LaunchCounter("mcmc_sweep_rwa_hopper")
 colored_counter = LaunchCounter("colored_sweep")
 uniforms_counter = LaunchCounter("sweep_uniforms")
 
@@ -42,32 +47,79 @@ STATIC_SHARED_BYTES = 1024
 #: may hold (after ``cudaFuncSetAttribute``) less the static part.
 MAX_SHARED_BYTES = coupling_store.SHARED_MEMORY_BYTES - STATIC_SHARED_BYTES
 
-#: Largest thread-block cluster (the portable size): the widest split of a
-#: replica's spins.
+#: Largest thread-block cluster of ``csrc/sweep.cu`` (RSA, and PR 16's RWA
+#: route), the portable size: its widest split of a replica's spins.
 MAX_CLUSTER = coupling_store.SWEEP_MAX_BLOCKS
+
+#: Cluster widths of ``csrc/sweep_rwa.cu`` (RWA): powers of two up to 16,
+#: the non-portable size.
+RWA_CLUSTERS = (1, 2, 4, 8, 16)
+#: Leaves of 128 sites one block of the RWA kernel holds at most.
+RWA_MAX_RANK_LEAVES = 128
+#: The RWA width rule's aim: the narrowest cluster whose blocks hold at
+#: most this many leaves (``cluster_width``).
+RWA_BLOCK_LEAVES = 4
+#: Steps of a staged window (both sources): 4 uniforms and a temperature.
+WINDOW_FLOATS = 5 * common.SWEEP_WINDOW
 
 GATHERS = ("dynamic", "onehot", "auto")
 
 
+def rwa_route(mode: str, pr16: bool = False) -> str:
+    """The source kernel A's launch takes: ``"sweep_rwa"`` for RWA, or
+    ``"sweep"`` (PR 16's kernel) for RSA and for RWA forced there by
+    ``pr16`` (timing both designs in one run, never the solve)."""
+    return "sweep_rwa" if mode == "rwa" and not pr16 else "sweep"
+
+
+def rwa_shared_bytes(n: int, segs: int, width: int) -> int:
+    """Shared memory of one block of the RWA kernel's ``width``-block
+    cluster: u and the flip probabilities (f32) and s and best_s (int8) of
+    its ``tree_leaves(N) / width`` leaves of 128 sites, the PWL table, two
+    staged windows and the leaf sums. Mirrors
+    ``snowball_sweep_rwa_smem_bytes``."""
+    leaves = max(1, common.tree_leaves(n) // width)
+    sites = leaves * common.MAX_LANE
+    return (10 * sites + _align16(8 * segs) + 2 * 4 * WINDOW_FLOATS
+            + _align16(4 * leaves))
+
+
 def shared_bytes(n: int, lane: int, segs: int, rwa: bool,
-                 width: int = 1) -> int:
-    """Shared memory of one block of a ``width``-block sweep cluster: u, s
+                 width: int = 1, pr16: bool = False) -> int:
+    """Shared memory of one block of a ``width``-block sweep cluster. RWA
+    (unless ``pr16``): :func:`rwa_shared_bytes`. RSA and PR 16's RWA: u, s
     and best_s of its N/width slice (3·N/width f32), the PWL intercepts and
     slopes (2·S), the staged window (64 steps × 4 uniforms and 64
     temperatures), and for RWA the slice's block sums plus one 128-wide
     lane buffer. Mirrors ``snowball_sweep_smem_bytes``."""
+    if rwa and not pr16:
+        return rwa_shared_bytes(n, segs, width)
     nc = n // width
     floats = (3 * nc + 2 * segs + common.SWEEP_WINDOW * 5
               + ((nc // lane) + common.MAX_LANE if rwa else 0))
     return 4 * floats
 
 
-def widths(n: int, lane: int, segs: int, rwa: bool) -> list:
-    """The cluster widths the sweep can run N on: c ≤ 8 whose slices N/c
-    are whole lane blocks and fit one block's shared memory."""
+def widths(n: int, lane: int, segs: int, rwa: bool,
+           pr16: bool = False) -> list:
+    """The cluster widths the sweep can run N on. RWA (unless ``pr16``):
+    the powers of two c ≤ 16 and ≤ ``tree_leaves(N)`` whose subtrees of
+    ``tree_leaves(N) / c`` leaves fit one block, for any N up to the port's
+    ceiling ``coupling.SWEEP_STATE_MAX_N`` (the RSA kernel's, which every
+    store is held to); ``lane`` is not read. RSA and PR 16's RWA: c ≤ 8
+    whose slices N/c are whole lane blocks and fit one block's shared
+    memory."""
+    if rwa and not pr16:
+        if n > coupling_store.SWEEP_STATE_MAX_N:
+            return []
+        leaves = common.tree_leaves(n)
+        return [c for c in RWA_CLUSTERS
+                if c <= leaves and leaves // c <= RWA_MAX_RANK_LEAVES
+                and rwa_shared_bytes(n, segs, c) <= MAX_SHARED_BYTES]
     return [c for c in range(1, MAX_CLUSTER + 1)
             if n % c == 0 and (n // c) % lane == 0
-            and shared_bytes(n, lane, segs, rwa, c) <= MAX_SHARED_BYTES]
+            and shared_bytes(n, lane, segs, rwa, c, True)
+            <= MAX_SHARED_BYTES]
 
 
 #: Spins of a plane row that one block's 8 warps decode in one pass (1024
@@ -76,35 +128,61 @@ PLANE_PASS_SPINS = 8 * 1024
 
 
 def cluster_width(n: int, lane: int, segs: int, rwa: bool,
-                  planes: bool = False) -> int:
+                  planes: bool = False, r: int = 1,
+                  pr16: bool = False) -> int:
     """The blocks per replica the sweep runs on (chosen here from N, the
-    mode and the store, not by the caller). RWA takes the widest width
-    that fits, and so does RSA on a dense J; RSA on planes takes the
-    narrowest width whose slice one block decodes in one pass
-    (:data:`PLANE_PASS_SPINS`). Raises past the ceiling (:func:`max_n`).
+    mode, the store and R, not by the caller). Raises past the ceiling
+    (:func:`max_n`).
 
+    RWA (``csrc/sweep_rwa.cu``): its results do not depend on the width, so
+    the rule is for speed alone: the narrowest width whose blocks hold at
+    most :data:`RWA_BLOCK_LEAVES` leaves (the widest where none does),
+    narrowed until R·c blocks stay within the card's SMs
+    (:data:`COLORED_SMS`), or the narrowest that fits where none does.
+    ``scripts/rwa_variants.py`` (an H100 80GB HBM3 at a 700 W limit; ms
+    per 256-step launch of the keyed sweep, R=8, PWL, at c = 1, 2, 4, 8,
+    16): K2000 dense 0.7309, 0.5379, 0.5273, 0.5252, 0.5326; K4096
+    ``bitplane`` 1.1247, 0.7949, 0.6227, 0.5842, 0.6087; N=16384
+    ``bitplane_hbm`` 3.4726, 1.9179, 1.1484, 0.8300, 0.7574; N=14,481
+    3.4727, 1.9271, 1.1527, 0.8338, 0.7652. The rule picks the fastest
+    width, or one within 0.4 % of it (c = 4, 8, 16, 16). A step is a
+    chain of latencies (two exchanges, the row read, one leaf's evaluation
+    and sums), so a block gains little from more than a few leaves' work;
+    past 4 leaves a block the evaluation grows with them and a wider
+    cluster pays. At 512 threads a block the same widths read no faster
+    at R=8 (c = 16 then loses half its clusters to a second wave), and
+    1,024 spill.
+
+    RSA, and PR 16's RWA route (``pr16``): RWA and dense RSA take the
+    widest width that fits; RSA on planes takes the narrowest width whose
+    slice one block decodes in one pass (:data:`PLANE_PASS_SPINS`).
     ``chip_smoke.py``'s width sweep (an H100 80GB HBM3 at a 700 W limit; ms
     per 256-step launch of the keyed sweep, R=8, at c = 1, 2, 4, 8): K2000
-    dense RSA 0.3432, 0.3796, 0.2800, 0.2651 and RWA 1.6411, 1.5150,
-    1.3186, 1.3130; K4096 ``bitplane`` RSA 0.4399, 0.5395, 0.5551, 0.4893
-    and RWA 1.8670, 1.8205, 1.6662, 1.5883; N=16384 ``bitplane_hbm`` RSA
-    0.8537, 0.5924, 0.5769, 0.5791 and RWA 6.5139, 3.9008, 2.7735, 2.2571.
-    A wider cluster spreads RWA's N flip probabilities, and the row update,
-    over more SMs for two cluster barriers a step. An RSA step is one row
-    update: on a dense J every thread takes fewer columns, but a plane row
-    is decoded 1024 spins a warp, so a split pays only while a block would
-    need a second pass (N=16384) and costs a cluster barrier where one
-    pass suffices (K4096)."""
-    fits = widths(n, lane, segs, rwa)
+    dense RSA 0.3432, 0.3796, 0.2800, 0.2651 and PR 16's RWA 1.6411,
+    1.5150, 1.3186, 1.3130; K4096 ``bitplane`` RSA 0.4399, 0.5395, 0.5551,
+    0.4893 and RWA 1.8670, 1.8205, 1.6662, 1.5883; N=16384 ``bitplane_hbm``
+    RSA 0.8537, 0.5924, 0.5769, 0.5791 and RWA 6.5139, 3.9008, 2.7735,
+    2.2571. An RSA step is one row update: on a dense J every thread takes
+    fewer columns, but a plane row is decoded 1024 spins a warp, so a split
+    pays only while a block would need a second pass (N=16384) and costs a
+    cluster barrier where one pass suffices (K4096)."""
+    fits = widths(n, lane, segs, rwa, pr16)
     if not fits:
+        top = RWA_CLUSTERS[-1] if rwa and not pr16 else MAX_CLUSTER
         raise ValueError(
             f"N={n} does not fit the sweep at any cluster width up to "
-            f"{MAX_CLUSTER}: a block's slice needs "
-            f"{shared_bytes(n, lane, segs, rwa, MAX_CLUSTER)} bytes of "
-            f"shared memory at width {MAX_CLUSTER} (at most "
+            f"{top}: a block's slice needs "
+            f"{shared_bytes(n, lane, segs, rwa, top, pr16)} bytes of "
+            f"shared memory at width {top} (at most "
             f"{MAX_SHARED_BYTES}), or N/width is not a whole number of "
             f"{lane}-wide lane blocks; the sweep takes N ≤ "
-            f"{max_n(rwa, segs)} with the default lane")
+            f"{max_n(rwa, segs, pr16)} with the default lane")
+    if rwa and not pr16:
+        small = [c for c in fits
+                 if common.tree_leaves(n) // c <= RWA_BLOCK_LEAVES]
+        pick = small[0] if small else fits[-1]
+        ok = [c for c in fits if c <= pick and r * c <= COLORED_SMS]
+        return ok[-1] if ok else fits[0]
     if planes and not rwa:
         one_pass = [c for c in fits if n // c <= PLANE_PASS_SPINS]
         if one_pass:
@@ -113,14 +191,21 @@ def cluster_width(n: int, lane: int, segs: int, rwa: bool,
 
 
 @functools.cache
-def max_n(rwa: bool = True, segs: int = 64) -> int:
-    """Largest N the sweep takes with the default lane: 8 blocks of a
-    cluster each hold a slice, so about 8 × 19.1k spins, in place of the
-    TPU's VMEM wall at N=2000."""
+def max_n(rwa: bool = True, segs: int = 64, pr16: bool = False) -> int:
+    """Largest N the sweep takes with the default lane. RSA and PR 16's RWA:
+    8 blocks of a cluster each hold a slice, so about 8 × 19.1k spins, in
+    place of the TPU's VMEM wall at N=2000. RWA: 16 blocks of 128 leaves
+    would hold 262,144 sites; the port's ceiling
+    ``coupling.SWEEP_STATE_MAX_N`` caps it."""
+    if rwa and not pr16:
+        n = coupling_store.SWEEP_STATE_MAX_N
+        while not widths(n, 1, segs, True):
+            n -= 1
+        return n
     per_block = (MAX_SHARED_BYTES // 4 - 2 * segs - 5 * common.SWEEP_WINDOW
                  - (common.MAX_LANE if rwa else 0)) // 3
     n = MAX_CLUSTER * per_block
-    while not widths(n, common.default_lane(n), segs, rwa):
+    while not widths(n, common.default_lane(n), segs, rwa, True):
         n -= 1
     return n
 
@@ -244,6 +329,16 @@ def _fns():
     return fn, draw
 
 
+@functools.cache
+def _rwa_fn():
+    fn = _build.load("sweep_rwa").snowball_sweep_rwa
+    p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    fn.argtypes = ([p] * 3 + [i] * 2 + [p] * 4 + [w] * 2 + [i] * 2
+                   + [p] * 2 + [i] + [p] * 9 + [i] * 6 + [p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 #: The packed PWL table of each live table tensor, by id: (a weak
 #: reference to it, its version, the packed tensor, S). A solve passes one
 #: table to every chunk's launch.
@@ -301,7 +396,10 @@ def mcmc_sweep(couplings, fields0: torch.Tensor,
     an integer J with ``coupling="bitplane"|"bitplane_hbm"``. fields0/spins0
     (R, N); energy0 (R,); uniforms (T, R, 4) in [0,1) (site, accept,
     roulette, uniformize); temps (T, R); ``pwl_table`` optional (S+1, 3)
-    (None = exact sigmoid). ``gather`` takes the JAX package's values: on the
+    (None = exact sigmoid). ``lane`` (default ``common.default_lane(N)``)
+    is checked as JAX's signature has it; RWA's pick, on the card and in
+    the plain version, is ``common.roulette_pick_tree`` and does not read
+    it. ``gather`` takes the JAX package's values: on the
     dense tier they give identical results and run the same row-fetch
     kernel; the plane tiers reject "onehot". ``coalesce`` (the streamed tier
     only) counts ``rows_fetched`` as each step's unique rows per group of
@@ -373,11 +471,12 @@ def mcmc_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
                         chunk: int = 0, mode: str = "rsa",
                         uniformized: bool = False, coupling: str = "dense",
                         block_r: int = 8, lane: Optional[int] = None,
-                        coalesce: bool = True):
+                        coalesce: bool = True, pr16: bool = False):
     """The card's sweep at a cluster width of the caller's choice (one of
     :func:`widths`) in place of :func:`cluster_width`'s: for the width
     sweep and the card tests, never the solve. Takes ``uniforms`` or
-    ``base_words`` and ``chunk``."""
+    ``base_words`` and ``chunk``. ``pr16`` forces RWA onto PR 16's kernel
+    (``csrc/sweep.cu``), to time both designs in one run."""
     lane, coalesce = _check_call(couplings, fields0, mode, "dynamic",
                                  coupling, lane, coalesce)
     if fields0.device.type != "cuda":
@@ -389,7 +488,7 @@ def mcmc_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
     return _launch(couplings, fields0, spins0, energy0, temps, pwl_table,
                    uniforms=uniforms, key=key, mode=mode,
                    uniformized=uniformized, block_r=block_r, lane=lane,
-                   coalesce=coalesce, width=width)
+                   coalesce=coalesce, width=width, pr16=pr16)
 
 
 def sweep_uniforms(base_words: Sequence[int], chunk: int, t: int, r: int,
@@ -418,10 +517,11 @@ def sweep_uniforms(base_words: Sequence[int], chunk: int, t: int, r: int,
 
 def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
             uniforms, key, mode, uniformized, block_r, lane, coalesce,
-            width, out=None):
-    """Checks the operands and launches ``snowball_sweep`` (reading
-    ``uniforms``, or drawing from ``key = (base_words, chunk, fold)``),
-    writing new output tensors or the seven given in ``out``."""
+            width, out=None, pr16=False):
+    """Checks the operands and launches the source :func:`rwa_route` names
+    (``snowball_sweep_rwa`` or ``snowball_sweep``; reading ``uniforms``, or
+    drawing from ``key = (base_words, chunk, fold)``), writing new output
+    tensors or the seven given in ``out``. A refused launch raises."""
     r, n = fields0.shape
     t = temps.shape[0]
     rwa = mode == "rwa"
@@ -455,13 +555,15 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
                 -1 if fold is None else int(fold))
     pwl_args = _pwl_args(pwl_table)
     segs = pwl_args[1]
+    route = rwa_route(mode, pr16)
+    pr16 = route == "sweep"
     if width is None:
         width = cluster_width(n, lane, segs, rwa,
-                              isinstance(couplings, BitPlanes))
-    elif width not in widths(n, lane, segs, rwa):
+                              isinstance(couplings, BitPlanes), r, pr16)
+    elif width not in widths(n, lane, segs, rwa, pr16):
         raise ValueError(f"cluster width {width} does not fit N={n} (lane "
                          f"{lane}): the widths that do are "
-                         f"{widths(n, lane, segs, rwa)}")
+                         f"{widths(n, lane, segs, rwa, pr16)}")
     shapes = ((r, n), (r, n), (r,), (r,), (r, n), (r,), (r,))
     if out is None:
         out = tuple(torch.empty(shape, dtype=torch.float32 if i < 5
@@ -481,17 +583,24 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
         rows = (site_log.data_ptr(), done.data_ptr(), group)
     else:
         rows = (None, None, 0)
+    common_args = (*store, fields0.data_ptr(), spins0.data_ptr(),
+                   energy0.data_ptr(), *draw, temps.data_ptr(), *pwl_args,
+                   u.data_ptr(), s.data_ptr(), e.data_ptr(), be.data_ptr(),
+                   bs.data_ptr(), nf.data_ptr(), rf.data_ptr(), *rows, r, n,
+                   t)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _fns()[0](
-            *store, fields0.data_ptr(), spins0.data_ptr(),
-            energy0.data_ptr(), *draw, temps.data_ptr(), *pwl_args,
-            u.data_ptr(), s.data_ptr(), e.data_ptr(), be.data_ptr(),
-            bs.data_ptr(), nf.data_ptr(), rf.data_ptr(), *rows, r, n, t,
-            int(rwa), int(uniformized and rwa), lane, width, stream)
+        if pr16:
+            rc = _fns()[0](*common_args, int(rwa), int(uniformized and rwa),
+                           lane, width, stream)
+        else:
+            rc = _rwa_fn()(*common_args, int(uniformized), width, stream)
     if rc != 0:
-        raise RuntimeError(f"mcmc_sweep launch failed: CUDA error {rc}")
+        raise RuntimeError(f"mcmc_sweep launch failed ({route}.cu): CUDA "
+                           f"error {rc}")
     counter.count += 1
+    if not pr16:
+        rwa_hopper_counter.count += 1
     return u, s, e, be, bs, nf, rf
 
 

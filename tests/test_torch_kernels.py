@@ -316,34 +316,47 @@ def test_interop_state_round_trip_feeds_a_chunk():
 
 
 def test_shared_memory_ceiling():
-    """The split's limit: each of at most 8 blocks holds a slice of N/c
-    spins (u, s, best_s) with the PWL table, the staged window and, for
-    RWA, the slice's block sums and a lane buffer."""
-    assert sweep.shared_bytes(2000, 125, 64, True) == 4 * (
+    """The split's limits. RSA and PR 16's RWA route (``sweep.cu``): each of
+    at most 8 blocks holds a slice of N/c spins (u, s, best_s) with the PWL
+    table, the staged window and, for RWA, the slice's block sums and a
+    lane buffer. RWA (``sweep_rwa.cu``): each of at most 16 blocks holds a
+    subtree of tree_leaves(N)/c leaves of 128 sites (u and p in f32, s and
+    best_s in int8), the PWL table, two staged windows and the leaf sums,
+    up to the port's ceiling; its ceiling does not fall below PR 16's."""
+    assert sweep.shared_bytes(2000, 125, 64, True, pr16=True) == 4 * (
         3 * 2000 + 128 + 320 + 16 + 128)
-    assert sweep.shared_bytes(16384, 128, 64, True, 8) == 4 * (
+    assert sweep.shared_bytes(16384, 128, 64, True, 8, pr16=True) == 4 * (
         3 * 2048 + 128 + 320 + 16 + 128)
+    assert sweep.shared_bytes(2000, 125, 64, True) == (
+        10 * 2048 + 4 * 128 + 8 * 320 + 4 * 16)
+    assert sweep.shared_bytes(16384, 128, 64, True, 8) == (
+        10 * 2048 + 4 * 128 + 8 * 320 + 4 * 16)
     for rwa in (False, True):
         n = sweep.max_n(rwa)
         lane = common.default_lane(n)
-        assert sweep.MAX_CLUSTER in sweep.widths(n, lane, 64, rwa)
-        assert sweep.shared_bytes(n, lane, 64, rwa, sweep.MAX_CLUSTER) <= \
+        top = sweep.RWA_CLUSTERS[-1] if rwa else sweep.MAX_CLUSTER
+        assert top in sweep.widths(n, lane, 64, rwa)
+        assert sweep.shared_bytes(n, lane, 64, rwa, top) <= \
             sweep.MAX_SHARED_BYTES
         assert 150_000 < n <= tcoupling.SWEEP_STATE_MAX_N
         # Past it no width fits.
         for m in range(n + 1, n + 64):
             assert not sweep.widths(m, common.default_lane(m), 64, rwa)
-    # The rule: RWA and dense RSA take the widest width that fits; RSA on
-    # planes the narrowest whose slice one decode pass covers (8192 spins).
+    assert sweep.max_n(True) >= sweep.max_n(True, pr16=True) > 150_000
+    # The rule of sweep.cu: RWA and dense RSA take the widest width that
+    # fits; RSA on planes the narrowest whose slice one decode pass covers
+    # (8192 spins).
     assert sweep.widths(16384, 128, 64, False) == [1, 2, 4, 8]
     assert sweep.widths(32768, 128, 64, False) == [2, 4, 8]
     assert sweep.cluster_width(32768, 128, 64, False) == 8
     assert sweep.cluster_width(2000, 125, 64, False) == 8
-    assert sweep.cluster_width(16384, 128, 64, True, planes=True) == 8
+    assert sweep.cluster_width(16384, 128, 64, True, planes=True,
+                               pr16=True) == 8
     for n, c in ((4096, 1), (16384, 2), (32768, 4), (65536, 8),
                  (131072, 8)):
         assert sweep.cluster_width(n, 128, 64, False, planes=True) == c
-    assert sweep.widths(1001, 91, 64, True) == [1]
+    assert sweep.widths(1001, 91, 64, True, pr16=True) == [1]
+    assert sweep.widths(1001, 91, 64, True) == [1, 2, 4, 8]
     big = sweep.max_n(False) + 1024
     with pytest.raises(ValueError, match="cluster width"):
         sweep.cluster_width(big, common.default_lane(big), 64, False)
