@@ -13,15 +13,21 @@ results:
   ``torch.addmm``; the keyed sweep's device draw against ``rng.uniform01``
   and the keyed sweep against the reading one; for every single-flip
   main path its device idle share, launches per chunk (at most 8) and
-  fixed cost, and kernel A's cluster-width sweep (RSA at c = 1, 2, 4, 8;
-  RWA on ``sweep_rwa.cu`` at c = 1, 2, 4, 8, 16 beside PR 16's
-  ``sweep.cu`` forced at its widths) beside its earlier one-block design's
-  times; kernel A's RWA route (``sweep_rwa.cu``) at every width bitwise
-  its plain version (row 1-RWA, also on both plane tiers and at N=14,481,
-  whose RWA is timed against N=16384's), a K2000 RWA + PWL solve on the
-  card bitwise the CPU's, and every RWA launch of the main paths, of
-  ``[stat]``, ``[tempering]``, ``[tts]``, ``[serve]`` and ``[dist]`` on
-  that route (``sweep.rwa_hopper_counter``);
+  fixed cost, and kernel A's cluster-width sweep (RSA on ``sweep_rsa.cu``
+  at every width up to 16 and RWA on ``sweep_rwa.cu`` at c = 1, 2, 4, 8,
+  16, each beside ``sweep.cu`` forced at its widths) beside its
+  earlier one-block design's times; kernel A's RSA and RWA routes at every
+  width bitwise their plain version (rows 1-RSA and 1-RWA, also on both
+  plane tiers, at N=14,481, timed against N=16384, and at N=20,011, which
+  the earlier RSA route took at no width and whose 3-chunk RSA + PWL
+  solve is held bitwise to the CPU's); RSA on its route beside the
+  earlier route's in the same run at the three main shapes, the route
+  faster at each, with its latency floor and its clock64 phase stamps
+  (``scripts/rsa_variants.py``); a K2000
+  RWA + PWL solve on the card bitwise the CPU's, and every RSA and RWA
+  launch of the main paths, of ``[stat]``, ``[tempering]``, ``[tts]``,
+  ``[serve]`` and ``[dist]`` on its mode's route
+  (``sweep.rsa_hopper_counter``, ``sweep.rwa_hopper_counter``);
 * the ``bitplane`` tier on K4096 (``complete_bipolar(4096, seed=4096)``,
   20,000 steps) and the dense-J-free ``bitplane_hbm`` tier on the sparse
   N=16384 instance (``sparse_bipolar_edges(16384, 8·16384, seed=16384)`` →
@@ -133,6 +139,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -167,6 +174,7 @@ from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.train import (TrainLoopConfig, init_train_state,  # noqa: E402
                                make_train_step, train_loop)
 from repro_torch.train.step import value_and_grad as train_value_and_grad  # noqa: E402
+import rsa_variants  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 rate outside the
 #: tensor cores. The bounds below use them.
@@ -225,9 +233,18 @@ COLORED_BIG_CHUNK = 8
 #: unequal-slice check (no width splits 20,000 into equal words).
 COLORED_WIDE_R = 32
 UNEVEN_N = 20000
-#: The later phases whose main paths run kernel A's RWA (their launches
-#: are held to its route, ``sweep_rwa.cu``).
-RWA_PHASES = ("stat", "tempering", "tts", "serve", "dist")
+#: The later phases whose main paths run kernel A's RWA and RSA (their
+#: launches are held to the modes' routes, ``sweep_rwa.cu`` and
+#: ``sweep_rsa.cu``).
+SWEEP_PHASES = ("stat", "tempering", "tts", "serve", "dist")
+#: The RSA step's measurement builds (``scripts/rsa_variants.py``), built
+#: beside the kernels.
+RSA_VARIANT_LIBS: dict = {}
+#: A prime N the earlier RSA route (``sweep.cu``) took at no width (its
+#: slices had to be whole lane blocks), and the steps of its
+#: card-against-CPU solve (3 chunks).
+BIG_N = 20011
+BIG_STEPS = 768
 
 SEED = 0
 R, N, T = 8, K2000.num_vertices, 256
@@ -529,7 +546,8 @@ def profile_device(run, top: int = 8, tag: str = "[profile]"):
             "host_calls": sum(ev.count for ev in prof.key_averages()
                               if ev.key in HOST_LAUNCH_CALLS),
             "sweep_s": sum(us for us, _, key in rows
-                           if "sweep_kernel" in key or "rwa_kernel" in key)
+                           if "sweep_kernel" in key or "rwa_kernel" in key
+                           or "rsa_kernel" in key)
             / 1e6}
 
 
@@ -585,88 +603,234 @@ def single_flip_main(label: str, problem, config, steps: int, store=None):
     return prof, per_chunk, {"kernel_us": kernel_us, "fixed_ms": fixed}
 
 
+def num_planes(couplings) -> int:
+    """B of a plane operand, 0 for a dense J (the RSA kernel's budget)."""
+    return getattr(couplings, "num_planes", 0)
+
+
 def width_sweep(label: str, couplings, args, tbl, words, fmt: str,
                 modes=("rsa", "rwa")) -> dict:
-    """Kernel A's ms per 256-step launch (CUDA events, the keyed variant)
-    at each cluster width that fits, beside the width the rule picks: RSA,
-    and RWA on its route (``sweep_rwa.cu``) beside PR 16's kernel forced
-    at its own widths (``pr16``), in the same run."""
+    """Kernel A's ms per 256-step launch (device time by CUDA-graph replay,
+    the keyed variant) at each cluster width that fits, beside the width
+    the rule picks: each mode on its route (``sweep_rsa.cu``,
+    ``sweep_rwa.cu``) beside the earlier kernel (``sweep.cu``) forced at
+    its own widths (``pr16``), in the same run. Every launch timed is
+    checked too, on the uniforms the keyed variant draws
+    (``sweep.sweep_uniforms``): each route and the earlier kernel's forced
+    RSA bitwise the plain version, all seven outputs; its forced RWA, whose
+    lane-order roulette sums in another order, equal to its reading
+    variant, one flip a step, and step by step against the plain version
+    (:func:`pr16_rwa_steps`). Returns the timed (and checked) widths."""
+    u0, s0, e0, _, temps = args
+    r, n = u0.shape
+    t = temps.shape[0]
+    lane = common.default_lane(n)
+    segs = tbl.shape[0] - 1
+    planes = num_planes(couplings)
+    drawn = sweep.sweep_uniforms(words, 0, t, r, device=u0.device)
+    out = {}
+    for mode in modes:
+        rwa = mode == "rwa"
+        want = ref.mcmc_sweep(couplings, u0, s0, e0, drawn, temps, tbl,
+                              mode=mode, coupling=fmt)
+        for pr16 in (False, True):
+            times = {}
+            name = (f"{mode}, the earlier route (sweep.cu)" if pr16
+                    else f"{mode} ({sweep.route(mode)}.cu)")
+            for c in sweep.widths(n, lane, segs, rwa, pr16, planes):
+                def run(c=c, mode=mode, pr16=pr16, uniforms=None):
+                    return sweep.mcmc_sweep_at_width(
+                        c, couplings, u0, s0, e0, temps, tbl,
+                        uniforms=uniforms,
+                        base_words=None if uniforms is not None else words,
+                        chunk=0, mode=mode, coupling=fmt, pr16=pr16)
+                times[c] = graph_ms(run, 10)
+                got = run()
+                if rwa and pr16:
+                    check(all(torch.equal(a, b) for a, b in
+                              zip(got, run(uniforms=drawn)))
+                          and int(got[5].sum()) == r * t,
+                          f"{label} {name} at c={c}: the keyed launch equal "
+                          "to the reading one, one flip a step", quiet=True)
+                else:
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"{label} {name} at c={c}: the timed launch "
+                          "bit-equal to plain, all seven outputs", quiet=True)
+            if rwa and pr16 and times:
+                pr16_rwa_steps(label, couplings, args, tbl, fmt, drawn,
+                               list(times))
+            pick = (sweep.cluster_width(n, lane, segs, rwa, fmt != "dense",
+                                        R, pr16, planes) if times else None)
+            out[(mode, pr16)] = times
+            print(f"[timing] width sweep {label} {name}: "
+                  + (", ".join(f"c={c} {ms:.4f} ms"
+                               for c, ms in times.items())
+                     + f"; the rule picks c={pick}; each launch checked"
+                     if times else "no width fits"))
+    return out
+
+
+def pr16_rwa_steps(label: str, couplings, args, tbl, fmt: str, drawn,
+                   fits) -> None:
+    """The earlier kernel's forced RWA (``sweep.cu``) at each width in
+    ``fits``, step by step: the plain version's T-step trajectory on
+    ``drawn`` gives T states, which run side by side as T·R one-step
+    replicas (rows_fetched uncoalesced) on the kernel and on the plain
+    version. Every replica's seven outputs must agree bitwise except at a
+    near tie (``parity.roulette_near_tie``: the kernel's lane-order
+    roulette sums in another order than the plain tree), and at least half
+    the steps must be clear of one."""
+    u, s, e, _, temps = args
+    r = u.shape[0]
+    t = temps.shape[0]
+    states = []
+    for k in range(t):
+        states.append((u, s, e))
+        u, s, e = ref.mcmc_sweep(couplings, u, s, e, drawn[k:k + 1],
+                                 temps[k:k + 1], tbl, mode="rwa",
+                                 coupling=fmt)[:3]
+    u1, s1, e1 = (torch.cat(x) for x in zip(*states))
+    unif1 = drawn.reshape(1, t * r, 4)
+    temps1 = temps.reshape(1, t * r)
+    want = ref.mcmc_sweep(couplings, u1, s1, e1, unif1, temps1, tbl,
+                          mode="rwa", coupling=fmt, coalesce=False)
+    tie = roulette_near_tie(
+        common.flip_probability(2.0 * s1 * u1, temps1[0][:, None], tbl),
+        unif1[0, :, 2], unif1[0, :, 3], False)
+    clear = int((~tie).sum())
+    for c in fits:
+        got = sweep.mcmc_sweep_at_width(c, couplings, u1, s1, e1, temps1, tbl,
+                                        uniforms=unif1, mode="rwa",
+                                        coupling=fmt, coalesce=False,
+                                        pr16=True)
+        same = torch.ones(t * r, dtype=torch.bool, device=u1.device)
+        for a, b in zip(got, want):
+            same &= (a == b).reshape(t * r, -1).all(dim=1)
+        check(bool((same | tie).all()) and 2 * clear >= t * r,
+              f"{label} rwa, the earlier route (sweep.cu) at c={c}: each of "
+              f"the {t} steps of the timed trajectory against the plain "
+              f"step, bitwise at {int((same & ~tie).sum())} of the {clear} "
+              f"of {t * r} replica-steps clear of a near tie", quiet=True)
+    print(f"[kernels] {label} rwa, the earlier route (sweep.cu) at c = "
+          f"{list(fits)}: every step of the timed trajectory bit-equal to "
+          f"the plain step ({clear} of {t * r} replica-steps clear of a "
+          "near tie)")
+
+
+def route_width_checks(label: str, op, args, tbl, fmt: str,
+                     mode: str = "rwa") -> float:
+    """[kernels] rows 1-RWA and 1-RSA: kernel A's route for ``mode``
+    (``sweep_rwa.cu``, ``sweep_rsa.cu``), with PWL, at every cluster width
+    it runs against its plain version (the widths walk one trajectory).
+    Returns the max_abs_err (0.0)."""
+    u0, s0, e0, unif, temps = args
+    n = u0.shape[1]
+    t = temps.shape[0]
+    want = ref.mcmc_sweep(op, *args, tbl, mode=mode, coupling=fmt)
+    fits = sweep.widths(n, common.default_lane(n), tbl.shape[0] - 1,
+                        mode == "rwa", num_planes=num_planes(op))
+    errs = []
+    for c in fits:
+        got = sweep.mcmc_sweep_at_width(c, op, u0, s0, e0, temps, tbl,
+                                        uniforms=unif, mode=mode,
+                                        coupling=fmt)
+        errs.append(max_abs_err(got, want))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"row 1-{mode.upper()} {label} (R={u0.shape[0]}, T={t}) at "
+              f"c={c}: {sweep.route(mode)}.cu bit-equal to plain, all seven "
+              "outputs", quiet=True)
+    print(f"[kernels] row 1-{mode.upper()} {label}: {sweep.route(mode)}.cu "
+          f"bit-equal to plain at every width {fits}")
+    return max(errs)
+
+
+def pr16_rsa(label: str, couplings, args, tbl, fmt: str, new_ms: float,
+             swept: dict) -> dict:
+    """[timing] rows 1-1c, RSA: the earlier kernel (``sweep.cu``, forced) at
+    its own rule's width beside this run's route's time, the ratio, and the
+    check that the route is faster. ``swept`` is :func:`width_sweep`'s
+    return on the same inputs: both launches must be among the widths it
+    held bitwise to the plain version."""
     u0, s0, e0, _, temps = args
     n = u0.shape[1]
     lane = common.default_lane(n)
     segs = tbl.shape[0] - 1
-    out = {}
-    for mode in modes:
-        rwa = mode == "rwa"
-        for pr16 in ((False, True) if rwa else (False,)):
-            times = {}
-            for c in sweep.widths(n, lane, segs, rwa, pr16):
-                times[c] = cuda_ms(
-                    lambda c=c, mode=mode, pr16=pr16:
-                    sweep.mcmc_sweep_at_width(
-                        c, couplings, u0, s0, e0, temps, tbl,
-                        base_words=words, chunk=0, mode=mode, coupling=fmt,
-                        pr16=pr16), 10)
-            pick = sweep.cluster_width(n, lane, segs, rwa, fmt != "dense",
-                                       R, pr16)
-            name = (mode if not rwa else "rwa, PR 16's route (sweep.cu)"
-                    if pr16 else "rwa (sweep_rwa.cu)")
-            out[(mode, pr16)] = times
-            print(f"[timing] width sweep {label} {name}: "
-                  + ", ".join(f"c={c} {ms:.4f} ms" for c, ms in times.items())
-                  + f"; the rule picks c={pick}")
-    return out
+    c = sweep.cluster_width(n, lane, segs, False, fmt != "dense", R, True)
+    width = sweep.cluster_width(n, lane, segs, False, fmt != "dense", R,
+                                num_planes=num_planes(couplings))
+    check(c in swept[("rsa", True)] and width in swept[("rsa", False)],
+          f"{label} rsa: both routes' launches at the timed widths (c={width}"
+          f", c={c}) bit-equal to plain (width sweep)")
+    old = swept[("rsa", True)][c]
+    print(f"[timing] mcmc_sweep {label} rsa: sweep_rsa.cu {new_ms:.4f} ms "
+          f"at c={width}, the earlier route (sweep.cu, forced) {old:.4f} ms "
+          f"at c={c} in the same run: {new_ms / old:.3f}x")
+    check(new_ms < old, f"{label} rsa: sweep_rsa.cu faster than the earlier "
+          "sweep.cu")
+    return {"pr16_ms": old, "width": width, "pr16_width": c}
 
 
-def rwa_width_checks(label: str, op, args, tbl, fmt: str) -> float:
-    """[kernels] row 1-RWA: kernel A's RWA route (``sweep_rwa.cu``), RWA +
-    PWL, at every cluster width it runs against its plain version (the
-    widths walk one trajectory). Returns the max_abs_err (0.0)."""
-    u0, s0, e0, unif, temps = args
-    n = u0.shape[1]
-    t = temps.shape[0]
-    want = ref.mcmc_sweep(op, *args, tbl, mode="rwa", coupling=fmt)
-    fits = sweep.widths(n, common.default_lane(n), tbl.shape[0] - 1, True)
-    errs = []
-    for c in fits:
-        got = sweep.mcmc_sweep_at_width(c, op, u0, s0, e0, temps, tbl,
-                                        uniforms=unif, mode="rwa",
-                                        coupling=fmt)
-        errs.append(max_abs_err(got, want))
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"row 1-RWA {label} (R={u0.shape[0]}, T={t}) at c={c}: "
-              "sweep_rwa.cu bit-equal to plain, all seven outputs")
-    return max(errs)
+def rsa_stamps(label: str, couplings, args, tbl, words, fmt: str) -> dict:
+    """The RSA step's latency floor (the exchange alone) at every width
+    and the stamped build's split of a step at the rule's width
+    (``scripts/rsa_variants.py``); the stamped build's outputs are checked
+    bitwise against the main build's."""
+    u0, s0, e0, _, temps = args
+    row = rsa_variants.measure(RSA_VARIANT_LIBS, label, couplings, fmt,
+                               (u0, s0, e0, temps), tbl, words, main=False)
+    floor = row["floor"]
+    split = row["split"]
+    print(f"[timing] rsa floor {label} (one exchange and the block barrier "
+          "a step, no row): " + ", ".join(f"c={c} {ms:.4f} ms"
+                                          for c, ms in floor.items()))
+    for who in ("thread0", "thread32"):
+        part = split[who]
+        print(f"[timing] rsa stamps {label} c={split['width']} {who} "
+              f"(us a step at {split['sm_mhz']:.0f} MHz): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in part["mean_us"].items())
+              + f"; step {part['step_us']:.3f}")
+    return row
 
 
-class RwaRoutes:
-    """While active, counts kernel A's RWA launches by the source they take
-    (wrapping ``sweep._launch``), beside ``sweep.rwa_hopper_counter``."""
+class SweepRoutes:
+    """While active, counts kernel A's launches by mode and the source they
+    take (wrapping ``sweep._launch``), beside ``sweep.rwa_hopper_counter``
+    and ``sweep.rsa_hopper_counter``."""
 
     def __enter__(self):
-        self.by_route = {"sweep_rwa": 0, "sweep": 0}
-        self.start = sweep.rwa_hopper_counter.count
+        self.by_route = {(m, r): 0 for m in ("rsa", "rwa")
+                         for r in ("sweep_rsa", "sweep_rwa", "sweep")}
+        self.start = {"rsa": sweep.rsa_hopper_counter.count,
+                      "rwa": sweep.rwa_hopper_counter.count}
         self.orig = orig = sweep._launch
 
         def spy(*args, **kw):
-            if kw["mode"] == "rwa":
-                route = sweep.rwa_route("rwa", kw.get("pr16", False))
-                self.by_route[route] += 1
+            mode = kw["mode"]
+            self.by_route[(mode, sweep.route(mode, kw.get("pr16", False)))] \
+                += 1
             return orig(*args, **kw)
         sweep._launch = spy
         return self
 
     def __exit__(self, *exc):
         sweep._launch = self.orig
-        self.hopper = sweep.rwa_hopper_counter.count - self.start
+        self.hopper = {"rsa": sweep.rsa_hopper_counter.count
+                       - self.start["rsa"],
+                       "rwa": sweep.rwa_hopper_counter.count
+                       - self.start["rwa"]}
 
-    def check(self, label: str, runs_rwa: bool = True) -> None:
-        n = self.by_route["sweep_rwa"]
-        check(self.by_route["sweep"] == 0 and self.hopper == n
-              and (n > 0 or not runs_rwa),
-              f"{label}: {n} RWA launches of kernel A, all on sweep_rwa.cu "
-              f"(rwa_hopper_counter +{self.hopper}), none on PR 16's "
-              "sweep.cu")
+    def check(self, label: str, runs_rwa: bool = True,
+              runs_rsa: bool = False) -> None:
+        for mode, runs in (("rwa", runs_rwa), ("rsa", runs_rsa)):
+            src = sweep.route(mode)
+            n = self.by_route[(mode, src)]
+            others = sum(v for (m, r), v in self.by_route.items()
+                         if m == mode and r != src)
+            check(others == 0 and self.hopper[mode] == n
+                  and (n > 0 or not runs),
+                  f"{label}: {n} {mode.upper()} launches of kernel A, all on "
+                  f"{src}.cu ({mode}_hopper_counter +{self.hopper[mode]}), "
+                  "none on the earlier sweep.cu")
 
 
 def dense_slice() -> list:
@@ -793,9 +957,12 @@ def dense_slice() -> list:
               "seven outputs")
     print("[kernels] row 1-RWA: sweep_rwa.cu's RWA + PWL at every width "
           f"against its plain version (K2000, R={R}, T={T})")
-    sw["rwa"]["err"] = max(sw["rwa"]["err"], rwa_width_checks(
+    sw["rwa"]["err"] = max(sw["rwa"]["err"], route_width_checks(
         "K2000 dense", problem.couplings, (u0, s0, e0, unif, temps), tbl,
         "dense"))
+    sw["rsa"]["err"] = max(sw["rsa"]["err"], route_width_checks(
+        "K2000 dense", problem.couplings, (u0, s0, e0, unif, temps), tbl,
+        "dense", mode="rsa"))
 
     print("[reference] small input: the card's solve against the CPU's "
           "(N=250, RSA + PWL, linear schedule)")
@@ -835,12 +1002,13 @@ def dense_slice() -> list:
         torch.cuda.reset_peak_memory_stats()
         sweep.counter.reset()
         local_field.counter.reset()
-        with RwaRoutes() as routes:
+        with SweepRoutes() as routes:
             t0 = time.perf_counter()
             res = solve(problem, SEED, cfg[mode], backend="fused")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        routes.check(f"[main] K2000 dense {mode}", mode == "rwa")
+        routes.check(f"[main] K2000 dense {mode}", mode == "rwa",
+                     mode == "rsa")
         launches = {"sweep": sweep.counter.count,
                     "init": local_field.counter.count}
         peak = torch.cuda.max_memory_allocated()
@@ -878,8 +1046,9 @@ def dense_slice() -> list:
         check(cuts.max() > 0, f"{mode}: best cut positive")
         main_runs[mode] = launches
 
-    print("[timing] CUDA events at the main path's shapes (the keyed "
-          "sweep, as the main path runs it)")
+    print("[timing] kernel A at the main path's shapes (the keyed sweep, as "
+          "the main path runs it): device time by CUDA-graph replay, the "
+          "back-to-back calls from the host beside it")
     for label, entry in sw.items():
         mode = "rsa" if label == "rsa" else "rwa"
         table = tbl if entry.get("pwl", True) else None
@@ -887,7 +1056,8 @@ def dense_slice() -> list:
         run = (lambda table=table, mode=mode, uni=uni: sweep.mcmc_sweep_keyed(
             problem.couplings, u0, s0, e0, words, 0, temps, table, mode=mode,
             uniformized=uni))
-        entry["ms"] = cuda_ms(run, 20)
+        entry["ms"] = graph_ms(run, 20)
+        entry["host_ms"] = cuda_ms(run, 20)
         entry["plain_ms"] = cuda_ms(lambda table=table, mode=mode, uni=uni:
                                     ref.mcmc_sweep(problem.couplings, u0, s0,
                                                    e0, unif, temps, table,
@@ -897,13 +1067,19 @@ def dense_slice() -> list:
             mode, R, N, T, entry["flips"], segs if table is not None else 0))
         before = ONE_BLOCK_SWEEP_MS.get(("dense", label))
         print(f"[timing] mcmc_sweep {label}: {entry['ms']:.4f} ms "
-              f"({entry['ms'] / T * 1e3:.3f} us/step)"
+              f"({entry['ms'] / T * 1e3:.3f} us/step; from the host "
+              f"{entry['host_ms']:.4f})"
               + (f" [one block, host uniforms: {before:.4f} ms]"
                  if before else "")
               + f", plain {entry['plain_ms']:.2f} ms, bound "
               f"{entry['bound'][0]:.5f} ms")
-    width_sweep("K2000 dense", problem.couplings, (u0, s0, e0, unif, temps),
-                tbl, words, "dense")
+    swept = width_sweep("K2000 dense", problem.couplings,
+                        (u0, s0, e0, unif, temps), tbl, words, "dense")
+    sw["rsa"].update(pr16_rsa("K2000 dense", problem.couplings,
+                              (u0, s0, e0, unif, temps), tbl, "dense",
+                              sw["rsa"]["ms"], swept))
+    rsa_stamps("K2000 dense", problem.couplings, (u0, s0, e0, unif, temps),
+               tbl, words, "dense")
     print(f"[timing] local_field_init (CUDA-graph replay): {lf['ms']:.5f} "
           f"ms, plain {lf['plain_ms']:.5f} ms, torch.addmm "
           f"{lf['library_ms']:.5f} ms ({lf['ms'] / lf['library_ms']:.3f}x "
@@ -921,7 +1097,7 @@ def dense_slice() -> list:
         mode = label
         line["kernels"].append({
             "name": f"mcmc_sweep[{label}]", "route": "cuda",
-            "source": src + ("sweep_rwa.cu" if mode == "rwa" else "sweep.cu"),
+            "source": src + sweep.route(mode) + ".cu",
             "replaces": "src/repro/kernels/sweep.py:555",
             "launches": main_runs[mode]["sweep"],
             "max_abs_err": entry["err"], "ms": entry["ms"],
@@ -1173,8 +1349,12 @@ def plane_kernel_checks(k_store, sp_store, k_h, sp_h, cfg, tbl):
               f"width against its plain version (N={n} {fmt}, R={R}, "
               f"T={CHECK_T})")
         err[("rwa", fmt, key)] = max(err[("rwa", fmt, key)],
-                                     rwa_width_checks(f"N={n} {fmt}", pl,
+                                     route_width_checks(f"N={n} {fmt}", pl,
                                                       args, tbl, fmt))
+        err[("rsa", fmt, key)] = max(err[("rsa", fmt, key)],
+                                     route_width_checks(f"N={n} {fmt}", pl,
+                                                      args, tbl, fmt,
+                                                      mode="rsa"))
     return err, field_in
 
 
@@ -1217,6 +1397,45 @@ def auto_tier_checks(k_prob, dense_sp, edges, k_build) -> None:
         for name, a, b in zip(auto._fields, auto, explicit):
             check(torch.equal(a, b), f"K{K_PLANE_N} {mode} 'auto' solve "
                   f"{name} bitwise the explicit {fmt} solve")
+
+
+def big_n_checks(cfg, tbl, base_words) -> None:
+    """N = 20,011 (prime; the earlier RSA route took it at no width): the RSA
+    route at every width against its plain version, its width sweep, and a
+    3-chunk RSA + PWL solve on ``bitplane_hbm``, the card's against the
+    CPU's bitwise."""
+    edges = sparse_bipolar_edges(BIG_N, 8 * BIG_N, seed=BIG_N)
+    store = CouplingStore.build(edges, "bitplane_hbm").to("cuda")
+    pl = store.planes
+    h = torch.zeros(BIG_N, device="cuda")
+    temps0 = cfg[(SPARSE_N, "rsa")].schedule(torch.arange(T,
+                                                          dtype=torch.int32))
+    check(not sweep.widths(BIG_N, common.default_lane(BIG_N),
+                           tbl.shape[0] - 1, False, True),
+          f"N={BIG_N}: the earlier RSA route has no width")
+    route_width_checks(f"N={BIG_N} bitplane_hbm", pl,
+                     plane_inputs(pl, h, R, CHECK_T, temps0, SEED), tbl,
+                     "bitplane_hbm", mode="rsa")
+    width_sweep(f"N={BIG_N} bitplane_hbm", pl,
+                plane_inputs(pl, h, R, T, temps0, SEED), tbl, base_words,
+                "bitplane_hbm", modes=("rsa",))
+    print(f"[reference] N={BIG_N}: a {BIG_STEPS}-step RSA + PWL solve on "
+          "bitplane_hbm, the card's against the CPU's")
+    prob = ising.IsingProblem.create_sparse(edges, device="cuda")
+    c = dataclasses.replace(default_solver(BIG_N, BIG_STEPS, mode="rsa"),
+                            coupling_format="bitplane_hbm")
+    before = sweep.rsa_hopper_counter.count
+    on_card = solve(prob, SEED, c, store=store)
+    check(sweep.rsa_hopper_counter.count - before
+          == math.ceil(BIG_STEPS / 256),
+          f"N={BIG_N} solve: {math.ceil(BIG_STEPS / 256)} launches on "
+          "sweep_rsa.cu")
+    on_cpu = solve(prob, SEED, c, device="cpu")
+    for name, a, b in zip(on_card._fields, on_card, on_cpu):
+        check(torch.equal(a.cpu(), b), f"N={BIG_N} {BIG_STEPS}-step solve "
+              f"{name}: card == CPU")
+    check(0 < int(on_card.num_flips.sum()) < R * BIG_STEPS,
+          f"N={BIG_N} solve: some steps accepted, some rejected")
 
 
 def plane_slice() -> list:
@@ -1284,12 +1503,13 @@ def plane_slice() -> list:
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
             reset_counts()
-            with RwaRoutes() as routes:
+            with SweepRoutes() as routes:
                 t0 = time.perf_counter()
                 res = solve(prob, SEED, c, backend="fused", store=store)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            routes.check(f"[main] N={n} {fmt} {mode}", mode == "rwa")
+            routes.check(f"[main] N={n} {fmt} {mode}", mode == "rwa",
+                         mode == "rsa")
             launches = read_counts()
             peak = torch.cuda.max_memory_allocated()
             h = prob.fields
@@ -1429,7 +1649,7 @@ def plane_slice() -> list:
                        pl, u0, s0, e0, base_words, 0, temps, tbl, mode=mode,
                        coupling=fmt))
             out = run()
-            e = {"ms": cuda_ms(run, 10),
+            e = {"ms": graph_ms(run, 10), "host_ms": cuda_ms(run, 10),
                  "plain_ms": cuda_ms(lambda mode=mode, pl=pl, fmt=fmt,
                                      args=args: ref.mcmc_sweep(
                                          pl, *args, tbl, mode=mode,
@@ -1438,18 +1658,23 @@ def plane_slice() -> list:
                      mode, R, n, T, int(out[5].sum()), segs, pl.num_planes))}
             timing[(fmt, mode)] = e
             print(f"[timing] mcmc_sweep {fmt} {mode} N={n}: {e['ms']:.4f} ms "
-                  f"({e['ms'] / T * 1e3:.3f} us/step) [one block, host "
+                  f"({e['ms'] / T * 1e3:.3f} us/step; from the host "
+                  f"{e['host_ms']:.4f}) [one block, host "
                   f"uniforms: {ONE_BLOCK_SWEEP_MS[(fmt, mode)]:.4f} ms], plain "
                   f"{e['plain_ms']:.2f} ms, bound {e['bound'][0]:.5f} ms "
                   f"({e['bound'][1]})")
         if fmt == "bitplane_hbm":
             for mode in ("rsa", "rwa"):
-                ms = cuda_ms(lambda mode=mode: sweep.mcmc_sweep_keyed(
+                ms = graph_ms(lambda mode=mode: sweep.mcmc_sweep_keyed(
                     pl, u0, s0, e0, base_words, 0, temps, tbl, mode=mode,
                     coupling=fmt, coalesce=False), 10)
                 print(f"[timing] mcmc_sweep {fmt} {mode} N={n} uncoalesced: "
                       f"{ms:.4f} ms ({ms / T * 1e3:.3f} us/step)")
-        width_sweep(f"N={n} {fmt}", pl, args, tbl, base_words, fmt)
+        swept = width_sweep(f"N={n} {fmt}", pl, args, tbl, base_words, fmt)
+        timing[(fmt, "rsa")].update(pr16_rsa(
+            f"{fmt} N={n}", pl, args, tbl, fmt, timing[(fmt, "rsa")]["ms"],
+            swept))
+        rsa_stamps(f"N={n} {fmt}", pl, args, tbl, base_words, fmt)
     # N = 14,481: default_lane is 9, which PR 16's RWA route split by.
     odd_edges = sparse_bipolar_edges(ODD_N, 8 * ODD_N, seed=ODD_N)
     odd_pl = CouplingStore.build(odd_edges, "bitplane_hbm").to("cuda").planes
@@ -1460,18 +1685,25 @@ def plane_slice() -> list:
     print(f"[kernels] row 1-RWA: sweep_rwa.cu's RWA + PWL at every width "
           f"against its plain version (N={ODD_N} bitplane_hbm, R={R}, "
           f"T={CHECK_T})")
-    rwa_width_checks(f"N={ODD_N} bitplane_hbm", odd_pl,
-                     plane_inputs(odd_pl, odd_h, R, CHECK_T, temps0, SEED),
-                     tbl, "bitplane_hbm")
+    odd_check = plane_inputs(odd_pl, odd_h, R, CHECK_T, temps0, SEED)
+    route_width_checks(f"N={ODD_N} bitplane_hbm", odd_pl, odd_check, tbl,
+                     "bitplane_hbm")
+    route_width_checks(f"N={ODD_N} bitplane_hbm", odd_pl, odd_check, tbl,
+                     "bitplane_hbm", mode="rsa")
     odd = width_sweep(f"N={ODD_N} bitplane_hbm", odd_pl, odd_args, tbl,
-                      base_words, "bitplane_hbm", modes=("rwa",))
-    pick = sweep.cluster_width(ODD_N, common.default_lane(ODD_N), segs, True,
-                               True, R)
-    ratio = odd[("rwa", False)][pick] / timing[("bitplane_hbm", "rwa")]["ms"]
-    print(f"[timing] RWA at N={ODD_N} against N={SPARSE_N} (bitplane_hbm, "
-          f"the rule's widths): {ratio:.3f}x")
-    check(ratio < 2.0, f"RWA at N={ODD_N} within 2x of N={SPARSE_N}'s")
-    del odd_edges, odd_pl, odd_args
+                      base_words, "bitplane_hbm", modes=("rwa", "rsa"))
+    for mode in ("rwa", "rsa"):
+        pick = sweep.cluster_width(ODD_N, common.default_lane(ODD_N), segs,
+                                   mode == "rwa", True, R,
+                                   num_planes=odd_pl.num_planes)
+        ratio = (odd[(mode, False)][pick]
+                 / timing[("bitplane_hbm", mode)]["ms"])
+        print(f"[timing] {mode.upper()} at N={ODD_N} against N={SPARSE_N} "
+              f"(bitplane_hbm, the rule's widths): {ratio:.3f}x")
+        check(ratio < 2.0, f"{mode.upper()} at N={ODD_N} within 2x of "
+              f"N={SPARSE_N}'s")
+    del odd_edges, odd_pl, odd_args, odd_check
+    big_n_checks(cfg, tbl, base_words)
     rate, mhz = popc_per_s()
     print(f"[timing] bitplane_field_init by CUDA-graph replay (from the "
           f"host: back-to-back calls by CUDA events); bound: bytes at "
@@ -1546,8 +1778,7 @@ def plane_slice() -> list:
             e = timing[(fmt, mode)]
             rows.append({
                 "name": f"mcmc_sweep[{fmt},{mode}]", "route": "cuda",
-                "source": src + ("sweep_rwa.cu" if mode == "rwa"
-                                 else "sweep.cu"),
+                "source": src + sweep.route(mode) + ".cu",
                 "replaces": "src/repro/kernels/sweep.py:555",
                 "launches": mains[(fmt, mode)]["sweep"],
                 "max_abs_err": err[(mode, fmt, key)], "ms": e["ms"],
@@ -6165,9 +6396,16 @@ def exact_matmuls() -> None:
 
 
 def ptxas_checks(built: dict) -> None:
-    """What ptxas said of kernel E's wgmma sources and kernel A's RWA
-    source (nothing where an earlier build was reused): no kernel spills,
-    and none of the forward's products is serialized."""
+    """What ptxas said of kernel E's wgmma sources and kernel A's RWA and
+    RSA sources (nothing where an earlier build was reused): no kernel
+    spills, and none of the forward's products is serialized."""
+    rsa = [line for line in ptxas_summary(built["sweep_rsa"].log)
+           if "rsa_kernel" in line]
+    if rsa:
+        check(len(rsa) == 8 and all(
+            "0 bytes spill stores, 0 bytes spill loads" in line
+            for line in rsa), "ptxas: kernel A's RSA kernels "
+              "(sweep_rsa.cu, 8 instances) spill nothing")
     rwa = [line for line in ptxas_summary(built["sweep_rwa"].log)
            if "rwa_kernel" in line]
     if rwa:
@@ -6204,9 +6442,13 @@ def main() -> None:
           f"L2 {props.L2_cache_size} bytes, {props.multi_processor_count} SMs")
     exact_matmuls()
 
-    print("[build] nvcc, one process per source, in parallel")
+    print("[build] nvcc, one process per source, in parallel (and the RSA "
+          "step's stamped build, scripts/rsa_variants.cu)")
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build(variants={
+        "rsa_stamps": rsa_variants.VARIANTS["rsa_stamps"]})
+    global RSA_VARIANT_LIBS
+    RSA_VARIANT_LIBS = rsa_variants.load(built)
     print(f"[build] {time.perf_counter() - t0:.2f} s wall")
     for b in built.values():
         print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}")
@@ -6241,9 +6483,10 @@ def main() -> None:
                         ("serve", serve_phase),
                         ("dist", dist_phase)):
         t0 = time.perf_counter()
-        with RwaRoutes() as routes:
+        with SweepRoutes() as routes:
             phase()
-        routes.check(f"[{name}]", name in RWA_PHASES)
+        routes.check(f"[{name}]", name in SWEEP_PHASES,
+                     name in SWEEP_PHASES)
         print(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
     # Kernel A's, C's, D's and the inits' rows count the launches of the
     # later slices' main paths too (tempering, TTS, the CLI's workloads,

@@ -72,15 +72,6 @@ __device__ __forceinline__ void spin_test_wait(uint64_t* bar,
 
 namespace {
 
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(shared_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(shared_u32(bar))
-      : "memory");
-}
-
 template <int STORE, bool BULK>
 __global__ void __launch_bounds__(kThreads, 1)
     floor_kernel(const RwaParams p) {
@@ -140,12 +131,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (tid == 0) {
         // The block's reads of the last step's words (generic proxy)
         // before the copy's writes (async proxy).
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fence_proxy_async_shared();
         mbar_arrive_expect_tx(&bar_row, 8u * nw);
         const size_t at = (size_t)jj * p.st.W + w0;
         if (nw > 0) {
-          bulk_copy(words, p.st.pos + at, 4u * nw, &bar_row);
-          bulk_copy(words + S / 32, p.st.neg + at, 4u * nw, &bar_row);
+          cp_async_bulk_1d(words, p.st.pos + at, 4u * nw, &bar_row);
+          cp_async_bulk_1d(words + S / 32, p.st.neg + at, 4u * nw, &bar_row);
         }
       }
       mbar_wait(&bar_row, t & 1);

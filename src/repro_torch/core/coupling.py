@@ -43,12 +43,15 @@ crossovers:
   went ``bitplane_hbm``'s way, RWA on the edge list at N = 8,192, puts
   :data:`BITPLANE_L2_MAX_N` at 6,144.
 
-Every tier is also capped by the sweep state in shared memory: the
-single-flip sweep splits each replica's u, s and best_s (12·N bytes) over
-the at most 8 blocks of a thread-block cluster, each holding 232,448 bytes,
-so N ≤ 154,965 (:data:`SWEEP_STATE_MAX_N`; the sweep wrapper checks the
-exact budget of each mode and width, ``kernels.sweep.max_n``). Past it every
-tier raises.
+Every tier is also capped by the port's ceiling, N ≤ 154,965
+(:data:`SWEEP_STATE_MAX_N`): the state that the earlier single-flip sweep
+(``sweep.cu``) split over the at most 8 blocks of a thread-block cluster
+(u, s and best_s, 12·N bytes, in 232,448 bytes a block). The sweeps that
+run the solves now split N over up to 16 blocks
+(``kernels/csrc/sweep_rsa.cu`` and ``sweep_rwa.cu``) and both take every N
+up to the ceiling (the sweep wrapper checks the exact budget of each mode
+and width, ``kernels.sweep.widths`` and ``max_n``).
+Past it every tier raises.
 
 ``CouplingStore.build`` is the single host-side resolve → encode entry point;
 an :class:`~repro_torch.core.ising.EdgeList` packs straight into planes in
@@ -89,15 +92,18 @@ BITPLANE_L2_MAX_N = 6_144
 #: Dynamic shared memory one block may use on Hopper.
 SHARED_MEMORY_BYTES = 232_448
 
-#: Blocks of the thread-block cluster that holds one replica of the RSA
-#: sweep, ``kernels/csrc/sweep.cu`` (the portable cluster size). RWA runs
-#: on ``sweep_rwa.cu``, whose clusters take up to 16 blocks (the
-#: non-portable size, ``kernels.sweep.RWA_CLUSTERS``).
+#: Blocks of the thread-block cluster that held one replica of the earlier
+#: sweep, ``kernels/csrc/sweep.cu`` (the portable cluster size), which runs
+#: only when forced for timing. RSA runs on ``sweep_rsa.cu`` and RWA on
+#: ``sweep_rwa.cu``, whose clusters take up to 16 blocks (the non-portable
+#: size, ``kernels.sweep.RSA_CLUSTERS`` and ``RWA_CLUSTERS``).
 SWEEP_MAX_BLOCKS = 8
 
-#: The RSA sweep splits u, s and best_s (3·N f32) of one replica over the
-#: shared memory of at most :data:`SWEEP_MAX_BLOCKS` blocks, on every tier;
-#: the port serves no N past it (the RWA sweep alone would take 262,144).
+#: The port's ceiling, on every tier: the earlier sweep split u, s and best_s
+#: (3·N f32) of one replica over the shared memory of at most
+#: :data:`SWEEP_MAX_BLOCKS` blocks. The port serves no N past it; the RSA
+#: and RWA sweeps take every N up to it (alone they would take ~258k and
+#: 262,144).
 SWEEP_STATE_MAX_N = SWEEP_MAX_BLOCKS * SHARED_MEMORY_BYTES // 12
 
 #: Word-axis alignment of the streamed tier's planes (the JAX package's 128-
@@ -108,8 +114,9 @@ STREAM_ALIGN_WORDS = 128
 DENSE_COUPLING_BITS = 32
 
 _SHARED_MEMORY_CEILING = (
-    "the sweep splits u, s and best_s of one replica over the shared memory "
-    f"of at most {SWEEP_MAX_BLOCKS} blocks of a thread-block cluster")
+    "the single-flip sweeps hold one replica's state in the shared memory "
+    "of one thread-block cluster, and the port keeps the ceiling of its "
+    f"first split over {SWEEP_MAX_BLOCKS} blocks")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,9 +2,11 @@
 // tile loads, stores into a peer block's shared memory that complete on
 // its mbarrier (st.async), warpgroup matrix products (wgmma) and register
 // hand-over (setmaxnreg), and the host's cuTensorMapEncodeTiled, looked up
-// at run time (no -lcuda). Used by flash_attention_wgmma.cu (the forward),
-// flash_attention_bwd_wgmma.cu (the backward) and sweep_rwa.cu (kernel A's
-// RWA step).
+// at run time (no -lcuda), and the per-thread copies from global into
+// shared memory (cp.async) with their mbarrier arrival. Used by
+// flash_attention_wgmma.cu (the forward), flash_attention_bwd_wgmma.cu (the
+// backward), sweep_rwa.cu (kernel A's RWA step) and sweep_rsa.cu (its RSA
+// step).
 //
 // wgmma.m64n64k16 fragments, per warpgroup of 128 threads (w = warp in the
 // group, g = lane / 4, t4 = lane % 4):
@@ -130,6 +132,63 @@ __device__ __forceinline__ void st_async_v4(uint32_t addr, int4 v,
       "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
       "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
       : "memory");
+}
+
+// Arrives on a peer's mbarrier (`addr` from cluster_addr), releasing at
+// cluster scope what this thread wrote before.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Per-thread asynchronous copies from global into shared memory
+// ---------------------------------------------------------------------------
+
+// One thread's asynchronous 16-byte (both addresses 16-byte aligned; L2
+// only) or 4-byte copy.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   shared_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   shared_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Arrives on `bar` once this thread's earlier cp.async copies have landed;
+// the arrival is one of the count the barrier was initialised with.
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   shared_u32(bar))
+               : "memory");
+}
+
+// One 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into this block's shared memory, completing on
+// `bar`'s transaction count.
+__device__ __forceinline__ void cp_async_bulk_1d(void* dst, const void* src,
+                                                 uint32_t bytes,
+                                                 uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(shared_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(shared_u32(bar))
+      : "memory");
+}
+
+// Orders the block's earlier generic accesses to shared memory (made
+// visible to this thread by a barrier) before this thread's later
+// async-proxy writes there (a bulk copy into a slot just read).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 // Device functions shared by the sweep kernels (sweep.cu, sweep_rwa.cu,
-// colored_sweep.cu): the coupling store, the plane-row decode, the site of
-// a uniform, the coalesced tier's row count, the flip probability, dE and
-// the threefry uniforms of a sweep chunk.
+// sweep_rsa.cu, colored_sweep.cu): the coupling store, the plane-row
+// decode, the site of a uniform, the coalesced tier's row count, the flip
+// probability, dE, the int8 spin words and the threefry uniforms of a
+// sweep chunk.
 // The kernels repeat the float operations of kernels/common.py in the same
 // order, so they agree bitwise with the plain versions where that is
 // claimed; build with -fmad=false (see sweep.cu).
@@ -122,6 +123,40 @@ __device__ __forceinline__ float flip_probability(float de, float t,
 __device__ __forceinline__ float delta_e(const float* s, const float* u,
                                          int i) {
   return __fmul_rn(__fmul_rn(2.f, s[i]), u[i]);
+}
+
+// flip_probability with the IEEE divide kept off a zero dE: -dE/T is then
+// exactly -dE (a signed zero), and a zero dividend would send __fdiv_rn
+// down its slow path, as a sparse instance's zero fields do on most steps.
+// Bitwise flip_probability.
+template <bool PWL>
+__device__ __forceinline__ float site_probability(float de, float t,
+                                                  const Pwl& pwl) {
+  if (!(t > 0.f)) return flip_probability<PWL>(de, t, pwl);
+  const float q = __fdiv_rn(de == 0.f ? 1.f : -de, t);
+  return probability_at<PWL>(de == 0.f ? -de : q, pwl);
+}
+
+// Component m of a float4, and the float4 with it set.
+__device__ __forceinline__ float comp(const float4& v, int m) {
+  return m == 0 ? v.x : m == 1 ? v.y : m == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void set_comp(float4& v, int m, float x) {
+  if (m == 0) v.x = x;
+  else if (m == 1) v.y = x;
+  else if (m == 2) v.z = x;
+  else v.w = x;
+}
+
+// Spin m (+-1) of a word of four int8 spins, and the word with it set.
+__device__ __forceinline__ float spin(unsigned w, int m) {
+  return (float)(signed char)(w >> (8 * m));
+}
+
+__device__ __forceinline__ unsigned with_spin(unsigned w, int m, float s) {
+  const unsigned byte = (unsigned)(unsigned char)(signed char)s;
+  return (w & ~(0xFFu << (8 * m))) | (byte << (8 * m));
 }
 
 // Threefry-2x32 (20 rounds) in uint32 arithmetic, bit-equal to

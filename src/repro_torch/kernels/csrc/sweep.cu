@@ -8,9 +8,10 @@
 // the uniformized null transition), then e += accept*dE,
 // u <- u - 2*accept*s_old*J[j,:], the spin flip and the copy of s into
 // best_s when e improves. The solves' RWA runs on sweep_rwa.cu (a
-// roulette tree that does not depend on the width); RWA runs here only
-// when the wrapper is asked to (sweep.mcmc_sweep_at_width(pr16=True)), to
-// time both designs in one run.
+// roulette tree that does not depend on the width) and their RSA on
+// sweep_rsa.cu (any width, rows fetched ahead, decisions on mbarriers);
+// either mode runs here only when the wrapper is asked to
+// (sweep.mcmc_sweep_at_width(pr16=True)), to time both designs in one run.
 //
 // What bounds it on this card: the T steps of one replica form a serial
 // chain, and each step reads one J row that it needs before the next step

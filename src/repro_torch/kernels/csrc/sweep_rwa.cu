@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel repro/kernels/sweep.py: mcmc_sweep (body _kernel)
 // with mode="rwa" and coupling="dense", "bitplane" and "bitplane_hbm"; RSA
-// stays on sweep.cu. It runs T asynchronous single-spin RWA steps for each
+// runs on sweep_rsa.cu. It runs T asynchronous single-spin RWA steps for each
 // of R replicas: the roulette over every site's flip probability (with the
 // RSA fallback on a degenerate total, or the uniformized null transition),
 // then e += accept*dE, u <- u - 2*accept*s_old*J[j,:], the spin flip and
@@ -193,38 +193,6 @@ __host__ __device__ inline int tree_leaves(int N) {
   int nl = 1;
   while (nl < need) nl <<= 1;
   return nl;
-}
-
-__device__ __forceinline__ float comp(const float4& v, int m) {
-  return m == 0 ? v.x : m == 1 ? v.y : m == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void set_comp(float4& v, int m, float x) {
-  if (m == 0) v.x = x;
-  else if (m == 1) v.y = x;
-  else if (m == 2) v.z = x;
-  else v.w = x;
-}
-
-// Spin m (+-1) of a word of four int8 spins, and the word with it set.
-__device__ __forceinline__ float spin(uint32_t w, int m) {
-  return (float)(int8_t)(w >> (8 * m));
-}
-
-__device__ __forceinline__ uint32_t with_spin(uint32_t w, int m, float s) {
-  const uint32_t byte = (uint32_t)(uint8_t)(int8_t)s;
-  return (w & ~(0xFFu << (8 * m))) | (byte << (8 * m));
-}
-
-// flip_probability with the IEEE divide kept off a zero dE: -dE/T is then
-// exactly -dE (a signed zero), and a zero dividend would send __fdiv_rn
-// down its slow path, as a sparse instance's zero fields do on most steps.
-template <bool PWL>
-__device__ __forceinline__ float site_probability(float de, float t,
-                                                  const Pwl& pwl) {
-  if (!(t > 0.f)) return flip_probability<PWL>(de, t, pwl);
-  const float q = __fdiv_rn(de == 0.f ? 1.f : -de, t);
-  return probability_at<PWL>(de == 0.f ? -de : q, pwl);
 }
 
 // J[j, g .. g+3] (0 past N); aligned: N % 4 == 0, so a float4 load.

@@ -4,11 +4,12 @@ dual-mode single-flip sweep) and ``colored_sweep`` (graph-colored block
 Gibbs), each with ``coupling="dense"|"bitplane"|"bitplane_hbm"``.
 
 A CPU tensor goes to the plain version (``ref.mcmc_sweep``,
-``ref.colored_sweep``); a CUDA tensor launches ``csrc/sweep_rwa.cu`` (RWA,
-the route :func:`rwa_route` names, counted by ``rwa_hopper_counter``),
-``csrc/sweep.cu`` (RSA, and RWA when forced onto PR 16's kernel for
-timing) or ``csrc/colored_sweep.cu``, or raises. ``mcmc_sweep`` and ``colored_sweep``
-take their uniforms as a tensor, as the JAX kernels do;
+``ref.colored_sweep``); a CUDA tensor launches the source :func:`route`
+names, ``csrc/sweep_rsa.cu`` (RSA, counted by ``rsa_hopper_counter``) or
+``csrc/sweep_rwa.cu`` (RWA, counted by ``rwa_hopper_counter``), or
+``csrc/sweep.cu`` (the earlier kernel, for either mode only when forced, to
+time it), or ``csrc/colored_sweep.cu``, or raises. ``mcmc_sweep`` and
+``colored_sweep`` take their uniforms as a tensor, as the JAX kernels do;
 ``mcmc_sweep_keyed`` and ``colored_sweep_keyed``, the solves' entries, take
 the base key's two words and the chunk index and let the kernel draw the
 same uniforms itself. The single-flip kernels run each replica on a
@@ -36,6 +37,8 @@ from ._launch import LaunchCounter, check_operands
 counter = LaunchCounter("mcmc_sweep")
 #: Kernel A's launches on ``csrc/sweep_rwa.cu``, the RWA route.
 rwa_hopper_counter = LaunchCounter("mcmc_sweep_rwa_hopper")
+#: Kernel A's launches on ``csrc/sweep_rsa.cu``, the RSA route.
+rsa_hopper_counter = LaunchCounter("mcmc_sweep_rsa_hopper")
 colored_counter = LaunchCounter("colored_sweep")
 uniforms_counter = LaunchCounter("sweep_uniforms")
 
@@ -47,8 +50,9 @@ STATIC_SHARED_BYTES = 1024
 #: may hold (after ``cudaFuncSetAttribute``) less the static part.
 MAX_SHARED_BYTES = coupling_store.SHARED_MEMORY_BYTES - STATIC_SHARED_BYTES
 
-#: Largest thread-block cluster of ``csrc/sweep.cu`` (RSA, and PR 16's RWA
-#: route), the portable size: its widest split of a replica's spins.
+#: Largest thread-block cluster of ``csrc/sweep.cu`` (the earlier route, for
+#: either mode when forced), the portable size: its widest split of a
+#: replica's spins.
 MAX_CLUSTER = coupling_store.SWEEP_MAX_BLOCKS
 
 #: Cluster widths of ``csrc/sweep_rwa.cu`` (RWA): powers of two up to 16,
@@ -62,14 +66,75 @@ RWA_BLOCK_LEAVES = 4
 #: Steps of a staged window (both sources): 4 uniforms and a temperature.
 WINDOW_FLOATS = 5 * common.SWEEP_WINDOW
 
+#: Cluster widths of ``csrc/sweep_rsa.cu`` (RSA): any width up to 16, the
+#: non-portable size.
+RSA_CLUSTERS = tuple(range(1, 17))
+#: A block of the RSA kernel holds a slice of a multiple of this many sites
+#: (four 32-bit plane words).
+RSA_SLAB = 128
+#: Row slots of the RSA kernel's ring: as many as the shared memory left
+#: over holds, between these.
+RSA_MIN_RING, RSA_MAX_RING = 2, 4
+#: Decision slots of the RSA kernel: two staged windows' steps.
+RSA_DEC_SLOTS = 2 * common.SWEEP_WINDOW
+#: The RSA width rule's aim (``cluster_width``): the widest cluster up to
+#: this many blocks.
+RSA_BLOCK_AIM = 8
+
 GATHERS = ("dynamic", "onehot", "auto")
 
 
-def rwa_route(mode: str, pr16: bool = False) -> str:
-    """The source kernel A's launch takes: ``"sweep_rwa"`` for RWA, or
-    ``"sweep"`` (PR 16's kernel) for RSA and for RWA forced there by
-    ``pr16`` (timing both designs in one run, never the solve)."""
-    return "sweep_rwa" if mode == "rwa" and not pr16 else "sweep"
+def route(mode: str, pr16: bool = False) -> str:
+    """The source kernel A's launch takes: ``"sweep_rsa"`` for RSA,
+    ``"sweep_rwa"`` for RWA, or ``"sweep"`` (the earlier kernel) for either
+    mode forced there by ``pr16`` (timing both designs in one run, never
+    the solve)."""
+    if pr16:
+        return "sweep"
+    return "sweep_rwa" if mode == "rwa" else "sweep_rsa"
+
+
+def rsa_slice(n: int, width: int) -> int:
+    """Sites of a block's slice in the RSA kernel's ``width``-block
+    cluster: the multiple of :data:`RSA_SLAB` at or above ⌈N/width⌉ (sites
+    past N are phantoms). Mirrors ``slice_sites``."""
+    per = -(-n // width)
+    return RSA_SLAB * -(-per // RSA_SLAB)
+
+
+def _rsa_bytes(sites: int, num_planes: int, segs: int, ring: int) -> int:
+    """The RSA kernel's ``layout(S, B, segs, K).total``."""
+    row = 4 * sites if num_planes == 0 else num_planes * sites // 4
+    return (6 * sites + ring * row + _align16(8 * segs)
+            + 3 * 4 * 2 * common.SWEEP_WINDOW + 24 * RSA_DEC_SLOTS
+            + 8 * RSA_MAX_RING + 16)
+
+
+def rsa_ring(n: int, segs: int, width: int, num_planes: int = 0) -> int:
+    """Row slots of the RSA kernel's ring at ``width``: as many as the
+    budget (:data:`MAX_SHARED_BYTES`) leaves room for, at most
+    :data:`RSA_MAX_RING`; 0 where not even :data:`RSA_MIN_RING` fit.
+    Mirrors ``ring_slots``."""
+    sites = rsa_slice(n, width)
+    base = _rsa_bytes(sites, num_planes, segs, 0)
+    row = _rsa_bytes(sites, num_planes, segs, 1) - base
+    if base + RSA_MIN_RING * row > MAX_SHARED_BYTES:
+        return 0
+    return min((MAX_SHARED_BYTES - base) // row, RSA_MAX_RING)
+
+
+def rsa_shared_bytes(n: int, segs: int, width: int,
+                     num_planes: int = 0) -> int:
+    """Shared memory of one block of the RSA kernel's ``width``-block
+    cluster: u (f32), s and best_s (int8) of its :func:`rsa_slice` sites,
+    the ring of :func:`rsa_ring` row slots (each the block's part of a row:
+    S f32 on a dense J, ``num_planes`` = 0, or 2B runs of S/32 plane
+    words), the PWL table, two staged windows (a site, an accept uniform
+    and a temperature a step), :data:`RSA_DEC_SLOTS` decision slots and the
+    mbarriers; where not even two slots fit, the size at two. Mirrors
+    ``snowball_sweep_rsa_smem_bytes``."""
+    ring = rsa_ring(n, segs, width, num_planes) or RSA_MIN_RING
+    return _rsa_bytes(rsa_slice(n, width), num_planes, segs, ring)
 
 
 def rwa_shared_bytes(n: int, segs: int, width: int) -> int:
@@ -85,15 +150,19 @@ def rwa_shared_bytes(n: int, segs: int, width: int) -> int:
 
 
 def shared_bytes(n: int, lane: int, segs: int, rwa: bool,
-                 width: int = 1, pr16: bool = False) -> int:
+                 width: int = 1, pr16: bool = False,
+                 num_planes: int = 0) -> int:
     """Shared memory of one block of a ``width``-block sweep cluster. RWA
-    (unless ``pr16``): :func:`rwa_shared_bytes`. RSA and PR 16's RWA: u, s
-    and best_s of its N/width slice (3·N/width f32), the PWL intercepts and
-    slopes (2·S), the staged window (64 steps × 4 uniforms and 64
-    temperatures), and for RWA the slice's block sums plus one 128-wide
-    lane buffer. Mirrors ``snowball_sweep_smem_bytes``."""
+    (unless ``pr16``): :func:`rwa_shared_bytes`; RSA (unless ``pr16``):
+    :func:`rsa_shared_bytes` (``num_planes`` B, 0 for a dense J). The
+    earlier route (``sweep.cu``): u, s and best_s of its N/width slice (3·N/width f32), the PWL
+    intercepts and slopes (2·S), the staged window (64 steps × 4 uniforms
+    and 64 temperatures), and for RWA the slice's block sums plus one
+    128-wide lane buffer. Mirrors ``snowball_sweep_smem_bytes``."""
     if rwa and not pr16:
         return rwa_shared_bytes(n, segs, width)
+    if not pr16:
+        return rsa_shared_bytes(n, segs, width, num_planes)
     nc = n // width
     floats = (3 * nc + 2 * segs + common.SWEEP_WINDOW * 5
               + ((nc // lane) + common.MAX_LANE if rwa else 0))
@@ -101,14 +170,22 @@ def shared_bytes(n: int, lane: int, segs: int, rwa: bool,
 
 
 def widths(n: int, lane: int, segs: int, rwa: bool,
-           pr16: bool = False) -> list:
-    """The cluster widths the sweep can run N on. RWA (unless ``pr16``):
+           pr16: bool = False, num_planes: int = 0) -> list:
+    """The cluster widths the sweep can run N on, for any N up to the
+    port's ceiling ``coupling.SWEEP_STATE_MAX_N``. RWA (unless ``pr16``):
     the powers of two c ≤ 16 and ≤ ``tree_leaves(N)`` whose subtrees of
-    ``tree_leaves(N) / c`` leaves fit one block, for any N up to the port's
-    ceiling ``coupling.SWEEP_STATE_MAX_N`` (the RSA kernel's, which every
-    store is held to); ``lane`` is not read. RSA and PR 16's RWA: c ≤ 8
-    whose slices N/c are whole lane blocks and fit one block's shared
-    memory."""
+    ``tree_leaves(N) / c`` leaves fit one block. RSA (unless ``pr16``): any
+    c ≤ 16 whose last block holds a site below N and whose blocks fit
+    (:func:`rsa_shared_bytes`, with ``num_planes`` B, 0 for a dense J, the
+    largest row at B ≤ 16). Neither reads ``lane``. The earlier route:
+    c ≤ 8 whose slices N/c are whole lane blocks and fit one block's
+    shared memory."""
+    if not pr16 and not rwa:
+        if n > coupling_store.SWEEP_STATE_MAX_N:
+            return []
+        return [c for c in RSA_CLUSTERS
+                if (c - 1) * rsa_slice(n, c) < n
+                and rsa_ring(n, segs, c, num_planes) > 0]
     if rwa and not pr16:
         if n > coupling_store.SWEEP_STATE_MAX_N:
             return []
@@ -129,7 +206,7 @@ PLANE_PASS_SPINS = 8 * 1024
 
 def cluster_width(n: int, lane: int, segs: int, rwa: bool,
                   planes: bool = False, r: int = 1,
-                  pr16: bool = False) -> int:
+                  pr16: bool = False, num_planes: int = 0) -> int:
     """The blocks per replica the sweep runs on (chosen here from N, the
     mode, the store and R, not by the caller). Raises past the ceiling
     (:func:`max_n`).
@@ -153,9 +230,33 @@ def cluster_width(n: int, lane: int, segs: int, rwa: bool,
     at R=8 (c = 16 then loses half its clusters to a second wave), and
     1,024 spill.
 
-    RSA, and PR 16's RWA route (``pr16``): RWA and dense RSA take the
-    widest width that fits; RSA on planes takes the narrowest width whose
-    slice one block decodes in one pass (:data:`PLANE_PASS_SPINS`).
+    RSA (``csrc/sweep_rsa.cu``; ``num_planes`` B, 0 for a dense J): its
+    results do not depend on the width either: the widest width up to
+    :data:`RSA_BLOCK_AIM` that fits (the narrowest where none does),
+    narrowed until R·c blocks stay within the card's SMs, or the narrowest
+    that fits where none does. ``scripts/rsa_variants.py`` (an H100 80GB
+    HBM3 at a 700 W limit; the device's ms per 256-step launch of the
+    keyed sweep, R=8, PWL, 10 launches replayed as one CUDA graph): K2000
+    dense at c = 1, 2, 3, 4, 6, 8, 16: 0.1914, 0.1835, 0.1543, 0.1539,
+    0.1541, 0.1527, 0.1688; K4096 ``bitplane`` at c = 1-8, 11, 16: 0.2484,
+    0.2031, 0.2042, 0.1850, 0.1857, 0.1844, 0.1833, 0.1822, 0.2033, 0.2010;
+    N=16384 ``bitplane_hbm`` at c = 1-8: 0.5830, 0.3612, 0.3095, 0.2653,
+    0.2639, 0.2442, 0.2426, 0.2196, then 0.2232-0.2548 up to 16; N=14,481
+    at c = 1-8: 0.5464, 0.3503, 0.2912, 0.2710, 0.2473, 0.2464, 0.2276,
+    0.2219, then 0.2222-0.2539 up to 15. The rule's c = 8 is the fastest
+    width at all four. 200 launches at c = 8 each replayed alone spread
+    by under 0.3 % from the fastest to the median at every shape (the
+    card holds 45-62 clusters of 8 at once); launches timed from the host
+    add the host's dispatch wherever the stream was idle (0.43-0.77 ms a
+    launch after 50 ms idle), which earlier readings of this rule
+    included. A step is its decision, one exchange, the apply of a row
+    part (a few quads a thread) and a block barrier: the split pays while
+    a block holds more than a few hundred sites, and wider clusters add
+    to the exchange (its floor, 0.0760-0.0841 ms a launch, rises with c).
+
+    The earlier route (``pr16``): RWA and dense RSA take the widest width that
+    fits; RSA on planes takes the narrowest width whose slice one block
+    decodes in one pass (:data:`PLANE_PASS_SPINS`).
     ``chip_smoke.py``'s width sweep (an H100 80GB HBM3 at a 700 W limit; ms
     per 256-step launch of the keyed sweep, R=8, at c = 1, 2, 4, 8): K2000
     dense RSA 0.3432, 0.3796, 0.2800, 0.2651 and PR 16's RWA 1.6411,
@@ -166,21 +267,26 @@ def cluster_width(n: int, lane: int, segs: int, rwa: bool,
     fewer columns, but a plane row is decoded 1024 spins a warp, so a split
     pays only while a block would need a second pass (N=16384) and costs a
     cluster barrier where one pass suffices (K4096)."""
-    fits = widths(n, lane, segs, rwa, pr16)
+    fits = widths(n, lane, segs, rwa, pr16, num_planes)
     if not fits:
-        top = RWA_CLUSTERS[-1] if rwa and not pr16 else MAX_CLUSTER
+        top = MAX_CLUSTER if pr16 else 16
         raise ValueError(
             f"N={n} does not fit the sweep at any cluster width up to "
             f"{top}: a block's slice needs "
-            f"{shared_bytes(n, lane, segs, rwa, top, pr16)} bytes of "
+            f"{shared_bytes(n, lane, segs, rwa, top, pr16, num_planes)} "
+            f"bytes of "
             f"shared memory at width {top} (at most "
             f"{MAX_SHARED_BYTES}), or N/width is not a whole number of "
             f"{lane}-wide lane blocks; the sweep takes N ≤ "
             f"{max_n(rwa, segs, pr16)} with the default lane")
-    if rwa and not pr16:
-        small = [c for c in fits
-                 if common.tree_leaves(n) // c <= RWA_BLOCK_LEAVES]
-        pick = small[0] if small else fits[-1]
+    if not pr16:
+        if rwa:
+            small = [c for c in fits
+                     if common.tree_leaves(n) // c <= RWA_BLOCK_LEAVES]
+            pick = small[0] if small else fits[-1]
+        else:
+            aim = [c for c in fits if c <= RSA_BLOCK_AIM]
+            pick = aim[-1] if aim else fits[0]
         ok = [c for c in fits if c <= pick and r * c <= COLORED_SMS]
         return ok[-1] if ok else fits[0]
     if planes and not rwa:
@@ -192,14 +298,15 @@ def cluster_width(n: int, lane: int, segs: int, rwa: bool,
 
 @functools.cache
 def max_n(rwa: bool = True, segs: int = 64, pr16: bool = False) -> int:
-    """Largest N the sweep takes with the default lane. RSA and PR 16's RWA:
-    8 blocks of a cluster each hold a slice, so about 8 × 19.1k spins, in
+    """Largest N the sweep takes with the default lane. The earlier route: 8
+    blocks of a cluster each hold a slice, so about 8 × 19.1k spins, in
     place of the TPU's VMEM wall at N=2000. RWA: 16 blocks of 128 leaves
-    would hold 262,144 sites; the port's ceiling
-    ``coupling.SWEEP_STATE_MAX_N`` caps it."""
-    if rwa and not pr16:
+    would hold 262,144 sites; RSA: 16 blocks, each with its ring of dense
+    row parts, ~258k; the port's ceiling ``coupling.SWEEP_STATE_MAX_N``
+    caps both."""
+    if not pr16:
         n = coupling_store.SWEEP_STATE_MAX_N
-        while not widths(n, 1, segs, True):
+        while not widths(n, 1, segs, rwa):
             n -= 1
         return n
     per_block = (MAX_SHARED_BYTES // 4 - 2 * segs - 5 * common.SWEEP_WINDOW
@@ -335,6 +442,16 @@ def _rwa_fn():
     p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn.argtypes = ([p] * 3 + [i] * 2 + [p] * 4 + [w] * 2 + [i] * 2
                    + [p] * 2 + [i] + [p] * 9 + [i] * 6 + [p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _rsa_fn():
+    fn = _build.load("sweep_rsa").snowball_sweep_rsa
+    p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    fn.argtypes = ([p] * 3 + [i] * 2 + [p] * 4 + [w] * 2 + [i] * 2
+                   + [p] * 2 + [i] + [p] * 9 + [i] * 5 + [p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -475,8 +592,8 @@ def mcmc_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
     """The card's sweep at a cluster width of the caller's choice (one of
     :func:`widths`) in place of :func:`cluster_width`'s: for the width
     sweep and the card tests, never the solve. Takes ``uniforms`` or
-    ``base_words`` and ``chunk``. ``pr16`` forces RWA onto PR 16's kernel
-    (``csrc/sweep.cu``), to time both designs in one run."""
+    ``base_words`` and ``chunk``. ``pr16`` forces either mode onto the
+    earlier kernel (``csrc/sweep.cu``), to time both designs in one run."""
     lane, coalesce = _check_call(couplings, fields0, mode, "dynamic",
                                  coupling, lane, coalesce)
     if fields0.device.type != "cuda":
@@ -517,11 +634,14 @@ def sweep_uniforms(base_words: Sequence[int], chunk: int, t: int, r: int,
 
 def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
             uniforms, key, mode, uniformized, block_r, lane, coalesce,
-            width, out=None, pr16=False):
-    """Checks the operands and launches the source :func:`rwa_route` names
-    (``snowball_sweep_rwa`` or ``snowball_sweep``; reading ``uniforms``, or
-    drawing from ``key = (base_words, chunk, fold)``), writing new output
-    tensors or the seven given in ``out``. A refused launch raises."""
+            width, out=None, pr16=False, entry=None):
+    """Checks the operands and launches the source :func:`route` names
+    (``snowball_sweep_rsa``, ``snowball_sweep_rwa`` or ``snowball_sweep``;
+    reading ``uniforms``, or drawing from ``key = (base_words, chunk,
+    fold)``), writing new output tensors or the seven given in ``out``. A
+    refused launch raises and tries nothing else. ``entry``: an RSA
+    measurement build's ``snowball_sweep_rsa`` (``scripts/rsa_variants.py``),
+    launched in the route's place and counted on no counter."""
     r, n = fields0.shape
     t = temps.shape[0]
     rwa = mode == "rwa"
@@ -541,9 +661,11 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
                        dtype=torch.int32)
         store = (None, couplings.pos.data_ptr(), couplings.neg.data_ptr(),
                  couplings.num_planes, couplings.num_words)
+        num_planes = couplings.num_planes
     else:
         check_operands(dev, (("couplings", couplings, (n, n)),))
         store = (couplings.data_ptr(), None, None, 0, 0)
+        num_planes = 0
     if t * r * 4 >= 2 ** 32:
         raise ValueError(f"T·R·4 = {t * r * 4} uniform counters exceed the "
                          "32-bit count of one threefry draw")
@@ -555,15 +677,15 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
                 -1 if fold is None else int(fold))
     pwl_args = _pwl_args(pwl_table)
     segs = pwl_args[1]
-    route = rwa_route(mode, pr16)
-    pr16 = route == "sweep"
+    src = route(mode, pr16)
+    fits = widths(n, lane, segs, rwa, pr16, num_planes)
     if width is None:
         width = cluster_width(n, lane, segs, rwa,
-                              isinstance(couplings, BitPlanes), r, pr16)
-    elif width not in widths(n, lane, segs, rwa, pr16):
+                              isinstance(couplings, BitPlanes), r, pr16,
+                              num_planes)
+    elif width not in fits:
         raise ValueError(f"cluster width {width} does not fit N={n} (lane "
-                         f"{lane}): the widths that do are "
-                         f"{widths(n, lane, segs, rwa, pr16)}")
+                         f"{lane}): the widths that do are {fits}")
     shapes = ((r, n), (r, n), (r,), (r,), (r, n), (r,), (r,))
     if out is None:
         out = tuple(torch.empty(shape, dtype=torch.float32 if i < 5
@@ -590,17 +712,25 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
                    t)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if pr16:
+        if entry is not None:
+            rc = entry(*common_args, width, stream)
+        elif src == "sweep":
             rc = _fns()[0](*common_args, int(rwa), int(uniformized and rwa),
                            lane, width, stream)
-        else:
+        elif src == "sweep_rwa":
             rc = _rwa_fn()(*common_args, int(uniformized), width, stream)
+        else:
+            rc = _rsa_fn()(*common_args, width, stream)
     if rc != 0:
-        raise RuntimeError(f"mcmc_sweep launch failed ({route}.cu): CUDA "
+        raise RuntimeError(f"mcmc_sweep launch failed ({src}.cu): CUDA "
                            f"error {rc}")
+    if entry is not None:
+        return u, s, e, be, bs, nf, rf
     counter.count += 1
-    if not pr16:
+    if src == "sweep_rwa":
         rwa_hopper_counter.count += 1
+    elif src == "sweep_rsa":
+        rsa_hopper_counter.count += 1
     return u, s, e, be, bs, nf, rf
 
 

@@ -316,50 +316,76 @@ def test_interop_state_round_trip_feeds_a_chunk():
 
 
 def test_shared_memory_ceiling():
-    """The split's limits. RSA and PR 16's RWA route (``sweep.cu``): each of
-    at most 8 blocks holds a slice of N/c spins (u, s, best_s) with the PWL
-    table, the staged window and, for RWA, the slice's block sums and a
-    lane buffer. RWA (``sweep_rwa.cu``): each of at most 16 blocks holds a
-    subtree of tree_leaves(N)/c leaves of 128 sites (u and p in f32, s and
-    best_s in int8), the PWL table, two staged windows and the leaf sums,
-    up to the port's ceiling; its ceiling does not fall below PR 16's."""
+    """The split's limits. The earlier route (``sweep.cu``,
+    ``pr16=True``): each of at most 8 blocks holds a slice of N/c spins (u,
+    s, best_s) with the PWL table, the staged window and, for RWA, the
+    slice's block sums and a lane buffer. RWA (``sweep_rwa.cu``): each of
+    at most 16 blocks holds a subtree of tree_leaves(N)/c leaves of 128
+    sites (u and p in f32, s and best_s in int8), the PWL table, two staged
+    windows and the leaf sums, up to the port's ceiling. RSA
+    (``sweep_rsa.cu``): each of at most 16 blocks holds a slice of a
+    multiple of 128 sites (u in f32, s and best_s in int8) with a ring of 2
+    to 4 row parts, up to the port's ceiling. Neither ceiling falls below
+    the earlier route's."""
     assert sweep.shared_bytes(2000, 125, 64, True, pr16=True) == 4 * (
         3 * 2000 + 128 + 320 + 16 + 128)
     assert sweep.shared_bytes(16384, 128, 64, True, 8, pr16=True) == 4 * (
         3 * 2048 + 128 + 320 + 16 + 128)
+    assert sweep.shared_bytes(2000, 125, 64, False, pr16=True) == 4 * (
+        3 * 2000 + 128 + 320)
     assert sweep.shared_bytes(2000, 125, 64, True) == (
         10 * 2048 + 4 * 128 + 8 * 320 + 4 * 16)
     assert sweep.shared_bytes(16384, 128, 64, True, 8) == (
         10 * 2048 + 4 * 128 + 8 * 320 + 4 * 16)
+    # RSA: 2,048 sites, a ring of 4 dense row parts (or B=1 plane words),
+    # the table, the windows, 128 decision slots and the mbarriers.
+    assert sweep.shared_bytes(2000, 125, 64, False) == (
+        6 * 2048 + 4 * 4 * 2048 + 4 * 128 + 12 * 128 + 24 * 128 + 48)
+    assert sweep.shared_bytes(16384, 128, 64, False, 8, num_planes=1) == (
+        6 * 2048 + 4 * 2048 // 4 + 4 * 128 + 12 * 128 + 24 * 128 + 48)
     for rwa in (False, True):
-        n = sweep.max_n(rwa)
-        lane = common.default_lane(n)
-        top = sweep.RWA_CLUSTERS[-1] if rwa else sweep.MAX_CLUSTER
-        assert top in sweep.widths(n, lane, 64, rwa)
-        assert sweep.shared_bytes(n, lane, 64, rwa, top) <= \
-            sweep.MAX_SHARED_BYTES
-        assert 150_000 < n <= tcoupling.SWEEP_STATE_MAX_N
-        # Past it no width fits.
-        for m in range(n + 1, n + 64):
-            assert not sweep.widths(m, common.default_lane(m), 64, rwa)
+        for pr16 in (False, True):
+            if rwa and pr16:
+                continue
+            n = sweep.max_n(rwa, pr16=pr16)
+            lane = common.default_lane(n)
+            top = sweep.MAX_CLUSTER if pr16 else sweep.RWA_CLUSTERS[-1]
+            assert top in sweep.widths(n, lane, 64, rwa, pr16)
+            assert sweep.shared_bytes(n, lane, 64, rwa, top, pr16) <= \
+                sweep.MAX_SHARED_BYTES
+            assert 150_000 < n <= tcoupling.SWEEP_STATE_MAX_N
+            # Past it no width fits.
+            for m in range(n + 1, n + 64):
+                assert not sweep.widths(m, common.default_lane(m), 64, rwa,
+                                        pr16)
     assert sweep.max_n(True) >= sweep.max_n(True, pr16=True) > 150_000
+    assert sweep.max_n(False) >= sweep.max_n(False, pr16=True) > 150_000
     # The rule of sweep.cu: RWA and dense RSA take the widest width that
     # fits; RSA on planes the narrowest whose slice one decode pass covers
     # (8192 spins).
-    assert sweep.widths(16384, 128, 64, False) == [1, 2, 4, 8]
-    assert sweep.widths(32768, 128, 64, False) == [2, 4, 8]
-    assert sweep.cluster_width(32768, 128, 64, False) == 8
-    assert sweep.cluster_width(2000, 125, 64, False) == 8
+    assert sweep.widths(16384, 128, 64, False, pr16=True) == [1, 2, 4, 8]
+    assert sweep.widths(32768, 128, 64, False, pr16=True) == [2, 4, 8]
+    assert sweep.cluster_width(32768, 128, 64, False, pr16=True) == 8
+    assert sweep.cluster_width(2000, 125, 64, False, pr16=True) == 8
     assert sweep.cluster_width(16384, 128, 64, True, planes=True,
                                pr16=True) == 8
     for n, c in ((4096, 1), (16384, 2), (32768, 4), (65536, 8),
                  (131072, 8)):
-        assert sweep.cluster_width(n, 128, 64, False, planes=True) == c
+        assert sweep.cluster_width(n, 128, 64, False, planes=True,
+                                   pr16=True) == c
     assert sweep.widths(1001, 91, 64, True, pr16=True) == [1]
     assert sweep.widths(1001, 91, 64, True) == [1, 2, 4, 8]
-    big = sweep.max_n(False) + 1024
-    with pytest.raises(ValueError, match="cluster width"):
-        sweep.cluster_width(big, common.default_lane(big), 64, False)
+    # The RSA kernel takes any width whose last block holds a site below N
+    # (slices of 128 sites: 5, 6 and 7 blocks leave the last one empty).
+    assert sweep.widths(1001, 91, 64, False) == [1, 2, 3, 4, 8]
+    assert sweep.widths(16384, 128, 64, False) == [
+        2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 15, 16]
+    assert sweep.widths(16384, 128, 64, False, num_planes=1)[0] == 1
+    for pr16 in (False, True):
+        big = sweep.max_n(False, pr16=pr16) + 1024
+        with pytest.raises(ValueError, match="cluster width"):
+            sweep.cluster_width(big, common.default_lane(big), 64, False,
+                                pr16=pr16)
 
 
 def _keyed_inputs(n, r, t, seed):

@@ -14,7 +14,7 @@
 * the degenerate total and the uniformized null transition against JAX's
   ``roulette_pick`` and ``mcmc_sweep`` (near ties masked, N not a
   multiple of the 128-site leaf);
-* ``widths``, ``cluster_width``, ``max_n`` and ``rwa_route`` at N = 14,481
+* ``widths``, ``cluster_width``, ``max_n`` and ``route`` at N = 14,481
   and at the ceiling.
 
 The card's side is ``tests/test_torch_sweep_rwa_card.py`` (no JAX there).
@@ -185,6 +185,7 @@ def test_widths_rule_and_ceiling():
     assert sweep.widths(16385, 1, 64, True) == [2, 4, 8, 16]
     with pytest.raises(ValueError, match="cluster width"):
         sweep.cluster_width(top + 1, 1, 64, True)
-    assert sweep.rwa_route("rwa") == "sweep_rwa"
-    assert sweep.rwa_route("rwa", pr16=True) == "sweep"
-    assert sweep.rwa_route("rsa") == "sweep"
+    assert sweep.route("rwa") == "sweep_rwa"
+    assert sweep.route("rwa", pr16=True) == "sweep"
+    assert sweep.route("rsa") == "sweep_rsa"
+    assert sweep.route("rsa", pr16=True) == "sweep"
