@@ -39,14 +39,19 @@ results:
 * the colored path on the same sparse N=16384 instance (greedy coloring,
   χ = 11): ``solve(P, 0, replace(default_solver(16384, 64·χ, mode="rsa"),
   flip_mode="colored", coupling_format="bitplane_hbm"), backend="colored")``,
-  704 steps, with the colored sweep held against its plain version on all
+  704 steps, with the colored sweep (kernel D on its route,
+  ``colored_sweep_hopper.cu``) held against its plain version on all
   three tiers, on a χ=2 torus and at N=20,000 (a shorter last slice) at
   every cluster width, the keyed sweep against the reading one and the
-  draw's plain version against ``rng.uniform01``, the width sweeps (R=8
-  and 32, small N), the exact sigmoid's near ties counted,
-  launches per chunk (6), the three tiers' colored trajectories bitwise
-  equal, the card's small colored solves and a sparse N=32768 one equal
-  to the CPU's;
+  draw's plain version against ``rng.uniform01``, the route timed by
+  CUDA-graph replay beside the earlier ``colored_sweep.cu`` (forced) in
+  the same run on each tier, both checked bitwise and the route faster,
+  the width sweeps (R=8 and 32, small N), the route's latency floor and
+  both designs' clock64 stamps (``scripts/colored_variants.py``), the
+  exact sigmoid's near ties counted, launches per chunk (6), the three
+  tiers' colored trajectories bitwise equal, the card's small colored
+  solves and a sparse N=32768 one equal to the CPU's, and every colored
+  launch of every phase on the route (``sweep.colored_hopper_counter``);
 * parallel tempering (``[tempering]``): kernel A with a distinct
   temperature column per replica (a ladder, a random table) against its
   plain version on every tier at 1 block and 8, T = 1, 10, 256; K2000
@@ -174,6 +179,7 @@ from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.train import (TrainLoopConfig, init_train_state,  # noqa: E402
                                make_train_step, train_loop)
 from repro_torch.train.step import value_and_grad as train_value_and_grad  # noqa: E402
+import colored_variants  # noqa: E402
 import rsa_variants  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 rate outside the
@@ -240,6 +246,10 @@ SWEEP_PHASES = ("stat", "tempering", "tts", "serve", "dist")
 #: The RSA step's measurement builds (``scripts/rsa_variants.py``), built
 #: beside the kernels.
 RSA_VARIANT_LIBS: dict = {}
+#: Kernel D's measurement builds (``scripts/colored_variants.py``: the
+#: route's floor and stamps, the earlier kernel's stamps), built beside the
+#: kernels.
+COLORED_VARIANT_LIBS: dict = {}
 #: A prime N the earlier RSA route (``sweep.cu``) took at no width (its
 #: slices had to be whole lane blocks), and the steps of its
 #: card-against-CPU solve (3 chunks).
@@ -271,7 +281,8 @@ FIELD_RS = (1, 8, 32)
 #: Kernel C on random plane words, pos and neg overlapping: (B, rows, W, R).
 #: W=7,265 is one word past the earlier design's shared-memory ceiling, not a
 #: multiple of 4 (4-byte loads); the widest W is a colored solve's at its
-#: ceiling, sweep.colored_max_n(256) / 32 = 9,552.
+#: ceiling, sweep.colored_max_n(256) / 32 = 9,136 (9,552 on the earlier
+#: colored kernel).
 FIELD_WORD_SHAPES = ((3, K_PLANE_N, 128, 8), (1, 64, 7265, 8),
                      (1, 64, None, 8), (3, 64, None, 32), (2, 64, None, 13))
 #: Steps of the cross-tier solves, and of the short full-width kernel checks.
@@ -795,9 +806,19 @@ def rsa_stamps(label: str, couplings, args, tbl, words, fmt: str) -> dict:
 class SweepRoutes:
     """While active, counts kernel A's launches by mode and the source they
     take (wrapping ``sweep._launch``), beside ``sweep.rwa_hopper_counter``
-    and ``sweep.rsa_hopper_counter``."""
+    and ``sweep.rsa_hopper_counter``, and kernel D's on its route
+    (``sweep.colored_hopper_counter``) beside all of them."""
 
     def __enter__(self):
+        self.colored = {"route": 0, "pr17": 0}
+        self.hopper0 = sweep.colored_hopper_counter.count
+        self.orig_colored = orig_colored = sweep._colored_launch
+
+        def spy_colored(*args, **kw):
+            if kw.get("entry") is None:
+                self.colored["pr17" if kw.get("pr17") else "route"] += 1
+            return orig_colored(*args, **kw)
+        sweep._colored_launch = spy_colored
         self.by_route = {(m, r): 0 for m in ("rsa", "rwa")
                          for r in ("sweep_rsa", "sweep_rwa", "sweep")}
         self.start = {"rsa": sweep.rsa_hopper_counter.count,
@@ -814,6 +835,8 @@ class SweepRoutes:
 
     def __exit__(self, *exc):
         sweep._launch = self.orig
+        sweep._colored_launch = self.orig_colored
+        self.colored_hopper = sweep.colored_hopper_counter.count - self.hopper0
         self.hopper = {"rsa": sweep.rsa_hopper_counter.count
                        - self.start["rsa"],
                        "rwa": sweep.rwa_hopper_counter.count
@@ -831,6 +854,11 @@ class SweepRoutes:
                   f"{label}: {n} {mode.upper()} launches of kernel A, all on "
                   f"{src}.cu ({mode}_hopper_counter +{self.hopper[mode]}), "
                   "none on the earlier sweep.cu")
+        n, forced = self.colored["route"], self.colored["pr17"]
+        check(forced == 0 and self.colored_hopper == n,
+              f"{label}: {n} launches of kernel D, all on "
+              f"colored_sweep_hopper.cu (colored_hopper_counter "
+              f"+{self.colored_hopper}), none on the earlier colored_sweep.cu")
 
 
 def dense_slice() -> list:
@@ -1797,7 +1825,8 @@ def plane_slice() -> list:
 
 
 def colored_reset_counts() -> None:
-    for c in (sweep.counter, sweep.colored_counter, local_field.counter,
+    for c in (sweep.counter, sweep.colored_counter,
+              sweep.colored_hopper_counter, local_field.counter,
               bitplane_field.counter):
         c.reset()
 
@@ -1930,9 +1959,10 @@ def colored_sweep_widths(plan, op, args, tbl, fmt, want, label, err):
 
 
 def colored_width_sweep(op, args, tbl, fmt: str, words, label: str) -> None:
-    """Kernel D's ms per launch (keyed, CUDA events) at every cluster width
-    for these inputs, beside the rule's pick; every width's outputs equal
-    the rule's, bitwise."""
+    """Kernel D's ms per launch on its route (keyed; device time, launches
+    replayed as one CUDA graph) at every cluster width for these inputs,
+    beside the rule's pick; every width's outputs equal the rule's,
+    bitwise."""
     u0, s0, e0, _, temps, sched = args
     r, n = u0.shape
     win = args[3].shape[2]
@@ -1949,9 +1979,38 @@ def colored_width_sweep(op, args, tbl, fmt: str, words, label: str) -> None:
             window=win, coupling=fmt))
         same = all(torch.equal(a, b) for a, b in zip(run(), want))
         check(same, f"{label}: width {c} equals the rule's width {rule}")
-        swept.append(f"C={c} {cuda_ms(run, 3):.4f}")
+        swept.append(f"C={c} {graph_ms(run, 3):.4f}")
     print(f"[timing] width sweep {label} (keyed; ms per {temps.shape[0]}-"
           f"step launch): {', '.join(swept)}; the rule picks C={rule}")
+
+
+def colored_stamps(label: str, sh) -> dict:
+    """Kernel D's latency floor (the exchange alone) and the card's
+    occupancy at every width of the route, and both designs' stamped
+    splits of a step at their rules' widths (``scripts/colored_variants.py``;
+    each stamped build's outputs are checked bitwise against the plain
+    version's)."""
+    row = colored_variants.measure(COLORED_VARIANT_LIBS, label, sh, main=())
+    print(f"[timing] colored floor {label} (one exchange and the block "
+          "barrier a step, no accept pass or row): "
+          + ", ".join(f"C={c} {ms:.4f} ms" for c, ms in row["floor"].items())
+          + "; ring slots " + ", ".join(f"C={c} {k}"
+                                        for c, k in row["ring"].items())
+          + "; clusters the card holds at once "
+          + ", ".join(f"C={c} {n}" for c, n in row["clusters_held"].items()))
+    for key, design in (("stamps", "colored_sweep_hopper.cu"),
+                        ("stamps17", "colored_sweep.cu")):
+        split = row[key]
+        for who, part in split.items():
+            if who == "width":
+                continue
+            print(f"[timing] colored stamps {label} {design} C="
+                  f"{split['width']} {who} (us a step at "
+                  f"{part['loop_mhz']:.0f} MHz): "
+                  + ", ".join(f"{k} {v:.3f}"
+                              for k, v in part["mean_us"].items())
+                  + f"; step {part['step_us']:.3f}")
+    return row
 
 
 def colored_slice() -> list:
@@ -2174,6 +2233,7 @@ def colored_slice() -> list:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"colored_sweep": sweep.colored_counter.count,
+                "colored_sweep_hopper": sweep.colored_hopper_counter.count,
                 "bitplane_field_init": bitplane_field.counter.count,
                 "mcmc_sweep": sweep.counter.count,
                 "local_field_init": local_field.counter.count}
@@ -2187,9 +2247,11 @@ def colored_slice() -> list:
           f"{wall / main_steps * 1e6:.3f} us/step (host clock, the solve's "
           f"own plan build included), wall {wall:.4f} s, rows_fetched {rows}, "
           f"launches {launches}")
-    check(launches["colored_sweep"] == math.ceil(main_steps / 256),
+    check(launches["colored_sweep"] == math.ceil(main_steps / 256)
+          == launches["colored_sweep_hopper"],
           f"colored_sweep launched ceil({main_steps}/256) = "
-          f"{math.ceil(main_steps / 256)} times")
+          f"{math.ceil(main_steps / 256)} times, all on "
+          "colored_sweep_hopper.cu")
     check(launches["bitplane_field_init"] == 1
           and launches["mcmc_sweep"] == 0
           and launches["local_field_init"] == 0,
@@ -2244,7 +2306,8 @@ def colored_slice() -> list:
                           top=3, tag="[profile] prebuilt plan:")
     if prof is not None:
         kernel_s = sum(
-            us for us, _, key in prof["rows"] if "colored_kernel" in key)
+            us for us, _, key in prof["rows"]
+            if "colored_hopper_kernel" in key)
         print(f"[profile] colored with a prebuilt plan: kernel D's own "
               f"{kernel_s / main_steps * 1e6:.3f} us/step of "
               f"{prof['wall'] / main_steps * 1e6:.3f}")
@@ -2295,12 +2358,15 @@ def colored_slice() -> list:
           f"against the CPU, {COLORED_BIG_STEPS} steps in "
           f"{COLORED_BIG_CHUNK}-step chunks")
     sweep.colored_counter.reset()
+    sweep.colored_hopper_counter.reset()
     on_card = ops.colored_anneal(big, 4, big_cfg,
                                  chunk_steps=COLORED_BIG_CHUNK,
                                  plan=big_plan, device="cuda")
     big_launches = COLORED_BIG_STEPS // COLORED_BIG_CHUNK
-    check(sweep.colored_counter.count == big_launches,
-          f"{big_launches} colored launches on the card")
+    check(sweep.colored_counter.count == big_launches
+          == sweep.colored_hopper_counter.count,
+          f"{big_launches} colored launches on the card, all on "
+          "colored_sweep_hopper.cu")
     on_cpu = ops.colored_anneal(big, 4, big_cfg,
                                 chunk_steps=COLORED_BIG_CHUNK,
                                 plan=big_plan, device="cpu")
@@ -2311,46 +2377,74 @@ def colored_slice() -> list:
               f"N={COLORED_BIG_N} colored solve {name}: card == CPU")
     phase_done("reference")
 
-    print("[timing] colored_sweep ms per 256-step launch (CUDA events), "
-          "temperatures across the anneal; the keyed kernel (the main "
-          "path's) at the rule's width, and the width sweeps")
+    print("[timing] colored_sweep ms per 256-step launch of device time "
+          "(10 launches replayed as one CUDA graph), temperatures across the "
+          "anneal: the keyed kernel (the main path's) at the rule's width "
+          "beside the earlier kernel (colored_sweep.cu, forced) at its own "
+          "rule's width, in turns (route, earlier, earlier, route), both "
+          "bitwise the plain version; the width sweeps, the floor and the "
+          "stamps")
     steps_t = cfg.schedule(torch.linspace(0, main_steps - 1, T).to(
         torch.int32))
     args = colored_inputs(plan, R, T, steps_t, SEED)
     u0, s0, e0, unif, temps, sched = args
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    plain_out = ref.colored_sweep(plan.store.kernel_operand, *args, tbl)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     timing = {}
     for fmt, p_ in plans.items():
         op = p_.store.kernel_operand
         dense = fmt == "dense"
         rule = sweep.colored_width(SPARSE_N, plan.window, segs, R, dense)
+        rule17 = sweep.colored_width(SPARSE_N, plan.window, segs, R, dense,
+                                     pr17=True)
         run = (lambda op=op, fmt=fmt: sweep.colored_sweep_keyed(
             op, u0, s0, e0, words, 0, temps, sched, tbl, window=plan.window,
             coupling=fmt))
-        out = run()
+        run17 = (lambda op=op, fmt=fmt: sweep.colored_sweep_at_width(
+            rule17, op, u0, s0, e0, temps, sched, tbl, base_words=words,
+            window=plan.window, coupling=fmt, pr17=True))
+        out, out17 = run(), run17()
+        check(all(torch.equal(a, b) for a, b in zip(out, plain_out))
+              and all(torch.equal(a, b) for a, b in zip(out17, plain_out)),
+              f"{fmt}: the timed launches, colored_sweep_hopper.cu at C="
+              f"{rule} and colored_sweep.cu at C={rule17}, bitwise the plain "
+              "version, all seven outputs")
         replay = colored_replay(op, args, tbl, fmt, row_nonzeros(p_.store))
         count = colored_bytes_ops(p_, R, T, segs, out, sched, replay)
-        e_ = {"ms": cuda_ms(run, 5), "bound": bound(*count[:2]),
+        turns = [graph_ms(run, 10), graph_ms(run17, 10), graph_ms(run17, 10),
+                 graph_ms(run, 10)]
+        e_ = {"ms": (turns[0] + turns[3]) / 2,
+              "pr17_ms": (turns[1] + turns[2]) / 2, "turns": turns,
+              "bound": bound(*count[:2]),
               "dense_bound": bound(*count[2:4]),
               "old_bound": bound(*count[4:]), "flips": int(out[5].sum()),
               "rows": int(out[6].sum()),
-              "read_ms": cuda_ms(lambda op=op, fmt=fmt: sweep.colored_sweep(
-                  op, *args, tbl, coupling=fmt), 3)}
-        if fmt == "bitplane_hbm":
-            e_["plain_ms"] = cuda_ms(lambda: ref.colored_sweep(
-                op, *args, tbl), 1)
+              "read_ms": graph_ms(lambda op=op, fmt=fmt: sweep.colored_sweep(
+                  op, *args, tbl, coupling=fmt), 3),
+              "plain_ms": plain_ms}
         timing[fmt] = e_
         print(f"[timing] colored_sweep {fmt} N={SPARSE_N} keyed at C={rule}"
               f": {e_['ms']:.4f} ms ({e_['ms'] / T * 1e3:.3f} us/step; "
-              f"reading {e_['read_ms']:.4f}; one block a replica "
-              f"{ONE_BLOCK_COLORED_MS[fmt]}), flips {e_['flips']} (on "
+              f"reading {e_['read_ms']:.4f}), the earlier colored_sweep.cu at "
+              f"C={rule17} in the same run {e_['pr17_ms']:.4f} ms: "
+              f"{e_['ms'] / e_['pr17_ms']:.3f}x (turns "
+              + ", ".join(f"{x:.4f}" for x in turns) + "; one block a "
+              f"replica {ONE_BLOCK_COLORED_MS[fmt]}), flips {e_['flips']} (on "
               f"{replay['flip_nnz']} nonzero couplings), rows {e_['rows']} "
               f"({replay['row_nnz']}), bound {e_['bound'][0]:.5f} ms "
               f"({e_['bound'][1]}; {e_['bound'][0] / e_['ms']:.1%} of it; a "
               f"dense decode {e_['dense_bound'][0]:.5f} ms, "
               f"{e_['dense_bound'][1]}; a decode per accepted pair "
-              f"{e_['old_bound'][0]:.5f} ms, {e_['old_bound'][1]})"
-              + (f", plain {e_['plain_ms']:.2f} ms" if "plain_ms" in e_
-                 else ""))
+              f"{e_['old_bound'][0]:.5f} ms, {e_['old_bound'][1]}), plain "
+              f"{plain_ms:.2f} ms (one call by CUDA events)")
+        check(e_["ms"] < e_["pr17_ms"], f"{fmt}: colored_sweep_hopper.cu "
+              "faster than the earlier colored_sweep.cu")
         if fmt != "bitplane":   # the same kernel and bytes as bitplane_hbm
             colored_width_sweep(op, args, tbl, fmt, words,
                                 f"{fmt} N={SPARSE_N} R={R}")
@@ -2365,8 +2459,8 @@ def colored_slice() -> list:
     t_args = colored_inputs(t_plan, R, T, torch.linspace(3.0, 0.1, T), SEED)
     op = t_plan.store.kernel_operand
     out = sweep.colored_sweep(op, *t_args, tbl, coupling="bitplane_hbm")
-    ms = cuda_ms(lambda: sweep.colored_sweep(op, *t_args, tbl,
-                                             coupling="bitplane_hbm"), 5)
+    ms = graph_ms(lambda: sweep.colored_sweep(op, *t_args, tbl,
+                                              coupling="bitplane_hbm"), 5)
     replay = colored_replay(op, t_args, tbl, "bitplane_hbm",
                             row_nonzeros(t_plan.store))
     tb = bound(*colored_bytes_ops(t_plan, R, T, segs, out, t_args[5], replay,
@@ -2383,12 +2477,20 @@ def colored_slice() -> list:
         colored_width_sweep(s_plan.store.kernel_operand, s_args, tbl,
                             "bitplane_hbm", words,
                             f"bitplane_hbm {label} S={s_plan.window} R={R}")
+    for label, sh in (
+            (f"bitplane_hbm N={SPARSE_N}", colored_variants.Shape(
+                plan, "bitplane_hbm", args, tbl, words, plain=plain_out)),
+            (f"dense N={SPARSE_N}", colored_variants.Shape(
+                plans["dense"], "dense", args, tbl, words, plain=plain_out)),
+            ("bitplane_hbm torus 32x32", colored_variants.shape("torus32",
+                                                                words))):
+        colored_stamps(label, sh)
     phase_done("timing")
 
     e_ = timing["bitplane_hbm"]
     return [{
         "name": "colored_sweep[bitplane_hbm]", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/colored_sweep.cu",
+        "source": "src/repro_torch/kernels/csrc/colored_sweep_hopper.cu",
         "replaces": "src/repro/kernels/sweep.py:475",
         "launches": main_launches,
         "max_abs_err": max(v for v in err.values()),
@@ -6396,9 +6498,17 @@ def exact_matmuls() -> None:
 
 
 def ptxas_checks(built: dict) -> None:
-    """What ptxas said of kernel E's wgmma sources and kernel A's RWA and
-    RSA sources (nothing where an earlier build was reused): no kernel
-    spills, and none of the forward's products is serialized."""
+    """What ptxas said of kernel E's wgmma sources, kernel A's RWA and RSA
+    sources and kernel D's route (nothing where an earlier build was
+    reused): no kernel spills, and none of the forward's products is
+    serialized."""
+    colored = [line for line in ptxas_summary(
+        built["colored_sweep_hopper"].log) if "colored_hopper_kernel" in line]
+    if colored:
+        check(len(colored) == 4 and all(
+            "0 bytes spill stores, 0 bytes spill loads" in line
+            for line in colored), "ptxas: kernel D's route "
+              "(colored_sweep_hopper.cu, 4 instances) spills nothing")
     rsa = [line for line in ptxas_summary(built["sweep_rsa"].log)
            if "rsa_kernel" in line]
     if rsa:
@@ -6442,13 +6552,16 @@ def main() -> None:
           f"L2 {props.L2_cache_size} bytes, {props.multi_processor_count} SMs")
     exact_matmuls()
 
-    print("[build] nvcc, one process per source, in parallel (and the RSA "
-          "step's stamped build, scripts/rsa_variants.cu)")
+    print("[build] nvcc, one process per source, in parallel (and the "
+          "stamped builds of the RSA step, scripts/rsa_variants.cu, and of "
+          "both colored designs, scripts/colored_variants.cu)")
     t0 = time.perf_counter()
     built = _build.build(variants={
-        "rsa_stamps": rsa_variants.VARIANTS["rsa_stamps"]})
-    global RSA_VARIANT_LIBS
+        "rsa_stamps": rsa_variants.VARIANTS["rsa_stamps"],
+        **colored_variants.VARIANTS})
+    global RSA_VARIANT_LIBS, COLORED_VARIANT_LIBS
     RSA_VARIANT_LIBS = rsa_variants.load(built)
+    COLORED_VARIANT_LIBS = colored_variants.load(built)
     print(f"[build] {time.perf_counter() - t0:.2f} s wall")
     for b in built.values():
         print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}")

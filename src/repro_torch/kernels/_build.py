@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"sweep": "sweep.cu", "sweep_rwa": "sweep_rwa.cu",
            "sweep_rsa": "sweep_rsa.cu",
            "colored_sweep": "colored_sweep.cu",
+           "colored_sweep_hopper": "colored_sweep_hopper.cu",
            "local_field": "local_field.cu",
            "bitplane_field": "bitplane_field.cu",
            "flash_attention": "flash_attention.cu",
@@ -46,6 +47,7 @@ NVCC_FLAGS = {"sweep": COMMON_FLAGS + EXACT,
               "sweep_rwa": COMMON_FLAGS + EXACT,
               "sweep_rsa": COMMON_FLAGS + EXACT,
               "colored_sweep": COMMON_FLAGS + EXACT,
+              "colored_sweep_hopper": COMMON_FLAGS + EXACT,
               "local_field": COMMON_FLAGS + EXACT,
               "bitplane_field": COMMON_FLAGS + EXACT,
               "flash_attention": COMMON_FLAGS,

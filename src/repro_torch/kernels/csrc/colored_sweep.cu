@@ -105,6 +105,13 @@ constexpr int kAhead = 32;
 // deeper ring (16 or 32 rows) measured slower at the anchor.
 constexpr int kRing = 8;
 
+// Measurement hook, empty here: scripts/colored_variants.cu defines it to
+// stamp clock64() at the step's phase boundaries (threads 0 and 32 of each
+// block of replica 0).
+#ifndef COLORED_STAMP
+#define COLORED_STAMP(phase)
+#endif
+
 struct ColoredParams {
   Store st;
   const float* u0;
@@ -457,6 +464,7 @@ __global__ void __launch_bounds__(kThreads)
   group_sync(cluster, C);
 
   for (int t = 0; t < p.T; ++t) {
+    COLORED_STAMP(0);
     const int par = t & 1;
     // The reference's dynamic_slice clamps the window into [0, N - S];
     // the slots that can accept are the class's inside the window.
@@ -515,6 +523,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    COLORED_STAMP(1);
     // This rank's partial sums (added in warp order) to every rank.
     if (tid < C) {
       float sum = 0.f;
@@ -527,6 +536,7 @@ __global__ void __launch_bounds__(kThreads)
       at_rank(cluster, parti, tid, C)[par * C + q] = cnt;
     }
     group_sync(cluster, C);  // the step's mailboxes are full on every rank
+    COLORED_STAMP(2);
 
     // 2. e, best_e and num_flips from the C partial sums in rank order.
     if (tid == 0) {
@@ -579,6 +589,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    COLORED_STAMP(3);
 
     // 4. Apply the list to this rank's slice, then best_s.
     const int nacc = sh_nacc;
@@ -588,12 +599,15 @@ __global__ void __launch_bounds__(kThreads)
       else
         apply_dense(p, list, nacc, a0, lo, nc, u, P, ring);
     }
+    COLORED_STAMP(4);
     if (sh_better)
       for (int i = tid; i < nc; i += kThreads) {
         const int at = tpos(i, P);
         bs[at] = s[at];
       }
+    COLORED_STAMP(5);
     __syncthreads();
+    COLORED_STAMP(6);
   }
 
   for (int i = tid; i < nc; i += kThreads) {

@@ -5,8 +5,8 @@
 // at run time (no -lcuda), and the per-thread copies from global into
 // shared memory (cp.async) with their mbarrier arrival. Used by
 // flash_attention_wgmma.cu (the forward), flash_attention_bwd_wgmma.cu (the
-// backward), sweep_rwa.cu (kernel A's RWA step) and sweep_rsa.cu (its RSA
-// step).
+// backward), sweep_rwa.cu (kernel A's RWA step), sweep_rsa.cu (its RSA
+// step) and colored_sweep_hopper.cu (kernel D).
 //
 // wgmma.m64n64k16 fragments, per warpgroup of 128 threads (w = warp in the
 // group, g = lane / 4, t4 = lane % 4):
@@ -121,6 +121,16 @@ __device__ __forceinline__ void st_async_b32(uint32_t addr, uint32_t v,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
       "[%2];\n" ::"r"(addr),
       "r"(v), "r"(bar)
+      : "memory");
+}
+
+// The same for 8 bytes (addr 8-byte aligned).
+__device__ __forceinline__ void st_async_v2(uint32_t addr, uint32_t a,
+                                            uint32_t b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr),
+      "r"(a), "r"(b), "r"(bar)
       : "memory");
 }
 

@@ -8,7 +8,9 @@ A CPU tensor goes to the plain version (``ref.mcmc_sweep``,
 names, ``csrc/sweep_rsa.cu`` (RSA, counted by ``rsa_hopper_counter``) or
 ``csrc/sweep_rwa.cu`` (RWA, counted by ``rwa_hopper_counter``), or
 ``csrc/sweep.cu`` (the earlier kernel, for either mode only when forced, to
-time it), or ``csrc/colored_sweep.cu``, or raises. ``mcmc_sweep`` and
+time it), or ``csrc/colored_sweep_hopper.cu`` (kernel D, counted by
+``colored_hopper_counter``; ``csrc/colored_sweep.cu``, the earlier colored
+kernel, only when forced), or raises. ``mcmc_sweep`` and
 ``colored_sweep`` take their uniforms as a tensor, as the JAX kernels do;
 ``mcmc_sweep_keyed`` and ``colored_sweep_keyed``, the solves' entries, take
 the base key's two words and the chunk index and let the kernel draw the
@@ -39,7 +41,10 @@ counter = LaunchCounter("mcmc_sweep")
 rwa_hopper_counter = LaunchCounter("mcmc_sweep_rwa_hopper")
 #: Kernel A's launches on ``csrc/sweep_rsa.cu``, the RSA route.
 rsa_hopper_counter = LaunchCounter("mcmc_sweep_rsa_hopper")
+#: Every launch of kernel D, on either source.
 colored_counter = LaunchCounter("colored_sweep")
+#: Kernel D's launches on ``csrc/colored_sweep_hopper.cu``, its route.
+colored_hopper_counter = LaunchCounter("colored_sweep_hopper")
 uniforms_counter = LaunchCounter("sweep_uniforms")
 
 #: Static shared memory the kernels keep for themselves (the step's
@@ -317,13 +322,32 @@ def max_n(rwa: bool = True, segs: int = 64, pr16: bool = False) -> int:
     return n
 
 
-#: Blocks of the colored kernel's clusters: up to 16, the non-portable
-#: cluster size Hopper allows.
+#: Blocks of the earlier colored kernel's clusters (``colored_sweep.cu``):
+#: powers of 2 up to 16, the non-portable cluster size Hopper allows.
 COLORED_CLUSTERS = (1, 2, 4, 8, 16)
-#: Dense row slices in a colored block thread's cp.async ring (``kRing``).
+#: Blocks of the route's clusters: any width up to 16.
+COLORED_WIDTHS = tuple(range(1, 17))
+#: Dense row slices in a colored block thread's cp.async ring of the
+#: earlier kernel, ``csrc/colored_sweep.cu`` (``kRing``).
 COLORED_RING = 8
-#: SMs of an H100 SXM: the colored rule keeps R·C blocks within them.
+#: Ring slots of a block of ``csrc/colored_sweep_hopper.cu``: as many as
+#: the shared memory left over holds, between these (``kMinRing``,
+#: ``kMaxRing``).
+COLORED_MIN_RING, COLORED_MAX_RING = 2, 512
+#: Warps of a ``csrc/colored_sweep_hopper.cu`` block (``kWarps``): each
+#: sends a partial every step.
+COLORED_WARPS = 8
+#: SMs of an H100 SXM: the earlier colored rule kept R·C blocks within
+#: them.
 COLORED_SMS = 132
+#: Clusters of each width an H100 80GB HBM3 holds at once with the route's
+#: blocks (one an SM, its shared memory full):
+#: ``cudaOccupancyMaxActiveClusters`` at N=16384, read by
+#: ``scripts/colored_variants.py``. A cluster's blocks share a GPC, so past
+#: 9 blocks only 7 clusters fit.
+COLORED_CLUSTERS_HELD = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                         8: 15, 9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7,
+                         15: 7, 16: 7}
 
 
 def _align16(x: int) -> int:
@@ -340,15 +364,69 @@ def colored_slice_len(n: int, cluster: int) -> int:
     return 32 * -(-per // 32)
 
 
+def colored_slot_bytes(n: int, cluster: int, num_planes: int) -> int:
+    """Bytes of one ring slot of ``csrc/colored_sweep_hopper.cu``: the
+    2·B plane runs of the slice's words, each rounded up to 16 bytes, or
+    (``num_planes`` 0, a dense J) the slice's floats rounded up to 16 bytes.
+    Mirrors ``slot_bytes``."""
+    nc = colored_slice_len(n, cluster)
+    if num_planes == 0:
+        return 4 * (-(-nc // 4) * 4)
+    return 4 * 2 * num_planes * ((-(-nc // 32) + 3) // 4 * 4)
+
+
+def _colored_layout(n: int, window: int, segs: int, cluster: int,
+                    num_planes: int, ring: int) -> int:
+    """``csrc/colored_sweep_hopper.cu``'s ``layout(...).total``."""
+    nc = colored_slice_len(n, cluster)
+    nwm = -(-window // 32) + 1
+    return (3 * 32 * (-(-nc // 32) | 1) * 4 + _align16(8 * segs)
+            + _align16(2 * 8 * nwm) + 2 * 8 * cluster * COLORED_WARPS + 16
+            + _align16(4 * (max(ring, window) if num_planes == 0 else ring))
+            + ring * colored_slot_bytes(n, cluster, num_planes))
+
+
+@functools.cache
+def colored_ring(n: int, window: int, segs: int, cluster: int = 1,
+                 dense: bool = False, num_planes: int = 1) -> int:
+    """Ring slots of a ``csrc/colored_sweep_hopper.cu`` block at width
+    ``cluster``: as many as :data:`MAX_SHARED_BYTES` leaves room for after
+    the state, at most :data:`COLORED_MAX_RING`; 0 where not even
+    :data:`COLORED_MIN_RING` fit. Mirrors ``ring_slots``."""
+    b = 0 if dense else num_planes
+    base = _colored_layout(n, window, segs, cluster, b, 0)
+    if base >= MAX_SHARED_BYTES:
+        return 0
+    k = min((MAX_SHARED_BYTES - base)
+            // (colored_slot_bytes(n, cluster, b) + 4), COLORED_MAX_RING)
+    while k >= COLORED_MIN_RING and _colored_layout(
+            n, window, segs, cluster, b, k) > MAX_SHARED_BYTES:
+        k -= 1
+    return k if k >= COLORED_MIN_RING else 0
+
+
 def colored_shared_bytes(n: int, window: int, segs: int, cluster: int = 1,
-                         dense: bool = False) -> int:
+                         dense: bool = False, num_planes: int = 1,
+                         pr17: bool = False) -> int:
     """Shared memory of one colored block holding a slice of
     :func:`colored_slice_len` spins: u, s and best_s word-transposed at an
     odd pitch (3·32·(⌈slice/32⌉ | 1) f32), the PWL intercepts and slopes,
-    the two mailboxes (accept and sign words, ⌈S/32⌉+1 each), the partial
-    sums, the accepted-slot list (S words) and, on the dense tier, the
-    cp.async ring of :data:`COLORED_RING` row slices. Mirrors
+    the two mailboxes (accept and sign words, ⌈S/32⌉+1 each), then on
+    ``csrc/colored_sweep_hopper.cu`` the partials (a pair per rank and
+    warp, two parities), the two mbarriers, the slots' headers (on the
+    dense tier a step's whole list, S entries at least) and the ring of
+    :func:`colored_ring` slots (at least 2; where fewer fit, the size at
+    2). Mirrors ``snowball_colored_hopper_smem_bytes``.
+
+    ``pr17``: the earlier kernel's (``csrc/colored_sweep.cu``), which keeps
+    the accepted-slot list (S words) in place of the ring and, on the dense
+    tier, a cp.async ring of :data:`COLORED_RING` row slices. Mirrors
     ``snowball_colored_smem_bytes``."""
+    if not pr17:
+        b = 0 if dense else num_planes
+        ring = colored_ring(n, window, segs, cluster, dense, num_planes)
+        return _colored_layout(n, window, segs, cluster, b,
+                               ring or COLORED_MIN_RING)
     nc = colored_slice_len(n, cluster)
     pitch = -(-nc // 32) | 1
     nwm = -(-window // 32) + 1
@@ -363,61 +441,81 @@ def colored_shared_bytes(n: int, window: int, segs: int, cluster: int = 1,
     return total
 
 
-def colored_widths(n: int, window: int, segs: int,
-                   dense: bool = False) -> list:
-    """The cluster widths C the colored kernel can run N on: C blocks whose
-    slices (:func:`colored_slice_len`, the last one nonempty) fit one
-    block's shared memory."""
+def colored_widths(n: int, window: int, segs: int, dense: bool = False,
+                   num_planes: int = 1, pr17: bool = False) -> list:
+    """The cluster widths C the colored kernel (``pr17``: the earlier one)
+    can run N on: C blocks whose slices (:func:`colored_slice_len`, the last
+    one nonempty) fit one block's shared memory, with the ring's two slots
+    at least."""
     if not 1 <= window <= min(n, 65536):
         return []
-    return [c for c in COLORED_CLUSTERS
+    return [c for c in (COLORED_CLUSTERS if pr17 else COLORED_WIDTHS)
             if (c == 1 or (c - 1) * colored_slice_len(n, c) < n)
-            and colored_shared_bytes(n, window, segs, c, dense)
-            <= MAX_SHARED_BYTES]
+            and colored_shared_bytes(n, window, segs, c, dense, num_planes,
+                                     pr17) <= MAX_SHARED_BYTES]
 
 
 def colored_width(n: int, window: int, segs: int, r: int,
-                  dense: bool = False) -> int:
+                  dense: bool = False, num_planes: int = 1,
+                  pr17: bool = False) -> int:
     """The blocks per replica the colored sweep runs on (chosen here from
     N, the window, R and the tier, not by the caller): the widest width
-    that fits whose R·C blocks stay within the card's :data:`COLORED_SMS`,
-    or the narrowest that fits where none does. Raises past the ceiling
-    (:func:`colored_max_n`).
+    that fits whose R clusters the card holds at once
+    (:data:`COLORED_CLUSTERS_HELD`), on the plane tiers one whose slice is
+    whole 16-byte runs of words where one is (its rows copy 16 bytes a
+    copy), or the narrowest that fits where none holds R. Raises past the
+    ceiling (:func:`colored_max_n`).
 
-    ``chip_smoke.py``'s width sweeps (one run on an H100 80GB HBM3 at a
-    700 W limit; keyed, ms per 256-step launch at C = 1, 2, 4, 8, 16;
-    ``bitplane_hbm`` unless named): the N=16384, χ=11 anchor at R=8 28.1019,
-    15.4860, 11.9641, 10.9607, 10.5691 and dense (C ≥ 4) 74.6341, 46.0407,
-    31.1564; the anchor at R=32 23.4669, 13.1221, 12.6279, 21.8349,
-    31.3539; a 32×32 torus (N=1024) at R=8 4.3129, 4.0312, 3.2925, 2.9631,
-    2.9100; sparse N=4096 at R=8 3.8849, 3.3235, 2.9734, 2.7924, 3.1658.
-    A wider cluster splits each row's loads and the accept pass over more
-    SMs; that paid at every N measured, even at 64-spin slices, until R·C
-    passes the SMs and blocks share them (R=32: C=8 and 16 lose). The rule picks the fastest width in four of these five lines
-    and one 13 % slower than the fastest at N=4096."""
-    fits = colored_widths(n, window, segs, dense)
+    ``scripts/colored_variants.py`` on an H100 80GB HBM3 at a 700.00 W
+    limit (one run; keyed, R=8, ms per 256-step launch by CUDA-graph
+    replay, C = 1..16): the N=16384, χ=11 anchor on ``bitplane_hbm``
+    114.857, 17.799, 17.647, 12.442, 15.772, 12.680, 12.011, **7.523**,
+    10.898, 14.274, 20.688, 20.654, 13.769, 20.264, 20.264, 12.300; dense
+    (C ≥ 2) 388.254, 113.703, 63.615, 49.894, 37.092, 42.295, 29.935,
+    **26.290**, 47.589, 44.088, 45.293, 42.288, 39.257, 37.071, 28.558; a
+    32×32 torus (C = 1–8, 11, 16) 3.590, 3.002, 2.927, 2.147, 2.195, 2.158,
+    2.122, **1.846**, 3.678, 3.560; sparse N=4096 (no C=14) 3.958, 2.495,
+    3.290, 2.130, 2.903, 2.908, 2.831, **1.906**, 2.066, 4.034, 3.737,
+    4.048, 4.037, 4.046, 3.520. Past C=9 the card holds 7 clusters, so R=8
+    runs in two waves; on the planes a slice of 57–103 words (C = 5–7, 9)
+    copies 4 bytes a copy. The rule picks the fastest width in all four
+    lines. ``pr17``: the earlier kernel's rule, the widest power of 2 whose
+    R·C blocks stay within :data:`COLORED_SMS` (its readings in PERF.md
+    §6)."""
+    fits = colored_widths(n, window, segs, dense, num_planes, pr17)
     if not fits:
         raise ValueError(
             f"N={n} with a class window of S={window} fits no colored "
             f"cluster width: a block holds its slice of u, s and best_s, "
-            f"the window's list and mailboxes in {MAX_SHARED_BYTES} bytes "
-            f"of shared memory, with C ≤ {COLORED_CLUSTERS[-1]} blocks; at "
-            f"this window the colored sweep takes "
-            f"{window} ≤ N ≤ {colored_max_n(window, segs)} (colored_max_n)")
-    ok = [c for c in fits if r * c <= COLORED_SMS]
+            f"the window's mailboxes and at least two ring slots in "
+            f"{MAX_SHARED_BYTES} bytes of shared memory, with C ≤ "
+            f"{COLORED_CLUSTERS[-1]} blocks; at this window the colored "
+            f"sweep takes {window} ≤ N ≤ "
+            f"{colored_max_n(window, segs, num_planes, pr17)} "
+            f"(colored_max_n)")
+    if pr17:
+        ok = [c for c in fits if r * c <= COLORED_SMS]
+    else:
+        ok = [c for c in fits if r <= COLORED_CLUSTERS_HELD[c]]
+        # On the planes, a slice of whole 16-byte runs of words copies 16
+        # bytes a copy, the others 4.
+        ok = [c for c in ok if dense or c == 1
+              or colored_slice_len(n, c) // 32 % 4 == 0] or ok
     return ok[-1] if ok else fits[0]
 
 
 @functools.cache
-def colored_max_n(window: int, segs: int = 64) -> int:
-    """Largest N the colored sweep takes on the plane tiers at a class
-    window of S: 16 blocks a replica, each holding a slice of up to N/16
-    spins (~288k spins at S=3072, ~18.8k in one block). Every N from S up to
-    it fits some width."""
+def colored_max_n(window: int, segs: int = 64, num_planes: int = 1,
+                  pr17: bool = False) -> int:
+    """Largest N the colored sweep takes on the plane tiers (``num_planes``
+    planes) at a class window of S: 16 blocks a replica, each holding a
+    slice of up to N/16 spins and, on ``csrc/colored_sweep_hopper.cu``, a
+    ring of at least two slots. Every N from S up to it fits some width.
+    ``pr17``: the earlier kernel's (~288k spins at S=3072)."""
     c = COLORED_CLUSTERS[-1]
     nc = 32
-    while colored_shared_bytes(c * (nc + 32), window, segs, c) \
-            <= MAX_SHARED_BYTES:
+    while colored_shared_bytes(c * (nc + 32), window, segs, c, False,
+                               num_planes, pr17) <= MAX_SHARED_BYTES:
         nc += 32
     return c * nc
 
@@ -734,15 +832,31 @@ def _launch(couplings, fields0, spins0, energy0, temps, pwl_table, *,
     return u, s, e, be, bs, nf, rf
 
 
-@functools.cache
-def _colored_fns():
-    lib = _build.load("colored_sweep")
+def colored_route(pr17: bool = False) -> str:
+    """The source kernel D's launch takes: ``"colored_sweep_hopper"``, or
+    ``"colored_sweep"`` (the earlier kernel) where ``pr17`` forces it
+    (timing both designs in one run, never the solve)."""
+    return "colored_sweep" if pr17 else "colored_sweep_hopper"
+
+
+#: The C entry of each colored source; both take the same operands.
+COLORED_ENTRIES = {"colored_sweep": "snowball_colored_sweep",
+                   "colored_sweep_hopper": "snowball_colored_sweep_hopper"}
+
+
+def colored_entry(lib: ctypes.CDLL, name: str):
+    """The colored sweep's C entry ``name`` of a loaded library, typed."""
+    fn = getattr(lib, name)
     p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    fn = lib.snowball_colored_sweep
     fn.argtypes = ([p] * 3 + [i] * 2 + [p] * 4 + [w] * 2 + [i] + [p] * 3
                    + [i] + [p] * 9 + [i] * 6 + [p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _colored_fns(src: str = "colored_sweep_hopper"):
+    return colored_entry(_build.load(src), COLORED_ENTRIES[src])
 
 
 def _check_colored(couplings, fields0, spins0, energy0, temps, sched,
@@ -830,11 +944,14 @@ def colored_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
                            uniforms: Optional[torch.Tensor] = None,
                            base_words: Optional[Sequence[int]] = None,
                            chunk: int = 0, window: Optional[int] = None,
-                           coupling: str = "dense", block_r: int = 8):
+                           coupling: str = "dense", block_r: int = 8,
+                           pr17: bool = False):
     """The card's colored sweep at a cluster width of the caller's choice
     (one of :func:`colored_widths`) in place of :func:`colored_width`'s:
     for the width sweep and the card tests, never the solve. Takes
-    ``uniforms``, or ``base_words``, ``chunk`` and ``window``."""
+    ``uniforms``, or ``base_words``, ``chunk`` and ``window``. ``pr17``
+    forces the earlier kernel (``csrc/colored_sweep.cu``, at one of its own
+    widths), to time both designs in one run."""
     if (uniforms is None) == (base_words is None):
         raise ValueError("pass uniforms or base_words, not both")
     win = uniforms.shape[2] if uniforms is not None else window
@@ -848,7 +965,7 @@ def colored_sweep_at_width(width: int, couplings, fields0: torch.Tensor,
     key = None if base_words is None else (base_words, chunk)
     return _colored_launch(couplings, fields0, spins0, energy0, temps, sched,
                            pwl_table, uniforms=uniforms, key=key, window=win,
-                           block_r=block_r, width=int(width))
+                           block_r=block_r, width=int(width), pr17=pr17)
 
 
 #: The rows_fetched arrival counters of each (device, stream): the kernel
@@ -866,10 +983,16 @@ def _arrivals(dev: torch.device, stream: int, groups: int) -> torch.Tensor:
 
 
 def _colored_launch(couplings, fields0, spins0, energy0, temps, sched,
-                    pwl_table, *, uniforms, key, window, block_r, width):
-    """Checks the operands and launches ``snowball_colored_sweep`` (reading
-    ``uniforms``, or drawing from ``key = (base_words, chunk)``) at cluster
-    width ``width``, or at :func:`colored_width`'s."""
+                    pwl_table, *, uniforms, key, window, block_r, width,
+                    pr17=False, entry=None):
+    """Checks the operands and launches the source :func:`colored_route`
+    names (``snowball_colored_sweep_hopper``, or ``snowball_colored_sweep``
+    where ``pr17`` forces it; reading ``uniforms``, or drawing from ``key =
+    (base_words, chunk)``) at cluster width ``width``, or at
+    :func:`colored_width`'s. A refused launch raises and tries nothing
+    else. ``entry``: a measurement build's entry with the same operands
+    (``scripts/colored_variants.py``), launched in the route's place at the
+    route's widths and counted on no counter."""
     r, n = fields0.shape
     t = temps.shape[0]
     dev = fields0.device
@@ -885,7 +1008,9 @@ def _colored_launch(couplings, fields0, spins0, energy0, temps, sched,
     if dense:
         check_operands(dev, (("couplings", couplings, (n, n)),))
         store = (couplings.data_ptr(), None, None, 0, 0)
+        num_planes = 0
     else:
+        num_planes = couplings.num_planes
         pshape = (couplings.num_planes, n, couplings.num_words)
         check_operands(dev, (("planes.pos", couplings.pos, pshape),
                              ("planes.neg", couplings.neg, pshape)),
@@ -902,12 +1027,14 @@ def _colored_launch(couplings, fields0, spins0, energy0, temps, sched,
         draw = (None, int(w0), int(w1), int(chunk))
     pwl_args = _pwl_args(pwl_table)
     segs = pwl_args[1]
+    planes_kw = dict(num_planes=num_planes or 1, pr17=pr17)
+    fits = colored_widths(n, window, segs, dense, **planes_kw)
     if width is None:
-        width = colored_width(n, window, segs, r, dense)
-    elif width not in colored_widths(n, window, segs, dense):
+        width = colored_width(n, window, segs, r, dense, **planes_kw)
+    elif width not in fits:
         raise ValueError(f"colored cluster width {width} does not fit N={n}"
-                         f", S={window}: the widths that do are "
-                         f"{colored_widths(n, window, segs, dense)}")
+                         f", S={window}: the widths that do are {fits}")
+    src = colored_route(pr17)
     br = common.fit_block(r, block_r)
     u = torch.empty((r, n), dtype=torch.float32, device=dev)
     s = torch.empty((r, n), dtype=torch.float32, device=dev)
@@ -920,14 +1047,24 @@ def _colored_launch(couplings, fields0, spins0, energy0, temps, sched,
                         dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        arrivals = _arrivals(dev, stream, r // br)
-        rc = _colored_fns()(
+        if torch.cuda.is_current_stream_capturing():
+            # A graph replays its own zeroed counters (a cached tensor
+            # would outlive the graph's memory pool).
+            arrivals = torch.zeros((r // br,), dtype=torch.int32, device=dev)
+        else:
+            arrivals = _arrivals(dev, stream, r // br)
+        fn = entry if entry is not None else _colored_fns(src)
+        rc = fn(
             *store, fields0.data_ptr(), spins0.data_ptr(), energy0.data_ptr(),
             *draw, temps.data_ptr(), sched.data_ptr(), *pwl_args,
             u.data_ptr(), s.data_ptr(), e.data_ptr(), be.data_ptr(),
             bs.data_ptr(), nf.data_ptr(), rf.data_ptr(), masks.data_ptr(),
             arrivals.data_ptr(), br, r, n, t, window, width, stream)
     if rc != 0:
-        raise RuntimeError(f"colored_sweep launch failed: CUDA error {rc}")
-    colored_counter.count += 1
+        raise RuntimeError(f"colored_sweep launch failed ({src}.cu): CUDA "
+                           f"error {rc}")
+    if entry is None:
+        colored_counter.count += 1
+        if not pr17:
+            colored_hopper_counter.count += 1
     return u, s, e, be, bs, nf, rf

@@ -224,43 +224,71 @@ def test_colored_shapes_fit(n, window, r, dense):
     widths = sweep.colored_widths(n, window, 64, dense)
     assert widths
     for c in widths:
-        assert c in sweep.COLORED_CLUSTERS
+        assert c in sweep.COLORED_WIDTHS
         nc = sweep.colored_slice_len(n, c)
         assert nc == n if c == 1 else nc % 32 == 0
         assert (c - 1) * nc < n <= c * nc
         assert sweep.colored_shared_bytes(n, window, 64, c, dense) <= \
             sweep.MAX_SHARED_BYTES
     assert sweep.colored_width(n, window, 64, r, dense) in widths
+    for c in widths:
+        assert sweep.colored_ring(n, window, 64, c, dense) >= \
+            sweep.COLORED_MIN_RING
+    # The earlier kernel's block (its state and list) halves with the
+    # slice; the route's ring takes what the state leaves over.
     if n % 64 == 0:
-        assert sweep.colored_shared_bytes(n, window, 64, 2, dense) < \
-            sweep.colored_shared_bytes(n, window, 64, 1, dense)
+        assert sweep.colored_shared_bytes(n, window, 64, 2, dense,
+                                          pr17=True) < \
+            sweep.colored_shared_bytes(n, window, 64, 1, dense, pr17=True)
 
 
 def test_colored_shape_rule_and_ceiling():
-    # The anchor: the widest width whose R·C blocks the card's SMs hold.
-    assert sweep.colored_width(16384, 3072, 64, 8) == 16
-    assert sweep.colored_width(16384, 3072, 64, 8, dense=True) == 16
-    assert sweep.colored_width(16384, 3072, 64, 32) == 4
-    # Small N takes the widest width that fits, down to 64-spin slices.
-    assert sweep.colored_widths(300, 64, 64) == [1, 2, 4]
-    assert sweep.colored_width(300, 64, 64, 8) == 4
-    assert sweep.colored_width(1024, 512, 64, 8) == 16
-    assert sweep.colored_width(4096, 2048, 64, 8) == 16
+    # The earlier kernel's rule (colored_sweep.cu, forced with pr17): the
+    # widest width whose R·C blocks the card's SMs hold.
+    old = dict(pr17=True)
+    assert sweep.colored_width(16384, 3072, 64, 8, **old) == 16
+    assert sweep.colored_width(16384, 3072, 64, 8, dense=True, **old) == 16
+    assert sweep.colored_width(16384, 3072, 64, 32, **old) == 4
+    assert sweep.colored_width(1024, 512, 64, 8, **old) == 16
+    assert sweep.colored_width(4096, 2048, 64, 8, **old) == 16
+    assert sweep.colored_width(20000, 3072, 64, 8, **old) == 16
+    assert sweep.colored_widths(300, 64, 64, **old) == [1, 2, 4]
+    assert sweep.colored_width(300, 64, 64, 8, **old) == 4
+    assert sweep.colored_widths(20000, 3072, 64, **old) == [2, 4, 8, 16]
+    # The route's rule: the widest width whose R clusters the card holds
+    # at once (sweep.COLORED_CLUSTERS_HELD: 7 of 16 blocks, 9 of 9, 15 of
+    # 8), on the planes one whose slice is whole 16-byte runs of words
+    # where one is.
+    assert sweep.colored_width(16384, 3072, 64, 8) == 8
+    assert sweep.colored_width(16384, 3072, 64, 8, dense=True) == 9
+    assert sweep.colored_width(16384, 3072, 64, 7) == 16
+    assert sweep.colored_width(16384, 3072, 64, 32) == 2
+    # Small N takes the widest width that fits, down to 32-spin slices.
+    assert sweep.colored_widths(300, 64, 64) == [1, 2, 3, 4, 5, 10]
+    assert sweep.colored_width(300, 64, 64, 8) == 3
+    assert sweep.colored_width(1024, 512, 64, 8) == 8
+    assert sweep.colored_width(4096, 2048, 64, 8) == 8
     # Past the SMs: the narrowest width that fits.
     assert sweep.colored_width(16384, 3072, 64, 256) == 1
-    assert sweep.colored_width(100000, 3072, 64, 32) == 8
+    assert sweep.colored_width(100000, 3072, 64, 32, **old) == 8
+    assert sweep.colored_width(100000, 3072, 64, 32) == 6
     # N=20,000 splits into no equal whole words: a shorter last slice.
-    assert sweep.colored_widths(20000, 3072, 64) == [2, 4, 8, 16]
+    assert sweep.colored_widths(20000, 3072, 64)[::6] == [2, 8, 14]
     assert sweep.colored_slice_len(20000, 16) == 1280
     assert 20000 - 15 * 1280 == 800
-    assert sweep.colored_width(20000, 3072, 64, 8) == 16
+    assert sweep.colored_width(20000, 3072, 64, 8) == 9
     # N=16384 fits one block; N=32768 no longer does (the old ceiling,
     # ~18.8k at S=3072, held all of N in one block) but fits a cluster.
     assert 1 in sweep.colored_widths(16384, 3072, 64)
     assert 1 not in sweep.colored_widths(32768, 3072, 64)
     assert sweep.colored_widths(32768, 3072, 64)
+    # The earlier kernel's ceiling (colored_sweep.cu, forced with pr17);
+    # the route's ring takes the room of its accepted-slot list, so its
+    # ceiling is a little higher.
+    old = sweep.colored_max_n(3072, pr17=True)
+    assert 16 * 18100 > old > 16 * 17000 and old % (32 * 16) == 0
     top = sweep.colored_max_n(3072)
-    assert 16 * 18100 > top > 16 * 17000 and top % (32 * 16) == 0
+    assert top >= old and top % (32 * 16) == 0
     for n in (3072, 18000, 18900, 20000, 100000, 123457, top - 1, top):
         assert sweep.colored_widths(n, 3072, 64), n
     assert not sweep.colored_widths(top + 1, 3072, 64)
